@@ -1,0 +1,388 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check it.
+
+    python3 chip_smoke.py            # the whole run (one card)
+    python3 chip_smoke.py --quick    # build and kernel checks only
+
+Phases:
+  1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a);
+  2. hold each kernel against its plain PyTorch version on the card at the
+     main path's shapes and at ragged lengths (tolerance 0: exact integer
+     math), and time both with CUDA events;
+  3. the main path at real size, RS(10,4) over a seeded 1 GiB volume:
+     write_ec_files, rebuild_ec_files after three loss patterns,
+     reconstruct_span and new_encoder("cuda").reconstruct of a lost data
+     shard, each checked byte for byte and CRC for CRC;
+  4. one JSON line of per-kernel numbers, then the card's name and power
+     limit, then the result line.
+
+Exits non-zero, printing no result, when there is no CUDA device or any
+check fails.  Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from seaweedfs_tpu_torch.ops import _build, rs_cuda
+from seaweedfs_tpu_torch.ops import crc32c as crc_host
+from seaweedfs_tpu_torch.ops.codec import new_encoder, reconstruct_span
+from seaweedfs_tpu_torch.ops.crc_device import batched_crc32c_raw, finalize
+from seaweedfs_tpu_torch.ops.gf256 import parity_matrix
+from seaweedfs_tpu_torch.ops.rs_numpy import decode_rows
+from seaweedfs_tpu_torch.storage.erasure_coding import encoder, to_ext
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+MIB = 1 << 20
+VOLUME_BYTES = 1 << 30      # one 1 GiB volume
+CHUNK = MIB                 # the pipeline's column chunk for 1 MiB blocks
+SEED = 20261016
+SPIN_CYCLES = 200_000_000   # ~0.1 s of card time to queue timed runs behind
+
+KERNELS = {
+    "gf_apply": {
+        "source": "seaweedfs_tpu_torch/csrc/gf_apply.cu",
+        "replaces": "seaweedfs_tpu/ops/rs_pallas.py:29",
+    },
+    "fused_apply_crc": {
+        "source": "seaweedfs_tpu_torch/csrc/fused_apply_crc.cu",
+        "replaces": "seaweedfs_tpu/ops/rs_pallas.py:201",
+    },
+}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def check(cond: bool, what: str):
+    if not cond:
+        raise AssertionError(what)
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    """Median device milliseconds of `fn` over `reps` runs after a
+    warm-up.  The runs are queued behind a spin kernel, between CUDA
+    events, so the card runs them back to back and the host's launch
+    overhead stays out of the times (a function that waits for the card
+    itself, as a pageable copy does, still pays its wait)."""
+    fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(SPIN_CYCLES)
+    events[0].record()
+    for i in range(reps):
+        fn()
+        events[i + 1].record()
+    events[-1].synchronize()
+    return float(np.median([a.elapsed_time(b)
+                            for a, b in zip(events, events[1:])]))
+
+
+def gpu_state() -> str:
+    """The card's SM clock (now / max), power draw and temperature, read
+    beside the timings: a card below its limits runs slower under load."""
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return q.stdout.strip().splitlines()[0]
+
+
+def rand_bytes(rng, shape, dev) -> torch.Tensor:
+    n = int(np.prod(shape))
+    return torch.from_numpy(np.frombuffer(rng.bytes(n), dtype=np.uint8)
+                            .reshape(shape).copy()).to(dev)
+
+
+# -- phase 2 -----------------------------------------------------------------
+
+
+def compare_k1(matrix, data) -> int:
+    got = rs_cuda.gf_apply(matrix, data)
+    want = rs_cuda.gf_apply_plain(matrix, data)
+    torch.cuda.synchronize()
+    err = int((got.int() - want.int()).abs().max())
+    check(err == 0 and torch.equal(got, want),
+          f"gf_apply differs from plain at {tuple(data.shape)}")
+    return err
+
+
+def compare_k2(matrix, data) -> int:
+    got, got_crc = rs_cuda.fused_apply_crc(matrix, data)
+    want, want_crc = rs_cuda.fused_apply_crc_plain(matrix, data)
+    torch.cuda.synchronize()
+    err = max(int((got.int() - want.int()).abs().max()),
+              int((got_crc - want_crc).abs().max()))
+    check(err == 0 and torch.equal(got, want) and
+          torch.equal(got_crc, want_crc),
+          f"fused_apply_crc differs from plain at {tuple(data.shape)}")
+    return err
+
+
+def kernel_phase(dev, quick: bool) -> dict:
+    rng = np.random.default_rng(SEED)
+    par = np.ascontiguousarray(parity_matrix(10, 14))
+    survivors = [1, 2, 3, 4, 6, 7, 8, 9, 10, 12]
+    rebuild = np.ascontiguousarray(
+        decode_rows(10, 14, survivors, (0, 5, 11, 13)))
+    row = np.ascontiguousarray(
+        decode_rows(10, 14, [0, 1, 2, 4, 5, 6, 7, 8, 9, 10], (3,)))
+    enc_in = rand_bytes(rng, (6, 10, MIB), dev)
+    k1_in = rand_bytes(rng, (10, MIB), dev)
+    errs = {"gf_apply": 0, "fused_apply_crc": 0}
+
+    def k2(m, x):
+        errs["fused_apply_crc"] = max(errs["fused_apply_crc"],
+                                      compare_k2(m, x))
+
+    def k1(m, x):
+        errs["gf_apply"] = max(errs["gf_apply"], compare_k1(m, x))
+
+    k2(par, enc_in)
+    k2(rebuild, enc_in)
+    k1(row, k1_in)
+    k1(par, k1_in)
+    for length in (1, 50, 4096 + 3, MIB + 3):
+        k2(par, rand_bytes(rng, (2, 10, length), dev))
+        k2(rebuild, rand_bytes(rng, (1, 10, length), dev))
+        k1(row, rand_bytes(rng, (10, length), dev))
+    log(f"kernels match their plain versions (max_abs_err {errs})")
+    if quick:
+        return {}
+    # one K2 encode launch moves 60 MiB in and 24 MiB out (+ the CRCs),
+    # one K1 reconstruct of a 1 MiB span 10 MiB in and 1 MiB out
+    k2_bytes = enc_in.numel() + 6 * 4 * MIB + 6 * 14 * 8
+    k1_bytes = k1_in.numel() + MIB
+    log(f"card before timing (sm clock, max, power, temp): {gpu_state()}")
+    stats = {
+        "fused_apply_crc": {
+            "ms": time_ms(lambda: rs_cuda.fused_apply_crc(par, enc_in)),
+            "plain_ms": time_ms(
+                lambda: rs_cuda.fused_apply_crc_plain(par, enc_in)),
+            "bytes": k2_bytes,
+        },
+        "gf_apply": {
+            "ms": time_ms(lambda: rs_cuda.gf_apply(row, k1_in)),
+            "plain_ms": time_ms(lambda: rs_cuda.gf_apply_plain(row, k1_in)),
+            "bytes": k1_bytes,
+        },
+    }
+    log(f"card after timing: {gpu_state()}")
+    for name, s in stats.items():
+        s["max_abs_err"] = errs[name]
+        s["bound_ms"] = s["bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"{name}: {s['ms'] * 1e3:.1f} us, plain "
+            f"{s['plain_ms'] * 1e3:.1f} us, bound {s['bound_ms'] * 1e3:.1f} us")
+    return stats
+
+
+# -- phase 3 -----------------------------------------------------------------
+
+
+def write_volume(path: str, nbytes: int, seed: int):
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as f:
+        left = nbytes
+        while left:
+            take = min(64 * MIB, left)
+            f.write(rng.bytes(take))
+            left -= take
+
+
+def read_chunk(f, off: int, n: int) -> np.ndarray:
+    f.seek(off)
+    buf = np.zeros(n, dtype=np.uint8)
+    f.readinto(memoryview(buf))  # zeros past EOF: the format's padding
+    return buf
+
+
+def verify_encode(base: str, crcs: list[int], dev) -> None:
+    """Data shards equal the .dat striping; parity equals the plain GF
+    apply on the card; every shard-file CRC equals the plain CRC on the
+    card, chunk by chunk, finalized and chained; three chunks also agree
+    with the host crc32c."""
+    par = np.ascontiguousarray(parity_matrix(10, 14))
+    shard_size = os.path.getsize(base + to_ext(0))
+    rows = shard_size // CHUNK
+    files = [open(base + to_ext(i), "rb") for i in range(14)]
+    rolling = [0] * 14
+    host_checked = 0
+    try:
+        with open(base + ".dat", "rb") as dat:
+            for r in range(rows):
+                stripe = read_chunk(dat, r * 10 * CHUNK, 10 * CHUNK)
+                shards = np.stack([read_chunk(f, r * CHUNK, CHUNK)
+                                   for f in files])
+                check(np.array_equal(shards[:10], stripe.reshape(10, CHUNK)),
+                      f"data shards differ from the .dat at row {r}")
+                x = torch.from_numpy(shards).to(dev)
+                want = rs_cuda.gf_apply_plain(par, x[:10])
+                check(torch.equal(want, x[10:]), f"parity differs at row {r}")
+                fin = finalize(batched_crc32c_raw(x), CHUNK)
+                for s in range(14):
+                    rolling[s] = crc_host.crc32c_combine(rolling[s],
+                                                         int(fin[s]), CHUNK)
+                if r in (0, rows // 2, rows - 1):
+                    for s in (0, 9, 13):
+                        check(int(fin[s]) == crc_host.crc32c(shards[s]),
+                              f"plain CRC differs from host crc32c at "
+                              f"row {r} shard {s}")
+                        host_checked += 1
+    finally:
+        for f in files:
+            f.close()
+    check(rolling == [int(c) for c in crcs],
+          "returned shard CRCs differ from the plain CRC of the files")
+    log(f"encode verified: {rows} rows, 14 CRCs, {host_checked} chunks "
+        "against the host crc32c")
+
+
+def same_file(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(16 * MIB), fb.read(16 * MIB)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def rebuild_pattern(base: str, lost: list[int], crcs: list[int], dev) -> float:
+    for sid in lost:
+        os.replace(base + to_ext(sid), base + to_ext(sid) + ".orig")
+    t0 = time.perf_counter()
+    got = encoder.rebuild_ec_files(base, device=dev)
+    secs = time.perf_counter() - t0
+    check(sorted(got) == sorted(lost), f"rebuild returned {sorted(got)}")
+    for sid in lost:
+        check(same_file(base + to_ext(sid), base + to_ext(sid) + ".orig"),
+              f"rebuilt shard {sid} differs")
+        check(got[sid] == crcs[sid], f"rebuilt shard {sid} CRC differs")
+        os.unlink(base + to_ext(sid) + ".orig")
+    return secs
+
+
+def reconstruct_phase(base: str, dev) -> int:
+    """Rebuild .ec03's content through reconstruct_span in 1 MiB spans and
+    through the Encoder seam, comparing bytes."""
+    target = 3
+    survivors = [0, 1, 2, 4, 5, 6, 7, 8, 9, 10]
+    files = {i: open(base + to_ext(i), "rb") for i in survivors + [target]}
+    enc = new_encoder(10, 4, backend="cuda")
+    spans = os.path.getsize(base + to_ext(target)) // CHUNK
+    try:
+        for k in range(spans):
+            inputs = np.stack([read_chunk(files[i], k * CHUNK, CHUNK)
+                               for i in survivors])
+            want = read_chunk(files[target], k * CHUNK, CHUNK)
+            got = reconstruct_span(survivors, inputs, target, device=dev)
+            check(np.array_equal(got, want), f"reconstruct_span span {k}")
+            shards = [None] * 14
+            for i, s in zip(survivors, inputs):
+                shards[i] = s
+            full = enc.reconstruct(shards)
+            check(np.array_equal(full[target], want),
+                  f"Encoder.reconstruct span {k}")
+    finally:
+        for f in files.values():
+            f.close()
+    return spans
+
+
+def main_path(dev, workdir: str) -> dict:
+    base = os.path.join(workdir, "1")
+    t0 = time.perf_counter()
+    write_volume(base + ".dat", VOLUME_BYTES, SEED)
+    log(f"wrote a seeded {VOLUME_BYTES} B volume in "
+        f"{time.perf_counter() - t0:.2f} s")
+    gib = VOLUME_BYTES / (1 << 30)
+    rs_cuda.reset_launches()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    crcs = encoder.write_ec_files(base, stage_stats=stats, device=dev)
+    enc_s = time.perf_counter() - t0
+    launches_encode = dict(rs_cuda.launches)
+    rebuild_s = {}
+    for lost in ([0], [10, 11, 12, 13], [0, 5, 11, 13]):
+        rebuild_s[str(lost)] = rebuild_pattern(base, lost, crcs, dev)
+    spans = reconstruct_phase(base, dev)
+    launches = dict(rs_cuda.launches)
+    log(f"encode: {enc_s:.3f} s, {gib / enc_s:.3f} GiB/s of .dat bytes")
+    log("encode stage_stats: " + json.dumps(stats, sort_keys=True))
+    for k, s in rebuild_s.items():
+        log(f"rebuild {k}: {s:.3f} s, {gib / s:.3f} GiB/s of .dat bytes")
+    log(f"reconstructed .ec03 in {spans} spans, both routes byte-identical")
+    log(f"launches on the main path: {launches} "
+        f"(encode alone: {launches_encode})")
+    # the checks read the files back; they run after the counted phases
+    verify_encode(base, crcs, dev)
+    return launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="build and check the kernels only")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"built {len(_build.SOURCES)} kernel libraries in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, text in _build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  {name}: {line.strip()}")
+    stats = kernel_phase(dev, args.quick)
+    launches = {}
+    if not args.quick:
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            launches = main_path(dev, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        for name in KERNELS:
+            check(launches.get(name, 0) > 0,
+                  f"{name} was not launched on the main path")
+        rows = []
+        for name, meta in KERNELS.items():
+            s = stats[name]
+            rows.append({
+                "name": name, "route": "cuda", "source": meta["source"],
+                "replaces": meta["replaces"], "launches": launches[name],
+                "max_abs_err": s["max_abs_err"], "matched": True,
+                "ms": s["ms"], "plain_ms": s["plain_ms"],
+                "bound_ms": s["bound_ms"], "bound_by": "bytes",
+                "library_ms": None,
+                "us": s["ms"] * 1e3, "plain_us": s["plain_ms"] * 1e3,
+                "bound_us": s["bound_ms"] * 1e3,
+            })
+        print(json.dumps({"kernels": rows}), flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,38 @@
+"""ctypes loader for the repo's host C++ library (native/ec_native.cpp).
+
+Only the CRC32C entry is bound: the port uses host CRC on cold edges
+(checks, short tails) and never per byte on the hot path.  `lib()` runs
+`make` in native/ once (a no-op when the library is fresh) and returns None
+when no toolchain and no prebuilt library exist; callers then take the
+pure-Python path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import subprocess
+
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "native")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libseaweedec.so")
+
+
+@functools.lru_cache(maxsize=1)
+def lib() -> ctypes.CDLL | None:
+    try:
+        subprocess.run(["make", "-s"], cwd=_NATIVE_DIR, check=True,
+                       capture_output=True, timeout=120)
+    except (OSError, subprocess.SubprocessError):
+        if not os.path.exists(_LIB_PATH):
+            return None
+    try:
+        cdll = ctypes.CDLL(_LIB_PATH)
+    except OSError:
+        return None
+    cdll.sw_crc32c.restype = ctypes.c_uint32
+    cdll.sw_crc32c.argtypes = [ctypes.c_uint32, ctypes.c_char_p,
+                               ctypes.c_size_t]
+    return cdll

@@ -1,0 +1,79 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These need an NVIDIA card and nvcc; without one each test skips (the
+decision is made inside the fixture, never at import).  On the card run
+them with `python -m pytest tests/test_torch_cuda.py -q`; chip_smoke.py
+makes the same checks at the main path's shapes."""
+
+import numpy as np
+import pytest
+import torch
+
+from seaweedfs_tpu_torch.ops import rs_cuda
+from seaweedfs_tpu_torch.ops.gf256 import parity_matrix
+from seaweedfs_tpu_torch.ops.rs_numpy import decode_rows
+
+PARITY = np.ascontiguousarray(parity_matrix(10, 14))
+REBUILD = np.array(decode_rows(10, 14, [1, 2, 3, 4, 6, 7, 8, 9, 10, 12],
+                               (0, 5, 11, 13)))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _bytes(seed, shape, dev):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 256, shape,
+                                         dtype=np.uint8)).to(dev)
+
+
+@pytest.mark.parametrize("length", [1, 3, 50, 4096, 65536 + 3])
+def test_gf_apply_matches_plain(cuda, length):
+    x = _bytes(length, (10, length), cuda)
+    for m in (PARITY, REBUILD[:1], _bytes(1, (20, 10), "cpu").numpy()):
+        before = rs_cuda.launches["gf_apply"]
+        got = rs_cuda.gf_apply(m, x)
+        assert rs_cuda.launches["gf_apply"] > before
+        assert torch.equal(got, rs_cuda.gf_apply_plain(m, x))
+
+
+@pytest.mark.parametrize("batch,length", [(1, 1), (2, 50), (3, 4099),
+                                          (2, 1 << 16), (1, (1 << 20) + 3)])
+def test_fused_apply_crc_matches_plain(cuda, batch, length):
+    x = _bytes(batch * length, (batch, 10, length), cuda)
+    for m in (PARITY, REBUILD):
+        before = rs_cuda.launches["fused_apply_crc"]
+        out, crc = rs_cuda.fused_apply_crc(m, x)
+        assert rs_cuda.launches["fused_apply_crc"] == before + 1
+        want, want_crc = rs_cuda.fused_apply_crc_plain(m, x)
+        assert torch.equal(out, want)
+        assert torch.equal(crc, want_crc)
+
+
+def test_fused_apply_crc_on_unaligned_views(cuda):
+    """A view that starts off a 16-byte boundary takes the byte path."""
+    x = _bytes(5, (1, 10, 4096 + 1), cuda)[:, :, 1:]
+    out, crc = rs_cuda.fused_apply_crc(PARITY, x)
+    want, want_crc = rs_cuda.fused_apply_crc_plain(PARITY, x.contiguous())
+    assert torch.equal(out, want) and torch.equal(crc, want_crc)
+
+
+def test_encode_pipeline_on_card_equals_cpu(cuda, tmp_path):
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder, to_ext
+
+    rng = np.random.default_rng(3)
+    data = rng.integers(0, 256, 3 * (1 << 20) + 4321, dtype=np.uint8)
+    bases = [str(tmp_path / n) for n in ("gpu", "cpu")]
+    for b in bases:
+        data.tofile(b + ".dat")
+    got = encoder.write_ec_files(bases[0], device=cuda)
+    want = encoder.write_ec_files(bases[1], device="cpu")
+    assert got == want
+    for i in range(14):
+        with open(bases[0] + to_ext(i), "rb") as a, \
+                open(bases[1] + to_ext(i), "rb") as b:
+            assert a.read() == b.read()

@@ -1,0 +1,124 @@
+"""The port stands alone: no JAX and nothing of the JAX package in its
+sources or its process, and no quiet CPU fallback of its device path."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "seaweedfs_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "seaweedfs_tpu")
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_sources_import_no_jax():
+    sources = _port_sources()
+    assert len(sources) > 10
+    bad = []
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                bad += [(path, a.name) for a in node.names
+                        if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                if _forbidden(node.module or ""):
+                    bad.append((path, node.module))
+    assert not bad
+
+
+def test_process_loads_no_jax():
+    mods = []
+    for path in _port_sources()[1:]:
+        rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        mods.append(rel[:-len(".__init__")] if rel.endswith("__init__")
+                    else rel)
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'seaweedfs_tpu')]\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from seaweedfs_tpu_torch import device
+    from seaweedfs_tpu_torch.ops.codec import new_encoder, reconstruct_span
+    from seaweedfs_tpu_torch.parallel.batched_encode import (encode_volumes,
+                                                             rebuild_shards)
+    from seaweedfs_tpu_torch.parallel.mesh import encode_batch
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder
+
+    base = str(tmp_path / "v")
+    with open(base + ".dat", "wb") as f:
+        f.write(bytes(range(256)) * 10)
+    inputs = np.zeros((10, 64), dtype=np.uint8)
+    calls = [
+        lambda: device.resolve(),
+        lambda: device.resolve("cuda"),
+        lambda: new_encoder(10, 4),
+        lambda: new_encoder(10, 4, backend="cuda"),
+        lambda: reconstruct_span(list(range(10)), inputs, 12),
+        lambda: encode_batch(np.zeros((1, 10, 64), dtype=np.uint8)),
+        lambda: encoder.write_ec_files(base, 10000, 100),
+        lambda: encoder.rebuild_ec_files(base),
+        lambda: encode_volumes([base]),
+        lambda: rebuild_shards(base),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not os.path.exists(base + ".ec00")  # nothing ran on the host
+
+
+def test_entry_points_run_on_cpu_when_asked(no_cuda):
+    from seaweedfs_tpu_torch import device
+    from seaweedfs_tpu_torch.ops.codec import new_encoder, reconstruct_span
+
+    assert device.resolve("cpu") == torch.device("cpu")
+    enc = new_encoder(10, 4, backend="torch")
+    full = enc.encode([np.full(8, i, dtype=np.uint8) for i in range(10)]
+                      + [None] * 4)
+    got = reconstruct_span(list(range(1, 11)), np.stack(full[1:11]), 0,
+                           device="cpu")
+    assert np.array_equal(got, full[0])
+    with pytest.raises(ValueError):
+        device.resolve("meta")
+
+
+def test_kernel_wrappers_launch_only_on_cuda_tensors():
+    """On CPU tensors the wrappers run the plain versions and count no
+    launch."""
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.ops.gf256 import parity_matrix
+
+    before = dict(rs_cuda.launches)
+    m = parity_matrix(10, 14)
+    rs_cuda.gf_apply(m, torch.zeros((10, 5), dtype=torch.uint8))
+    rs_cuda.fused_apply_crc(m, torch.zeros((1, 10, 5), dtype=torch.uint8))
+    assert rs_cuda.launches == before
+    rs_cuda.reset_launches()
+    assert set(rs_cuda.launches.values()) == {0}

@@ -1,0 +1,279 @@
+"""The port's host tables, CRC algebra and kernel plain versions, held
+against the JAX package on the same seeded inputs.  Every comparison is
+exact: bytes equal, CRC values equal."""
+
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seaweedfs_tpu.ops import codec as j_codec
+from seaweedfs_tpu.ops import crc32c as j_crc
+from seaweedfs_tpu.ops import crc_device as j_crc_device
+from seaweedfs_tpu.ops import gf256 as j_gf256
+from seaweedfs_tpu.ops import rs_jax as j_rs_jax
+from seaweedfs_tpu.ops import rs_numpy as j_rs_numpy
+from seaweedfs_tpu.ops import rs_pallas as j_rs_pallas
+from seaweedfs_tpu.parallel import mesh as j_mesh
+from seaweedfs_tpu_torch.ops import codec as t_codec
+from seaweedfs_tpu_torch.ops import crc32c as t_crc
+from seaweedfs_tpu_torch.ops import crc_device as t_crc_device
+from seaweedfs_tpu_torch.ops import gf256 as t_gf256
+from seaweedfs_tpu_torch.ops import rs_cuda
+from seaweedfs_tpu_torch.ops import rs_numpy as t_rs_numpy
+from seaweedfs_tpu_torch.ops import rs_torch
+from seaweedfs_tpu_torch.parallel import mesh as t_mesh
+
+PARITY = np.ascontiguousarray(j_gf256.parity_matrix(10, 14))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Keep torch's CPU ops on one thread: the suite runs test files in
+    parallel worker processes beside timing-sensitive cluster tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _bytes(seed, shape):
+    return np.random.default_rng(seed).integers(0, 256, shape,
+                                                dtype=np.uint8)
+
+
+# -- tables ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("data,total", [(10, 14), (4, 6), (6, 9), (12, 16)])
+def test_build_and_parity_matrix_equal(data, total):
+    assert np.array_equal(t_gf256.build_matrix(data, total),
+                          j_gf256.build_matrix(data, total))
+    assert np.array_equal(t_gf256.parity_matrix(data, total),
+                          j_gf256.parity_matrix(data, total))
+
+
+def test_mul_table_and_invert_equal():
+    assert np.array_equal(t_gf256.mul_table(), j_gf256.mul_table())
+    m = j_gf256.build_matrix(10, 14)[[0, 2, 3, 4, 6, 7, 8, 9, 11, 13]]
+    assert np.array_equal(t_gf256.gf_invert(m), j_gf256.gf_invert(m))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_coeff_bit_matrix_equal(seed):
+    m = _bytes(seed, (4, 10))
+    assert np.array_equal(t_gf256.coeff_bit_matrix(m),
+                          j_gf256.coeff_bit_matrix(m))
+    assert np.array_equal(rs_torch._bit_matrix_cached(*rs_torch._matrix_key(m)),
+                          j_rs_jax._bit_matrix_cached(*j_rs_jax._matrix_key(m)))
+
+
+@pytest.mark.parametrize("lost_count", [1, 2, 3, 4])
+def test_decode_rows_every_erasure_pattern(lost_count):
+    for lost in itertools.combinations(range(14), lost_count):
+        present = [i for i in range(14) if i not in lost]
+        survivors = present[:10]
+        assert np.array_equal(
+            t_rs_numpy.decode_rows(10, 14, survivors, lost),
+            j_rs_numpy.decode_rows(10, 14, survivors, lost)), lost
+
+
+# -- the host CRC ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("length", [0, 1, 7, 100, 4097])
+def test_host_crc_algebra_equal(length):
+    a = _bytes(length, length)
+    b = _bytes(length + 1, 37)
+    assert t_crc.crc32c(a) == j_crc.crc32c(a)
+    assert t_crc._crc32c_py(5, a.tobytes()) == j_crc._crc32c_py(5, a.tobytes())
+    assert t_crc.raw_update(0, a.tobytes()) == j_crc.raw_update(0, a.tobytes())
+    assert np.array_equal(t_crc.advance_matrix(length),
+                          j_crc.advance_matrix(length))
+    assert t_crc.crc32c_zeros(length) == j_crc.crc32c_zeros(length)
+    assert t_crc.crc32c_combine(t_crc.crc32c(a), t_crc.crc32c(b), 37) \
+        == j_crc.crc32c(np.concatenate([a, b]))
+    raw = t_crc.raw_update(0, a.tobytes())
+    assert t_crc.finalize_raw(raw, length) == j_crc.finalize_raw(raw, length)
+
+
+@pytest.mark.parametrize("length", [1, 7, 100, 1000, 65536])
+def test_batched_crc32c_raw_equal(length):
+    data = _bytes(length, (3, length))
+    want = np.asarray(jax.jit(j_crc_device.batched_crc32c_raw)(
+        jnp.asarray(data)))
+    got = t_crc_device.batched_crc32c_raw(torch.from_numpy(data))
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy().astype(np.uint32), want)
+    assert np.array_equal(t_crc_device.finalize(got, length),
+                          j_crc_device.finalize(want, length))
+
+
+def test_adv_columns_apply_the_advance():
+    """K2's packed operators: XOR of the columns picked by x's bits is the
+    CRC state advanced over n zero bytes."""
+    rng = np.random.default_rng(7)
+    for n in (1, 16, 256, 4096, 1 << 20):
+        cols = rs_cuda._adv_columns(n)
+        for x in rng.integers(0, 1 << 32, 4, dtype=np.uint64):
+            x = int(x)
+            got = 0
+            for i in range(32):
+                if (x >> i) & 1:
+                    got ^= int(cols[i])
+            assert got == j_crc.advance(x, n)
+
+
+def test_k2_geometry():
+    assert rs_cuda.k2_geometry(4, 10, 1 << 20) == (4096, 16)
+    assert rs_cuda.k2_geometry(4, 10, 50) == (256, 16)
+    assert rs_cuda.k2_geometry(1, 3, 1) == (1024, 64)
+    tile, sub = rs_cuda.k2_geometry(16, 40, 1 << 20)
+    assert tile < 4096 and rs_cuda._smem_bytes(16, 40, tile, sub) <= rs_cuda.MAX_SMEM
+    with pytest.raises(ValueError):
+        rs_cuda.k2_geometry(16, 255, 1 << 20)
+
+
+# -- K1 -------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("length", [1, 7, 4096, 8192 + 3])
+def test_gf_apply_plain_equals_pallas_and_swar(length):
+    data = _bytes(length, (10, length))
+    rows = j_rs_numpy.decode_rows(10, 14, [0, 1, 2, 4, 5, 6, 7, 8, 9, 10],
+                                  (3, 12))
+    for m in (PARITY, np.ascontiguousarray(rows)):
+        got = rs_torch.apply_matrix(m, torch.from_numpy(data)).numpy()
+        assert np.array_equal(got, np.asarray(
+            j_rs_pallas.apply_matrix_pallas(m, data, interpret=True)))
+        assert np.array_equal(got, np.asarray(
+            j_rs_jax.apply_matrix(m, data, method="swar")))
+
+
+def test_gf_apply_plain_batched_and_many_rows():
+    data = _bytes(3, (2, 10, 300))
+    got = rs_cuda.gf_apply_plain(PARITY, torch.from_numpy(data)).numpy()
+    for b in range(2):
+        assert np.array_equal(got[b], j_rs_numpy.gf_apply_matrix(PARITY,
+                                                                 data[b]))
+    wide = _bytes(4, (20, 10))  # more rows than one launch takes
+    x = _bytes(5, (10, 33))
+    assert np.array_equal(rs_cuda.gf_apply(wide, torch.from_numpy(x)).numpy(),
+                          j_rs_numpy.gf_apply_matrix(wide, x))
+
+
+def test_wrappers_validate_inputs():
+    with pytest.raises(ValueError):
+        rs_cuda.gf_apply(PARITY, torch.zeros((9, 8), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        rs_cuda.gf_apply(PARITY, torch.zeros((10, 8), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        rs_cuda.fused_apply_crc(PARITY, torch.zeros((10, 8),
+                                                    dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        rs_cuda.fused_apply_crc(PARITY, torch.zeros((1, 10, 0),
+                                                    dtype=torch.uint8))
+
+
+# -- K2 -------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch,length,block",
+                         [(1, 512, None), (2, 2048, 512), (2, 4096, 512),
+                          (1, 16384, None)])
+def test_fused_encode_words_equals_pallas(batch, length, block):
+    data = _bytes(batch * length, (batch, 10, length))
+    want_w, want_crc = j_rs_pallas.fused_encode_words(
+        PARITY, data.view(np.int32), block=block, interpret=True)
+    got_w, got_crc = rs_cuda.fused_encode_words(
+        PARITY, torch.from_numpy(data.view(np.int32)))
+    assert got_w.dtype == torch.int32
+    assert np.array_equal(got_w.numpy(), np.asarray(want_w))
+    assert np.array_equal(got_crc.numpy().astype(np.uint32),
+                          np.asarray(want_crc))
+
+
+@pytest.mark.parametrize("length", [1, 50, 1001, 4099])
+def test_fused_apply_crc_equals_xla_encode_step(length):
+    data = _bytes(length, (2, 10, length))
+    bm = jnp.asarray(j_rs_jax._bit_matrix_cached(*j_rs_jax._matrix_key(PARITY)))
+    want_par, want_crc = j_mesh.batched_encode_step(bm, jnp.asarray(data))
+    got_par, got_crc = rs_cuda.fused_apply_crc(PARITY, torch.from_numpy(data))
+    assert np.array_equal(got_par.numpy(), np.asarray(want_par))
+    assert np.array_equal(got_crc.numpy().astype(np.uint32),
+                          np.asarray(want_crc))
+
+
+@pytest.mark.parametrize("length", [7, 1001])
+def test_rebuild_step_equals_sharded_apply(length):
+    survivors = [1, 2, 3, 4, 6, 7, 8, 9, 10, 12]
+    matrix = np.array(j_rs_numpy.decode_rows(10, 14, survivors,
+                                             (0, 5, 11, 13)))
+    data = _bytes(length + 1, (2, 10, length))
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                             ("data", "block"))
+    want_out, want_crc = j_mesh.make_sharded_apply(mesh, matrix)(
+        jnp.asarray(data))
+    got_out, got_crc = t_mesh.make_sharded_apply(matrix)(
+        torch.from_numpy(data))
+    assert np.array_equal(got_out.numpy(), np.asarray(want_out))
+    assert np.array_equal(got_crc.numpy().astype(np.uint32),
+                          np.asarray(want_crc))
+
+
+def test_encode_batch_matches_host_codec():
+    data = _bytes(11, (3, 10, 4096))
+    parity, crcs = t_mesh.encode_batch(data, device="cpu")
+    for b in range(3):
+        expect = j_rs_numpy.gf_apply_matrix(PARITY, data[b])
+        assert np.array_equal(parity[b], expect)
+        full = np.concatenate([data[b], expect])
+        for s in range(14):
+            assert int(crcs[b, s]) == j_crc.crc32c(full[s])
+
+
+# -- the Encoder seam -----------------------------------------------------------
+
+
+def _shards(seed, length=1000):
+    data = _bytes(seed, (10, length))
+    return j_rs_numpy.NumpyEncoder(10, 4).encode(list(data) + [None] * 4)
+
+
+@pytest.mark.parametrize("lost", [(0,), (3, 12), (0, 5, 11, 13),
+                                  (10, 11, 12, 13)])
+def test_encoder_seam_equals_numpy_encoder(lost):
+    ref = j_rs_numpy.NumpyEncoder(10, 4)
+    enc = t_codec.new_encoder(10, 4, backend="torch")
+    full = _shards(sum(lost))
+    data = list(full[:10]) + [None] * 4
+    assert all(np.array_equal(a, b) for a, b in
+               zip(enc.encode(list(data)), ref.encode(list(data))))
+    assert enc.verify(full) and ref.verify(full)
+    damaged = [None if i in lost else s for i, s in enumerate(full)]
+    for method in ("reconstruct", "reconstruct_data"):
+        got = getattr(enc, method)(list(damaged))
+        want = getattr(ref, method)(list(damaged))
+        for g, w in zip(got, want):
+            assert (g is None and w is None) or np.array_equal(g, w), method
+
+
+@pytest.mark.parametrize("target", [0, 3, 11])
+def test_reconstruct_span_equals_jax(target):
+    full = _shards(target, length=5000)
+    survivors = [i for i in range(14) if i != target][:10]
+    inputs = np.stack([full[i] for i in survivors])
+    got = t_codec.reconstruct_span(survivors, inputs, target, device="cpu")
+    want = j_codec.reconstruct_span(survivors, inputs, target)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, full[target])
+
+
+def test_numpy_backend_and_unknown_backend():
+    assert isinstance(t_codec.new_encoder(10, 4, backend="numpy"),
+                      t_rs_numpy.NumpyEncoder)
+    with pytest.raises(ValueError):
+        t_codec.new_encoder(10, 4, backend="tpu")
