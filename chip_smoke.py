@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py            # the whole run (one card)
     python3 chip_smoke.py --quick    # build and kernel checks only
+    python3 chip_smoke.py --kernels  # build, kernel checks and timing
 
 Phases:
   1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a);
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes and at ragged lengths (tolerance 0: exact integer
-     math), and time both with CUDA events;
+     main path's shapes, at ragged lengths and through misaligned
+     pointers (tolerance 0: exact integer math), and time both with CUDA
+     events, cold in L2 (`time_cold`);
   3. the main path at real size, RS(10,4) over a seeded 1 GiB volume:
      write_ec_files, rebuild_ec_files after three loss patterns,
      reconstruct_span and new_encoder("cuda").reconstruct of a lost data
@@ -69,23 +71,55 @@ def check(cond: bool, what: str):
         raise AssertionError(what)
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median device milliseconds of `fn` over `reps` runs after a
-    warm-up.  The runs are queued behind a spin kernel, between CUDA
-    events, so the card runs them back to back and the host's launch
-    overhead stays out of the times (a function that waits for the card
-    itself, as a pageable copy does, still pays its wait)."""
-    fn()
+def time_cold(fn, sets, reps: int = 24) -> float:
+    """Mean device milliseconds of one call of `fn`, cold in L2.
+
+    Run i calls fn(*sets[i % len(sets)]): the sets' inputs together
+    exceed the card's 50 MB L2, so each run reads its input from device
+    memory, as the pipeline does with a batch fresh from its H2D copy.
+    Every run's outputs are kept until the end, so each run writes fresh
+    memory too.  The runs are queued behind a spin kernel, between two
+    CUDA events around the whole run, so the card runs them back to back
+    and neither the host's launch overhead nor per-run events enter the
+    time (a function that waits for the card itself, as a pageable copy
+    does, still pays its wait)."""
+    # warm-up: one pass over every run's inputs, so the caching allocator
+    # holds every output block before the timed runs (no cudaMalloc in
+    # them)
+    keep = [fn(*sets[i % len(sets)]) for i in range(reps + 1)]
     torch.cuda.synchronize()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    keep.clear()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda._sleep(SPIN_CYCLES)
-    events[0].record()
+    start.record()
     for i in range(reps):
-        fn()
-        events[i + 1].record()
-    events[-1].synchronize()
-    return float(np.median([a.elapsed_time(b)
-                            for a, b in zip(events, events[1:])]))
+        keep.append(fn(*sets[(i + 1) % len(sets)]))
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profile_kernels(fn, sets, reps: int = 8) -> list[tuple[str, int, float]]:
+    """(kernel name, launches, mean device us) of `reps` cold calls of
+    `fn`, from torch.profiler's CUDA activity: the device time of each
+    kernel a call launches, without the gaps between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    keep = [fn(*sets[i % len(sets)]) for i in range(reps + 1)]
+    torch.cuda.synchronize()
+    keep.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            keep.append(fn(*sets[(i + 1) % len(sets)]))
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", None)
+        if total is None:
+            total = getattr(e, "cuda_time_total", 0)
+        if total > 0 and e.count > 0:
+            rows.append((e.key, e.count, total / e.count))
+    return rows
 
 
 def gpu_state() -> str:
@@ -129,7 +163,16 @@ def compare_k2(matrix, data) -> int:
     return err
 
 
-def kernel_phase(dev, quick: bool) -> dict:
+def misaligned(rng, shape, offset: int, dev) -> torch.Tensor:
+    """Seeded bytes of `shape` as a contiguous view that starts `offset`
+    bytes into a fresh buffer, so its pointer is off a 16-byte boundary."""
+    n = int(np.prod(shape))
+    view = rand_bytes(rng, (n + offset,), dev)[offset:].view(shape)
+    check(view.data_ptr() % 16 != 0, "view is 16-byte aligned")
+    return view
+
+
+def kernel_phase(dev, mode: str) -> dict:
     rng = np.random.default_rng(SEED)
     par = np.ascontiguousarray(parity_matrix(10, 14))
     survivors = [1, 2, 3, 4, 6, 7, 8, 9, 10, 12]
@@ -137,8 +180,10 @@ def kernel_phase(dev, quick: bool) -> dict:
         decode_rows(10, 14, survivors, (0, 5, 11, 13)))
     row = np.ascontiguousarray(
         decode_rows(10, 14, [0, 1, 2, 4, 5, 6, 7, 8, 9, 10], (3,)))
-    enc_in = rand_bytes(rng, (6, 10, MIB), dev)
-    k1_in = rand_bytes(rng, (10, MIB), dev)
+    # distinct input sets, together beyond the 50 MB L2 (time_cold)
+    enc_sets = [(par, rand_bytes(rng, (6, 10, MIB), dev)) for _ in range(4)]
+    k1_sets = [(row, rand_bytes(rng, (10, MIB), dev)) for _ in range(8)]
+    enc_in, k1_in = enc_sets[0][1], k1_sets[0][1]
     errs = {"gf_apply": 0, "fused_apply_crc": 0}
 
     def k2(m, x):
@@ -156,8 +201,13 @@ def kernel_phase(dev, quick: bool) -> dict:
         k2(par, rand_bytes(rng, (2, 10, length), dev))
         k2(rebuild, rand_bytes(rng, (1, 10, length), dev))
         k1(row, rand_bytes(rng, (10, length), dev))
+        for offset in (1, 3):
+            k2(par, misaligned(rng, (1, 10, length), offset, dev))
+            k1(par, misaligned(rng, (10, length), offset, dev))
+    k2(par, misaligned(rng, (1, 10, MIB), 1, dev))
+    k1(row, misaligned(rng, (10, MIB), 3, dev))
     log(f"kernels match their plain versions (max_abs_err {errs})")
-    if quick:
+    if mode == "quick":
         return {}
     # one K2 encode launch moves 60 MiB in and 24 MiB out (+ the CRCs),
     # one K1 reconstruct of a 1 MiB span 10 MiB in and 1 MiB out
@@ -166,23 +216,31 @@ def kernel_phase(dev, quick: bool) -> dict:
     log(f"card before timing (sm clock, max, power, temp): {gpu_state()}")
     stats = {
         "fused_apply_crc": {
-            "ms": time_ms(lambda: rs_cuda.fused_apply_crc(par, enc_in)),
-            "plain_ms": time_ms(
-                lambda: rs_cuda.fused_apply_crc_plain(par, enc_in)),
+            "ms": time_cold(rs_cuda.fused_apply_crc, enc_sets),
+            "plain_ms": time_cold(rs_cuda.fused_apply_crc_plain, enc_sets,
+                                  reps=8),
             "bytes": k2_bytes,
         },
         "gf_apply": {
-            "ms": time_ms(lambda: rs_cuda.gf_apply(row, k1_in)),
-            "plain_ms": time_ms(lambda: rs_cuda.gf_apply_plain(row, k1_in)),
+            "ms": time_cold(rs_cuda.gf_apply, k1_sets),
+            "plain_ms": time_cold(rs_cuda.gf_apply_plain, k1_sets, reps=8),
             "bytes": k1_bytes,
         },
     }
     log(f"card after timing: {gpu_state()}")
+    for name, fn, sets in (("fused_apply_crc", rs_cuda.fused_apply_crc,
+                            enc_sets),
+                           ("gf_apply", rs_cuda.gf_apply, k1_sets)):
+        for key, count, us in profile_kernels(fn, sets):
+            log(f"profile {name}: {key[:60]} x{count} {us:.3f} us")
     for name, s in stats.items():
         s["max_abs_err"] = errs[name]
         s["bound_ms"] = s["bytes"] / HBM_BYTES_PER_S * 1e3
-        log(f"{name}: {s['ms'] * 1e3:.1f} us, plain "
-            f"{s['plain_ms'] * 1e3:.1f} us, bound {s['bound_ms'] * 1e3:.1f} us")
+        s["bound_share"] = s["bound_ms"] / s["ms"]
+        log(f"{name} (cold L2): {s['ms'] * 1e3:.3f} us, plain "
+            f"{s['plain_ms'] * 1e3:.3f} us, bound "
+            f"{s['bound_ms'] * 1e3:.3f} us, "
+            f"{100 * s['bound_share']:.1f}% of its bound")
     return stats
 
 
@@ -333,7 +391,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
+    ap.add_argument("--kernels", action="store_true",
+                    help="build, check and time the kernels; no main path")
     args = ap.parse_args()
+    mode = "quick" if args.quick else "kernels" if args.kernels else "all"
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -348,9 +409,9 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
-    stats = kernel_phase(dev, args.quick)
+    stats = kernel_phase(dev, mode)
     launches = {}
-    if not args.quick:
+    if mode == "all":
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             launches = main_path(dev, workdir)
@@ -368,7 +429,8 @@ def main() -> int:
                 "max_abs_err": s["max_abs_err"], "matched": True,
                 "ms": s["ms"], "plain_ms": s["plain_ms"],
                 "bound_ms": s["bound_ms"], "bound_by": "bytes",
-                "library_ms": None,
+                "library_ms": None, "timing": "cold",
+                "bound_share": s["bound_share"],
                 "us": s["ms"] * 1e3, "plain_us": s["plain_ms"] * 1e3,
                 "bound_us": s["bound_ms"] * 1e3,
             })

@@ -8,11 +8,13 @@
                    output row, in one pass.  Replaces
                    seaweedfs_tpu/ops/rs_pallas.py:_fused_words_kernel.
 
-Both are bound by device-memory bytes on an H100; the sources say what
-each design does about that.  A wrapper takes the plain PyTorch version
-only for a tensor that lies on the CPU; for a CUDA tensor it launches its
-kernel or raises.  `launches` counts kernel launches per wrapper, so a run
-can show which path it went through.
+Both are device-memory-bound in principle and, as designed, bound by the
+SM's shared-memory and integer pipes on an H100; the sources say what
+each design does about that and PERF.md what was measured.  A wrapper
+takes the plain PyTorch version only for a tensor that lies on the CPU;
+for a CUDA tensor it launches its kernel or raises.  `launches` counts
+kernel launches per wrapper, so a run can show which path it went
+through.
 
 The GF(2^8) matrix is always a host (p, d) uint8 numpy array, as in the
 JAX functions.  Raw CRC values come back as int64 tensors holding the
@@ -35,6 +37,8 @@ MAX_ROWS = 16        # output rows per launch (csrc/gf_core.cuh kMaxRows)
 MAX_SMEM = 232448    # dynamic shared memory a Hopper block may take
 K2_THREADS = 256     # threads of a K2 tile block
 K2_MAX_TILE = 4096   # bytes of a K2 column tile
+K2_STREAMS = 4       # interleaved CRC streams per sub-segment (kStreams)
+K2_MAPS = 8          # nibble maps K2 reserves shared memory for (kMapsWords)
 
 launches = {"gf_apply": 0, "fused_apply_crc": 0}
 
@@ -52,13 +56,36 @@ def _matrix_key(matrix: np.ndarray) -> tuple[bytes, int, int]:
     return m.tobytes(), m.shape[0], m.shape[1]
 
 
-@functools.lru_cache(maxsize=64)
-def _product_table(matrix_bytes: bytes, p: int, d: int,
-                   device: torch.device) -> torch.Tensor:
-    """(p, d, 256) uint8: gf_mul(M[i, j], x) for every byte x, on device."""
-    m = np.frombuffer(matrix_bytes, dtype=np.uint8).reshape(p, d)
-    return torch.from_numpy(np.ascontiguousarray(gf256.mul_table()[m])) \
-        .to(device)
+def gf_tables(matrix: np.ndarray) -> np.ndarray:
+    """The kernels' row-packed nibble tables of a (p, d) matrix, (d, G,
+    2, 16) uint32 with G = ceil(p / 4): word n of table (j, g, h) holds
+    gf_mul(M[4g + q, j], n << 4h) in byte q (csrc/gf_core.cuh)."""
+    m = np.asarray(matrix, dtype=np.uint8)
+    p, d = m.shape
+    groups = -(-p // 4)
+    padded = np.zeros((4 * groups, d), dtype=np.uint8)
+    padded[:p] = m
+    nib = np.arange(16)
+    mt = gf256.mul_table()
+    prod = np.stack([mt[padded[:, :, None], nib],
+                     mt[padded[:, :, None], nib << 4]], axis=2)
+    prod = prod.reshape(groups, 4, d, 2, 16).astype(np.uint32)
+    shift = (8 * np.arange(4, dtype=np.uint32))[None, :, None, None, None]
+    packed = np.bitwise_or.reduce(prod << shift, axis=1)  # (G, d, 2, 16)
+    return np.ascontiguousarray(packed.transpose(1, 0, 2, 3))
+
+
+def nibble_map(cols: np.ndarray) -> np.ndarray:
+    """A GF(2)-linear map of 32-bit words, given as its 32 columns, in
+    the kernels' nibble form (8, 16) uint32: map[k, n] = f(n << 4k)."""
+    cols = np.asarray(cols, dtype=np.uint32)
+    n = np.arange(16)
+    bits = ((n[:, None] >> np.arange(4)) & 1).astype(bool)  # (16, 4)
+    out = np.zeros((8, 16), dtype=np.uint32)
+    for k in range(8):
+        for b in range(4):
+            out[k, bits[:, b]] ^= cols[4 * k + b]
+    return out
 
 
 def _adv_columns(n: int) -> np.ndarray:
@@ -68,42 +95,62 @@ def _adv_columns(n: int) -> np.ndarray:
         .astype(np.uint32)
 
 
-@functools.lru_cache(maxsize=64)
-def _crc_tables(tile: int, sub: int, ntiles: int,
-                device: torch.device) -> tuple[torch.Tensor, ...]:
-    """K2's CRC constants on device, as int32 words: the (4, 256) slicing
-    tables, Adv_{T/S}, and the fold operators Adv_T, Adv_{m T 2^k}
-    (k = 0..4, m = ceil(ntiles / 32))."""
-    m = -(-ntiles // 32)
-    fold = [_adv_columns(tile)] + [_adv_columns(m * tile << k)
-                                   for k in range(5)]
+def crc_maps(tile: int, sub: int) -> np.ndarray:
+    """K2's nibble maps, (3 + log2 S, 8, 16) uint32: the CRC step over one
+    4-byte word, Adv_4; Adv_{T/4S} and Adv_{T/2S}, which join the four
+    interleaved streams of a sub-segment; then the sub-segment fold
+    operators Adv_{T/S 2^k}, k = 0 .. log2(S) - 1."""
+    seg = tile // sub
+    lengths = [4, seg // K2_STREAMS, seg // 2] + \
+        [seg << k for k in range(sub.bit_length() - 1)]
+    return np.stack([nibble_map(_adv_columns(n)) for n in lengths])
 
-    def dev(a):
-        return torch.from_numpy(
-            np.array(a, dtype=np.uint32).view(np.int32)).to(device)
-    return (dev(crc_host.tables()[:4]), dev(_adv_columns(tile // sub)),
-            dev(np.concatenate(fold)))
+
+def _device_words(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32)
+                            .view(np.int32)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _gf_tables_on(matrix_bytes: bytes, p: int, d: int,
+                  device: torch.device) -> torch.Tensor:
+    m = np.frombuffer(matrix_bytes, dtype=np.uint8).reshape(p, d)
+    return _device_words(gf_tables(m), device)
+
+
+@functools.lru_cache(maxsize=64)
+def _crc_tables(tile: int, sub: int,
+                device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's CRC constants on device, as int32 words: crc_maps(T, S), and
+    the tile fold operators Adv_{32 T}, Adv_{T 2^k} (k = 0..4) as nibble
+    maps."""
+    fold = [32 * tile] + [tile << k for k in range(5)]
+    return (_device_words(crc_maps(tile, sub), device),
+            _device_words(np.stack([nibble_map(_adv_columns(n))
+                                    for n in fold]), device))
 
 
 def _smem_bytes(p: int, d: int, tile: int, sub: int) -> int:
-    """Shared memory of one K2 tile block (csrc smem_bytes)."""
-    rows = d + p
-    return (rows * (tile // 4 + sub) + 1024 + 32 + rows * sub) * 4 \
-        + p * d * 256
+    """Shared memory of one K2 block (csrc smem_bytes): tables, maps, two
+    input stages and the output rows, each row T bytes plus a 16-byte skew
+    per sub-segment."""
+    words = d * -(-p // 4) * 32 + K2_MAPS * 128
+    return words * 4 + (2 * d + p) * (tile + 16 * sub)
 
 
 def k2_geometry(p: int, d: int, length: int) -> tuple[int, int]:
-    """(T, S) for K2: S sub-segments per row so that (d + p) * S CRC
-    threads fit the block, T the column tile, shrunk for short rows and
-    until the block's shared memory fits."""
+    """(T, S) for K2: S sub-segments per row (a power of two up to 32, a
+    warp's lanes) so that (d + p) * S CRC threads fit the block, T the
+    column tile (at least 16 bytes per CRC stream), shrunk for short rows
+    and until the block's shared memory fits."""
     rows = d + p
     if rows > K2_THREADS:
         raise ValueError(f"fused_apply_crc takes at most {K2_THREADS} rows")
     sub = 1
-    while rows * sub * 2 <= K2_THREADS and sub < 64:
+    while rows * sub * 2 <= K2_THREADS and sub < 32:
         sub *= 2
     tile = K2_MAX_TILE
-    while tile > 16 * sub and (tile // 2 >= length or
+    while tile > 16 * K2_STREAMS * sub and (tile // 2 >= length or
                                _smem_bytes(p, d, tile, sub) > MAX_SMEM):
         tile //= 2
     if _smem_bytes(p, d, tile, sub) > MAX_SMEM:
@@ -138,7 +185,7 @@ def _k2():
     fn = load("fused_apply_crc").sw_fused_apply_crc
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 4
+                   + [ctypes.c_void_p] * 3
                    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_int] + [ctypes.c_void_p] * 4)
     return fn
@@ -183,11 +230,10 @@ def gf_apply(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     length = data.shape[1]
     out = torch.empty((p, length), dtype=torch.uint8, device=data.device)
     stream = torch.cuda.current_stream(data.device).cuda_stream
-    # row groups that fit one launch's register accumulators and tables
-    step = max(1, min(MAX_ROWS, MAX_SMEM // (d * 256)))
-    for r0 in range(0, p, step):
-        sub = np.ascontiguousarray(matrix[r0:r0 + step], dtype=np.uint8)
-        tab = _product_table(*_matrix_key(sub), data.device)
+    # row groups of at most MAX_ROWS, one launch's register accumulators
+    for r0 in range(0, p, MAX_ROWS):
+        sub = np.ascontiguousarray(matrix[r0:r0 + MAX_ROWS], dtype=np.uint8)
+        tab = _gf_tables_on(*_matrix_key(sub), data.device)
         _check(_k1()(tab.data_ptr(), sub.shape[0], d, data.data_ptr(),
                      length, out[r0:].data_ptr(), stream), "gf_apply")
         launches["gf_apply"] += 1
@@ -218,18 +264,18 @@ def fused_apply_crc(matrix: np.ndarray, data: torch.Tensor):
     tile, sub = k2_geometry(p, d, length)
     ntiles = -(-length // tile)
     dev = data.device
-    tab = _product_table(*_matrix_key(matrix), dev)
-    crc_t, adv_sub, adv_fold = _crc_tables(tile, sub, ntiles, dev)
+    tab = _gf_tables_on(*_matrix_key(matrix), dev)
+    maps, adv_fold = _crc_tables(tile, sub, dev)
     out = torch.empty((b, p, length), dtype=torch.uint8, device=dev)
     partial = torch.empty((b, d + p, ntiles), dtype=torch.int32, device=dev)
-    crc = torch.empty((b, d + p), dtype=torch.int32, device=dev)
+    crc = torch.empty((b, d + p), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _check(_k2()(tab.data_ptr(), p, d, crc_t.data_ptr(), adv_sub.data_ptr(),
-                 adv_fold.data_ptr(), data.data_ptr(), b, length, tile, sub,
+    _check(_k2()(tab.data_ptr(), p, d, maps.data_ptr(), adv_fold.data_ptr(),
+                 data.data_ptr(), b, length, tile, sub,
                  out.data_ptr(), partial.data_ptr(), crc.data_ptr(), stream),
            "fused_apply_crc")
     launches["fused_apply_crc"] += 1
-    return out, crc.to(torch.int64) & 0xFFFFFFFF
+    return out, crc
 
 
 def fused_encode_words(matrix: np.ndarray, words: torch.Tensor):

@@ -54,12 +54,50 @@ def test_fused_apply_crc_matches_plain(cuda, batch, length):
         assert torch.equal(crc, want_crc)
 
 
-def test_fused_apply_crc_on_unaligned_views(cuda):
-    """A view that starts off a 16-byte boundary takes the byte path."""
-    x = _bytes(5, (1, 10, 4096 + 1), cuda)[:, :, 1:]
+def _misaligned(seed, shape, offset, dev):
+    """A contiguous view `offset` bytes into a flat buffer: its pointer is
+    off a 16-byte boundary, so the kernels take their byte path."""
+    n = int(np.prod(shape))
+    view = _bytes(seed, (n + offset,), dev)[offset:].view(shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("length", [50, 4096 + 3, 1 << 16])
+def test_fused_apply_crc_on_unaligned_views(cuda, offset, length):
+    x = _misaligned(offset + length, (1, 10, length), offset, cuda)
     out, crc = rs_cuda.fused_apply_crc(PARITY, x)
-    want, want_crc = rs_cuda.fused_apply_crc_plain(PARITY, x.contiguous())
+    want, want_crc = rs_cuda.fused_apply_crc_plain(PARITY, x)
     assert torch.equal(out, want) and torch.equal(crc, want_crc)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("length", [50, 4096 + 3, 1 << 16])
+def test_gf_apply_on_unaligned_views(cuda, offset, length):
+    x = _misaligned(offset + length, (10, length), offset, cuda)
+    for m in (PARITY, REBUILD[:1]):
+        assert torch.equal(rs_cuda.gf_apply(m, x),
+                           rs_cuda.gf_apply_plain(m, x))
+
+
+@pytest.mark.parametrize("d", [3, 10, 20])
+@pytest.mark.parametrize("p", [1, 5, 8, 16, 20])
+def test_kernels_at_row_counts(cuda, p, d):
+    """K1 at every row count (its wrapper splits 20 rows into groups of
+    16); K2 up to its 16 rows, raising above."""
+    m = _bytes(p * 100 + d, (p, d), "cpu").numpy()
+    for length in (4096, 4096 + 3):
+        x = _bytes(length + d, (2, d, length), cuda)
+        assert torch.equal(rs_cuda.gf_apply(m, x[0]),
+                           rs_cuda.gf_apply_plain(m, x[0]))
+        if p > rs_cuda.MAX_ROWS:
+            with pytest.raises(ValueError):
+                rs_cuda.fused_apply_crc(m, x)
+            continue
+        out, crc = rs_cuda.fused_apply_crc(m, x)
+        want, want_crc = rs_cuda.fused_apply_crc_plain(m, x)
+        assert torch.equal(out, want) and torch.equal(crc, want_crc)
 
 
 def test_encode_pipeline_on_card_equals_cpu(cuda, tmp_path):

@@ -129,12 +129,193 @@ def test_adv_columns_apply_the_advance():
 
 def test_k2_geometry():
     assert rs_cuda.k2_geometry(4, 10, 1 << 20) == (4096, 16)
-    assert rs_cuda.k2_geometry(4, 10, 50) == (256, 16)
-    assert rs_cuda.k2_geometry(1, 3, 1) == (1024, 64)
+    assert rs_cuda.k2_geometry(4, 10, 50) == (1024, 16)
+    assert rs_cuda.k2_geometry(1, 3, 1) == (2048, 32)
+    assert rs_cuda.k2_geometry(16, 10, 1 << 20) == (4096, 8)
     tile, sub = rs_cuda.k2_geometry(16, 40, 1 << 20)
     assert tile < 4096 and rs_cuda._smem_bytes(16, 40, tile, sub) <= rs_cuda.MAX_SMEM
+    # two blocks per SM at RS(10,4): 228 KiB per SM, 1 KiB reserved each
+    assert 2 * (rs_cuda._smem_bytes(4, 10, 4096, 16) + 1024) <= 228 * 1024
     with pytest.raises(ValueError):
         rs_cuda.k2_geometry(16, 255, 1 << 20)
+
+
+# -- the kernels' table steps, emulated in numpy -------------------------------
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm(x, y, sel) on uint32 arrays."""
+    src = [(x >> np.uint32(8 * i)) & np.uint32(0xFF) for i in range(4)] + \
+          [(y >> np.uint32(8 * i)) & np.uint32(0xFF) for i in range(4)]
+    out = np.zeros_like(x)
+    for n in range(4):
+        out |= src[(sel >> (4 * n)) & 7] << np.uint32(8 * n)
+    return out
+
+
+def _offsets(v, e):
+    """gf_core.cuh's lookup offsets for byte e of words v: (low, high)
+    nibble as 16-word table indices."""
+    lo = (v << np.uint32(2)) & np.uint32(0x3C3C3C3C)
+    hi = (v >> np.uint32(2)) & np.uint32(0x3C3C3C3C)
+    sh = np.uint32(8 * e)
+    mask = np.uint32(0xFF)
+    return ((lo >> sh) & mask) // 4, ((hi >> sh) & mask) // 4
+
+
+def _emulate_gf(tables, data):
+    """gf_mac over every input row, then gf_rows: (d, L) bytes, L % 4 == 0
+    -> (4G, L) bytes."""
+    d, groups = tables.shape[:2]
+    words = np.ascontiguousarray(data).view("<u4")
+    acc = np.zeros((4, groups, words.shape[1]), dtype=np.uint32)
+    for j in range(d):
+        for e in range(4):
+            il, ih = _offsets(words[j], e)
+            for g in range(groups):
+                acc[e, g] ^= tables[j, g, 0, il] ^ tables[j, g, 1, ih]
+    rows = []
+    for g in range(groups):
+        t0 = _byte_perm(acc[0, g], acc[1, g], 0x5140)
+        t1 = _byte_perm(acc[2, g], acc[3, g], 0x5140)
+        t2 = _byte_perm(acc[0, g], acc[1, g], 0x7362)
+        t3 = _byte_perm(acc[2, g], acc[3, g], 0x7362)
+        rows += [_byte_perm(t0, t1, 0x5410), _byte_perm(t0, t1, 0x7632),
+                 _byte_perm(t2, t3, 0x5410), _byte_perm(t2, t3, 0x7632)]
+    return np.stack(rows).view(np.uint8)
+
+
+def _nib_apply(m, x):
+    """gf_core.cuh nib_apply for one uint32 x and an (8, 16) map."""
+    r = 0
+    for k in range(8):
+        r ^= int(m[k, (x >> (4 * k)) & 15])
+    return r
+
+
+def _table_matrices():
+    survivors = [1, 2, 3, 4, 6, 7, 8, 9, 10, 12]
+    return {
+        "parity": PARITY,
+        "rebuild4": np.ascontiguousarray(j_rs_numpy.decode_rows(
+            10, 14, survivors, (0, 5, 11, 13))),
+        "decode1": np.ascontiguousarray(j_rs_numpy.decode_rows(
+            10, 14, [0, 1, 2, 4, 5, 6, 7, 8, 9, 10], (3,))),
+        "random16": _bytes(16, (16, 10)),
+    }
+
+
+@pytest.mark.parametrize("name", ["parity", "rebuild4", "decode1",
+                                  "random16"])
+def test_gf_tables_decode_to_jax_products(name):
+    m = _table_matrices()[name]
+    p, d = m.shape
+    tables = rs_cuda.gf_tables(m)
+    groups = -(-p // 4)
+    assert tables.shape == (d, groups, 2, 16) and tables.dtype == np.uint32
+    mt = j_gf256.mul_table()
+    low, high = j_gf256.nibble_tables()
+    n = np.arange(16)
+    for j in range(d):
+        for g in range(groups):
+            for q in range(4):
+                lo = (tables[j, g, 0] >> np.uint32(8 * q)) & np.uint32(0xFF)
+                hi = (tables[j, g, 1] >> np.uint32(8 * q)) & np.uint32(0xFF)
+                i = 4 * g + q
+                if i >= p:
+                    assert not lo.any() and not hi.any()
+                    continue
+                assert np.array_equal(lo, mt[m[i, j], n])
+                assert np.array_equal(hi, mt[m[i, j], n << 4])
+                assert np.array_equal(lo, low[m[i, j]])
+                assert np.array_equal(hi, high[m[i, j]])
+
+
+@pytest.mark.parametrize("name", ["parity", "rebuild4", "decode1",
+                                  "random16"])
+def test_gf_table_step_equals_jax_apply(name):
+    """The kernels' lookup and byte-transpose steps, run in numpy on the
+    packed tables, give the JAX package's GF apply."""
+    m = _table_matrices()[name]
+    data = _bytes(len(name), (10, 64))
+    got = _emulate_gf(rs_cuda.gf_tables(m), data)
+    assert np.array_equal(got[:m.shape[0]],
+                          j_rs_numpy.gf_apply_matrix(m, data))
+    assert not got[m.shape[0]:].any()
+
+
+def test_nibble_maps_apply_the_advance():
+    rng = np.random.default_rng(9)
+    for n in (4, 16, 256, 4096):
+        m = rs_cuda.nibble_map(rs_cuda._adv_columns(n))
+        for x in rng.integers(0, 1 << 32, 4, dtype=np.uint64):
+            assert _nib_apply(m, int(x)) == j_crc.advance(int(x), n)
+
+
+@pytest.mark.parametrize("length", [1, 7, 256, 4096 + 3])
+def test_crc_table_step_equals_jax_raw_update(length):
+    """K2's CRC as the kernel runs it, in numpy: the row front-padded to
+    whole tiles; each sub-segment CRC'd as four interleaved streams of
+    4-byte words through the Adv_4 nibble map, the streams joined with
+    Adv_{T/4S} and Adv_{T/2S}; the sub-segments folded in the shuffle
+    tree's order with the Adv_{T/S 2^k} maps; the tiles folded with
+    Adv_T."""
+    row = _bytes(length, length)
+    tile, sub = rs_cuda.k2_geometry(4, 10, length)
+    maps = rs_cuda.crc_maps(tile, sub)
+    assert maps.shape == (3 + sub.bit_length() - 1, 8, 16)
+    ntiles = -(-length // tile)
+    padded = np.zeros(ntiles * tile, dtype=np.uint8)
+    padded[ntiles * tile - length:] = row
+    words = padded.view("<u4").reshape(ntiles, sub, rs_cuda.K2_STREAMS, -1)
+    crc = 0
+    for t in range(ntiles):
+        parts = []
+        for s in range(sub):
+            sk = []
+            for stream in words[t, s]:
+                st = 0
+                for w in stream:
+                    st = _nib_apply(maps[0], st ^ int(w))
+                sk.append(st)
+            parts.append(_nib_apply(maps[2], _nib_apply(maps[1], sk[0])
+                                    ^ sk[1])
+                         ^ _nib_apply(maps[1], sk[2]) ^ sk[3])
+        for k in range(sub.bit_length() - 1):  # lane s takes lane s + 2^k
+            parts = [_nib_apply(maps[3 + k], parts[i]) ^ parts[i + 1]
+                     for i in range(0, len(parts), 2)]
+        crc = j_crc.advance(crc, tile) ^ parts[0]
+    assert crc == j_crc.raw_update(0, row.tobytes())
+
+
+@pytest.mark.parametrize("ntiles", [1, 5, 33, 100])
+def test_tile_fold_order_equals_sequential_fold(ntiles):
+    """fold_kernel's order, in numpy: virtual zero tiles in front up to
+    32 m, lane l Horner-folds tiles 32 q + l with Adv_{32 T}, a shuffle
+    tree joins lanes with Adv_{T 2^k}; equal to folding the tiles in
+    order with Adv_T."""
+    tile = 4096
+    rng = np.random.default_rng(ntiles)
+    parts = [int(x) for x in rng.integers(0, 1 << 32, ntiles,
+                                          dtype=np.uint64)]
+    want = 0
+    for v in parts:
+        want = j_crc.advance(want, tile) ^ v
+    maps = [rs_cuda.nibble_map(rs_cuda._adv_columns(n))
+            for n in [32 * tile] + [tile << k for k in range(5)]]
+    m = -(-ntiles // 32)
+    lead = 32 * m - ntiles
+    lanes = []
+    for lane in range(32):
+        acc = 0
+        for q in range(m):
+            t = 32 * q + lane - lead
+            acc = _nib_apply(maps[0], acc) ^ (parts[t] if t >= 0 else 0)
+        lanes.append(acc)
+    for k in range(5):
+        lanes = [_nib_apply(maps[1 + k], lanes[i]) ^ lanes[i + 1]
+                 for i in range(0, len(lanes), 2)]
+    assert lanes[0] == want
 
 
 # -- K1 -------------------------------------------------------------------------
