@@ -9,12 +9,21 @@ Phases:
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes, at ragged lengths and through misaligned
      pointers (tolerance 0: exact integer math), and time both with CUDA
-     events, cold in L2 (`time_cold`);
-  3. the main path at real size, RS(10,4) over a seeded 1 GiB volume:
-     write_ec_files, rebuild_ec_files after three loss patterns,
-     reconstruct_span and new_encoder("cuda").reconstruct of a lost data
-     shard, each checked byte for byte and CRC for CRC;
-  4. one JSON line of per-kernel numbers, then the card's name and power
+     events, cold in L2 (`time_cold`); time reconstruct_span's host
+     route against its K1 route at 64 KiB, 256 KiB and 1 MiB spans;
+  3. the raw-volume path, RS(10,4) over a seeded 256 MiB `.dat` (cut
+     from 1 GiB to leave the run's time to phase 4): write_ec_files,
+     rebuild_ec_files after three loss patterns, reconstruct_span and
+     new_encoder("cuda").reconstruct of a lost data shard, each checked
+     byte for byte and CRC for CRC;
+  4. the needle path at real size (SURVEY §7's minimum slice): a ~1 GiB
+     volume of ~7,000 seeded needles written through Volume, EC-encoded
+     on the card (K2) with its .ecx and .vif, 4 shard files deleted, every
+     needle read back through EcVolume's degraded-read ladder (K1 for
+     each recovered block), once on one thread and once on 8, then the
+     lost shards rebuilt (K2) and the volume decoded back to a .dat and
+     .idx byte-identical to the originals;
+  5. one JSON line of per-kernel numbers, then the card's name and power
      limit, then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -24,6 +33,7 @@ check fails.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import shutil
@@ -35,17 +45,26 @@ import time
 import numpy as np
 import torch
 
-from seaweedfs_tpu_torch.ops import _build, rs_cuda
+from seaweedfs_tpu_torch.ops import _build, codec, native, rs_cuda
 from seaweedfs_tpu_torch.ops import crc32c as crc_host
 from seaweedfs_tpu_torch.ops.codec import new_encoder, reconstruct_span
 from seaweedfs_tpu_torch.ops.crc_device import batched_crc32c_raw, finalize
 from seaweedfs_tpu_torch.ops.gf256 import parity_matrix
 from seaweedfs_tpu_torch.ops.rs_numpy import decode_rows
-from seaweedfs_tpu_torch.storage.erasure_coding import encoder, to_ext
+from seaweedfs_tpu_torch.storage.erasure_coding import (decoder, encoder,
+                                                        recover, to_ext)
+from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import (
+    EcVolume, EcVolumeShard)
+from seaweedfs_tpu_torch.storage.needle import Needle
+from seaweedfs_tpu_torch.storage.volume import Volume
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 MIB = 1 << 20
-VOLUME_BYTES = 1 << 30      # one 1 GiB volume
+VOLUME_BYTES = 256 * MIB    # phase 3's raw volume
+NEEDLE_VOLUME_BYTES = 1 << 30  # phase 4: one ~1 GiB needle volume
+NEEDLE_MIN, NEEDLE_MAX = 1 << 10, 1 << 20  # log-uniform needle sizes
+LOST = (0, 5, 11, 13)       # two data and two parity shards
+READERS = 8                 # threads of phase 4's concurrent pass
 CHUNK = MIB                 # the pipeline's column chunk for 1 MiB blocks
 SEED = 20261016
 SPIN_CYCLES = 200_000_000   # ~0.1 s of card time to queue timed runs behind
@@ -244,6 +263,71 @@ def kernel_phase(dev, mode: str) -> dict:
     return stats
 
 
+class knobs:
+    """Set WEED_* environment knobs for a `with` block, then restore."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.prev = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def median_ms(fn, reps: int = 20) -> float:
+    """Median host-clock ms of `fn()` over `reps` calls after 3 warm-up
+    calls; `fn` returns host memory, so each call ends in a sync."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def route_phase(dev) -> dict:
+    """reconstruct_span's two routes for one decode row x (10, S): the
+    host codec (the native library's GF apply) and the device route
+    (pageable H2D of the survivor stack, K1, D2H), as median host-clock
+    ms per call, beside K1 alone cold in L2 (`time_cold`).  The routes'
+    crossing is what WEED_EC_RECOVER_DEVICE_MIN_KB (512) should sit at."""
+    check(native.lib() is not None, "the native host library did not build")
+    rng = np.random.default_rng(SEED + 1)
+    survivors = [1, 2, 3, 4, 6, 7, 8, 9, 10, 12]
+    row = np.ascontiguousarray(decode_rows(10, 14, survivors, (0,)))
+    out = {}
+    for span in (64 << 10, 256 << 10, MIB):
+        x = np.frombuffer(rng.bytes(10 * span), np.uint8).reshape(
+            10, span).copy()
+        want = codec._apply_rows_host(row, x)[0]
+        res = {}
+        for route, knob in (("host", "0"), ("device", "1")):
+            with knobs(WEED_EC_RECOVER_DEVICE=knob,
+                       WEED_EC_RECOVER_DEVICE_MIN_KB="0"):
+                got = reconstruct_span(survivors, x, 0, device=dev)
+                check(np.array_equal(got, want),
+                      f"reconstruct_span {route} route differs at {span}")
+                res[route + "_ms"] = median_ms(
+                    lambda: reconstruct_span(survivors, x, 0, device=dev))
+        nsets = max(8, -(-64 * MIB // (10 * span)))
+        sets = [(row, rand_bytes(rng, (10, span), dev)) for _ in range(nsets)]
+        res["k1_ms"] = time_cold(rs_cuda.gf_apply, sets)
+        out[span] = res
+        log(f"reconstruct_span (10, {span >> 10} KiB) -> 1 row: host "
+            f"{res['host_ms']:.4f} ms, device route {res['device_ms']:.4f} "
+            f"ms (K1 alone, cold: {res['k1_ms'] * 1e3:.3f} us)")
+    return out
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 
@@ -358,6 +442,7 @@ def reconstruct_phase(base: str, dev) -> int:
 
 
 def main_path(dev, workdir: str) -> dict:
+    """Phase 3 on a raw .dat; returns the kernels' launches in it."""
     base = os.path.join(workdir, "1")
     t0 = time.perf_counter()
     write_volume(base + ".dat", VOLUME_BYTES, SEED)
@@ -384,6 +469,172 @@ def main_path(dev, workdir: str) -> dict:
         f"(encode alone: {launches_encode})")
     # the checks read the files back; they run after the counted phases
     verify_encode(base, crcs, dev)
+    for name in os.listdir(workdir):
+        os.unlink(os.path.join(workdir, name))
+    return launches
+
+
+# -- phase 4 -----------------------------------------------------------------
+
+
+def write_needle_volume(workdir: str, nbytes: int, seed: int) -> dict:
+    """Needles through Volume.write_needle until `nbytes` of data: sizes
+    log-uniform in [NEEDLE_MIN, NEEDLE_MAX], random names and cookies,
+    ascending sparse ids.  Returns {id: (cookie, data)}."""
+    rng = np.random.default_rng(seed)
+    vol = Volume(workdir, "", 1)
+    written = {}
+    total, nid = 0, 0
+    lo, hi = np.log(NEEDLE_MIN), np.log(NEEDLE_MAX)
+    while total < nbytes:
+        nid += int(rng.integers(1, 1000))
+        size = int(np.exp(rng.uniform(lo, hi)))
+        n = Needle.create(rng.bytes(size),
+                          name=f"obj-{rng.bytes(6).hex()}.jpg".encode(),
+                          mime=b"image/jpeg")
+        n.id, n.cookie = nid, int(rng.integers(1, 1 << 32))
+        vol.write_needle(n)
+        written[nid] = (n.cookie, n.data)
+        total += size
+    vol.close()
+    return written
+
+
+def mount(workdir: str, dev) -> EcVolume:
+    ev = EcVolume(workdir, "", 1, device=dev)
+    for sid in range(14):
+        if sid not in LOST:
+            ev.add_shard(EcVolumeShard(workdir, "", 1, sid))
+    return ev
+
+
+def read_pass(ev, written: dict, ids: list, lat: dict = None) -> int:
+    """Read each needle of `ids` through `ev` and check it; with `lat`,
+    record each read's seconds under lat[id]."""
+    for nid in ids:
+        cookie, data = written[nid]
+        t0 = time.perf_counter()
+        n = ev.read_needle(nid, cookie=cookie)  # read_bytes checks the CRC
+        if lat is not None:
+            lat[nid] = time.perf_counter() - t0
+        check(n.data == data and n.cookie == cookie,
+              f"needle {nid:x} read back differs")
+    return len(ids)
+
+
+def pct_ms(secs: list, q: float) -> float:
+    return float(np.percentile(secs, q)) * 1e3 if secs else float("nan")
+
+
+def needle_phase(dev, workdir: str) -> dict:
+    """Phase 4; returns the kernels' launches in it."""
+    check(native.lib() is not None,
+          "the native host library did not build: the needle CRCs of a "
+          "1 GiB volume need it")
+    base = os.path.join(workdir, "1")
+    rs_cuda.reset_launches()
+    t0 = time.perf_counter()
+    written = write_needle_volume(workdir, NEEDLE_VOLUME_BYTES, SEED + 4)
+    write_s = time.perf_counter() - t0
+    dat_bytes = os.path.getsize(base + ".dat")
+    log(f"needle volume: {len(written)} needles, {dat_bytes} B of .dat, "
+        f"written in {write_s:.3f} s")
+
+    stats: dict = {}
+    t0 = time.perf_counter()
+    crcs = encoder.write_ec_files(base, stage_stats=stats, device=dev)
+    enc_s = time.perf_counter() - t0
+    encoder.write_sorted_file_from_idx(base)
+    encoder.save_volume_info(base, version=3, extra={"shard_crc32c": crcs})
+    log(f"needle volume encode: {enc_s:.3f} s, "
+        f"{dat_bytes / enc_s / (1 << 30):.3f} GiB/s of .dat bytes "
+        f"(+ .ecx and .vif in {time.perf_counter() - t0 - enc_s:.3f} s)")
+    log("needle volume encode stage_stats: " + json.dumps(stats,
+                                                          sort_keys=True))
+    for sid in LOST:
+        os.replace(base + to_ext(sid), base + to_ext(sid) + ".lost")
+
+    # pass 1: one reader, default knobs (256 KiB blocks, 64 MiB cache)
+    ev = mount(workdir, dev)
+    behind = {nid for nid in written
+              if any(iv.to_shard_id_and_offset(
+                  ev.large_block_size, ev.small_block_size)[0] in LOST
+                  for iv in ev.locate_needle(nid)[2])}
+    recover.STATS.reset()
+    k1_before = rs_cuda.launches["gf_apply"]
+    lat: dict = {}
+    t0 = time.perf_counter()
+    read_pass(ev, written, sorted(written), lat)
+    pass1_s = time.perf_counter() - t0
+    k1 = rs_cuda.launches["gf_apply"] - k1_before
+    st1 = ev.recover_stats()
+    ev.close()
+    lost_lat = [lat[i] for i in behind]
+    ok_lat = [lat[i] for i in written if i not in behind]
+    log(f"pass 1 (1 reader): {len(written)} needles read in {pass1_s:.3f} s, "
+        f"{len(behind)} behind a lost shard; recovered blocks "
+        f"{st1['cache_misses']}, K1 launches {k1}, batches "
+        f"{st1['batches']}, batched_spans {st1['batched_spans']}, cache "
+        f"hits {st1['cache_hits']} misses {st1['cache_misses']}")
+    log(f"pass 1 read latency ms: behind a lost shard p50 "
+        f"{pct_ms(lost_lat, 50):.4f} p99 {pct_ms(lost_lat, 99):.4f}; intact "
+        f"p50 {pct_ms(ok_lat, 50):.4f} p99 {pct_ms(ok_lat, 99):.4f}")
+    log(f"pass 1 stage seconds: fetch {st1['fetch_seconds']} decode "
+        f"{st1['decode_seconds']} serve {st1['serve_seconds']}")
+    check(len(behind) > 0, "no needle sits behind a lost shard")
+    check(k1 > 0 and k1 == st1["batches"],
+          f"pass 1: {k1} K1 launches for {st1['batches']} decode batches")
+
+    # pass 2: READERS threads over a fresh mount, each on its own stretch
+    # of the volume, so that decodes of one lost shard stack
+    ev = mount(workdir, dev)
+    recover.STATS.reset()
+    k1_before = rs_cuda.launches["gf_apply"]
+    ids = sorted(written)
+    chunks = [ids[k * len(ids) // READERS:(k + 1) * len(ids) // READERS]
+              for k in range(READERS)]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(READERS) as pool:
+        counts = [f.result() for f in [pool.submit(read_pass, ev, written, c)
+                                       for c in chunks]]
+    pass2_s = time.perf_counter() - t0
+    k1_2 = rs_cuda.launches["gf_apply"] - k1_before
+    st2 = ev.recover_stats()
+    ev.close()
+    widths = st2["recovered_bytes"] / max(1, st2["batches"]) / 10 / MIB
+    log(f"pass 2 ({READERS} readers): {sum(counts)} needles in "
+        f"{pass2_s:.3f} s; K1 launches {k1_2}, batches {st2['batches']}, "
+        f"spans {st2['spans']}, batched_spans {st2['batched_spans']}, "
+        f"coalesced {st2['coalesced']}, cache hits {st2['cache_hits']} "
+        f"misses {st2['cache_misses']}, mean K1 input (10, "
+        f"{widths:.3f} MiB)")
+    check(sum(counts) == len(written), "pass 2 missed needles")
+    check(k1_2 > 0 and k1_2 == st2["batches"],
+          f"pass 2: {k1_2} K1 launches for {st2['batches']} decode batches")
+    check(st2["batched_spans"] > 0, "pass 2 stacked no spans")
+
+    # rebuild the lost shards (K2), then decode back to a volume
+    t0 = time.perf_counter()
+    rebuilt = encoder.rebuild_ec_files(base, device=dev)
+    rebuild_s = time.perf_counter() - t0
+    check(sorted(rebuilt) == sorted(LOST), f"rebuilt {sorted(rebuilt)}")
+    for sid in LOST:
+        check(rebuilt[sid] == crcs[sid], f"rebuilt shard {sid} CRC differs")
+        check(same_file(base + to_ext(sid), base + to_ext(sid) + ".lost"),
+              f"rebuilt shard {sid} differs")
+    launches = dict(rs_cuda.launches)
+    for ext in (".dat", ".idx"):
+        os.replace(base + ext, base + ext + ".orig")
+    t0 = time.perf_counter()
+    decoder.write_dat_file(base, decoder.find_dat_file_size(base, base))
+    decoder.write_idx_file_from_ec_index(base)
+    decode_s = time.perf_counter() - t0
+    for ext in (".dat", ".idx"):
+        check(same_file(base + ext, base + ext + ".orig"),
+              f"decoded {ext} differs from the volume's")
+    log(f"rebuild {list(LOST)}: {rebuild_s:.3f} s; decode to .dat/.idx: "
+        f"{decode_s:.3f} s; both byte-identical to the originals")
+    log(f"launches on the needle path: {launches}")
     return launches
 
 
@@ -410,16 +661,20 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
     stats = kernel_phase(dev, mode)
+    if mode != "quick":
+        route_phase(dev)
     launches = {}
     if mode == "all":
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
-            launches = main_path(dev, workdir)
+            raw = main_path(dev, workdir)
+            needles = needle_phase(dev, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         for name in KERNELS:
-            check(launches.get(name, 0) > 0,
-                  f"{name} was not launched on the main path")
+            check(raw.get(name, 0) > 0 and needles.get(name, 0) > 0,
+                  f"{name} was not launched on both paths")
+        launches = {name: raw[name] + needles[name] for name in KERNELS}
         rows = []
         for name, meta in KERNELS.items():
             s = stats[name]

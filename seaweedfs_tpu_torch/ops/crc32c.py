@@ -2,6 +2,8 @@
 
 The needle and shard-file checksum.  `crc32c` runs the native library
 (ops/native.py) when it is built, else a pure-Python slicing-by-8 loop.
+Needles store the raw CRC of their data; `value` is the legacy rotated
+form (Go's CRC.Value()) that reads also accept.
 The algebra below (raw images, advance matrices, combine) is what lets the
 device kernels return raw per-chunk images that the host finalizes and
 chains with O(1) work per chunk.
@@ -67,6 +69,14 @@ def crc32c(data, crc: int = 0) -> int:
         return cdll.sw_crc32c(crc, data.ctypes.data_as(ctypes.c_char_p),
                               data.nbytes)
     return _crc32c_py(crc, data.tobytes())
+
+
+def value(crc: int) -> int:
+    """Legacy CRC.Value(): rotate right by 15, add a constant; needles
+    written by old versions store this form."""
+    crc &= 0xFFFFFFFF
+    rotated = ((crc >> 15) | (crc << 17)) & 0xFFFFFFFF
+    return (rotated + 0xA282EAD8) & 0xFFFFFFFF
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """ctypes loader for the repo's host C++ library (native/ec_native.cpp).
 
-Only the CRC32C entry is bound: the port uses host CRC on cold edges
-(checks, short tails) and never per byte on the hot path.  `lib()` runs
+Two entries are bound: CRC32C (needle checksums, cold edges of the
+encode) and the host GF(2^8) matrix apply, which serves degraded-read
+decodes too small to be worth a trip to the card.  `lib()` runs
 `make` in native/ once (a no-op when the library is fresh) and returns None
 when no toolchain and no prebuilt library exist; callers then take the
 pure-Python path.
@@ -35,4 +36,8 @@ def lib() -> ctypes.CDLL | None:
     cdll.sw_crc32c.restype = ctypes.c_uint32
     cdll.sw_crc32c.argtypes = [ctypes.c_uint32, ctypes.c_char_p,
                                ctypes.c_size_t]
+    cdll.sw_gf_apply_matrix.restype = None
+    cdll.sw_gf_apply_matrix.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
+        ctypes.c_size_t, ctypes.c_char_p]
     return cdll

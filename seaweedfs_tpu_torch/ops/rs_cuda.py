@@ -14,7 +14,8 @@ each design does about that and PERF.md what was measured.  A wrapper
 takes the plain PyTorch version only for a tensor that lies on the CPU;
 for a CUDA tensor it launches its kernel or raises.  `launches` counts
 kernel launches per wrapper, so a run can show which path it went
-through.
+through; `count_launch` keeps the counts exact when several threads
+launch at once (concurrent degraded reads).
 
 The GF(2^8) matrix is always a host (p, d) uint8 numpy array, as in the
 JAX functions.  Raw CRC values come back as int64 tensors holding the
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -41,11 +43,20 @@ K2_STREAMS = 4       # interleaved CRC streams per sub-segment (kStreams)
 K2_MAPS = 8          # nibble maps K2 reserves shared memory for (kMapsWords)
 
 launches = {"gf_apply": 0, "fused_apply_crc": 0}
+_launches_lock = threading.Lock()
+
+
+def count_launch(name: str):
+    """Add one launch of kernel `name`; called where a wrapper launches
+    its kernel and nowhere else."""
+    with _launches_lock:
+        launches[name] += 1
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    with _launches_lock:
+        for k in launches:
+            launches[k] = 0
 
 
 # -- host tables --------------------------------------------------------------
@@ -236,7 +247,7 @@ def gf_apply(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
         tab = _gf_tables_on(*_matrix_key(sub), data.device)
         _check(_k1()(tab.data_ptr(), sub.shape[0], d, data.data_ptr(),
                      length, out[r0:].data_ptr(), stream), "gf_apply")
-        launches["gf_apply"] += 1
+        count_launch("gf_apply")
     return out
 
 
@@ -274,7 +285,7 @@ def fused_apply_crc(matrix: np.ndarray, data: torch.Tensor):
                  data.data_ptr(), b, length, tile, sub,
                  out.data_ptr(), partial.data_ptr(), crc.data_ptr(), stream),
            "fused_apply_crc")
-    launches["fused_apply_crc"] += 1
+    count_launch("fused_apply_crc")
     return out, crc
 
 

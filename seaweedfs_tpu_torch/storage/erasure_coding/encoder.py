@@ -1,4 +1,5 @@
-"""EC encode/rebuild: volume .dat -> 14 shard files, GF math on the card.
+"""EC encode/rebuild: volume .dat -> 14 shard files, GF math on the card,
+plus the .ecx sorted index and the .vif sidecar.
 
 Counterpart of seaweedfs_tpu/storage/erasure_coding/encoder.py, batched
 route only.  Layout is WriteEcFiles': the .dat is striped row-major over 10
@@ -12,9 +13,23 @@ from __future__ import annotations
 import json
 from typing import Optional
 
+from .. import idx as idx_mod
+from ..needle_map import load_needle_map_from_idx
 from . import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE
 
 _FAMILY = "rs_vandermonde"
+
+
+def write_sorted_file_from_idx(base_file_name: str):
+    """Generate .ecx (ascending-id sorted copy of live .idx entries) —
+    WriteSortedFileFromIdx (ec_encoder.go:27-54).  Entries whose latest
+    state is a deletion are omitted (readNeedleMap drops them).  The
+    compact map's vectorised bulk loader keeps this array work."""
+    nm = load_needle_map_from_idx(base_file_name + ".idx", kind="compact")
+    with open(base_file_name + ".ecx", "wb") as f:
+        for nid, nv in nm.items_ascending():
+            if nv.offset > 0 and nv.size >= 0:
+                f.write(idx_mod.pack_entry(nid, nv.offset, nv.size))
 
 
 def _check_family(family):

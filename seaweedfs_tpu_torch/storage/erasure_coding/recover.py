@@ -1,0 +1,340 @@
+"""Fast degraded-read machinery: recovered-block cache, single-flight
+coalescing, batched multi-span decode, and per-stage stats.
+
+The decode-side counterpart of the encode pipeline's write-behind stage.
+A dead shard mid-incident is read by MANY clients at once, usually at
+adjacent offsets; the naive ladder re-fetches 10 survivor spans and
+re-runs the GF math per request.  Here:
+
+  * recoveries are BLOCK-ALIGNED and the recovered blocks live in a
+    bounded LRU (pattern: filer/reader_cache.py ChunkCache), so
+    back-to-back reads of the same dead block are a dict hit;
+  * concurrent misses on the same block are SINGLE-FLIGHTED: one leader
+    does the survivor fan-out + decode, the rest wait on its result
+    (an error propagates to the waiters but is never cached — the next
+    read retries with whatever survivors are healthy then);
+  * concurrent misses on DIFFERENT blocks that resolved the same
+    survivor set are stacked column-wise and decoded in one GF mat-vec
+    (the read-side analogue of parallel/batched_encode.py's span
+    batching: the decode row is per-(survivors, target), so spans
+    concatenate for free).
+
+Knobs (env, read per call so daemons/tests flip them live):
+  WEED_EC_RECOVER_CACHE_MB   recovered-block LRU budget per EC volume
+                             (default 64; 0 disables caching)
+  WEED_EC_RECOVER_BLOCK_KB   recovery granularity (default 256; 0 =
+                             exact spans, no alignment)
+  WEED_EC_RECOVER_COALESCE   0 disables single-flight + batching
+
+The counters are plain fields; the reference's Prometheus mirrors and its
+device-pool snapshot come with the stats and device-pool slices.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import OrderedDict
+from typing import Callable, Optional
+
+import numpy as np
+
+
+
+def recover_knobs() -> tuple[int, int, bool]:
+    """(cache_bytes, block_bytes, coalesce) from the WEED_EC_RECOVER_*
+    env knobs."""
+    mb = os.environ.get("WEED_EC_RECOVER_CACHE_MB", "")
+    cache_bytes = int(float(mb) * (1 << 20)) if mb else (64 << 20)
+    kb = os.environ.get("WEED_EC_RECOVER_BLOCK_KB", "")
+    block_bytes = int(float(kb) * 1024) if kb else (256 << 10)
+    coalesce = os.environ.get("WEED_EC_RECOVER_COALESCE", "1").lower() \
+        not in ("0", "false", "no")
+    return cache_bytes, block_bytes, coalesce
+
+
+class RecoverStats:
+    """Cumulative degraded-read telemetry, process-wide.  Busy seconds
+    per stage (fetch = survivor reads, decode = GF math, serve = span
+    assembly/cache bookkeeping around them) plus cache and coalescing
+    counters."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self):
+        with self._lock:
+            self.fetch_seconds = 0.0
+            self.decode_seconds = 0.0
+            self.serve_seconds = 0.0
+            self.cache_hits = 0
+            self.cache_misses = 0
+            self.coalesced = 0
+            self.spans = 0
+            self.batches = 0
+            self.batched_spans = 0
+            self.recovered_bytes = 0
+
+    def add_stage(self, stage: str, seconds: float):
+        with self._lock:
+            if stage == "fetch":
+                self.fetch_seconds += seconds
+            elif stage == "decode":
+                self.decode_seconds += seconds
+            else:
+                self.serve_seconds += seconds
+
+    def cache_event(self, result: str, n: int = 1):
+        with self._lock:
+            if result == "hit":
+                self.cache_hits += n
+            elif result == "miss":
+                self.cache_misses += n
+            else:
+                self.coalesced += n
+
+    def decoded(self, n_spans: int, nbytes: int):
+        with self._lock:
+            self.spans += n_spans
+            self.batches += 1
+            if n_spans > 1:
+                self.batched_spans += n_spans
+            self.recovered_bytes += nbytes
+
+    def snapshot(self, wall: Optional[float] = None) -> dict:
+        """Point-in-time dict of everything above; with `wall` (seconds
+        of observed load) stage busy fractions are included — the
+        degraded-read pipeline's own answer to "which stage is the
+        bottleneck"."""
+        with self._lock:
+            out = {
+                "fetch_seconds": round(self.fetch_seconds, 3),
+                "decode_seconds": round(self.decode_seconds, 3),
+                "serve_seconds": round(self.serve_seconds, 3),
+                "cache_hits": self.cache_hits,
+                "cache_misses": self.cache_misses,
+                "coalesced": self.coalesced,
+                "spans": self.spans,
+                "batches": self.batches,
+                "batched_spans": self.batched_spans,
+                "recovered_bytes": self.recovered_bytes,
+            }
+        lookups = out["cache_hits"] + out["cache_misses"]
+        out["cache_hit_ratio"] = (
+            round(out["cache_hits"] / lookups, 3) if lookups else 0.0)
+        if wall and wall > 0:
+            for k in ("fetch", "decode", "serve"):
+                out[f"{k}_frac"] = round(out[f"{k}_seconds"] / wall, 3)
+        return out
+
+
+STATS = RecoverStats()
+
+
+class _Flight:
+    __slots__ = ("event", "value", "error")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.value: Optional[bytes] = None
+        self.error: Optional[BaseException] = None
+
+
+class RecoveredBlockCache:
+    """Bounded byte-budget LRU of recovered shard blocks with
+    single-flight miss coalescing.  Keys are (shard_id, offset, length);
+    entries are the recovered bytes — immutable content (EC shard files
+    never change after encode), so there is no invalidation story beyond
+    eviction."""
+
+    def __init__(self, stats: RecoverStats = STATS):
+        self._data: "OrderedDict[tuple, bytes]" = OrderedDict()
+        self._bytes = 0
+        self._lock = threading.Lock()
+        self._flights: dict[tuple, _Flight] = {}
+        self.stats = stats
+
+    @property
+    def size_bytes(self) -> int:
+        return self._bytes
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    def clear(self):
+        with self._lock:
+            self._data.clear()
+            self._bytes = 0
+
+    def _get(self, key: tuple) -> Optional[bytes]:
+        with self._lock:
+            data = self._data.get(key)
+            if data is not None:
+                self._data.move_to_end(key)
+            return data
+
+    def _put(self, key: tuple, data: bytes, capacity: int):
+        if len(data) > capacity:
+            return  # oversized: never cache (chunk_cache size gate)
+        with self._lock:
+            old = self._data.pop(key, None)
+            if old is not None:
+                self._bytes -= len(old)
+            self._data[key] = data
+            self._bytes += len(data)
+            while self._bytes > capacity:
+                _, evicted = self._data.popitem(last=False)
+                self._bytes -= len(evicted)
+
+    def get_or_recover(self, key: tuple, recover: Callable[[], bytes],
+                       capacity: int, coalesce: bool) -> bytes:
+        """Serve `key` from the LRU, else recover it — at most once at a
+        time per key when `coalesce` is on.  16 concurrent readers of a
+        dead block cost ONE survivor fan-out and ONE decode; the 15
+        followers block on the leader's flight.  A leader failure wakes
+        the followers with the error and caches nothing."""
+        if capacity > 0:
+            data = self._get(key)
+            if data is not None:
+                self.stats.cache_event("hit")
+                return data
+        if not coalesce:
+            self.stats.cache_event("miss")
+            data = recover()
+            if capacity > 0:
+                self._put(key, data, capacity)
+            return data
+        with self._lock:
+            flight = self._flights.get(key)
+            if flight is None:
+                # double-check under the lock: a just-landed leader may
+                # have populated the cache between _get and here
+                data = self._data.get(key) if capacity > 0 else None
+                if data is not None:
+                    self._data.move_to_end(key)
+                leader = data is None
+                if leader:
+                    flight = self._flights[key] = _Flight()
+            else:
+                leader = False
+                data = None
+        if data is not None:
+            self.stats.cache_event("hit")
+            return data
+        if not leader:
+            self.stats.cache_event("coalesced")
+            # a wedged leader (e.g. a remote fetch past its own timeout)
+            # must not strand followers forever: time out and self-serve
+            if flight.event.wait(timeout=120.0):
+                if flight.error is not None:
+                    raise flight.error
+                return flight.value
+            return recover()
+        self.stats.cache_event("miss")
+        try:
+            value = recover()
+        except BaseException as e:
+            flight.error = e
+            raise
+        else:
+            flight.value = value
+            if capacity > 0:
+                self._put(key, value, capacity)
+            return value
+        finally:
+            with self._lock:
+                self._flights.pop(key, None)
+            flight.event.set()
+
+
+class _DecodeReq:
+    __slots__ = ("inputs", "event", "out", "error")
+
+    def __init__(self, inputs: np.ndarray):
+        self.inputs = inputs
+        self.event = threading.Event()
+        self.out: Optional[np.ndarray] = None
+        self.error: Optional[BaseException] = None
+
+
+class SpanDecodeBatcher:
+    """Stacks concurrent decode requests that share a (survivor-set,
+    target) key into ONE GF mat-vec.  The decode row depends only on the
+    key, so spans at different offsets concatenate column-wise: a leader
+    drains everything queued for its key, decodes the stacked (d, ΣL)
+    input in one call, then splits the output back per request.
+    Requests arriving while a decode is in flight queue for the next
+    round (the leader loops until its key's queue is empty)."""
+
+    def __init__(self, decode_fn: Callable[[tuple, int, np.ndarray],
+                                           np.ndarray],
+                 stats: RecoverStats = STATS):
+        self._decode_fn = decode_fn
+        self._lock = threading.Lock()
+        self._queues: dict[tuple, list[_DecodeReq]] = {}
+        self._busy: set[tuple] = set()
+        self.stats = stats
+
+    def decode(self, survivors: tuple, target: int,
+               inputs: np.ndarray) -> np.ndarray:
+        """inputs: (d, L) survivor stack in `survivors` order -> (L,)
+        recovered bytes of `target`."""
+        key = (survivors, target)
+        req = _DecodeReq(inputs)
+        with self._lock:
+            self._queues.setdefault(key, []).append(req)
+            leader = key not in self._busy
+            if leader:
+                self._busy.add(key)
+        if not leader:
+            if req.event.wait(timeout=60.0):
+                if req.error is not None:
+                    raise req.error
+                return req.out
+            # leader vanished (shouldn't happen): decode our own span
+            return self._decode_batch(survivors, target, [req])[0]
+        try:
+            while True:
+                with self._lock:
+                    batch = self._queues.pop(key, [])
+                    if not batch:
+                        self._busy.discard(key)
+                        return req.out
+                self._decode_batch(survivors, target, batch)
+        except BaseException:
+            with self._lock:
+                self._busy.discard(key)
+                stranded = self._queues.pop(key, [])
+            for r in stranded:  # late joiners must not wait forever
+                r.error = req.error or r.error
+                r.event.set()
+            raise
+
+    def _decode_batch(self, survivors: tuple, target: int,
+                      batch: list[_DecodeReq]) -> list[np.ndarray]:
+        t0 = time.perf_counter()
+        try:
+            if len(batch) == 1:
+                stacked = batch[0].inputs
+            else:
+                stacked = np.concatenate([r.inputs for r in batch], axis=1)
+            out = self._decode_fn(survivors, target, stacked)
+            outs = []
+            col = 0
+            for r in batch:
+                width = r.inputs.shape[1]
+                r.out = out[col:col + width]
+                outs.append(r.out)
+                col += width
+            self.stats.decoded(len(batch), int(stacked.nbytes))
+            return outs
+        except BaseException as e:
+            for r in batch:
+                r.error = e
+            raise
+        finally:
+            self.stats.add_stage("decode", time.perf_counter() - t0)
+            for r in batch:
+                r.event.set()

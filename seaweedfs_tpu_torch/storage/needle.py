@@ -1,0 +1,306 @@
+"""Needle: one stored object, bit-compatible with the reference's on-disk form.
+
+Layouts (weed/storage/needle/needle_write.go:20-113, needle_read.go:98-177):
+
+  v1: header(16) | data | crc32c(4) | zero-pad to 8
+  v2: header(16) | dataSize(4) data flags(1) [nameSize name] [mimeSize mime]
+      [lastModified(5)] [ttl(2)] [pairsSize(2) pairs] | crc(4) | pad
+  v3: v2 body | crc(4) | appendAtNs(8) | pad
+
+  header = cookie(4) id(8) size(4), all big-endian.
+  size (v2/v3) = 4 + len(data) + 1 + optional sections; 0 when no data.
+  padding = 8 - ((16 + size + 4 [+ 8]) % 8)  — always 1..8 bytes (the
+  reference never emits 0 padding; GetActualSize needle_read.go:299).
+  CRC is Castagnoli over `data` only; the raw value is stored (the rotated
+  legacy CRC.Value() is accepted on read; needle_read.go:73-80).
+"""
+
+from __future__ import annotations
+
+import struct
+from dataclasses import dataclass
+
+from ..ops import crc32c as crc32c_mod
+from . import types as t
+from .ttl import EMPTY_TTL, TTL
+
+VERSION1, VERSION2, VERSION3 = 1, 2, 3
+CURRENT_VERSION = VERSION3
+
+FLAG_IS_COMPRESSED = 0x01
+FLAG_HAS_NAME = 0x02
+FLAG_HAS_MIME = 0x04
+FLAG_HAS_LAST_MODIFIED = 0x08
+FLAG_HAS_TTL = 0x10
+FLAG_HAS_PAIRS = 0x20
+FLAG_IS_CHUNK_MANIFEST = 0x80
+
+LAST_MODIFIED_BYTES = 5
+TTL_BYTES = 2
+
+PAIR_NAME_PREFIX = "Seaweed-"
+
+
+class NeedleError(Exception):
+    pass
+
+
+class SizeMismatchError(NeedleError):
+    pass
+
+
+class CrcError(NeedleError):
+    pass
+
+
+def padding_length(needle_size: int, version: int) -> int:
+    base = t.NEEDLE_HEADER_SIZE + needle_size + t.NEEDLE_CHECKSUM_SIZE
+    if version == VERSION3:
+        base += t.TIMESTAMP_SIZE
+    return t.NEEDLE_PADDING_SIZE - (base % t.NEEDLE_PADDING_SIZE)
+
+
+def needle_body_length(needle_size: int, version: int) -> int:
+    body = needle_size + t.NEEDLE_CHECKSUM_SIZE + padding_length(needle_size, version)
+    if version == VERSION3:
+        body += t.TIMESTAMP_SIZE
+    return body
+
+
+def get_actual_size(size: int, version: int) -> int:
+    return t.NEEDLE_HEADER_SIZE + needle_body_length(size, version)
+
+
+@dataclass
+class Needle:
+    id: int = 0
+    cookie: int = 0
+    size: int = 0
+    data: bytes = b""
+    flags: int = 0
+    name: bytes = b""
+    mime: bytes = b""
+    pairs: bytes = b""
+    last_modified: int = 0
+    ttl: TTL = EMPTY_TTL
+    checksum: int = 0
+    append_at_ns: int = 0
+
+    # -- flags ---------------------------------------------------------------
+    def _flag(self, mask: int) -> bool:
+        return bool(self.flags & mask)
+
+    def _set_flag(self, mask: int, on: bool = True):
+        self.flags = self.flags | mask if on else self.flags & ~mask
+
+    @property
+    def is_compressed(self):
+        return self._flag(FLAG_IS_COMPRESSED)
+
+    @property
+    def has_name(self):
+        return self._flag(FLAG_HAS_NAME)
+
+    @property
+    def has_mime(self):
+        return self._flag(FLAG_HAS_MIME)
+
+    @property
+    def has_last_modified(self):
+        return self._flag(FLAG_HAS_LAST_MODIFIED)
+
+    @property
+    def has_ttl(self):
+        return self._flag(FLAG_HAS_TTL)
+
+    @property
+    def has_pairs(self):
+        return self._flag(FLAG_HAS_PAIRS)
+
+    @property
+    def is_chunk_manifest(self):
+        return self._flag(FLAG_IS_CHUNK_MANIFEST)
+
+    # -- construction --------------------------------------------------------
+    @classmethod
+    def create(cls, data: bytes, name: bytes = b"", mime: bytes = b"",
+               pairs: bytes = b"", last_modified: int = 0, ttl: TTL = EMPTY_TTL,
+               is_compressed: bool = False,
+               is_chunk_manifest: bool = False) -> "Needle":
+        """Build a needle from upload parts, mirroring CreateNeedleFromRequest
+        (needle.go:52-124): flags derive from which parts are present."""
+        n = cls(data=bytes(data))
+        if 0 < len(name) < 256:
+            n.name = bytes(name)
+            n._set_flag(FLAG_HAS_NAME)
+        if 0 < len(mime) < 256:
+            n.mime = bytes(mime)
+            n._set_flag(FLAG_HAS_MIME)
+        if 0 < len(pairs) < 65536:
+            n.pairs = bytes(pairs)
+            n._set_flag(FLAG_HAS_PAIRS)
+        if is_compressed:
+            n._set_flag(FLAG_IS_COMPRESSED)
+        if is_chunk_manifest:
+            n._set_flag(FLAG_IS_CHUNK_MANIFEST)
+        if last_modified:
+            n.last_modified = last_modified
+            n._set_flag(FLAG_HAS_LAST_MODIFIED)
+        if ttl:
+            n.ttl = ttl
+            n._set_flag(FLAG_HAS_TTL)
+        n.checksum = crc32c_mod.crc32c(n.data)
+        return n
+
+    # -- serialisation --------------------------------------------------------
+    def _computed_size(self, version: int) -> int:
+        if version == VERSION1:
+            return len(self.data)
+        if len(self.data) == 0:
+            return 0
+        size = 4 + len(self.data) + 1
+        if self.has_name:
+            size += 1 + len(self.name)
+        if self.has_mime:
+            size += 1 + len(self.mime)
+        if self.has_last_modified:
+            size += LAST_MODIFIED_BYTES
+        if self.has_ttl:
+            size += TTL_BYTES
+        if self.has_pairs:
+            size += 2 + len(self.pairs)
+        return size
+
+    def to_bytes(self, version: int = CURRENT_VERSION) -> bytes:
+        """Full on-disk record (header..padding); sets self.size."""
+        self.size = self._computed_size(version)
+        out = bytearray()
+        out += t.cookie_to_bytes(self.cookie)
+        out += t.needle_id_to_bytes(self.id)
+        out += t.size_to_bytes(self.size)
+        if version == VERSION1:
+            out += self.data
+        elif len(self.data) > 0:
+            out += struct.pack(">I", len(self.data))
+            out += self.data
+            out.append(self.flags & 0xFF)
+            if self.has_name:
+                out.append(len(self.name))
+                out += self.name
+            if self.has_mime:
+                out.append(len(self.mime))
+                out += self.mime
+            if self.has_last_modified:
+                out += struct.pack(">Q", self.last_modified)[8 - LAST_MODIFIED_BYTES:]
+            if self.has_ttl:
+                out += self.ttl.to_bytes()
+            if self.has_pairs:
+                out += struct.pack(">H", len(self.pairs))
+                out += self.pairs
+        out += struct.pack(">I", self.checksum)
+        if version == VERSION3:
+            out += struct.pack(">Q", self.append_at_ns)
+        out += b"\x00" * padding_length(self.size, version)
+        return bytes(out)
+
+    # -- parsing --------------------------------------------------------------
+    def parse_header(self, b: bytes):
+        self.cookie = t.cookie_from_bytes(b[0:4])
+        self.id = t.needle_id_from_bytes(b[4:12])
+        self.size = t.size_from_bytes(b[12:16])
+
+    def read_bytes(self, blob: bytes, offset: int, size: int, version: int):
+        """Hydrate from a full record blob; verifies size + CRC
+        (needle_read.go ReadBytes:52-95)."""
+        self.parse_header(blob)
+        if self.size != size:
+            if offset < t.MAX_POSSIBLE_VOLUME_SIZE:
+                raise SizeMismatchError(
+                    f"entry not found: offset {offset} found id {self.id:x} "
+                    f"size {self.size}, expected size {size}")
+            raise NeedleError(f"entry not found: size {self.size} != {size}")
+        h = t.NEEDLE_HEADER_SIZE
+        if version == VERSION1:
+            self.data = bytes(blob[h:h + size])
+        else:
+            self._parse_body_v2(blob[h:h + size])
+        if size > 0:
+            stored = struct.unpack(">I", blob[h + size:h + size + 4])[0]
+            actual = crc32c_mod.crc32c(self.data)
+            if stored != actual and stored != crc32c_mod.value(actual):
+                raise CrcError("CRC error! Data On Disk Corrupted")
+            self.checksum = actual
+        if version == VERSION3:
+            ts_off = h + size + t.NEEDLE_CHECKSUM_SIZE
+            self.append_at_ns = struct.unpack(
+                ">Q", blob[ts_off:ts_off + t.TIMESTAMP_SIZE])[0]
+
+    def _parse_body_v2(self, b: bytes):
+        idx = 0
+        if idx < len(b):
+            data_size = struct.unpack(">I", b[idx:idx + 4])[0]
+            idx += 4
+            if data_size + idx > len(b):
+                raise NeedleError("index out of range 1")
+            self.data = bytes(b[idx:idx + data_size])
+            idx += data_size
+        if idx < len(b):
+            self.flags = b[idx]
+            idx += 1
+        if idx < len(b) and self.has_name:
+            name_size = b[idx]
+            idx += 1
+            if name_size + idx > len(b):
+                raise NeedleError("index out of range 2")
+            self.name = bytes(b[idx:idx + name_size])
+            idx += name_size
+        if idx < len(b) and self.has_mime:
+            mime_size = b[idx]
+            idx += 1
+            if mime_size + idx > len(b):
+                raise NeedleError("index out of range 3")
+            self.mime = bytes(b[idx:idx + mime_size])
+            idx += mime_size
+        if idx < len(b) and self.has_last_modified:
+            if LAST_MODIFIED_BYTES + idx > len(b):
+                raise NeedleError("index out of range 4")
+            self.last_modified = int.from_bytes(
+                b[idx:idx + LAST_MODIFIED_BYTES], "big")
+            idx += LAST_MODIFIED_BYTES
+        if idx < len(b) and self.has_ttl:
+            if TTL_BYTES + idx > len(b):
+                raise NeedleError("index out of range 5")
+            self.ttl = TTL.from_bytes(b[idx:idx + TTL_BYTES])
+            idx += TTL_BYTES
+        if idx < len(b) and self.has_pairs:
+            if 2 + idx > len(b):
+                raise NeedleError("index out of range 6")
+            pairs_size = struct.unpack(">H", b[idx:idx + 2])[0]
+            idx += 2
+            if pairs_size + idx > len(b):
+                raise NeedleError("index out of range 7")
+            self.pairs = bytes(b[idx:idx + pairs_size])
+            idx += pairs_size
+
+    def read_needle_body(self, body: bytes, version: int):
+        """Hydrate from a body blob following an already-parsed header
+        (needle_read.go ReadNeedleBodyBytes:232-255)."""
+        if not body:
+            return
+        if version == VERSION1:
+            self.data = bytes(body[: self.size])
+        else:
+            self._parse_body_v2(body[: self.size])
+            if version == VERSION3:
+                ts_off = self.size + t.NEEDLE_CHECKSUM_SIZE
+                self.append_at_ns = struct.unpack(
+                    ">Q", body[ts_off:ts_off + t.TIMESTAMP_SIZE])[0]
+        self.checksum = crc32c_mod.crc32c(self.data)
+
+
+def read_needle_header(blob: bytes) -> tuple["Needle", int]:
+    """Parse a 16-byte header; returns (needle, body_length). Caller supplies
+    version context for body length (needle_read.go:257-273)."""
+    n = Needle()
+    n.parse_header(blob)
+    return n, n.size

@@ -1,0 +1,402 @@
+"""Volume: one append-only .dat + .idx pair with an in-RAM needle index.
+
+Semantics parity with the reference's weed/storage/volume*.go:
+  * write: dedup identical re-writes (volume_write.go isFileUnchanged:34-53),
+    cookie check against existing needle (doWriteRequest:143-160), append-only
+    with monotonic needle-map updates
+  * delete: append a zero-data tombstone needle, record TombstoneFileSize in
+    the index (doDeleteRequest:211-231)
+  * read: index lookup -> one pread -> CRC verify (volume_read.go:19-60)
+  * load: superblock read + index/dat integrity check that truncates a
+    corrupt tail (volume_checking.go:17-60)
+
+The port keeps its index in the Python needle maps (needle_map.py).
+Vacuum (compaction), zero-copy sendfile reads and tiered (remote) volumes
+come with later slices; a volume whose .vif records remote files is
+refused.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import threading
+import time
+from typing import Optional
+
+from . import idx as idx_mod
+from . import types as t
+from .backend import DiskFile
+from .needle import (CURRENT_VERSION, FLAG_HAS_TTL, Needle, NeedleError,
+                     get_actual_size, read_needle_header)
+from .needle_map import BaseNeedleMap, new_needle_map
+from .super_block import ReplicaPlacement, SuperBlock
+from .ttl import EMPTY_TTL, TTL
+from .volume_info import load_volume_info
+
+
+class VolumeError(Exception):
+    pass
+
+
+class NotFoundError(VolumeError):
+    pass
+
+
+class DeletedError(VolumeError):
+    pass
+
+
+class CookieMismatchError(VolumeError):
+    pass
+
+
+class _FsyncBatcher:
+    """Group-commit fsync worker (volume_write.go:233-306 semantics):
+    writers append under the volume lock, then park here until one fsync
+    covers their append — N concurrent writers share a single fsync
+    instead of paying one each."""
+
+    def __init__(self, sync_fn):
+        self._sync_fn = sync_fn
+        self._cond = threading.Condition()
+        self._pending = 0
+        self._synced = 0
+        self._failed_upto = 0
+        self._error: Optional[Exception] = None
+        self._closed = False
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def wait_durable(self):
+        with self._cond:
+            self._pending += 1
+            ticket = self._pending
+            self._cond.notify_all()
+            while (self._synced < ticket and self._failed_upto < ticket
+                   and not self._closed):
+                self._cond.wait(1.0)
+            if self._synced < ticket and self._failed_upto >= ticket:
+                # the group commit covering this write failed: surface it
+                # to the writer instead of acknowledging a lost write
+                raise VolumeError(f"fsync failed: {self._error}")
+
+    def _run(self):
+        while True:
+            with self._cond:
+                while self._pending <= max(self._synced,
+                                           self._failed_upto) \
+                        and not self._closed:
+                    self._cond.wait(0.5)
+                if self._closed:
+                    return
+                target = self._pending
+            try:
+                self._sync_fn()  # outside the condition: appends continue
+            except Exception as e:
+                # a dead worker must never strand waiters: fail only the
+                # tickets this batch covered and keep serving later ones
+                # (the next sync may succeed, e.g. after ENOSPC clears)
+                with self._cond:
+                    self._error = e
+                    self._failed_upto = target
+                    self._cond.notify_all()
+                continue
+            with self._cond:
+                self._synced = target
+                self._cond.notify_all()
+
+    def close(self):
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        self._thread.join(timeout=5)
+
+
+class Volume:
+    def __init__(self, directory: str, collection: str, vid: int,
+                 replica_placement: Optional[ReplicaPlacement] = None,
+                 ttl: TTL = EMPTY_TTL, needle_map_kind: str = "memory",
+                 fsync: bool = False):
+        self.dir = directory
+        self.collection = collection
+        self.id = vid
+        self.needle_map_kind = needle_map_kind
+        self.fsync = fsync
+        self._batcher: Optional[_FsyncBatcher] = None
+        self.lock = threading.RLock()
+        self.data: Optional[DiskFile] = None
+        self.nm: Optional[BaseNeedleMap] = None
+        self.last_append_at_ns = 0
+        self.last_modified_ts = 0
+        self.read_only = False
+        self._load(replica_placement or ReplicaPlacement(), ttl)
+
+    # -- naming --------------------------------------------------------------
+    def file_name(self, ext: str = "") -> str:
+        base = (f"{self.collection}_{self.id}" if self.collection
+                else str(self.id))
+        return os.path.join(self.dir, base + ext)
+
+    @property
+    def version(self) -> int:
+        return self.super_block.version
+
+    @property
+    def ttl(self) -> TTL:
+        return self.super_block.ttl
+
+    # -- load/create ---------------------------------------------------------
+    def _load(self, replica_placement: ReplicaPlacement, ttl: TTL):
+        dat = self.file_name(".dat")
+        exists = os.path.exists(dat)
+        vif = load_volume_info(self.file_name(".vif"))
+        if vif is not None and vif.files:
+            # the reference serves such a volume from its remote tier
+            raise NotImplementedError(
+                f"volume {self.id} is tiered to remote files; tiered "
+                "volumes are not ported yet")
+        if not exists:
+            self.data = DiskFile(dat, create=True)
+            self.super_block = SuperBlock(
+                version=CURRENT_VERSION,
+                replica_placement=replica_placement, ttl=ttl)
+            self.data.write_at(self.super_block.to_bytes(), 0)
+        else:
+            self.data = DiskFile(dat)
+            with open(dat, "rb") as f:
+                self.super_block = SuperBlock.from_file(f)
+        idx_path = self.file_name(".idx")
+        if exists:
+            self.last_append_at_ns = self._check_integrity(idx_path)
+            # seed quiescence tracking from the .dat mtime so -quietFor
+            # gates survive a restart (volume_loading.go:63 semantics)
+            self.last_modified_ts = int(os.path.getmtime(dat))
+        self.nm = new_needle_map(self.needle_map_kind, idx_path)
+
+    def _check_integrity(self, idx_path: str) -> int:
+        """Verify index<->dat consistency; truncate corrupt tails.
+        Mirrors CheckAndFixVolumeDataIntegrity (volume_checking.go:17-46)."""
+        if not os.path.exists(idx_path):
+            if self.data.size() > self.super_block.block_size:
+                raise VolumeError(f"idx file {idx_path} does not exist")
+            return 0
+        index_size = os.path.getsize(idx_path)
+        if index_size % t.NEEDLE_MAP_ENTRY_SIZE != 0:
+            index_size -= index_size % t.NEEDLE_MAP_ENTRY_SIZE
+            with open(idx_path, "r+b") as f:
+                f.truncate(index_size)
+        if index_size == 0:
+            return 0
+        healthy = index_size
+        last_ns = 0
+        with open(idx_path, "rb") as f:
+            for i in range(1, 11):
+                off = index_size - i * t.NEEDLE_MAP_ENTRY_SIZE
+                if off < 0:
+                    break
+                f.seek(off)
+                nid, a_off, size = idx_mod.unpack_entry(
+                    f.read(t.NEEDLE_MAP_ENTRY_SIZE))
+                try:
+                    last_ns = self._verify_entry(nid, a_off, size)
+                    break
+                except EOFError:
+                    healthy = off
+                    continue
+                except VolumeError:
+                    break
+        if healthy < index_size:
+            with open(idx_path, "r+b") as f:
+                f.truncate(healthy)
+        return last_ns
+
+    def _verify_entry(self, nid: int, offset: int, size: int) -> int:
+        if offset == 0:
+            return 0
+        if size < 0:
+            # deletion entry: tombstone needle sits at EOF
+            disk = get_actual_size(0, self.version)
+            blob = self.data.read_at(disk, self.data.size() - disk)
+            if len(blob) < disk:
+                raise EOFError
+            n = Needle()
+            n.read_bytes(blob, self.data.size() - disk, 0, self.version)
+            if n.id != nid:
+                raise VolumeError(
+                    f"index key {nid:x} != needle id {n.id:x}")
+            return n.append_at_ns
+        header = self.data.read_at(t.NEEDLE_HEADER_SIZE, offset)
+        if len(header) < t.NEEDLE_HEADER_SIZE:
+            raise EOFError
+        n, _ = read_needle_header(header)
+        if n.size != size:
+            raise VolumeError("size mismatch")
+        ts_off = (offset + t.NEEDLE_HEADER_SIZE + size
+                  + t.NEEDLE_CHECKSUM_SIZE)
+        ts = self.data.read_at(t.TIMESTAMP_SIZE, ts_off)
+        if len(ts) < t.TIMESTAMP_SIZE:
+            raise EOFError
+        append_at_ns = int.from_bytes(ts, "big")
+        tail = offset + get_actual_size(size, self.version)
+        if self.data.size() > tail:
+            self.data.truncate(tail)
+        return append_at_ns
+
+    # -- write ---------------------------------------------------------------
+    def _is_file_unchanged(self, n: Needle) -> bool:
+        if self.ttl:
+            return False
+        nv = self.nm.get(n.id)
+        if nv is None or nv.offset == 0 or not t.size_is_valid(nv.size):
+            return False
+        old = Needle()
+        try:
+            blob = self.data.read_at(
+                get_actual_size(nv.size, self.version), nv.offset)
+            old.read_bytes(blob, nv.offset, nv.size, self.version)
+        except (NeedleError, struct.error, IndexError):
+            return False
+        return (old.cookie == n.cookie and old.checksum == n.checksum
+                and old.data == n.data)
+
+    def write_needle(self, n: Needle, check_cookie: bool = True
+                     ) -> tuple[int, int, bool]:
+        """Append a needle; returns (offset, size, is_unchanged)."""
+        with self.lock:
+            if self.read_only:
+                raise VolumeError(f"volume {self.id} is read only")
+            actual = get_actual_size(len(n.data), self.version)
+            if self.nm.content_size() + actual > t.MAX_POSSIBLE_VOLUME_SIZE:
+                raise VolumeError(
+                    f"volume size limit {t.MAX_POSSIBLE_VOLUME_SIZE} exceeded")
+            if not n.has_ttl and self.ttl:
+                n.ttl = self.ttl
+                n._set_flag(FLAG_HAS_TTL)
+            if self._is_file_unchanged(n):
+                return 0, len(n.data), True
+            nv = self.nm.get(n.id)
+            if nv is not None:
+                header = self.data.read_at(t.NEEDLE_HEADER_SIZE, nv.offset)
+                existing, _ = read_needle_header(header)
+                if n.cookie == 0 and not check_cookie:
+                    n.cookie = existing.cookie
+                if existing.cookie != n.cookie:
+                    raise CookieMismatchError(
+                        f"mismatching cookie {n.cookie:x}")
+            n.append_at_ns = time.time_ns()
+            blob = n.to_bytes(self.version)
+            offset = self.data.append(blob)
+            self.last_append_at_ns = n.append_at_ns
+            if nv is None or nv.offset < offset:
+                self.nm.put(n.id, offset, n.size)
+            if n.last_modified > self.last_modified_ts:
+                self.last_modified_ts = n.last_modified
+        if self.fsync:
+            # outside the lock: other writers append while this one waits
+            # for the shared group-commit fsync
+            self._fsync_batcher().wait_durable()
+        return offset, n.size, False
+
+    def delete_needle(self, n: Needle) -> int:
+        """Tombstone-append; returns the freed size (0 if absent)."""
+        with self.lock:
+            if self.read_only:
+                raise VolumeError(f"volume {self.id} is read only")
+            nv = self.nm.get(n.id)
+            if nv is None or not t.size_is_valid(nv.size):
+                return 0
+            size = nv.size
+            n.data = b""
+            n.append_at_ns = time.time_ns()
+            blob = n.to_bytes(self.version)
+            offset = self.data.append(blob)
+            self.last_append_at_ns = n.append_at_ns
+            self.nm.delete(n.id, offset)
+        if self.fsync:
+            self._fsync_batcher().wait_durable()
+        return size
+
+    # -- read ----------------------------------------------------------------
+    def read_needle(self, nid: int, cookie: Optional[int] = None) -> Needle:
+        with self.lock:
+            nv = self.nm.get(nid)
+            if nv is None or nv.offset == 0:
+                raise NotFoundError(f"needle {nid:x} not found")
+            if t.size_is_deleted(nv.size):
+                raise DeletedError(f"needle {nid:x} already deleted")
+            blob = self.data.read_at(
+                get_actual_size(nv.size, self.version), nv.offset)
+            n = Needle()
+            n.read_bytes(blob, nv.offset, nv.size, self.version)
+            if cookie is not None and n.cookie != cookie:
+                raise CookieMismatchError(
+                    f"cookie mismatch for needle {nid:x}")
+            if n.has_ttl and self.ttl and n.last_modified:
+                expiry = n.last_modified + self.ttl.minutes() * 60
+                if time.time() >= expiry:
+                    raise NotFoundError(f"needle {nid:x} expired")
+            return n
+
+    # -- scan (export/fsck support; volume_read.go:213-232) ------------------
+    def scan(self):
+        """Yield (needle, offset) for every record in the .dat, in file order."""
+        pos = self.super_block.block_size
+        end = self.data.size()
+        while pos < end:
+            header = self.data.read_at(t.NEEDLE_HEADER_SIZE, pos)
+            if len(header) < t.NEEDLE_HEADER_SIZE:
+                break
+            n, _ = read_needle_header(header)
+            body_len = (get_actual_size(n.size, self.version)
+                        - t.NEEDLE_HEADER_SIZE)
+            body = self.data.read_at(body_len, pos + t.NEEDLE_HEADER_SIZE)
+            n.read_needle_body(body, self.version)
+            yield n, pos
+            pos += t.NEEDLE_HEADER_SIZE + body_len
+
+    # -- stats ---------------------------------------------------------------
+    def content_size(self) -> int:
+        return self.nm.content_size()
+
+    def deleted_size(self) -> int:
+        return self.nm.deleted_size()
+
+    def file_count(self) -> int:
+        return self.nm.file_count
+
+    def deleted_count(self) -> int:
+        return self.nm.deleted_count
+
+    def max_file_key(self) -> int:
+        return self.nm.max_file_key()
+
+    # -- lifecycle -----------------------------------------------------------
+    def _fsync_batcher(self) -> _FsyncBatcher:
+        with self.lock:
+            if self._batcher is None:
+                self._batcher = _FsyncBatcher(self._durable_sync)
+            return self._batcher
+
+    def _durable_sync(self):
+        """One group commit: .dat fsync + .idx flush+fsync — an
+        acknowledged write must survive a host crash, so the index entry
+        must be as durable as the data it points at."""
+        with self.lock:
+            self.nm.sync()
+            self.data.sync()
+
+    def sync(self):
+        with self.lock:
+            self.nm.flush()
+            self.data.sync()
+
+    def close(self):
+        if self._batcher is not None:
+            self._batcher.close()
+            self._batcher = None
+        with self.lock:
+            if self.nm is not None:
+                self.nm.close()
+            if self.data is not None:
+                self.data.close()
