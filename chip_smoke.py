@@ -9,8 +9,13 @@ Phases:
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes, at ragged lengths and through misaligned
      pointers (tolerance 0: exact integer math), and time both with CUDA
-     events, cold in L2 (`time_cold`); time reconstruct_span's host
-     route against its K1 route at 64 KiB, 256 KiB and 1 MiB spans;
+     events, cold in L2 (`time_cold`); the same for the pooled parity
+     step (parallel/mesh.make_parity_step, the JAX package's "K5" served
+     by K1 and K2) in both forms at the encode shape and at compacted k,
+     with the check that it writes into its leased slot and allocates
+     nothing on the card in its steady state; time reconstruct_span's
+     host route, its K1 route (pinned staging) and its resident-slab hit
+     at 64 KiB, 256 KiB and 1 MiB spans;
   3. the raw-volume path, RS(10,4) over a seeded 256 MiB `.dat` (cut
      from 1 GiB to leave the run's time to phase 4): write_ec_files,
      rebuild_ec_files after three loss patterns, reconstruct_span and
@@ -23,7 +28,16 @@ Phases:
      each recovered block), once on one thread and once on 8, then the
      lost shards rebuilt (K2) and the volume decoded back to a .dat and
      .idx byte-identical to the originals;
-  5. one JSON line of per-kernel numbers, then the card's name and power
+  5. the Store phase at real size: a Store over a temporary directory on
+     the card (-ec.backend=cuda), four ~256 MiB volumes of seeded needles
+     written through Store.write_needle, ec_generate_batch over all four,
+     the first volume encoded again (pool lease hits), the volumes
+     unmounted and remounted as EC with 4 shards of one lost, every needle
+     of that volume read through Store.read_needle, ec_rebuild (verified
+     against the .vif CRCs), deep_scrub of all four clean, then again
+     with one parity byte flipped (exactly that shard reported), and the
+     encode auto-selection's choice with the measured link;
+  6. one JSON line of per-kernel numbers, then the card's name and power
      limit, then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -45,28 +59,38 @@ import time
 import numpy as np
 import torch
 
+from seaweedfs_tpu_torch.maintenance.deep_scrub import (deep_scrub,
+                                                        local_target)
 from seaweedfs_tpu_torch.ops import _build, codec, native, rs_cuda
 from seaweedfs_tpu_torch.ops import crc32c as crc_host
 from seaweedfs_tpu_torch.ops.codec import new_encoder, reconstruct_span
 from seaweedfs_tpu_torch.ops.crc_device import batched_crc32c_raw, finalize
+from seaweedfs_tpu_torch.ops.device_pool import get_pool
 from seaweedfs_tpu_torch.ops.gf256 import parity_matrix
 from seaweedfs_tpu_torch.ops.rs_numpy import decode_rows
+from seaweedfs_tpu_torch.parallel.mesh import (make_parity_step,
+                                               parity_step_plain)
 from seaweedfs_tpu_torch.storage.erasure_coding import (decoder, encoder,
                                                         recover, to_ext)
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import (
     EcVolume, EcVolumeShard)
 from seaweedfs_tpu_torch.storage.needle import Needle
+from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.volume import Volume
+from seaweedfs_tpu_torch.util import platform
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 MIB = 1 << 20
 VOLUME_BYTES = 256 * MIB    # phase 3's raw volume
 NEEDLE_VOLUME_BYTES = 1 << 30  # phase 4: one ~1 GiB needle volume
+STORE_VOLUMES = 4           # phase 5: four volumes of ~256 MiB of needles
+STORE_VOLUME_BYTES = 256 * MIB
 NEEDLE_MIN, NEEDLE_MAX = 1 << 10, 1 << 20  # log-uniform needle sizes
 LOST = (0, 5, 11, 13)       # two data and two parity shards
 READERS = 8                 # threads of phase 4's concurrent pass
 CHUNK = MIB                 # the pipeline's column chunk for 1 MiB blocks
 SEED = 20261016
+PARITY = np.ascontiguousarray(parity_matrix(10, 14))
 SPIN_CYCLES = 200_000_000   # ~0.1 s of card time to queue timed runs behind
 
 KERNELS = {
@@ -191,9 +215,103 @@ def misaligned(rng, shape, offset: int, dev) -> torch.Tensor:
     return view
 
 
+def leased_slot(pool, shape, dev, offset: int = 0):
+    """A (p, B, L) output slot leased from the DevicePool, as the pipeline
+    leases its out-ring; offset > 0 starts the view off a 16-byte
+    boundary.  Returns (lease, view)."""
+    n = int(np.prod(shape))
+    ls = pool.lease(("smoke-k5-out", n + offset),
+                    lambda: torch.empty(n + offset, dtype=torch.uint8,
+                                        device=dev), n + offset, device=dev)
+    return ls, ls.payload[offset:offset + n].view(shape)
+
+
+def compare_k5(step, fused: bool, data, ls, out) -> int:
+    """The parity step against its plain version on the same inputs; the
+    parity must land in the leased slot."""
+    crc = step(data, out)
+    want, want_crc = parity_step_plain(PARITY, data, fused)
+    torch.cuda.synchronize()
+    check(out.data_ptr() >= ls.payload.data_ptr() and
+          out.data_ptr() < ls.payload.data_ptr() + ls.nbytes,
+          "parity step output is not the leased slot")
+    err = int((out.int() - want.int()).abs().max())
+    same = torch.equal(out, want)
+    if fused:
+        err = max(err, int((crc - want_crc).abs().max()))
+        same = same and torch.equal(crc, want_crc)
+    check(err == 0 and same, f"parity step (fused={fused}) differs from "
+          f"plain at {tuple(data.shape)}")
+    return err
+
+
+def k5_phase(dev, rng, mode: str) -> dict:
+    """The pooled parity step in both forms: at the encode geometry (10, 6,
+    1 MiB) and compacted k = 1, 3, 7, at odd L and through misaligned
+    data and slots, exact; then 8 steady-state calls that must not grow
+    the card's allocation count; then (not --quick) cold timing at the
+    encode geometry beside K2 on (6, 10, 1 MiB)."""
+    pool = get_pool()
+    err = 0
+    cases = [(10, 6, MIB, 0), (1, 6, MIB, 0), (3, 6, MIB, 0),
+             (7, 6, MIB, 0), (10, 2, MIB + 3, 0), (3, 3, 4096 + 3, 0),
+             (7, 2, MIB, 1), (10, 3, 4096 + 5, 3)]
+    steady = {}
+    for fused in (False, True):
+        step = make_parity_step([dev], fused_crc=fused)
+        for k, b, length, offset in cases:
+            data = (rand_bytes(rng, (k, b, length), dev) if not offset else
+                    misaligned(rng, (k, b, length), offset, dev))
+            ls, out = leased_slot(pool, (4, b, length), dev, offset)
+            err = max(err, compare_k5(step, fused, data, ls, out))
+            pool.release(ls)
+        data = rand_bytes(rng, (10, 6, MIB), dev)
+        ls, out = leased_slot(pool, (4, 6, MIB), dev)
+        step(data, out)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        for _ in range(8):
+            step(data, out)
+        torch.cuda.synchronize()
+        grew = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+        check(grew == 0, f"parity step (fused={fused}) allocated {grew} "
+              "times on the card in 8 steady-state calls")
+        steady["fused" if fused else "k1"] = grew
+        pool.release(ls)
+    log(f"parity step matches its plain version in both forms (k = 1, 3, "
+        f"7, 10; odd L; misaligned), max_abs_err {err}; device "
+        f"allocations over 8 steady-state calls: {steady}")
+    if mode == "quick":
+        return {"max_abs_err": err}
+    res = {"max_abs_err": err, "steady_allocations": steady}
+    # one step at the encode geometry moves 60 MiB in and 24 MiB out (+ 14
+    # int64 CRCs per batch item when fused), as K2 does on (6, 10, 1 MiB)
+    for fused in (True, False):
+        step = make_parity_step([dev], fused_crc=fused)
+        held = [leased_slot(pool, (4, 6, MIB), dev) for _ in range(4)]
+        sets = [(rand_bytes(rng, (10, 6, MIB), dev), out)
+                for _, out in held]
+        name = "fused" if fused else "k1"
+        res[name + "_ms"] = time_cold(lambda x, o: step(x, o), sets)
+        res[name + "_plain_ms"] = time_cold(
+            lambda x, o: parity_step_plain(PARITY, x, fused), sets, reps=4)
+        res[name + "_bytes"] = 10 * 6 * MIB + 4 * 6 * MIB + \
+            (6 * 14 * 8 if fused else 0)
+        res[name + "_bound_ms"] = res[name + "_bytes"] / HBM_BYTES_PER_S * 1e3
+        for ls, _ in held:
+            pool.release(ls)
+    log(f"parity step (cold L2, (10, 6, 1 MiB)): fused "
+        f"{res['fused_ms'] * 1e3:.3f} us (plain "
+        f"{res['fused_plain_ms'] * 1e3:.3f} us, bound "
+        f"{res['fused_bound_ms'] * 1e3:.3f} us), K1 form "
+        f"{res['k1_ms'] * 1e3:.3f} us (plain {res['k1_plain_ms'] * 1e3:.3f}"
+        f" us, bound {res['k1_bound_ms'] * 1e3:.3f} us)")
+    return res
+
+
 def kernel_phase(dev, mode: str) -> dict:
     rng = np.random.default_rng(SEED)
-    par = np.ascontiguousarray(parity_matrix(10, 14))
+    par = PARITY
     survivors = [1, 2, 3, 4, 6, 7, 8, 9, 10, 12]
     rebuild = np.ascontiguousarray(
         decode_rows(10, 14, survivors, (0, 5, 11, 13)))
@@ -226,6 +344,7 @@ def kernel_phase(dev, mode: str) -> dict:
     k2(par, misaligned(rng, (1, 10, MIB), 1, dev))
     k1(row, misaligned(rng, (10, MIB), 3, dev))
     log(f"kernels match their plain versions (max_abs_err {errs})")
+    k5 = k5_phase(dev, rng, mode)
     if mode == "quick":
         return {}
     # one K2 encode launch moves 60 MiB in and 24 MiB out (+ the CRCs),
@@ -246,13 +365,15 @@ def kernel_phase(dev, mode: str) -> dict:
             "bytes": k1_bytes,
         },
     }
+    stats["parity_step"] = k5
     log(f"card after timing: {gpu_state()}")
     for name, fn, sets in (("fused_apply_crc", rs_cuda.fused_apply_crc,
                             enc_sets),
                            ("gf_apply", rs_cuda.gf_apply, k1_sets)):
         for key, count, us in profile_kernels(fn, sets):
             log(f"profile {name}: {key[:60]} x{count} {us:.3f} us")
-    for name, s in stats.items():
+    for name in ("fused_apply_crc", "gf_apply"):
+        s = stats[name]
         s["max_abs_err"] = errs[name]
         s["bound_ms"] = s["bytes"] / HBM_BYTES_PER_S * 1e3
         s["bound_share"] = s["bound_ms"] / s["ms"]
@@ -295,11 +416,16 @@ def median_ms(fn, reps: int = 20) -> float:
 
 
 def route_phase(dev) -> dict:
-    """reconstruct_span's two routes for one decode row x (10, S): the
-    host codec (the native library's GF apply) and the device route
-    (pageable H2D of the survivor stack, K1, D2H), as median host-clock
-    ms per call, beside K1 alone cold in L2 (`time_cold`).  The routes'
-    crossing is what WEED_EC_RECOVER_DEVICE_MIN_KB (512) should sit at."""
+    """reconstruct_span's routes for one decode row x (10, S): the host
+    codec (the native library's GF apply), the device route (the stack
+    copied into a pinned slab leased from the DevicePool, H2D with
+    non_blocking=True, K1 into a leased slab, D2H to a pinned slab), the
+    same from a stack the caller assembled in a leased pinned slab (as
+    EcVolume does: no staging copy), and the resident-slab hit (slab_key
+    set, the stack already on the card),
+    as median host-clock ms per call, beside K1 alone cold in L2
+    (`time_cold`).  The routes' crossing is what
+    WEED_EC_RECOVER_DEVICE_MIN_KB (512) should sit at."""
     check(native.lib() is not None, "the native host library did not build")
     rng = np.random.default_rng(SEED + 1)
     survivors = [1, 2, 3, 4, 6, 7, 8, 9, 10, 12]
@@ -310,22 +436,85 @@ def route_phase(dev) -> dict:
             10, span).copy()
         want = codec._apply_rows_host(row, x)[0]
         res = {}
-        for route, knob in (("host", "0"), ("device", "1")):
+        hits0 = get_pool().snapshot()["resident_hits"]
+        for route, knob, key in (("host", "0", None), ("device", "1", None),
+                                 ("resident", "1", b"route-%d" % span)):
             with knobs(WEED_EC_RECOVER_DEVICE=knob,
                        WEED_EC_RECOVER_DEVICE_MIN_KB="0"):
-                got = reconstruct_span(survivors, x, 0, device=dev)
+                got = reconstruct_span(survivors, x, 0, slab_key=key,
+                                       device=dev)
                 check(np.array_equal(got, want),
                       f"reconstruct_span {route} route differs at {span}")
                 res[route + "_ms"] = median_ms(
-                    lambda: reconstruct_span(survivors, x, 0, device=dev))
+                    lambda: reconstruct_span(survivors, x, 0, slab_key=key,
+                                             device=dev))
+        hits = get_pool().snapshot()["resident_hits"] - hits0
+        check(hits >= 20, f"resident route hit the pool {hits} times")
+        # the route as the read ladder drives it: the stack assembled in
+        # a leased pinned slab, so it crosses without a staging copy
+        lease, pinned = codec.lease_pinned_stack(x.shape, dev)
+        np.copyto(pinned, x)
+        with knobs(WEED_EC_RECOVER_DEVICE="1",
+                   WEED_EC_RECOVER_DEVICE_MIN_KB="0"):
+            check(np.array_equal(reconstruct_span(survivors, pinned, 0,
+                                                  device=dev), want),
+                  f"reconstruct_span from a pinned stack differs at {span}")
+            res["pinned_stack_ms"] = median_ms(
+                lambda: reconstruct_span(survivors, pinned, 0, device=dev))
+        get_pool().release(lease)
+        res.update(route_steps(dev, row, x))
         nsets = max(8, -(-64 * MIB // (10 * span)))
         sets = [(row, rand_bytes(rng, (10, span), dev)) for _ in range(nsets)]
         res["k1_ms"] = time_cold(rs_cuda.gf_apply, sets)
         out[span] = res
         log(f"reconstruct_span (10, {span >> 10} KiB) -> 1 row: host "
-            f"{res['host_ms']:.4f} ms, device route {res['device_ms']:.4f} "
-            f"ms (K1 alone, cold: {res['k1_ms'] * 1e3:.3f} us)")
+            f"{res['host_ms']:.4f} ms, device route (staged through a "
+            f"pinned slab) {res['device_ms']:.4f} ms, from a stack "
+            f"assembled pinned {res['pinned_stack_ms']:.4f} ms, resident hit "
+            f"{res['resident_ms']:.4f} ms ({hits} pool hits; K1 alone, "
+            f"cold: {res['k1_ms'] * 1e3:.3f} us)")
+        log(f"  steps (median ms, host clock, each ending in a sync): "
+            f"stage copy into pinned {res['stage_ms']:.4f}, H2D pinned "
+            f"{res['h2d_pinned_ms']:.4f}, H2D pageable "
+            f"{res['h2d_pageable_ms']:.4f}, K1 {res['k1_sync_ms']:.4f}, "
+            f"D2H {res['d2h_ms']:.4f}; the pageable route's body "
+            f"(H2D, K1, D2H, as before the pool) "
+            f"{res['pageable_route_ms']:.4f}")
     return out
+
+
+def route_steps(dev, row, x) -> dict:
+    """The device route's steps for one (10, S) stack, each timed alone
+    (median host-clock ms of 20 calls, each ending in a synchronize): the
+    copy into a pinned buffer, its H2D, an H2D from the pageable array
+    itself, K1, the D2H of the row; and the route's body without staging
+    (pageable H2D, K1, D2H), as `reconstruct_span` ran it before the
+    pool."""
+    stream = torch.cuda.current_stream(dev)
+    pinned = torch.empty(x.shape, dtype=torch.uint8, pin_memory=True)
+    din = torch.empty(x.shape, dtype=torch.uint8, device=dev)
+    dout = torch.empty((1, x.shape[1]), dtype=torch.uint8, device=dev)
+    hout = torch.empty((1, x.shape[1]), dtype=torch.uint8, pin_memory=True)
+    host = torch.from_numpy(x)
+
+    def synced(fn):
+        def run():
+            fn()
+            stream.synchronize()
+        return run
+
+    return {
+        "stage_ms": median_ms(lambda: np.copyto(pinned.numpy(), x)),
+        "h2d_pinned_ms": median_ms(synced(
+            lambda: din.copy_(pinned, non_blocking=True))),
+        "h2d_pageable_ms": median_ms(synced(lambda: din.copy_(host))),
+        "k1_sync_ms": median_ms(synced(
+            lambda: rs_cuda.gf_apply(row, din, out=dout))),
+        "d2h_ms": median_ms(synced(
+            lambda: hout.copy_(dout, non_blocking=True))),
+        "pageable_route_ms": median_ms(
+            lambda: rs_cuda.gf_apply(row, host.to(dev)).cpu().numpy()),
+    }
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -638,6 +827,162 @@ def needle_phase(dev, workdir: str) -> dict:
     return launches
 
 
+# -- phase 5 -----------------------------------------------------------------
+
+
+def fill_store(store, vids, nbytes: int, seed: int) -> tuple[dict, int]:
+    """Seeded needles through Store.write_needle until each volume holds
+    `nbytes` of data (sizes log-uniform in [NEEDLE_MIN, NEEDLE_MAX]).
+    Returns the first volume's {id: (cookie, data)} and the bytes
+    written."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.log(NEEDLE_MIN), np.log(NEEDLE_MAX)
+    kept, total = {}, 0
+    for vid in vids:
+        store.add_volume(vid)
+        written, nid = 0, 0
+        while written < nbytes:
+            nid += int(rng.integers(1, 1000))
+            size = int(np.exp(rng.uniform(lo, hi)))
+            n = Needle.create(rng.bytes(size),
+                              name=f"obj-{rng.bytes(6).hex()}.jpg".encode(),
+                              mime=b"image/jpeg")
+            n.id, n.cookie = nid, int(rng.integers(1, 1 << 32))
+            store.write_needle(vid, n)
+            if vid == vids[0]:
+                kept[nid] = (n.cookie, n.data)
+            written += size
+        total += written
+    return kept, total
+
+
+def flip_byte(path: str, offset: int):
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def store_phase(dev, workdir: str) -> dict:
+    """Phase 5; returns the kernels' launches in it."""
+    check(native.lib() is not None, "the native host library did not build")
+    vids = list(range(1, STORE_VOLUMES + 1))
+    store = Store([workdir], device=dev, ec_encoder_backend="cuda")
+    pool = get_pool()
+    rs_cuda.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        kept, data_bytes = fill_store(store, vids, STORE_VOLUME_BYTES,
+                                      SEED + 5)
+        write_s = time.perf_counter() - t0
+        dat = {v: os.path.getsize(os.path.join(workdir, f"{v}.dat"))
+               for v in vids}
+        log(f"store: {len(vids)} volumes, {sum(dat.values())} B of .dat "
+            f"({data_bytes} B of needle data) written through "
+            f"Store.write_needle in {write_s:.3f} s")
+
+        # the encode makes each volume durable first (fsync of its .dat);
+        # done here on its own, so that cost is read apart from the encode
+        t0 = time.perf_counter()
+        for v in vids:
+            store.find_volume(v).sync()
+        sync_s = time.perf_counter() - t0
+        st: dict = {}
+        t0 = time.perf_counter()
+        store.ec_generate_batch(vids, stage_stats=st)
+        batch_s = time.perf_counter() - t0
+        log(f"store: fsync of the {len(vids)} volumes {sync_s:.3f} s; "
+            f"ec_generate_batch: {batch_s:.3f} s, "
+            f"{sum(dat.values()) / batch_s / (1 << 30):.3f} GiB/s of .dat "
+            "bytes (+ .ecx and .vif)")
+        log("store ec_generate_batch stage_stats: " +
+            json.dumps(st, sort_keys=True))
+        check(st["backend"] == "device-words",
+              f"ec_generate_batch took {st['backend']}")
+        hits0 = pool.snapshot()["lease_hits"]
+        st2: dict = {}
+        t0 = time.perf_counter()
+        store.ec_generate(1, stage_stats=st2)
+        again_s = time.perf_counter() - t0
+        hits = pool.snapshot()["lease_hits"] - hits0
+        log(f"store ec_generate of volume 1 again: {again_s:.3f} s, "
+            f"{dat[1] / again_s / (1 << 30):.3f} GiB/s, pool lease hits "
+            f"{hits}, stage wall {st2['wall']} s, read {st2['read']} s, "
+            f"pool allocs {st2['pool']['allocs']}")
+        check(hits > 0, "the second encode re-leased no pool slab")
+
+        base1 = os.path.join(workdir, "1")
+        for v in vids:
+            store.delete_volume(v)
+        for sid in LOST:
+            os.replace(base1 + to_ext(sid), base1 + to_ext(sid) + ".lost")
+        for v in vids:
+            store.ec_mount("", v, [sid for sid in range(14)
+                                   if v != 1 or sid not in LOST])
+        recover.STATS.reset()
+        t0 = time.perf_counter()
+        for nid, (cookie, data) in kept.items():
+            n = store.read_needle(1, nid, cookie=cookie)  # checks the CRC
+            check(n.data == data and n.cookie == cookie and
+                  n.checksum == crc_host.crc32c(data),
+                  f"store needle {nid:x} read back differs")
+        read_s = time.perf_counter() - t0
+        rst = recover.STATS.snapshot()
+        log(f"store degraded reads: {len(kept)} needles of volume 1 in "
+            f"{read_s:.3f} s, every one equal and CRC-checked; recovered "
+            f"blocks {rst['cache_misses']}, decode batches {rst['batches']}"
+            f", fetch/decode/serve s {rst['fetch_seconds']}/"
+            f"{rst['decode_seconds']}/{rst['serve_seconds']}, device pool "
+            f"{rst['device_pool']}")
+
+        t0 = time.perf_counter()
+        rebuilt = store.ec_rebuild(1)
+        rebuild_s = time.perf_counter() - t0
+        check(rebuilt == sorted(LOST), f"ec_rebuild returned {rebuilt}")
+        for sid in LOST:
+            check(same_file(base1 + to_ext(sid), base1 + to_ext(sid) +
+                            ".lost"), f"rebuilt shard {sid} differs")
+            os.unlink(base1 + to_ext(sid) + ".lost")
+        log(f"store ec_rebuild {list(LOST)}: {rebuild_s:.3f} s, verified "
+            "against the .vif CRCs and byte-identical")
+
+        def scrub(stats=None):
+            targets = [local_target(os.path.join(workdir, str(v)), v)
+                       for v in vids]
+            return deep_scrub(targets, device=dev, stage_stats=stats)
+
+        st3: dict = {}
+        t0 = time.perf_counter()
+        out = scrub(st3)
+        scrub_s = time.perf_counter() - t0
+        check(out["corrupt"] == [] and all(v["ok"] and v["recomputed"]
+                                           for v in out["volumes"]),
+              f"deep scrub of clean volumes: {out['corrupt']}")
+        gibps = out["scrubbed_bytes"] / scrub_s / (1 << 30)
+        log(f"store deep_scrub (clean): {out['scrubbed_bytes']} B in "
+            f"{scrub_s:.3f} s, {gibps:.3f} GiB/s of shard bytes; backend "
+            f"{out['backend']}; stage_stats "
+            f"{json.dumps(st3, sort_keys=True)}")
+        flip_byte(os.path.join(workdir, "3" + to_ext(12)), 12345)
+        out = scrub()
+        check(out["corrupt"] == [{"volume": 3, "shards": [12]}],
+              f"deep scrub after one flipped parity byte: {out['corrupt']}")
+        log("store deep_scrub after flipping one byte of 3.ec12: "
+            f"{out['corrupt']}")
+        launches = dict(rs_cuda.launches)
+    finally:
+        store.close()
+    h2d, d2h = platform.link_throughput(device=dev)
+    log(f"encode auto-selection: prefer_batched_encode -> "
+        f"{platform.prefer_batched_encode(dev)}; link h2d {h2d:.1f} MB/s, "
+        f"d2h {d2h:.1f} MB/s (pinned 4 MiB, CUDA events); predicted "
+        f"{platform.predicted_batched_gibps(dev):.3f} GiB/s against host "
+        f"codec {platform.host_codec_gibps():.3f} GiB/s")
+    log(f"launches on the store path: {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -665,16 +1010,23 @@ def main() -> int:
         route_phase(dev)
     launches = {}
     if mode == "all":
-        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
-        try:
-            raw = main_path(dev, workdir)
-            needles = needle_phase(dev, workdir)
-        finally:
-            shutil.rmtree(workdir, ignore_errors=True)
+        paths = {}
+        for label, phase in (("raw", main_path), ("needle", needle_phase),
+                             ("store", store_phase)):
+            workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+            try:
+                paths[label] = phase(dev, workdir)
+            finally:
+                shutil.rmtree(workdir, ignore_errors=True)
         for name in KERNELS:
-            check(raw.get(name, 0) > 0 and needles.get(name, 0) > 0,
-                  f"{name} was not launched on both paths")
-        launches = {name: raw[name] + needles[name] for name in KERNELS}
+            for label, counts in paths.items():
+                check(counts.get(name, 0) > 0,
+                      f"{name} was not launched on the {label} path")
+        launches = {name: sum(c[name] for c in paths.values())
+                    for name in KERNELS}
+        k5 = stats["parity_step"]
+        log("parity step (K5, served by K1 and K2): " + json.dumps(
+            {k: v for k, v in k5.items()}, sort_keys=True))
         rows = []
         for name, meta in KERNELS.items():
             s = stats[name]
@@ -688,6 +1040,8 @@ def main() -> int:
                 "bound_share": s["bound_share"],
                 "us": s["ms"] * 1e3, "plain_us": s["plain_ms"] * 1e3,
                 "bound_us": s["bound_ms"] * 1e3,
+                "launches_by_path": {label: counts[name]
+                                     for label, counts in paths.items()},
             })
         print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(

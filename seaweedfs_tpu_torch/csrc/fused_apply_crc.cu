@@ -50,9 +50,14 @@
 // whole number of tiles.  A raw CRC image is unchanged by leading zeros and
 // GF rows of zero columns are zero, so only the first tile is short and
 // only one advance length is needed per fold level.  cp.async needs
-// 16-byte-aligned sources, so when L % 16 != 0 or a pointer is misaligned
-// (a view into a larger buffer) a second path inside the kernel loads and
-// stores bytes with plain instructions; everything else is shared.  Each
+// 16-byte-aligned sources, so when L % 16 != 0, a stride is not a multiple
+// of 16 or a pointer is misaligned (a view into a larger buffer) a second
+// path inside the kernel loads and stores bytes with plain instructions;
+// everything else is shared.  Input and output are strided views: batch
+// b's row j starts b * xbs + j * xrs bytes into x (b * obs + i * ors into
+// out), so the (B, k, L) permute of a (k, B, L) buffer, the pooled parity
+// step's layout, reaches the kernel without a copy; bytes within a row are
+// contiguous.  Each
 // sub-segment sits in shared memory with a 16-byte skew after it, so the
 // CRC threads' 16-byte reads of one warp phase hit distinct banks.
 #include <type_traits>
@@ -85,6 +90,8 @@ struct Geometry {
   int ntiles;
   int pad;            // ntiles * T - L leading virtual zero bytes
   int batch;
+  long long xbs, xrs;  // input batch and row strides, bytes
+  long long obs, ors;  // output batch and row strides, bytes
 };
 
 // Byte offset of 16-byte chunk q inside a tile row: one skew chunk after
@@ -113,12 +120,12 @@ __device__ __forceinline__ void load_tile(const Geometry& g, bool vec,
                                           int b, int t, uint8_t* stage,
                                           int rs) {
   const long long v0 = static_cast<long long>(t) * g.tile - g.pad;
-  const uint8_t* xb = x + static_cast<long long>(b) * g.d * g.length;
+  const uint8_t* xb = x + static_cast<long long>(b) * g.xbs;
   for (int q = threadIdx.x; q < (g.tile >> 4); q += kThreads) {
     const long long c = v0 + q * 16;
     const uint8_t* src = xb + (c >= 0 ? c : 0);
     uint8_t* dst = stage + chunk_off(q, g.cps_shift);
-    for (int j = 0; j < g.d; ++j, src += g.length, dst += rs) {
+    for (int j = 0; j < g.d; ++j, src += g.xrs, dst += rs) {
       if (vec) {
         swgf::cp_async16(dst, src, c >= 0);
       } else {
@@ -183,7 +190,7 @@ tile_kernel(Geometry g, bool vec, const uint32_t* __restrict__ tab_g,
     __syncthreads();
 
     const long long v0 = static_cast<long long>(t) * g.tile - g.pad;
-    uint8_t* ob = out + static_cast<long long>(b) * g.p * g.length;
+    uint8_t* ob = out + static_cast<long long>(b) * g.obs;
 
     // 1. the p output rows of the tile: to shared memory for the CRC and
     //    to device memory
@@ -212,7 +219,7 @@ tile_kernel(Geometry g, bool vec, const uint32_t* __restrict__ tab_g,
         if (i >= g.p) break;
         const uint4 val = make_uint4(rw[0][i], rw[1][i], rw[2][i], rw[3][i]);
         *reinterpret_cast<uint4*>(outs + i * rs + so) = val;
-        uint8_t* dst = ob + i * g.length + c;
+        uint8_t* dst = ob + i * g.ors + c;
         if (vec) {
           if (c >= 0) __stcs(reinterpret_cast<uint4*>(dst), val);
         } else {
@@ -363,21 +370,24 @@ cudaError_t launch_g(const Geometry& g, bool vec, long long smem,
 // tab: (d, G, 2, 16) uint32 row-packed nibble tables (gf_core.cuh);
 // maps: 3 + log2(S) nibble maps of 128 uint32 (Adv_4 for the CRC step,
 // Adv_{T/4S} and Adv_{T/2S} for its streams, then Adv_{T/S 2^k});
-// adv_fold: six nibble maps (see fold_kernel); x: (batch, d, L) bytes;
-// out: (batch, p, L) bytes; partial: (batch, d + p, ntiles) uint32
-// scratch; crc: (batch, d + p) int64, each the uint32 raw image.
+// adv_fold: six nibble maps (see fold_kernel); x: (batch, d, L) bytes with
+// batch and row strides xbs, xrs; out: (batch, p, L) bytes with strides
+// obs, ors; partial: (batch, d + p, ntiles) uint32 scratch; crc: (batch,
+// d + p) int64, each the uint32 raw image.
 extern "C" int sw_fused_apply_crc(const void* tab, int p, int d,
                                   const void* maps, const void* adv_fold,
-                                  const void* x, int batch,
+                                  const void* x, long long xbs,
+                                  long long xrs, int batch,
                                   long long length, int tile, int sub,
-                                  void* out, void* partial, void* crc,
-                                  void* stream) {
+                                  void* out, long long obs, long long ors,
+                                  void* partial, void* crc, void* stream) {
   const int rows = d + p;
   const int levels = log2_exact(sub);
   if (p < 1 || p > swgf::kMaxRows || d < 1 || batch < 1 ||
       batch > 65535 || length < 1 || levels < 0 || sub > 32 ||
       rows * sub > kThreads || log2_exact(tile) < 0 ||
-      tile % (16 * kStreams * sub) != 0)
+      tile % (16 * kStreams * sub) != 0 || xbs < 0 || xrs < 0 ||
+      obs < 0 || ors < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long smem = smem_bytes(p, d, tile, sub);
   if (smem > static_cast<long long>(swgf::kMaxSmem))
@@ -394,7 +404,12 @@ extern "C" int sw_fused_apply_crc(const void* tab, int p, int d,
   g.ntiles = static_cast<int>((length + tile - 1) / tile);
   g.pad = static_cast<int>(static_cast<long long>(g.ntiles) * tile - length);
   g.batch = batch;
-  const bool vec = length % 16 == 0 &&
+  g.xbs = xbs;
+  g.xrs = xrs;
+  g.obs = obs;
+  g.ors = ors;
+  const bool vec = length % 16 == 0 && xbs % 16 == 0 && xrs % 16 == 0 &&
+                   obs % 16 == 0 && ors % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -29,10 +29,12 @@
 // Measured on an H100 (PERF.md): ~8.7 us of kernel time at that shape,
 // about 2.5x its bound: the loads' ramp and the compute after the last
 // row lands are not hidden inside one wave.
-// A second path inside the kernel (VEC = false, C = 4) serves any L and
-// any pointer alignment, such as the row groups `out[r0:]` of the wrapper
-// or a view into a larger buffer: it assembles the chunk from byte loads
-// and stores bytes, masking the ragged tail.
+// A second path inside the kernel (VEC = false, C = 4) serves any L, any
+// row stride and any pointer alignment, such as a view into a larger
+// buffer: it assembles the chunk from byte loads and stores bytes, masking
+// the ragged tail.  Rows of the input and of the output are `xs` and `os`
+// bytes apart (a row of a strided view, or the (p, B*L) rows of the pooled
+// parity step's output slot); bytes within a row are contiguous.
 #include "gf_core.cuh"
 
 namespace {
@@ -42,14 +44,15 @@ constexpr int kThreads = 256;
 template <int C, bool VEC>
 __device__ __forceinline__ void load_rows(uint4 (&v)[C],
                                           const uint8_t* __restrict__ x,
-                                          int d, int j0, long long q,
-                                          long long nchunks, long long n) {
+                                          long long xs, int d, int j0,
+                                          long long q, long long nchunks,
+                                          long long n) {
 #pragma unroll
   for (int jj = 0; jj < C; ++jj) {
     const int j = j0 + jj;
     v[jj] = make_uint4(0u, 0u, 0u, 0u);
     if (j < d && q < nchunks) {
-      const uint8_t* src = x + j * n + q * 16;
+      const uint8_t* src = x + j * xs + q * 16;
       if (VEC) {
         v[jj] = __ldcs(reinterpret_cast<const uint4*>(src));
       } else {
@@ -67,8 +70,8 @@ __device__ __forceinline__ void load_rows(uint4 (&v)[C],
 template <int G, int C, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 gf_apply_kernel(const uint32_t* __restrict__ tab_g, int p, int d,
-                const uint8_t* __restrict__ x, long long n,
-                uint8_t* __restrict__ out) {
+                const uint8_t* __restrict__ x, long long xs, long long n,
+                uint8_t* __restrict__ out, long long os) {
   extern __shared__ __align__(16) uint32_t tab[];
   const long long nchunks = (n + 15) / 16;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -81,7 +84,7 @@ gf_apply_kernel(const uint32_t* __restrict__ tab_g, int p, int d,
     swgf::cp_async16(tab + 4 * k, tab_g + 4 * k, true);
   swgf::cp_async_commit();
   uint4 v[C];
-  load_rows<C, VEC>(v, x, d, 0, q, nchunks, n);
+  load_rows<C, VEC>(v, x, xs, d, 0, q, nchunks, n);
   swgf::cp_async_wait_all();
   __syncthreads();
   for (; q < nchunks; q += stride) {
@@ -105,17 +108,17 @@ gf_apply_kernel(const uint32_t* __restrict__ tab_g, int p, int d,
       }
       j0 += C;
       if (j0 >= d) break;
-      load_rows<C, VEC>(v, x, d, j0, q, nchunks, n);
+      load_rows<C, VEC>(v, x, xs, d, j0, q, nchunks, n);
     }
     // the next chunk's loads go out before this chunk's stores
-    load_rows<C, VEC>(v, x, d, 0, q + stride, nchunks, n);
+    load_rows<C, VEC>(v, x, xs, d, 0, q + stride, nchunks, n);
     uint32_t rw[4][4 * G];
 #pragma unroll
     for (int w = 0; w < 4; ++w) swgf::gf_rows<G>(acc[w], rw[w]);
 #pragma unroll
     for (int i = 0; i < 4 * G; ++i) {
       if (i >= p) break;
-      uint8_t* dst = out + i * n + q * 16;
+      uint8_t* dst = out + i * os + q * 16;
       if (VEC) {
         __stcs(reinterpret_cast<uint4*>(dst),
                make_uint4(rw[0][i], rw[1][i], rw[2][i], rw[3][i]));
@@ -130,8 +133,9 @@ gf_apply_kernel(const uint32_t* __restrict__ tab_g, int p, int d,
 }
 
 template <int G, int C, bool VEC>
-cudaError_t launch(const void* tab, int p, int d, const void* x, long long n,
-                   void* out, cudaStream_t stream) {
+cudaError_t launch(const void* tab, int p, int d, const void* x, long long xs,
+                   long long n, void* out, long long os,
+                   cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(d) * G * swgf::kGroupWords * 4;
   static swgf::Resident resident;
   cudaError_t err = swgf::resident_blocks(gf_apply_kernel<G, C, VEC>,
@@ -143,40 +147,45 @@ cudaError_t launch(const void* tab, int p, int d, const void* x, long long n,
   gf_apply_kernel<G, C, VEC>
       <<<static_cast<int>(blocks), kThreads, smem, stream>>>(
       static_cast<const uint32_t*>(tab), p, d,
-      static_cast<const uint8_t*>(x), n, static_cast<uint8_t*>(out));
+      static_cast<const uint8_t*>(x), xs, n, static_cast<uint8_t*>(out), os);
   return cudaGetLastError();
 }
 
 template <bool VEC>
 cudaError_t launch_g(const void* tab, int p, int d, const void* x,
-                     long long n, void* out, cudaStream_t s) {
+                     long long xs, long long n, void* out, long long os,
+                     cudaStream_t s) {
   // rows loaded ahead: 16 uint4 loads in flight per thread; the byte
   // path, bound by its byte loads anyway, batches 4 to keep its code small
   constexpr int C = VEC ? 16 : 4;
   switch ((p + 3) / 4) {
-    case 1: return launch<1, C, VEC>(tab, p, d, x, n, out, s);
-    case 2: return launch<2, C, VEC>(tab, p, d, x, n, out, s);
-    case 3: return launch<3, C, VEC>(tab, p, d, x, n, out, s);
-    default: return launch<4, C, VEC>(tab, p, d, x, n, out, s);
+    case 1: return launch<1, C, VEC>(tab, p, d, x, xs, n, out, os, s);
+    case 2: return launch<2, C, VEC>(tab, p, d, x, xs, n, out, os, s);
+    case 3: return launch<3, C, VEC>(tab, p, d, x, xs, n, out, os, s);
+    default: return launch<4, C, VEC>(tab, p, d, x, xs, n, out, os, s);
   }
 }
 
 }  // namespace
 
 // tab: (d, G, 2, 16) uint32 row-packed nibble tables on the device
-// (G = ceil(p / 4), see gf_core.cuh); x: (d, L) contiguous bytes; out:
-// (p, L) contiguous bytes.  Returns a cudaError_t.
+// (G = ceil(p / 4), see gf_core.cuh); x: (d, L) bytes, rows xs bytes
+// apart; out: (p, L) bytes, rows os bytes apart.  Returns a cudaError_t.
 extern "C" int sw_gf_apply(const void* tab, int p, int d, const void* x,
-                           long long length, void* out, void* stream) {
+                           long long xs, long long length, void* out,
+                           long long os, void* stream) {
   if (p < 1 || p > swgf::kMaxRows || d < 1 || length < 1 ||
+      (d > 1 && xs < length) || (p > 1 && os < length) ||
       static_cast<size_t>(d) * ((p + 3) / 4) * swgf::kGroupWords * 4 >
           swgf::kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = length % 16 == 0 &&
+  const bool vec = length % 16 == 0 && xs % 16 == 0 && os % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (vec) return static_cast<int>(launch_g<true>(tab, p, d, x, length,
-                                                  out, s));
-  return static_cast<int>(launch_g<false>(tab, p, d, x, length, out, s));
+  if (vec)
+    return static_cast<int>(
+        launch_g<true>(tab, p, d, x, xs, length, out, os, s));
+  return static_cast<int>(
+      launch_g<false>(tab, p, d, x, xs, length, out, os, s));
 }

@@ -1,8 +1,10 @@
 """ctypes loader for the repo's host C++ library (native/ec_native.cpp).
 
-Two entries are bound: CRC32C (needle checksums, cold edges of the
-encode) and the host GF(2^8) matrix apply, which serves degraded-read
-decodes too small to be worth a trip to the card.  `lib()` runs
+Bound: CRC32C (needle checksums, cold edges of the encode); the host
+GF(2^8) matrix apply, which serves degraded-read decodes too small to be
+worth a trip to the card, and its kernel-pinned form behind the "cpu"
+codec backend; and the fused span encode (parity plus chained shard
+CRCs) of the host encode pipeline.  `lib()` runs
 `make` in native/ once (a no-op when the library is fresh) and returns None
 when no toolchain and no prebuilt library exist; callers then take the
 pure-Python path.
@@ -40,4 +42,13 @@ def lib() -> ctypes.CDLL | None:
     cdll.sw_gf_apply_matrix.argtypes = [
         ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
         ctypes.c_size_t, ctypes.c_char_p]
+    cdll.sw_gf_apply_matrix_force.restype = None
+    cdll.sw_gf_apply_matrix_force.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
+        ctypes.c_size_t, ctypes.c_char_p, ctypes.c_int]
+    cdll.sw_encode_rows.restype = None
+    cdll.sw_encode_rows.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
+        ctypes.c_size_t, ctypes.c_int, ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_uint32)]
     return cdll

@@ -20,6 +20,12 @@ launch at once (concurrent degraded reads).
 The GF(2^8) matrix is always a host (p, d) uint8 numpy array, as in the
 JAX functions.  Raw CRC values come back as int64 tensors holding the
 uint32 images (torch.uint32 supports too few operations).
+
+Both kernels take strided views: bytes within a row are contiguous, and
+rows (and K2's batch items) may lie any number of bytes apart, so a
+permuted or sliced view reaches the kernel as strides, never as a hidden
+copy.  `out=` (and K2's `crc=` / `partial=` scratch) let a caller that
+holds preallocated slots launch without allocating device memory.
 """
 
 from __future__ import annotations
@@ -184,8 +190,8 @@ def _k1():
     fn = load("gf_apply").sw_gf_apply
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     return fn
 
 
@@ -195,10 +201,11 @@ def _k2():
 
     fn = load("fused_apply_crc").sw_fused_apply_crc
     fn.restype = ctypes.c_int
+    ll = ctypes.c_longlong
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                      ctypes.c_int] + [ctypes.c_void_p] * 4)
+                   + [ctypes.c_void_p] * 3 + [ll, ll]
+                   + [ctypes.c_int, ll, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_void_p, ll, ll] + [ctypes.c_void_p] * 3)
     return fn
 
 
@@ -213,40 +220,71 @@ def _check_bytes(data: torch.Tensor, ndim: int, d: int, name: str):
         raise ValueError(f"{name}: empty rows")
     if data.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {data.device}")
+    if data.stride(-1) != 1 and data.shape[-1] > 1:
+        raise ValueError(f"{name}: bytes within a row must be contiguous "
+                         f"(strides {data.stride()})")
+
+
+def _check_out(out: torch.Tensor, shape: tuple, dtype, data: torch.Tensor,
+               name: str, contiguous: bool = False):
+    if out.dtype != dtype or tuple(out.shape) != shape or \
+            out.device != data.device:
+        raise ValueError(f"{name}: out must be {dtype} {shape} on "
+                         f"{data.device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+    if contiguous and not out.is_contiguous():
+        raise ValueError(f"{name}: out must be contiguous")
+    if out.stride(-1) != 1 and out.shape[-1] > 1:
+        raise ValueError(f"{name}: bytes within an output row must be "
+                         "contiguous")
 
 
 # -- K1 -------------------------------------------------------------------------
 
 
-def gf_apply_plain(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
+def gf_apply_plain(matrix: np.ndarray, data: torch.Tensor,
+                   out: torch.Tensor = None) -> torch.Tensor:
     """K1's plain version: a gather on the multiplication table.
-    data (..., d, L) uint8 -> (..., p, L) uint8."""
+    data (..., d, L) uint8 -> (..., p, L) uint8, written into `out` when
+    given."""
     m = torch.from_numpy(np.array(matrix, dtype=np.uint8)).long()
     rows = torch.from_numpy(gf256.mul_table().copy()).to(data.device)[m]
-    out = torch.zeros(m.shape[0], *data.shape[:-2], data.shape[-1],
+    res = torch.zeros(m.shape[0], *data.shape[:-2], data.shape[-1],
                       dtype=torch.uint8, device=data.device)
     for j in range(m.shape[1]):
-        out ^= rows[:, j][:, data[..., j, :].long()]
-    return out.movedim(0, -2)
+        res ^= rows[:, j][:, data[..., j, :].long()]
+    res = res.movedim(0, -2)
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
 
 
-def gf_apply(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
+def gf_apply(matrix: np.ndarray, data: torch.Tensor,
+             out: torch.Tensor = None) -> torch.Tensor:
     """out[i] = XOR_j gf_mul(matrix[i, j], data[j]): (p, d) host matrix,
-    (d, L) uint8 tensor -> (p, L) uint8 on the same device, any L >= 1."""
+    (d, L) uint8 tensor (rows any stride apart) -> (p, L) uint8 on the
+    same device, any L >= 1.  `out`, when given, is a contiguous (p, L)
+    uint8 tensor on data's device that receives the result (no device
+    allocation)."""
     p, d = matrix.shape
     _check_bytes(data, 2, d, "gf_apply")
-    if data.device.type == "cpu":
-        return gf_apply_plain(matrix, data)
-    data = data.contiguous()
     length = data.shape[1]
-    out = torch.empty((p, length), dtype=torch.uint8, device=data.device)
+    if out is not None:
+        _check_out(out, (p, length), torch.uint8, data, "gf_apply",
+                   contiguous=True)
+    if data.device.type == "cpu":
+        return gf_apply_plain(matrix, data, out)
+    if out is None:
+        out = torch.empty((p, length), dtype=torch.uint8, device=data.device)
     stream = torch.cuda.current_stream(data.device).cuda_stream
     # row groups of at most MAX_ROWS, one launch's register accumulators
     for r0 in range(0, p, MAX_ROWS):
         sub = np.ascontiguousarray(matrix[r0:r0 + MAX_ROWS], dtype=np.uint8)
         tab = _gf_tables_on(*_matrix_key(sub), data.device)
         _check(_k1()(tab.data_ptr(), sub.shape[0], d, data.data_ptr(),
-                     length, out[r0:].data_ptr(), stream), "gf_apply")
+                     data.stride(0), length, out[r0:].data_ptr(),
+                     out.stride(0), stream), "gf_apply")
         count_launch("gf_apply")
     return out
 
@@ -254,36 +292,72 @@ def gf_apply(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
 # -- K2 -------------------------------------------------------------------------
 
 
-def fused_apply_crc_plain(matrix: np.ndarray, data: torch.Tensor):
-    """K2's plain version: K1's plain version plus the plain batched CRC."""
-    out = gf_apply_plain(matrix, data)
-    return out, batched_crc32c_raw(torch.cat([data, out], dim=1))
+def fused_apply_crc_plain(matrix: np.ndarray, data: torch.Tensor,
+                          out: torch.Tensor = None, crc: torch.Tensor = None):
+    """K2's plain version: K1's plain version plus the plain batched CRC
+    (written into `out` and `crc` when given)."""
+    res = gf_apply_plain(matrix, data, out)
+    raw = batched_crc32c_raw(torch.cat([data, res], dim=1))
+    if crc is None:
+        return res, raw
+    crc.copy_(raw)
+    return res, crc
 
 
-def fused_apply_crc(matrix: np.ndarray, data: torch.Tensor):
+def k2_scratch_shape(p: int, d: int, batch: int,
+                     length: int) -> tuple[int, int, int]:
+    """Shape of K2's int32 `partial` scratch for a (batch, d, L) input."""
+    tile, _ = k2_geometry(p, d, length)
+    return batch, d + p, -(-length // tile)
+
+
+def fused_apply_crc(matrix: np.ndarray, data: torch.Tensor,
+                    out: torch.Tensor = None, crc: torch.Tensor = None,
+                    partial: torch.Tensor = None):
     """(p, d) host matrix, (B, d, L) uint8 tensor -> (out (B, p, L) uint8,
     crc_raw (B, d + p) int64) with crc_raw[b, s] = raw_update(0, row s)
-    over the data rows then the output rows.  Any L >= 1."""
+    over the data rows then the output rows.  Any L >= 1.
+
+    `data` and `out` may be any views whose rows are contiguous: batch
+    and row strides reach the kernel as they are (the (B, k, L) permute
+    of a (k, B, L) buffer costs nothing).  `out`, `crc` (contiguous) and
+    `partial` (contiguous int32 of k2_scratch_shape) are optional
+    preallocated outputs and scratch; with all three the launch allocates
+    no device memory."""
     p, d = matrix.shape
     _check_bytes(data, 3, d, "fused_apply_crc")
+    b, _, length = data.shape
+    if out is not None:
+        _check_out(out, (b, p, length), torch.uint8, data, "fused_apply_crc")
+    if crc is not None:
+        _check_out(crc, (b, d + p), torch.int64, data, "fused_apply_crc",
+                   contiguous=True)
     if data.device.type == "cpu":
-        return fused_apply_crc_plain(matrix, data)
+        return fused_apply_crc_plain(matrix, data, out, crc)
     if p > MAX_ROWS:
         raise ValueError(f"fused_apply_crc takes at most {MAX_ROWS} rows")
-    data = data.contiguous()
-    b, _, length = data.shape
     tile, sub = k2_geometry(p, d, length)
     ntiles = -(-length // tile)
     dev = data.device
     tab = _gf_tables_on(*_matrix_key(matrix), dev)
     maps, adv_fold = _crc_tables(tile, sub, dev)
-    out = torch.empty((b, p, length), dtype=torch.uint8, device=dev)
-    partial = torch.empty((b, d + p, ntiles), dtype=torch.int32, device=dev)
-    crc = torch.empty((b, d + p), dtype=torch.int64, device=dev)
+    if out is None:
+        out = torch.empty((b, p, length), dtype=torch.uint8, device=dev)
+    if partial is None:
+        partial = torch.empty((b, d + p, ntiles), dtype=torch.int32,
+                              device=dev)
+    elif (partial.dtype != torch.int32 or not partial.is_contiguous()
+          or tuple(partial.shape) != (b, d + p, ntiles)
+          or partial.device != dev):
+        raise ValueError("fused_apply_crc: partial must be a contiguous "
+                         f"int32 {(b, d + p, ntiles)} tensor on {dev}")
+    if crc is None:
+        crc = torch.empty((b, d + p), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _check(_k2()(tab.data_ptr(), p, d, maps.data_ptr(), adv_fold.data_ptr(),
-                 data.data_ptr(), b, length, tile, sub,
-                 out.data_ptr(), partial.data_ptr(), crc.data_ptr(), stream),
+                 data.data_ptr(), data.stride(0), data.stride(1), b, length,
+                 tile, sub, out.data_ptr(), out.stride(0), out.stride(1),
+                 partial.data_ptr(), crc.data_ptr(), stream),
            "fused_apply_crc")
     count_launch("fused_apply_crc")
     return out, crc
@@ -294,6 +368,6 @@ def fused_encode_words(matrix: np.ndarray, words: torch.Tensor):
     L/4) int32 little-endian packed bytes -> (parity words (B, p, L/4)
     int32, crc_raw (B, d + p) int64).  Both views are free."""
     b, d, w = words.shape
-    data = words.contiguous().view(torch.uint8).reshape(b, d, 4 * w)
+    data = words.view(torch.uint8).view(b, d, 4 * w)
     out, crc = fused_apply_crc(matrix, data)
     return out.view(torch.int32), crc

@@ -26,10 +26,12 @@ def _bit_matrix_cached(matrix_bytes: bytes, p: int, d: int) -> np.ndarray:
     return gf256.coeff_bit_matrix(matrix).astype(np.int8)
 
 
-def apply_matrix(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
+def apply_matrix(matrix: np.ndarray, data: torch.Tensor,
+                 out: torch.Tensor = None) -> torch.Tensor:
     """out[i] = XOR_j gf_mul(matrix[i, j], data[j]): (p, d) host matrix,
-    (d, L) uint8 tensor -> (p, L) uint8 tensor on the same device."""
-    return gf_apply(np.ascontiguousarray(matrix, dtype=np.uint8), data)
+    (d, L) uint8 tensor -> (p, L) uint8 tensor on the same device
+    (written into `out` when given)."""
+    return gf_apply(np.ascontiguousarray(matrix, dtype=np.uint8), data, out)
 
 
 class TorchEncoder(RSCodecBase):

@@ -1,34 +1,52 @@
-"""Streaming batched EC encode and rebuild on one device, through K2.
+"""Streaming batched EC encode and rebuild: .dat files -> 14 shard files.
 
-Counterpart of the device route of seaweedfs_tpu/parallel/batched_encode.py.
-The striped rows of many volumes are tiled into (B, 10, L) uint8 batches
-and pushed through the fused parity + CRC32C kernel (rs_cuda.
-fused_apply_crc) with a pipeline:
+Counterpart of seaweedfs_tpu/parallel/batched_encode.py.  The striped rows
+of many volumes are tiled into batches and pushed through the device with
+a pipeline:
 
-  reader thread     fills pinned staging slots from the .dat files through
-                    their numpy views, and writes the data-shard bytes to
-                    .ec00-.ec09 (data shards are a re-interleaving of the
-                    .dat; all-zero padding rows are skipped, the files are
+  reader thread     fills staging slots (pinned on a card) from the .dat
+                    files, and writes the data-shard bytes to .ec00-.ec09
+                    (data shards are a re-interleaving of the .dat;
+                    all-zero padding rows are skipped, the files are
                     ftruncate()d to final size);
-  main thread       copies a slot to the card on a copy stream, launches K2
-                    on the compute stream once the copy landed, and queues
-                    the D2H copies of parity and raw CRCs into pinned host
-                    buffers, with up to WEED_EC_DEVICE_INFLIGHT batches in
-                    flight;
-  completion thread returns a slot to the free list once the event after
-                    its copy completed, waits for the batch, finalizes the
-                    per-chunk CRCs and chains them into per-shard-file
-                    CRC32Cs, and hands parity to
+  main thread       yields to foreground decodes (LANES), copies a slot to
+                    the device on a copy stream into a leased input slab,
+                    runs the step on the compute stream into a leased
+                    output slot once the copy landed, and queues the D2H
+                    copies into leased pinned host buffers, with up to
+                    WEED_EC_DEVICE_INFLIGHT batches in flight;
+  completion thread frees a staging slot once its copy completed, waits for
+                    the batch, reads its dispatch-to-ready time from CUDA
+                    events, finalizes the per-chunk CRCs and chains them
+                    into per-shard-file CRC32Cs, and hands parity to
   writer thread     which writes .ec10-.ec13.
 
-On a CPU device (the tests) the same pipeline runs K2's plain version in
-place of the copies and the kernel.  The host route, the pooled compacted-k
-path, the multi-device mesh, the device pool and the QoS lanes wait for a
-later slice.
+Two device routes (`stage_stats["backend"]`):
+
+  device-words      one card and 4-byte chunks (mesh.words_capable): K2 on
+                    (B, 10, L) staging, parity and every row's CRC in one
+                    pass;
+  device-pooled     otherwise: (10, B, L) staging with trailing all-zero
+                    rows compacted to the batch's k_max, the pooled parity
+                    step (mesh.make_parity_step) writing into a leased
+                    out-ring of depth + 1 slots, split on the B axis over
+                    n >= 1 devices; WEED_EC_FUSED_CRC picks device CRCs
+                    (K2, "device-pooled-fused-crc") or the host crc32c
+                    walk (K1, the CPU default).
+
+Every buffer (staging slots, device input slabs, output slots, pinned host
+outputs) is leased from the DevicePool and released at the end, so a
+second encode of the same geometry allocates nothing.  On a CPU device the
+same pipeline runs the kernels' plain versions without copies.
+
+`encode_volumes(host_codec=...)` runs the host pipeline instead
+(`_encode_units_host`): a reader thread, codec workers on the native fused
+parity+CRC call, and a writer pool.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import os
@@ -42,9 +60,15 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from .. import profiling
 from ..ops import crc32c as crc_host
 from ..ops.crc_device import finalize
-from .mesh import make_sharded_apply, make_sharded_encoder
+from ..ops.device_pool import get_pool, lease_tensor
+from ..qos import lanes as _lanes
+from ..util.platform import available_cpu_count
+from .mesh import (k2_scratch_shape, make_ec_mesh, make_parity_step,
+                   make_sharded_apply, make_sharded_encoder, split_batch,
+                   step_cost_analysis, words_capable)
 
 DATA_SHARDS = 10
 PARITY_SHARDS = 4
@@ -122,6 +146,7 @@ def _make_units(plans: list[_VolumePlan], chunk: int) -> list[_Unit]:
 # -- the write stage's plumbing: checked vectored writes, writeback pacing
 # and the raw shard fd set ---------------------------------------------------
 
+_IOV_MAX = 1024       # the kernel's cap on iovecs per pwritev
 _SFR_WAIT_BEFORE = 1  # SYNC_FILE_RANGE_WAIT_BEFORE
 _SFR_WRITE = 2        # SYNC_FILE_RANGE_WRITE
 _SFR_WAIT_AFTER = 4   # SYNC_FILE_RANGE_WAIT_AFTER
@@ -139,20 +164,26 @@ def _sync_file_range():
     return fn
 
 
-def _write_knobs() -> tuple[int, int]:
-    """The writeback knobs of the device route, read per call (the host
-    route's WEED_EC_WRITE_BEHIND and WEED_EC_WRITERS are not ported):
+def _write_knobs() -> tuple[bool, int, int, bool]:
+    """The WEED_EC_WRITE_* knobs, read per call:
+    (write_behind, writers, flush_bytes, drop_cache).
 
+      WEED_EC_WRITE_BEHIND     0 disables the host pipeline's writer stage
+                               (codec workers write synchronously)
+      WEED_EC_WRITERS          the host pipeline's writer-pool size (0 =
+                               auto: workers / 2, at most 4)
       WEED_EC_WRITE_FLUSH_MB   writeback pacing window in MiB (0 disables
                                pacing; default 32)
       WEED_EC_WRITE_DROP_CACHE 1 = drop synced windows from the page cache
-
-    Returns (flush_bytes, drop_cache)."""
+    """
+    behind = os.environ.get("WEED_EC_WRITE_BEHIND", "1").lower() \
+        not in ("0", "false", "no")
+    writers = int(os.environ.get("WEED_EC_WRITERS", "0") or 0)
     mb = os.environ.get("WEED_EC_WRITE_FLUSH_MB", "")
     flush_bytes = int(float(mb) * (1 << 20)) if mb else (32 << 20)
     drop = os.environ.get("WEED_EC_WRITE_DROP_CACHE", "0").lower() \
         not in ("", "0", "false", "no")
-    return flush_bytes, drop
+    return behind, writers, flush_bytes, drop
 
 
 def _pwritev_full(fd: int, bufs, offset: int) -> int:
@@ -193,6 +224,7 @@ class _WritebackPacer:
         self._lock = threading.Lock()
         self._state: dict[int, list[int]] = {}  # fd -> [acc, cursor, hi]
         self.flush_seconds = 0.0
+        self.flushes = 0
 
     def wrote(self, fd: int, offset: int, n: int):
         if self.flush_bytes <= 0 or n <= 0:
@@ -225,6 +257,7 @@ class _WritebackPacer:
             return
         with self._lock:
             self.flush_seconds += time.perf_counter() - t0
+            self.flushes += 1
 
     def forget(self, fds):
         """Drop per-fd state on close: fd numbers get recycled."""
@@ -263,67 +296,7 @@ class _ShardFileSet:
             os.close(fd)
 
 
-# -- device plumbing -------------------------------------------------------------
-
-
-def _host_buffer(shape, dtype, dev: torch.device) -> torch.Tensor:
-    """A host tensor, pinned when the device is a card (so copies to and
-    from it can run asynchronously)."""
-    return torch.zeros(shape, dtype=dtype, pin_memory=dev.type == "cuda")
-
-
-class _DeviceStage:
-    """Runs `step` on host batches: on a card, the H2D copy runs on a copy
-    stream into a ring of device input buffers, the kernel and the D2H
-    copies into pinned host buffers on the compute stream; `submit` returns
-    the events after the copy and after the D2H.  On the CPU the step runs
-    in place and both events are None."""
-
-    def __init__(self, dev: torch.device, step, shape, depth: int):
-        self.dev = dev
-        self.step = step
-        self.cuda = dev.type == "cuda"
-        self.n = 0
-        if self.cuda:
-            ring = depth + 1
-            self.din = [torch.empty(shape, dtype=torch.uint8, device=dev)
-                        for _ in range(ring)]
-            self.kernel_done: list = [None] * ring
-            self.copy_stream = torch.cuda.Stream(dev)
-            self.compute = torch.cuda.current_stream(dev)
-
-    def submit(self, src: torch.Tensor, out: torch.Tensor,
-               crc: torch.Tensor):
-        """src (nb, d, L) host batch -> out (nb, t, L), crc (nb, r) host."""
-        nb = src.shape[0]
-        if not self.cuda:
-            o, c = self.step(src)
-            out[:nb].copy_(o)
-            crc[:nb].copy_(c)
-            return None, None
-        r = self.n % len(self.din)
-        self.n += 1
-        din = self.din[r][:nb]
-        with torch.cuda.stream(self.copy_stream):
-            if self.kernel_done[r] is not None:  # ring slot still read
-                self.copy_stream.wait_event(self.kernel_done[r])
-            din.copy_(src, non_blocking=True)
-            h2d = torch.cuda.Event()
-            h2d.record(self.copy_stream)
-        with torch.cuda.stream(self.compute):
-            self.compute.wait_event(h2d)
-            o, c = self.step(din)
-            self.kernel_done[r] = torch.cuda.Event()
-            self.kernel_done[r].record(self.compute)
-            out[:nb].copy_(o, non_blocking=True)
-            crc[:nb].copy_(c, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self.compute)
-        return h2d, done
-
-    def close(self):
-        if self.cuda:
-            torch.cuda.synchronize(self.dev)
+# -- pool leases --------------------------------------------------------------
 
 
 def _wait(event):
@@ -341,24 +314,45 @@ def _device_inflight() -> int:
         return _INFLIGHT
 
 
-# -- encode -------------------------------------------------------------------------
+def _fused_crc_on(device_type: str) -> bool:
+    """WEED_EC_FUSED_CRC: whether the pooled route also computes every
+    shard row's CRC32C on the device ("1"/"0" force it; "auto", the
+    default, fuses on a card and keeps the host crc32c walk on the CPU,
+    where the native CRC is far faster than the plain bit-matmul CRC)."""
+    raw = os.environ.get("WEED_EC_FUSED_CRC", "auto").strip().lower()
+    if raw in ("1", "on", "true", "fused", "yes"):
+        return True
+    if raw in ("0", "off", "false", "host", "no"):
+        return False
+    return device_type != "cpu"
+
+
+# -- encode -------------------------------------------------------------------
 
 
 def encode_volumes(bases: list[str], large_block: Optional[int] = None,
                    small_block: Optional[int] = None,
                    batch_units: Optional[int] = None,
                    stage_stats: Optional[dict] = None,
-                   device=None) -> dict[str, list[int]]:
-    """Encode every `base` (.dat) into 14 shard files through the device
-    pipeline.  Returns {base: [crc32c of each shard file] * 14}.  Chunks
-    of all volumes share the device dispatches.
+                   device=None, mesh=None,
+                   host_codec=None) -> dict[str, list[int]]:
+    """Encode every `base` (.dat) into 14 shard files.  Returns {base:
+    [crc32c of each shard file] * 14}.  Chunks of all volumes share the
+    device dispatches.
+
+    device / mesh: the device (or list of devices) the batches run on;
+    neither given means every CUDA card (make_ec_mesh), raising without
+    one.  host_codec: an encoder object, or True for the best host codec,
+    runs the host pipeline instead (no device).
 
     stage_stats: filled with per-stage busy seconds (read, dispatch,
-    encode_crc, write), their fractions of wall time, and the route."""
+    encode_crc, write), their fractions of wall time, the route and the
+    pipeline's shape (module docstring)."""
     from ..storage.erasure_coding import (LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE,
                                           to_ext)
 
-    dev = device_mod.resolve(device)
+    devices = None if host_codec else \
+        make_ec_mesh(mesh if mesh is not None else device)
     large_block = large_block or LARGE_BLOCK_SIZE
     small_block = small_block or SMALL_BLOCK_SIZE
     plans = [_plan_volume(b, large_block, small_block) for b in bases]
@@ -368,34 +362,51 @@ def encode_volumes(bases: list[str], large_block: Optional[int] = None,
         for p in plans:
             _ShardFileSet(p.base, to_ext).close()
         return {p.base: [0] * TOTAL_SHARDS for p in plans}
-    pacer = _WritebackPacer(*_write_knobs())
+    if host_codec:
+        return _encode_units_host(plans, host_codec, stage_stats)
+    _, _, flush_bytes, drop_cache = _write_knobs()
+    pacer = _WritebackPacer(flush_bytes, drop_cache)
     writers = {vi: _ShardFileSet(
                    p.base, to_ext,
                    (p.rows[-1][1] + p.rows[-1][2]) if p.rows else 0, pacer)
                for vi, p in enumerate(plans)}
-    return _encode_units_device(plans, units, chunk, writers, dev,
+    return _encode_units_device(plans, units, chunk, writers, devices,
                                 batch_units, stage_stats)
 
 
 class _PipelineIO:
     """Reader/writer scaffolding of the streaming encode: staging slots
-    (B, 10, L) with backpressure queues, the reader thread (fills slots
-    and writes data shards), the writer thread (writes parity shards) and
-    the shutdown sequencing."""
+    leased from the pool, backpressure queues, the reader thread (fills
+    slots and writes data shards), the writer thread (writes parity
+    shards) and the shutdown sequencing.  Two staging layouts:
 
-    def __init__(self, plans, units, chunk, writers, b, dev, n_slots,
-                 on_written):
+      "bk"  (B, 10, L), the words route's input;
+      "kb"  (10, B, L), the pooled route's: slicing [:k_max] off axis 0
+            compacts trailing all-zero rows as one contiguous view, and
+            each shard row of a unit stays contiguous.
+
+    `ready` items carry the batch's compacted row count k_max ("bk"
+    reports the full 10)."""
+
+    def __init__(self, plans, units, chunk, writers, b, layout, pool,
+                 n_slots, pinned, on_written):
         self.plans, self.units, self.chunk = plans, units, chunk
         self.writers, self.b = writers, b
+        self.layout = layout
+        self.pool = pool
         self.n_batches = (len(units) + b - 1) // b
         self.dats = [open(p.base + ".dat", "rb") for p in plans]
         self.timers = {"read": 0.0, "dispatch": 0.0, "encode_crc": 0.0,
                        "write": 0.0}
         self.tlock = threading.Lock()
+        shape = (b, DATA_SHARDS, chunk) if layout == "bk" \
+            else (DATA_SHARDS, b, chunk)
+        self._slot_leases = [
+            lease_tensor(pool, "ec-stage-" + layout, shape, torch.uint8,
+                         pinned=pinned) for _ in range(n_slots)]
         self.free_slots: "queue.Queue" = queue.Queue()
-        for _ in range(n_slots):
-            self.free_slots.put(
-                _host_buffer((b, DATA_SHARDS, chunk), torch.uint8, dev))
+        for ls in self._slot_leases:
+            self.free_slots.put(ls)
         self.ready: "queue.Queue" = queue.Queue(maxsize=n_slots)
         self.parity_q: "queue.Queue" = queue.Queue(maxsize=n_slots)
         self.errors: list[BaseException] = []
@@ -434,24 +445,30 @@ class _PipelineIO:
 
     def _reader(self):
         try:
+            kb = self.layout == "kb"
             for n in range(self.n_batches):
                 batch = self.units[n * self.b:(n + 1) * self.b]
                 slot = self.get(self.free_slots)
                 if slot is None:
                     return
-                buf = slot.numpy()
+                buf = slot.payload.numpy()
                 t0 = time.perf_counter()
+                k_max = max(u.real_rows for u in batch) if kb \
+                    else DATA_SHARDS
                 for k, u in enumerate(batch):
                     w = self.writers[u.vol]
                     for i in range(u.real_rows):
-                        real = self._fill_row(u, i, buf[k, i])
-                        w.write(i, [buf[k, i, :real]], u.shard_off)
-                    # zero padding rows feed the parity math but neither
-                    # files (ftruncate zeros) nor writes
-                    buf[k, u.real_rows:].fill(0)
+                        row = buf[i, k] if kb else buf[k, i]
+                        real = self._fill_row(u, i, row)
+                        w.write(i, [row[:real]], u.shard_off)
+                    # zero padding rows up to the compacted height feed
+                    # the parity math but neither files (ftruncate zeros)
+                    # nor writes
+                    for i in range(u.real_rows, k_max):
+                        (buf[i, k] if kb else buf[k, i]).fill(0)
                 with self.tlock:
                     self.timers["read"] += time.perf_counter() - t0
-                if not self.put(self.ready, (slot, batch)):
+                if not self.put(self.ready, (slot, batch, k_max)):
                     return
             self.put(self.ready, None)
         except BaseException as e:  # propagate to the main thread
@@ -493,6 +510,9 @@ class _PipelineIO:
             f.close()
         for w in self.writers.values():
             w.close()
+        for ls in self._slot_leases:
+            self.pool.release(ls)
+        self._slot_leases = []
 
     def result(self) -> dict[str, list[int]]:
         if self.errors:
@@ -501,57 +521,270 @@ class _PipelineIO:
                 for vi, p in enumerate(self.plans)}
 
 
-def _encode_units_device(plans, units, chunk, writers, dev, batch_units,
+class _Batch:
+    """One dispatched batch on its way to the completion thread."""
+    __slots__ = ("slot", "units", "k", "out", "hout", "h2d", "done",
+                 "t_event", "t_host")
+
+    def __init__(self, slot, units, k):
+        self.slot, self.units, self.k = slot, units, k
+        self.out = self.hout = None
+        self.h2d: list = []
+        self.done: list = []
+        self.t_event = None
+        self.t_host = time.perf_counter()
+
+
+def _encode_units_device(plans, units, chunk, writers, devices, batch_units,
                          stage_stats: Optional[dict] = None
                          ) -> dict[str, list[int]]:
     wall0 = time.perf_counter()
+    n_dev = len(devices)
+    cuda = devices[0].type == "cuda"
+    use_words = words_capable(devices, chunk)
+    pooled = not use_words
+    fused = pooled and _fused_crc_on(devices[0].type)
+    host_crc = pooled and not fused
     if batch_units is None:
         batch_units = max(1, TARGET_BATCH_BYTES // (DATA_SHARDS * chunk))
+    # one fixed shape for every batch of the call (a short tail batch
+    # leaves stale columns that are never read back)
     b = min(batch_units, len(units))
+    b = max(n_dev, -(-b // n_dev) * n_dev)
+    parts = split_batch(b, n_dev)
     depth = _device_inflight()
-    n_slots = max(_SLOTS, depth + 1)
-    # pinned (parity, raw crc) pairs: depth in flight, one completing, one
-    # being written
-    free_out: "queue.Queue" = queue.Queue()
-    for _ in range(depth + 2):
-        free_out.put((_host_buffer((b, PARITY_SHARDS, chunk), torch.uint8,
-                                   dev),
-                      _host_buffer((b, TOTAL_SHARDS), torch.int64, dev)))
-    io = _PipelineIO(plans, units, chunk, writers, b, dev, n_slots,
-                     on_written=lambda item: free_out.put(item[2]))
-    timers = io.timers
-    stage = _DeviceStage(dev, make_sharded_encoder(),
-                         (b, DATA_SHARDS, chunk), depth)
-    done_q: "queue.Queue" = queue.Queue(maxsize=depth)
-    lats: list = []
+    pool = get_pool()
+    dev_label = str(devices[0]) if n_dev == 1 else f"sharded:{n_dev}"
+    # a CPU device computes straight from the staging slot
+    zero_copy = not cuda and n_dev == 1
+    layout = "kb" if pooled else "bk"
+    if pooled:
+        pstep = make_parity_step(devices, fused_crc=fused)
+        backend = "device-pooled-fused-crc" if fused else "device-pooled"
+    else:
+        wstep = make_sharded_encoder()
+        backend = "device-words"
 
-    def _complete(slot, batch, out, h2d, done, t_disp):
+    n_slots = max(_SLOTS, depth + 1)
+    free_hout: "queue.Queue" = queue.Queue()
+    io = _PipelineIO(plans, units, chunk, writers, b, layout, pool, n_slots,
+                     pinned=cuda, on_written=lambda it: free_hout.put(it[2]))
+    timers = io.timers
+    leases: list = []
+
+    def lease(ls):
+        leases.append(ls)
+        return ls
+
+    # device input ring (depth + 1 slabs per device) and output ring
+    ring = depth + 1
+    din_ring = [] if zero_copy else [
+        [lease(lease_tensor(pool, "ec-din-" + layout,
+                            (b, DATA_SHARDS, chunk) if not pooled else
+                            (DATA_SHARDS, hi - lo, chunk), torch.uint8, dev))
+         for dev, (lo, hi) in zip(devices, parts)] for _ in range(ring)]
+    ring_done: list = [None] * ring
+    out_q: "queue.Queue" = queue.Queue()
+    for _ in range(ring):
+        if pooled:
+            slot = [lease(lease_tensor(pool, "ec-out",
+                                       (PARITY_SHARDS, hi - lo, chunk),
+                                       torch.uint8, dev))
+                    for dev, (lo, hi) in zip(devices, parts)]
+        else:
+            dev = devices[0]
+            slot = [lease(lease_tensor(pool, "ec-out-words",
+                                       (b, PARITY_SHARDS, chunk),
+                                       torch.uint8, dev)),
+                    lease(lease_tensor(pool, "ec-crc-words",
+                                       (b, TOTAL_SHARDS), torch.int64, dev)),
+                    lease(lease_tensor(pool, "ec-k2-scratch",
+                                       k2_scratch_shape(PARITY_SHARDS,
+                                                        DATA_SHARDS, b,
+                                                        chunk),
+                                       torch.int32, dev))]
+        out_q.put(slot)
+    # pinned host outputs: depth in flight, one completing, one writing
+    for _ in range(depth + 2):
+        par_shape = (b, PARITY_SHARDS, chunk) if not pooled \
+            else (PARITY_SHARDS, b, chunk)
+        free_hout.put((
+            lease(lease_tensor(pool, "ec-hout-" + layout, par_shape,
+                               torch.uint8, pinned=cuda)),
+            [lease(lease_tensor(pool, "ec-hcrc",
+                                ((hi - lo) * TOTAL_SHARDS,), torch.int64,
+                                pinned=cuda)) for lo, hi in parts]))
+
+    copy_streams = [torch.cuda.Stream(d) for d in devices] if cuda else []
+    computes = [torch.cuda.current_stream(d) for d in devices] \
+        if cuda else []
+    zcrc = crc_host.crc32c_zeros(chunk)
+    done_q: "queue.Queue" = queue.Queue(maxsize=depth)
+    k_shapes: set = set()
+    lats: list = []
+    n_disp = 0
+
+    def _h2d(bt: _Batch, r: int):
+        """Copy the slot's first k rows to the devices' input slabs (on
+        the copy streams); returns the per-device input views."""
+        stage = bt.slot.payload
+        k = bt.k
+        if zero_copy:
+            return [stage[:k] if pooled else stage]
+        dins = []
+        for i, (dev, (lo, hi)) in enumerate(zip(devices, parts)):
+            slab = din_ring[r][i].payload
+            with (torch.cuda.stream(copy_streams[i]) if cuda
+                  else contextlib.nullcontext()):
+                if cuda:
+                    if ring_done[r] is not None:  # ring slab still read
+                        copy_streams[i].wait_event(ring_done[r][i])
+                    if i == 0:
+                        bt.t_event = torch.cuda.Event(enable_timing=True)
+                        bt.t_event.record(copy_streams[0])
+                if not pooled:
+                    slab.copy_(stage, non_blocking=True)
+                    dins.append(slab)
+                elif n_dev == 1:
+                    slab[:k].copy_(stage[:k], non_blocking=True)
+                    dins.append(slab[:k])
+                else:
+                    for j in range(k):  # row j of (10, B, L) is contiguous
+                        slab[j].copy_(stage[j, lo:hi], non_blocking=True)
+                    dins.append(slab[:k])
+                if cuda:
+                    ev = torch.cuda.Event()
+                    ev.record(copy_streams[i])
+                    bt.h2d.append(ev)
+        pool.note_h2d(stage[:k].numel() if pooled else stage.numel(),
+                      device=dev_label)
+        return dins
+
+    def _launch(bt: _Batch, dins: list, r: int):
+        """The step on the compute streams, then the D2H copies of parity
+        and CRCs into the batch's pinned host buffers."""
+        hpar, hcrcs = bt.hout[0].payload, [ls.payload for ls in bt.hout[1]]
+        k = bt.k
+        kdone = []
+        for i, (dev, (lo, hi)) in enumerate(zip(devices, parts)):
+            with (torch.cuda.stream(computes[i]) if cuda
+                  else contextlib.nullcontext()):
+                if cuda:
+                    computes[i].wait_event(bt.h2d[i])
+                if pooled:
+                    out = bt.out[i].payload
+                    crc = pstep(dins[i], out)
+                    if cuda:
+                        ev = torch.cuda.Event()
+                        ev.record(computes[i])
+                        kdone.append(ev)
+                    if n_dev == 1:
+                        hpar.copy_(out, non_blocking=True)
+                    else:
+                        for j in range(PARITY_SHARDS):
+                            hpar[j, lo:hi].copy_(out[j], non_blocking=True)
+                    if crc is not None:
+                        dst = hcrcs[i][:(hi - lo) * (k + PARITY_SHARDS)]
+                        dst.view(hi - lo, k + PARITY_SHARDS).copy_(
+                            crc.t(), non_blocking=True)
+                else:
+                    par, crc, partial = (ls.payload for ls in bt.out)
+                    wstep(dins[i], out=par, crc=crc, partial=partial)
+                    if cuda:
+                        ev = torch.cuda.Event()
+                        ev.record(computes[i])
+                        kdone.append(ev)
+                    hpar.copy_(par, non_blocking=True)
+                    hcrcs[i].view(b, TOTAL_SHARDS).copy_(crc,
+                                                         non_blocking=True)
+                if cuda:
+                    ev = torch.cuda.Event(enable_timing=i == 0)
+                    ev.record(computes[i])
+                    bt.done.append(ev)
+        if cuda:
+            ring_done[r] = kdone
+
+    def _complete(bt: _Batch):
         t0 = time.perf_counter()
-        _wait(h2d)
-        io.free_slots.put(slot)  # its copy to the card has completed
-        _wait(done)
-        lats.append(time.perf_counter() - t_disp)
-        nb = len(batch)
-        parity, crc = out
-        # padding rows were zeroed in staging, so every row's device CRC
-        # is its chunk's CRC; only the O(1)-per-chunk combines remain
-        fin = finalize(crc[:nb].numpy(), chunk)  # (nb, 14)
-        for k, u in enumerate(batch):
-            w = writers[u.vol]
-            for s in range(TOTAL_SHARDS):
-                w.crcs[s] = crc_host.crc32c_combine(w.crcs[s],
-                                                    int(fin[k, s]), chunk)
+        for ev in bt.h2d:
+            _wait(ev)
+        if not host_crc:
+            io.free_slots.put(bt.slot)  # its copy to the device completed
+        if bt.out is None:  # an all-padding batch: nothing ran
+            crc_np = parity = None
+        else:
+            for ev in bt.done:
+                _wait(ev)
+            lat = (bt.t_event.elapsed_time(bt.done[0]) / 1e3 if cuda
+                   else time.perf_counter() - bt.t_host)
+            lats.append(lat)
+            profiling.record_device_batch(lat, units=len(bt.units), k=bt.k,
+                                          devices=n_dev)
+            out_q.put(bt.out)  # the slot's D2H completed
+            hpar = bt.hout[0].payload.numpy()
+            pool.note_d2h(hpar.nbytes, device=dev_label)
+            parity = hpar if not pooled else hpar.transpose(1, 0, 2)
+            rows = TOTAL_SHARDS if not pooled else bt.k + PARITY_SHARDS
+            crc_np = None
+            if not host_crc:
+                crc_np = np.concatenate(
+                    [ls.payload[:(hi - lo) * rows].numpy().reshape(
+                        hi - lo, rows)
+                     for ls, (lo, hi) in zip(bt.hout[1], parts)])
+        nb = len(bt.units)
+        if crc_np is not None:
+            # padding rows were zeroed in staging, so every row's device
+            # CRC is its chunk's CRC; only the combines remain
+            fin = finalize(crc_np[:nb], chunk)
+            k_rows = DATA_SHARDS if not pooled else bt.k
+            for k, u in enumerate(bt.units):
+                w = writers[u.vol]
+                for i in range(DATA_SHARDS):
+                    c = int(fin[k, i]) if i < k_rows else zcrc
+                    w.crcs[i] = crc_host.crc32c_combine(w.crcs[i], c, chunk)
+                for j in range(PARITY_SHARDS):
+                    c = int(fin[k, k_rows + j]) if u.real_rows or \
+                        not pooled else zcrc
+                    w.crcs[DATA_SHARDS + j] = crc_host.crc32c_combine(
+                        w.crcs[DATA_SHARDS + j], c, chunk)
+        elif host_crc:
+            t_crc = time.perf_counter()
+            buf = bt.slot.payload.numpy()
+            for k, u in enumerate(bt.units):
+                w = writers[u.vol]
+                r = u.real_rows
+                for i in range(DATA_SHARDS):
+                    c = crc_host.crc32c(buf[i, k]) if i < r else zcrc
+                    w.crcs[i] = crc_host.crc32c_combine(w.crcs[i], c, chunk)
+                for j in range(PARITY_SHARDS):
+                    c = crc_host.crc32c(parity[k, j]) if r else zcrc
+                    w.crcs[DATA_SHARDS + j] = crc_host.crc32c_combine(
+                        w.crcs[DATA_SHARDS + j], c, chunk)
+            with io.tlock:
+                timers["host_crc"] = timers.get("host_crc", 0.0) + \
+                    time.perf_counter() - t_crc
+            io.free_slots.put(bt.slot)
+        else:  # fused, all padding: every chunk CRC is the zeros CRC
+            for u in bt.units:
+                w = writers[u.vol]
+                for s in range(TOTAL_SHARDS):
+                    w.crcs[s] = crc_host.crc32c_combine(w.crcs[s], zcrc,
+                                                        chunk)
         with io.tlock:
             timers["encode_crc"] += time.perf_counter() - t0
-        io.put(io.parity_q, (parity.numpy()[:nb], batch, out))
+        if parity is None:
+            if bt.hout is not None:
+                free_hout.put(bt.hout)
+        else:
+            io.put(io.parity_q, (parity[:nb], bt.units, bt.hout))
 
     def _completion():
         try:
             while True:
-                item = io.get(done_q)
-                if item is None:
+                bt = io.get(done_q)
+                if bt is None:
                     return
-                _complete(*item)
+                _complete(bt)
         except BaseException as e:
             io.errors.append(e)
             io.stop.set()
@@ -564,15 +797,28 @@ def _encode_units_device(plans, units, chunk, writers, dev, batch_units,
             item = io.get(io.ready)
             if item is None:
                 break
-            slot, batch = item
-            out = io.get(free_out)
-            if out is None:
-                break
+            bt = _Batch(*item)
+            # background lane: bulk encode yields to in-flight foreground
+            # (degraded-read) decodes, a batch at a time
+            lane_wait = _lanes.LANES.background_checkpoint()
+            if lane_wait:
+                with io.tlock:
+                    timers["lane_wait"] = timers.get("lane_wait", 0.0) + \
+                        lane_wait
             t0 = time.perf_counter()
-            h2d, done = stage.submit(slot[:len(batch)], *out)
+            if bt.k > 0:
+                if pooled:
+                    k_shapes.add(bt.k)
+                bt.out = io.get(out_q)  # backpressure at `depth`
+                bt.hout = io.get(free_hout)
+                if bt.out is None or bt.hout is None:
+                    break
+                r = n_disp % ring
+                n_disp += 1
+                _launch(bt, _h2d(bt, r), r)
             with io.tlock:
                 timers["dispatch"] += time.perf_counter() - t0
-            if not io.put(done_q, (slot, batch, out, h2d, done, t0)):
+            if not io.put(done_q, bt):
                 break
         io.put(done_q, None)
         ct.join(timeout=600)
@@ -583,20 +829,33 @@ def _encode_units_device(plans, units, chunk, writers, dev, batch_units,
         if ct.is_alive():
             io.stop.set()
             ct.join(timeout=30)
-        stage.close()
+        if cuda:
+            for d in devices:
+                torch.cuda.synchronize(d)
         io.finish()
+        for ls in leases:
+            pool.release(ls)
     result = io.result()
     wall = time.perf_counter() - wall0
+    kernel_cost = {}
+    if pooled:
+        for k in sorted(k_shapes):
+            geom = f"k{k}xb{b}xw{chunk}" + ("f" if fused else "")
+            kernel_cost[geom] = step_cost_analysis(
+                geom, k, b, chunk, PARITY_SHARDS, fused)
     if stage_stats is not None:
         stage_stats.update({k: round(v, 3) for k, v in timers.items()})
         stage_stats["wall"] = round(wall, 3)
-        stage_stats["backend"] = f"{dev.type}-fused-apply-crc"
-        stage_stats["crc_path"] = "fused-device"
+        stage_stats["backend"] = backend
         stage_stats["batches"] = io.n_batches
         stage_stats["batch_units"] = b
+        stage_stats["k_shapes"] = sorted(k_shapes)
         stage_stats["inflight"] = depth
         stage_stats["staging_slots"] = n_slots
-        stage_stats["device"] = str(dev)
+        stage_stats["zero_copy_h2d"] = zero_copy
+        stage_stats["devices"] = n_dev
+        stage_stats["device_shard"] = dev_label
+        stage_stats["crc_path"] = "host" if host_crc else "fused-device"
         for k in ("read", "dispatch", "encode_crc", "write"):
             stage_stats[f"{k}_frac"] = (
                 round(timers[k] / wall, 3) if wall > 0 else 0.0)
@@ -606,12 +865,419 @@ def _encode_units_device(plans, units, chunk, writers, dev, batch_units,
                 "batches": len(lats),
                 "dispatch_ready_p50_ms": round(lats[len(lats) // 2] * 1e3,
                                                3),
+                "dispatch_ready_p95_ms": round(
+                    lats[min(len(lats) - 1, int(len(lats) * 0.95))] * 1e3,
+                    3),
                 "dispatch_ready_max_ms": round(lats[-1] * 1e3, 3),
             }
+        if kernel_cost:
+            stage_stats["kernel_cost"] = kernel_cost
+        stage_stats["pool"] = pool.snapshot()
     return result
 
 
-# -- rebuild ------------------------------------------------------------------------
+# -- the host route -----------------------------------------------------------
+
+# A span batches consecutive equal-block rows into one contiguous .dat read
+# (striped rows are adjacent on disk, so R rows = one preadv of R*10*block
+# bytes, and each shard's R blocks land adjacently in its file = one
+# pwritev).  ~30 MB spans amortize syscalls while the span is still warm
+# in cache when the fused kernel walks it.
+_HOST_SPAN_BYTES = 30 << 20    # target bytes of .dat per work item
+_HOST_SPAN_MAX_BLOCK = 8 << 20  # rows above this get column-chunked
+_HOST_COL_CHUNK = 4 << 20       # column width for large-block rows
+_GROUP_MAX = 8                  # spans per coalesced writer group
+
+
+@dataclass
+class _HostWork:
+    """One host-pipeline work item: a contiguous span of `rows` equal-size
+    striped rows ((rows, 10, length) straight out of the .dat), or one
+    column chunk of a large row (10 strided preads)."""
+    vol: int
+    kind: str        # "span" | "col"
+    dat_off: int     # span: contiguous byte start; col: row start
+    shard_off: int
+    length: int      # per-shard width L of one row (span) / chunk (col)
+    rows: int        # span: R; col: 1
+    block_size: int  # col: the row's block size (pread stride)
+    col: int = 0     # col: byte offset of the chunk within the block
+
+
+def _host_work_items(plans) -> list[_HostWork]:
+    items: list[_HostWork] = []
+    for vi, plan in enumerate(plans):
+        pending: Optional[_HostWork] = None
+        for row_start, shard_off, block in plan.rows:
+            if block <= _HOST_SPAN_MAX_BLOCK:
+                # IOV_MAX caps a pwritev at 1024 iovecs (one per row)
+                rmax = max(1, min(
+                    _IOV_MAX, _HOST_SPAN_BYTES // (DATA_SHARDS * block)))
+                if (pending is not None and pending.block_size == block
+                        and pending.rows < rmax):
+                    pending.rows += 1
+                    continue
+                if pending is not None:
+                    items.append(pending)
+                pending = _HostWork(vi, "span", row_start, shard_off,
+                                    block, 1, block)
+            else:
+                if pending is not None:
+                    items.append(pending)
+                    pending = None
+                for col in range(0, block, _HOST_COL_CHUNK):
+                    width = min(_HOST_COL_CHUNK, block - col)
+                    items.append(_HostWork(vi, "col", row_start,
+                                           shard_off + col, width, 1,
+                                           block, col))
+        if pending is not None:
+            items.append(pending)
+    return items
+
+
+def _preadv_full(fd: int, buf: np.ndarray, offset: int, want: int) -> int:
+    """Read up to `want` bytes into buf from `offset`; returns the count
+    (short only at EOF)."""
+    got = 0
+    while got < want:
+        n = os.preadv(fd, [buf[got:want]], offset + got)
+        if n == 0:
+            break
+        got += n
+    return got
+
+
+def _encode_units_host(plans, host_codec,
+                       stage_stats=None) -> dict[str, list[int]]:
+    """The host encode route as a three-stage pipeline over work items
+    (multi-row spans or column chunks):
+
+      read    a reader thread fills staging slots with contiguous
+              preadv()s of the .dat;
+      encode  codec workers (WEED_EC_HOST_WORKERS, default one per usable
+              core, at most 16) encode into pooled parity slots, each in
+              one native parity + CRC call that releases the interpreter
+              lock;
+      write   a writer pool (WEED_EC_WRITERS) drains a bounded hand-off
+              queue, coalescing adjacent spans into one pwritev per shard
+              file and pacing writeback.
+
+    With one worker everything runs inline in the calling thread (threads
+    on one core only convoy on the interpreter lock).
+    WEED_EC_WRITE_BEHIND=0 has the workers write synchronously.  Every
+    form is byte- and CRC-identical.  stage_stats gets per-stage busy
+    seconds and fractions (read / encode_crc / write / flush)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..ops import codec as codec_mod
+    from ..storage.erasure_coding import to_ext
+
+    enc = host_codec if hasattr(host_codec, "_apply") \
+        else codec_mod.new_host_encoder(DATA_SHARDS, PARITY_SHARDS)
+    parity_matrix = np.ascontiguousarray(
+        np.asarray(enc.matrix[DATA_SHARDS:], dtype=np.uint8))
+    fused = hasattr(enc, "encode_rows")
+
+    nworkers = int(os.environ.get("WEED_EC_HOST_WORKERS", "0") or 0)
+    if nworkers <= 0:
+        nworkers = max(1, min(16, available_cpu_count()))
+    write_behind, nwriters, flush_bytes, drop_cache = _write_knobs()
+    write_behind = write_behind and nworkers > 1
+    if nwriters <= 0:
+        nwriters = max(1, min(4, nworkers // 2))
+    if not write_behind:
+        nwriters = 0
+
+    items = _host_work_items(plans)
+    slot_bytes = max(i.rows * DATA_SHARDS * i.length for i in items)
+    parity_bytes = max(i.rows * PARITY_SHARDS * i.length for i in items)
+    # pooled parity slots (with write-behind a slot outlives its compute
+    # call until the writer stage releases it)
+    n_pslots = 1 if nworkers == 1 else nworkers + 2 * nwriters + 2
+    parity_free: "queue.Queue[np.ndarray]" = queue.Queue()
+    for _ in range(n_pslots):
+        parity_free.put(np.empty(parity_bytes, dtype=np.uint8))
+
+    stop = threading.Event()
+    errors: list[BaseException] = []
+    pacer = _WritebackPacer(flush_bytes, drop_cache)
+    dat_fds = [os.open(p.base + ".dat", os.O_RDONLY) for p in plans]
+    vols = {vi: _ShardFileSet(
+                p.base, to_ext,
+                (p.rows[-1][1] + p.rows[-1][2]) if p.rows else 0, pacer)
+            for vi, p in enumerate(plans)}
+    timers = {"read": 0.0, "encode_crc": 0.0, "write": 0.0, "flush": 0.0}
+    tlock = threading.Lock()
+
+    def read_item(w: _HostWork, flat: np.ndarray) -> np.ndarray:
+        """Fill (and return) the item's (rows, 10, length) view of the
+        flat slot buffer, zero-padding past the .dat's EOF."""
+        dat_size = plans[w.vol].dat_size
+        fd = dat_fds[w.vol]
+        nbytes = w.rows * DATA_SHARDS * w.length
+        view = flat[:nbytes].reshape(w.rows, DATA_SHARDS, w.length)
+        if w.kind == "span":
+            span = view.reshape(-1)
+            got = _preadv_full(fd, span, w.dat_off,
+                               min(nbytes, max(0, dat_size - w.dat_off)))
+            if got < nbytes:
+                span[got:] = 0
+        else:
+            row = view[0]
+            for i in range(DATA_SHARDS):
+                # shard i's chunk inside the large striped row
+                start = w.dat_off + i * w.block_size + w.col
+                got = _preadv_full(fd, row[i], start,
+                                   min(w.length, max(0, dat_size - start)))
+                if got < w.length:
+                    row[i, got:] = 0
+        return view
+
+    def encode_item(w: _HostWork, data: np.ndarray):
+        """Parity + CRC into a pooled parity slot, which travels with the
+        item to the writer stage (write-behind) or is released right
+        after the inline write."""
+        t0 = time.perf_counter()
+        while True:  # stop-aware: an error elsewhere must not wedge us
+            try:
+                pbuf = parity_free.get(timeout=0.5)
+                break
+            except queue.Empty:
+                if stop.is_set():
+                    raise RuntimeError("encode pipeline stopped")
+        need = w.rows * PARITY_SHARDS * w.length
+        parity = pbuf[:need].reshape(w.rows, PARITY_SHARDS, w.length)
+        if fused:
+            crcs = enc.encode_rows(parity_matrix, data, parity)
+        else:
+            crcs = [0] * TOTAL_SHARDS
+            for r in range(w.rows):
+                parity[r] = enc._apply(parity_matrix, data[r])
+                for i in range(DATA_SHARDS):
+                    crcs[i] = crc_host.crc32c(data[r, i], crcs[i])
+                for i in range(PARITY_SHARDS):
+                    crcs[DATA_SHARDS + i] = crc_host.crc32c(
+                        parity[r, i], crcs[DATA_SHARDS + i])
+        with tlock:
+            timers["encode_crc"] += time.perf_counter() - t0
+        return pbuf, parity, crcs
+
+    def write_item(w: _HostWork, data: np.ndarray, parity: np.ndarray):
+        t0 = time.perf_counter()
+        v = vols[w.vol]
+        for i in range(DATA_SHARDS):
+            v.write(i, [data[r, i] for r in range(w.rows)], w.shard_off)
+        for i in range(PARITY_SHARDS):
+            v.write(DATA_SHARDS + i,
+                    [parity[r, i] for r in range(w.rows)], w.shard_off)
+        with tlock:
+            timers["write"] += time.perf_counter() - t0
+
+    def encode_write_item(w: _HostWork, data: np.ndarray) -> list[int]:
+        """The two-stage form (WEED_EC_WRITE_BEHIND=0): the codec worker
+        writes synchronously."""
+        pbuf, parity, crcs = encode_item(w, data)
+        write_item(w, data, parity)
+        parity_free.put(pbuf)
+        return crcs
+
+    def combine(w: _HostWork, crcs: list[int]):
+        v = vols[w.vol]
+        for s in range(TOTAL_SHARDS):
+            v.crcs[s] = crc_host.crc32c_combine(
+                v.crcs[s], crcs[s], w.rows * w.length)
+
+    def qput(q, item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def qget(q):
+        while not stop.is_set():
+            try:
+                return q.get(timeout=0.5)
+            except queue.Empty:
+                continue
+        return None
+
+    wall0 = time.perf_counter()
+    try:
+        if nworkers == 1:
+            flat = np.empty(slot_bytes, dtype=np.uint8)
+            for w in items:
+                t0 = time.perf_counter()
+                data = read_item(w, flat)
+                timers["read"] += time.perf_counter() - t0
+                pbuf, parity, crcs = encode_item(w, data)
+                write_item(w, data, parity)
+                parity_free.put(pbuf)
+                combine(w, crcs)
+        else:
+            n_slots = max(_SLOTS, nworkers + 2 * nwriters + 2)
+            free_slots: "queue.Queue[np.ndarray]" = queue.Queue()
+            for _ in range(n_slots):
+                free_slots.put(np.empty(slot_bytes, dtype=np.uint8))
+            ready: "queue.Queue" = queue.Queue(maxsize=n_slots)
+            write_q: "queue.Queue" = queue.Queue(maxsize=2 * nwriters + 2)
+
+            def reader():
+                try:
+                    for w in items:
+                        flat = qget(free_slots)
+                        if flat is None:
+                            return
+                        t0 = time.perf_counter()
+                        data = read_item(w, flat)
+                        with tlock:
+                            timers["read"] += time.perf_counter() - t0
+                        if not qput(ready, (flat, data, w)):
+                            return
+                    qput(ready, None)
+                except BaseException as e:
+                    errors.append(e)
+                    stop.set()
+
+            def write_group(group):
+                t0 = time.perf_counter()
+                v = vols[group[0][0].vol]
+                base_off = group[0][0].shard_off
+                for s in range(TOTAL_SHARDS):
+                    iovs = []
+                    for (w, _flat, data, parity, _pbuf) in group:
+                        src = data if s < DATA_SHARDS else parity
+                        j = s if s < DATA_SHARDS else s - DATA_SHARDS
+                        for r in range(w.rows):
+                            iovs.append(src[r, j])
+                    v.write(s, iovs, base_off)
+                with tlock:
+                    timers["write"] += time.perf_counter() - t0
+                for (_w, flat, _data, _parity, pbuf) in group:
+                    free_slots.put(flat)
+                    parity_free.put(pbuf)
+
+            def writer_loop():
+                # items arrive in stripe order (the main loop combines and
+                # enqueues in submission order), so a writer coalesces the
+                # adjacent spans queued behind its current item
+                carry = None
+                try:
+                    while True:
+                        if carry is not None:
+                            item, carry = carry, None
+                        else:
+                            item = qget(write_q)
+                        if item is None:
+                            return
+                        group = [item]
+                        rows = item[0].rows
+                        while len(group) < _GROUP_MAX:
+                            try:
+                                nxt = write_q.get_nowait()
+                            except queue.Empty:
+                                break
+                            if nxt is None:
+                                write_q.put(None)  # a sibling's sentinel
+                                break
+                            lw, nw = group[-1][0], nxt[0]
+                            if (nw.vol != lw.vol
+                                    or nw.shard_off != lw.shard_off
+                                    + lw.rows * lw.length
+                                    or rows + nw.rows > _IOV_MAX):
+                                carry = nxt
+                                break
+                            group.append(nxt)
+                            rows += nw.rows
+                        write_group(group)
+                except BaseException as e:
+                    errors.append(e)
+                    stop.set()
+
+            rt = threading.Thread(target=reader, daemon=True)
+            rt.start()
+            wthreads = [threading.Thread(target=writer_loop, daemon=True)
+                        for _ in range(nwriters)]
+            for wt in wthreads:
+                wt.start()
+            pool = ThreadPoolExecutor(max_workers=nworkers)
+            # up to nworkers + 1 items in flight; combined in order (file
+            # CRCs chain in stripe order, and in-order hand-off lets the
+            # writers coalesce adjacent spans)
+            pending: list = []
+            try:
+                done = False
+                while not done and not stop.is_set():
+                    try:
+                        item = ready.get(timeout=0.5)
+                    except queue.Empty:
+                        continue
+                    if item is None:
+                        done = True
+                    else:
+                        flat, data, w = item
+                        fn = encode_item if write_behind else \
+                            encode_write_item
+                        pending.append(
+                            (w, flat, data, pool.submit(fn, w, data)))
+                    while pending and (len(pending) > nworkers or done):
+                        w, flat, data, fut = pending.pop(0)
+                        if write_behind:
+                            pbuf, parity, crcs = fut.result()
+                            combine(w, crcs)
+                            if not qput(write_q,
+                                        (w, flat, data, parity, pbuf)):
+                                break
+                        else:
+                            combine(w, fut.result())
+                            free_slots.put(flat)
+                for _ in range(nwriters):
+                    qput(write_q, None)
+                for wt in wthreads:
+                    wt.join(timeout=600)
+                if errors:
+                    raise errors[0]
+            except BaseException:
+                stop.set()
+                if errors:  # the root cause, not a secondary unwind
+                    raise errors[0] from None
+                raise
+            finally:
+                stop.set()
+                pool.shutdown(wait=True)
+                rt.join(timeout=30)
+                for wt in wthreads:
+                    wt.join(timeout=5)
+    finally:
+        for fd in dat_fds:
+            os.close(fd)
+        for v in vols.values():
+            v.close()
+
+    wall = time.perf_counter() - wall0
+    # the pacer flushes inside timed write sections: its time goes to the
+    # flush stage, not twice
+    timers["flush"] = pacer.flush_seconds
+    timers["write"] = max(0.0, timers["write"] - pacer.flush_seconds)
+    if stage_stats is not None:
+        stage_stats.update({k: round(v, 3) for k, v in timers.items()})
+        stage_stats["wall"] = round(wall, 3)
+        stage_stats["backend"] = "host-pipeline"
+        stage_stats["workers"] = nworkers
+        stage_stats["writers"] = nwriters
+        stage_stats["write_behind"] = write_behind
+        stage_stats["fused"] = fused
+        stage_stats["items"] = len(items)
+        stage_stats["flushes"] = pacer.flushes
+        for k in ("read", "encode_crc", "write", "flush"):
+            stage_stats[f"{k}_frac"] = (
+                round(timers[k] / wall, 3) if wall > 0 else 0.0)
+    return {p.base: vols[vi].crcs for vi, p in enumerate(plans)}
+
+
+# -- rebuild ------------------------------------------------------------------
 
 
 def rebuild_matrix(present: list[int], missing: list[int],
@@ -632,7 +1298,9 @@ def rebuild_shards(base: str, batch_units: Optional[int] = None,
     """Regenerate every missing .ecNN from survivors: survivor chunks
     batch into (B, 10, L) dispatches of K2 with the reconstruction matrix,
     which also returns the rebuilt rows' raw CRCs.  Returns {shard_id:
-    crc32c of the rebuilt file}.
+    crc32c of the rebuilt file}.  The staging slots, device input slabs
+    and pinned host outputs are leased from the DevicePool, so a second
+    rebuild of the same geometry re-leases them.
 
     A short final chunk is placed at the END of its zeroed staging row:
     its rebuilt row then carries the same leading zeros, which leave a raw
@@ -664,18 +1332,30 @@ def rebuild_shards(base: str, batch_units: Optional[int] = None,
         batch_units = max(1, TARGET_BATCH_BYTES // (DATA_SHARDS * chunk))
     b = min(batch_units, len(offsets))
     t = len(missing)
-    stage = _DeviceStage(dev, make_sharded_apply(matrix),
-                         (b, DATA_SHARDS, chunk), 2)
-    # two staging slots: a slot is refilled only after its batch drained
-    slots = [_host_buffer((b, DATA_SHARDS, chunk), torch.uint8, dev)
-             for _ in range(2)]
+    cuda = dev.type == "cuda"
+    step = make_sharded_apply(matrix)
+    pool = get_pool()
+    shape = (b, DATA_SHARDS, chunk)
+    # two staging slots: a slot is refilled only after its batch drained;
+    # on a card each has its own device input slab
+    leases = [lease_tensor(pool, "rebuild-stage", shape, torch.uint8,
+                           pinned=cuda) for _ in range(2)]
+    if cuda:
+        leases += [lease_tensor(pool, "rebuild-din", shape, torch.uint8,
+                                dev) for _ in range(2)]
     free_out: "queue.Queue" = queue.Queue()
     for _ in range(4):
-        free_out.put((_host_buffer((b, t, chunk), torch.uint8, dev),
-                      _host_buffer((b, t), torch.int64, dev)))
+        pair = (lease_tensor(pool, "rebuild-hout", (b, t, chunk),
+                             torch.uint8, pinned=cuda),
+                lease_tensor(pool, "rebuild-hcrc", (b, t), torch.int64,
+                             pinned=cuda))
+        leases += pair
+        free_out.put(pair)
+    slots, dins = leases[:2], leases[2:4] if cuda else [None, None]
 
     inputs = [open(base + to_ext(i), "rb") for i in chosen]
-    pacer = _WritebackPacer(*_write_knobs())
+    _, _, flush_bytes, drop_cache = _write_knobs()
+    pacer = _WritebackPacer(flush_bytes, drop_cache)
     out_fds = {sid: os.open(base + to_ext(sid),
                             os.O_CREAT | os.O_TRUNC | os.O_WRONLY, 0o644)
                for sid in missing}
@@ -692,7 +1372,7 @@ def rebuild_shards(base: str, batch_units: Optional[int] = None,
                 if item is None:
                     return
                 batch_offs, out = item
-                rebuilt = out[0].numpy()
+                rebuilt = out[0].payload.numpy()
                 for k, off in enumerate(batch_offs):
                     width = min(chunk, shard_size - off)
                     for j, sid in enumerate(missing):
@@ -713,6 +1393,26 @@ def rebuild_shards(base: str, batch_units: Optional[int] = None,
             except queue.Empty:
                 continue
 
+    def submit(slot, din, out, nb):
+        """K2 over the slot's first nb units; the rebuilt rows and CRCs
+        land in the pinned host pair `out`.  Returns the done event."""
+        src = slot.payload[:nb]
+        hrows, hcrc = out[0].payload[:nb], out[1].payload[:nb]
+        if not cuda:
+            o, c = step(src)
+            hrows.copy_(o)
+            hcrc.copy_(c)
+            return None
+        x = din.payload[:nb]
+        x.copy_(src, non_blocking=True)
+        pool.note_h2d(x.numel(), device=dev)
+        o, c = step(x)
+        hrows.copy_(o, non_blocking=True)
+        hcrc.copy_(c, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+        return done
+
     wt = threading.Thread(target=wb_writer, daemon=True)
     wt.start()
     try:
@@ -721,7 +1421,7 @@ def rebuild_shards(base: str, batch_units: Optional[int] = None,
         def drain_one():
             batch_offs, out, done = inflight.pop(0)
             _wait(done)
-            fin = out[1].numpy()
+            fin = out[1].payload.numpy()
             for k, off in enumerate(batch_offs):
                 width = min(chunk, shard_size - off)
                 fk = finalize(fin[k], width)
@@ -738,8 +1438,10 @@ def rebuild_shards(base: str, batch_units: Optional[int] = None,
                     continue
 
         for step_i, start in enumerate(range(0, len(offsets), b)):
+            if len(inflight) >= 2:
+                drain_one()  # frees this step's staging slot
             slot = slots[step_i % 2]
-            buf = slot.numpy()
+            buf = slot.payload.numpy()
             batch_offs = offsets[start:start + b]
             for k, off in enumerate(batch_offs):
                 width = min(chunk, shard_size - off)
@@ -752,14 +1454,13 @@ def rebuild_shards(base: str, batch_units: Optional[int] = None,
                         raise ValueError(
                             f"short read of survivor {chosen[i]} at {off}")
             out = take_out()
-            _, done = stage.submit(slot[:len(batch_offs)], *out)
+            done = submit(slot, dins[step_i % 2], out, len(batch_offs))
             inflight.append((batch_offs, out, done))
-            if len(inflight) >= 2:
-                drain_one()
         while inflight:
             drain_one()
     finally:
-        stage.close()
+        if cuda:
+            torch.cuda.synchronize(dev)
         try:
             wq.put(None, timeout=5)
         except queue.Full:
@@ -769,6 +1470,8 @@ def rebuild_shards(base: str, batch_units: Optional[int] = None,
             f.close()
         for fd in out_fds.values():
             os.close(fd)
+        for ls in leases:
+            pool.release(ls)
     if werrs:
         raise werrs[0]
     return crcs

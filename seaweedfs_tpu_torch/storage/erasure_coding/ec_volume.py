@@ -12,7 +12,9 @@ Parity with ec_volume.go / ec_shard.go / ec_volume_delete.go / store_ec.go:
     journal (ec_volume_delete.go:53-98)
 
 Degraded reads decode through `ops.codec.reconstruct_span` on the
-volume's device (kernel K1 on the card).  Survivor fetches from other
+volume's device (kernel K1 on the card); a survivor stack bound for the
+card is assembled in a pinned slab leased from the DevicePool, so it
+crosses the link without a staging copy.  Survivor fetches from other
 servers go through the `remote_reader` hook; the reference's QoS and
 deadline propagation onto those fetches, its tracing spans and its
 inline-EC tail reader come with the slices that port rpc/, qos/,
@@ -32,6 +34,7 @@ import numpy as np
 
 from ... import device as device_mod
 from ...ops import codec as codec_mod
+from ...ops.device_pool import get_pool
 from .. import idx as idx_mod
 from .. import types as t
 from ..needle import Needle, get_actual_size
@@ -364,19 +367,29 @@ class EcVolume:
         the target row through the decode-plan cache and the span-decode
         batcher."""
         blk0 = time.perf_counter()
+        k = self.family.data_shards
+        lease = stack = None
+        if self.device.type == "cuda" and \
+                codec_mod.device_route(k * size, self.device):
+            # the stack crosses to the card: assemble it in pinned memory
+            lease, stack = codec_mod.lease_pinned_stack((k, size),
+                                                        self.device)
         try:
             survivors, inputs = self._fetch_survivors(
-                target_shard, offset, size)
+                target_shard, offset, size, out=stack)
             RECOVER_STATS.add_stage("fetch", time.perf_counter() - blk0)
             out = self._recover_batcher.decode(
                 survivors, target_shard, inputs)
             return np.ascontiguousarray(out).tobytes()
         finally:
+            if lease is not None:  # the decode has returned
+                get_pool().release(lease)
             self._tls.busy = (getattr(self._tls, "busy", 0.0)
                               + (time.perf_counter() - blk0))
 
     def _fetch_survivors(self, target_shard: int, offset: int,
-                         size: int) -> tuple[tuple, np.ndarray]:
+                         size: int, out: Optional[np.ndarray] = None
+                         ) -> tuple[tuple, np.ndarray]:
         """Collect exactly data_shards survivor spans for one recovery
         (recoverOneRemoteEcShardInterval, store_ec.go:328-382).
 
@@ -387,7 +400,7 @@ class EcVolume:
         stragglers are cancelled; in-flight ones drain on the shared pool
         (remote_reader calls carry their own timeouts).  Returns (sorted
         survivor ids, (k, L) stack in that order) — the decode-plan cache
-        key and its matching input."""
+        key and its matching input, stacked into `out` when given."""
         k = self.family.data_shards
         shards: dict[int, np.ndarray] = {}
         remote_candidates: list[int] = []
@@ -426,7 +439,8 @@ class EcVolume:
                 f"need {k} shards to recover shard "
                 f"{target_shard}, only {len(shards)} available")
         survivors = tuple(sorted(shards))[:k]
-        return survivors, np.stack([shards[sid] for sid in survivors])
+        return survivors, np.stack([shards[sid] for sid in survivors],
+                                   out=out)
 
     def _decode_span(self, survivors: tuple, target: int,
                      inputs: np.ndarray) -> np.ndarray:

@@ -26,8 +26,10 @@ Knobs (env, read per call so daemons/tests flip them live):
                              exact spans, no alignment)
   WEED_EC_RECOVER_COALESCE   0 disables single-flight + batching
 
-The counters are plain fields; the reference's Prometheus mirrors and its
-device-pool snapshot come with the stats and device-pool slices.
+The counters are plain fields, with the device pool's resident-slab
+counters beside them; the reference's Prometheus mirrors come with the
+stats slice.  A batched decode runs in the foreground device lane
+(qos/lanes.py), so background device batches yield to it.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ from collections import OrderedDict
 from typing import Callable, Optional
 
 import numpy as np
+
+from ...qos.lanes import LANES
 
 
 
@@ -127,6 +131,15 @@ class RecoverStats:
         if wall and wall > 0:
             for k in ("fetch", "decode", "serve"):
                 out[f"{k}_frac"] = round(out[f"{k}_seconds"] / wall, 3)
+        # the slab pool behind the device route: resident hits are
+        # survivor-stack uploads it saved
+        from ...ops import device_pool
+
+        snap = device_pool.get_pool().snapshot()
+        out["device_pool"] = {
+            k: snap[k] for k in ("resident_slabs", "resident_hits",
+                                 "resident_misses", "bytes",
+                                 "evictions")}
         return out
 
 
@@ -320,7 +333,11 @@ class SpanDecodeBatcher:
                 stacked = batch[0].inputs
             else:
                 stacked = np.concatenate([r.inputs for r in batch], axis=1)
-            out = self._decode_fn(survivors, target, stacked)
+            # foreground device lane: while this decode runs, queued
+            # background batches (bulk encode, scrub) yield at their next
+            # checkpoint
+            with LANES.foreground():
+                out = self._decode_fn(survivors, target, stacked)
             outs = []
             col = 0
             for r in batch:

@@ -391,6 +391,31 @@ class Volume:
             self.nm.flush()
             self.data.sync()
 
+    def file_stat(self) -> tuple[int, int]:
+        """(.dat size, .idx size), under the volume lock."""
+        with self.lock:
+            idx_path = self.file_name(".idx")
+            return (self.data.size(),
+                    os.path.getsize(idx_path)
+                    if os.path.exists(idx_path) else 0)
+
+    def destroy(self):
+        """Close and delete the volume's files.  The .vif stays when shard
+        files exist: it doubles as the EC volume's sidecar."""
+        with self.lock:
+            self.close()
+            from .erasure_coding import TOTAL_SHARDS_COUNT, to_ext
+
+            exts = [".dat", ".idx", ".vif", ".cpd", ".cpx", ".note"]
+            if any(os.path.exists(self.file_name(to_ext(i)))
+                   for i in range(TOTAL_SHARDS_COUNT)):
+                exts.remove(".vif")
+            for ext in exts:
+                try:
+                    os.remove(self.file_name(ext))
+                except FileNotFoundError:
+                    pass
+
     def close(self):
         if self._batcher is not None:
             self._batcher.close()

@@ -152,3 +152,139 @@ def test_degraded_reads_on_card(cuda, tmp_path):
     batches = recover.STATS.snapshot()["batches"] - before[1]
     assert launched == batches > 0
     ev.close()
+
+
+@pytest.mark.parametrize("length", [50, 4096, 4096 + 3])
+def test_gf_apply_strided_rows_and_out(cuda, length):
+    """K1 on rows of a larger buffer (row stride > L) into `out=`: no
+    copy, the result in the caller's buffer."""
+    base = _bytes(length, (10, 3, length), cuda)
+    view = base[:, 1, :]
+    out = torch.empty((4, length), dtype=torch.uint8, device=cuda)
+    got = rs_cuda.gf_apply(PARITY, view, out=out)
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(out, rs_cuda.gf_apply_plain(PARITY, view))
+
+
+@pytest.mark.parametrize("length", [50, 4096, (1 << 16) + 3])
+@pytest.mark.parametrize("k", [1, 3, 7, 10])
+def test_fused_apply_crc_on_permuted_views(cuda, k, length):
+    """K2 reading the (B, k, L) permute of a (k, B, L) buffer and writing
+    through the permute of a (p, B, L) slot, with preallocated CRC and
+    scratch: equal to the plain version, nothing copied."""
+    m = np.ascontiguousarray(PARITY[:, :k])
+    buf = _bytes(k * length, (k, 3, length), cuda)
+    slot = torch.zeros((4, 3, length), dtype=torch.uint8, device=cuda)
+    crc = torch.empty((3, k + 4), dtype=torch.int64, device=cuda)
+    part = torch.empty(rs_cuda.k2_scratch_shape(4, k, 3, length),
+                       dtype=torch.int32, device=cuda)
+    for rep in range(2):  # the first call builds the cached tables
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        rs_cuda.fused_apply_crc(m, buf.permute(1, 0, 2),
+                                slot.permute(1, 0, 2), crc, part)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before
+    want, want_crc = rs_cuda.fused_apply_crc_plain(
+        m, buf.permute(1, 0, 2).contiguous())
+    assert torch.equal(slot.permute(1, 0, 2), want)
+    assert torch.equal(crc, want_crc)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_parity_step_on_card(cuda, fused):
+    """The pooled parity step at every compacted k, held against its
+    plain version on the same inputs; 8 steady-state calls allocate
+    nothing on the device."""
+    from seaweedfs_tpu_torch.parallel.mesh import make_parity_step
+
+    step = make_parity_step([cuda], fused_crc=fused)
+    plain = make_parity_step([torch.device("cpu")], fused_crc=fused)
+    for k in range(1, 11):
+        x = _bytes(k, (k, 3, 4096 + 4), cuda)
+        out = torch.empty((4, 3, 4096 + 4), dtype=torch.uint8, device=cuda)
+        crc = step(x, out)
+        ref = torch.empty((4, 3, 4096 + 4), dtype=torch.uint8)
+        ref_crc = plain(x.cpu(), ref)
+        assert torch.equal(out.cpu(), ref)
+        if fused:
+            assert torch.equal(crc.cpu(), ref_crc)
+    x = _bytes(0, (10, 2, 1 << 16), cuda)
+    out = torch.empty((4, 2, 1 << 16), dtype=torch.uint8, device=cuda)
+    step(x, out)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for _ in range(8):
+        step(x, out)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before
+
+
+def test_reconstruct_span_pinned_and_resident(cuda, monkeypatch):
+    from seaweedfs_tpu_torch.ops.codec import reconstruct_span
+    from seaweedfs_tpu_torch.ops.device_pool import get_pool, reset_pool
+
+    monkeypatch.setenv("WEED_EC_RECOVER_DEVICE_MIN_KB", "0")
+    reset_pool()
+    survivors = [1, 2, 3, 4, 6, 7, 8, 9, 10, 12]
+    x = _bytes(9, (10, 1 << 18), "cpu").numpy()
+    want = reconstruct_span(survivors, x, 0, device="cpu")
+    for key in (None, b"k", b"k"):
+        got = reconstruct_span(survivors, x, 0, slab_key=key, device=cuda)
+        assert np.array_equal(got, want)
+    snap = get_pool().snapshot()
+    assert snap["resident_hits"] == 1 and snap["resident_misses"] == 1
+    reset_pool()
+
+
+def test_pooled_route_and_deep_scrub_on_card(cuda, tmp_path, monkeypatch):
+    """The pooled route (taken on a card for chunks not divisible by 4,
+    fused CRC) and deep scrub's K1 recompute, on the card."""
+    from seaweedfs_tpu_torch.maintenance.deep_scrub import (deep_scrub,
+                                                            local_target)
+    from seaweedfs_tpu_torch.parallel.batched_encode import encode_volumes
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder, to_ext
+
+    rng = np.random.default_rng(5)
+    data = rng.integers(0, 256, 100_003, dtype=np.uint8)
+    bases = [str(tmp_path / n) for n in ("gpu", "cpu")]
+    for b in bases:
+        data.tofile(b + ".dat")
+    st: dict = {}
+    got = encode_volumes([bases[0]], 10000, 50, stage_stats=st,
+                         device=cuda)[bases[0]]
+    want = encode_volumes([bases[1]], 10000, 50, device="cpu")[bases[1]]
+    assert st["backend"] == "device-pooled-fused-crc" and got == want
+    for i in range(14):
+        with open(bases[0] + to_ext(i), "rb") as a, \
+                open(bases[1] + to_ext(i), "rb") as b:
+            assert a.read() == b.read()
+    encoder.save_volume_info(bases[0], 3, {"shard_crc32c": got})
+    out = deep_scrub([local_target(bases[0], 1)], device=cuda)
+    assert out["volumes"][0]["ok"] and out["volumes"][0]["recomputed"]
+
+
+def test_pinned_stack_skips_the_staging_copy(cuda, monkeypatch):
+    """A stack assembled in a leased pinned slab crosses to the card from
+    that slab: the route leases no staging buffer for it."""
+    from seaweedfs_tpu_torch.ops import codec
+    from seaweedfs_tpu_torch.ops.device_pool import get_pool
+
+    monkeypatch.setenv("WEED_EC_RECOVER_DEVICE_MIN_KB", "0")
+    survivors = [1, 2, 3, 4, 6, 7, 8, 9, 10, 12]
+    x = _bytes(11, (10, 4096 * 3), "cpu").numpy()
+    want = codec.reconstruct_span(survivors, x, 0, device="cpu")
+    staged = []
+    real = codec._lease_host
+    monkeypatch.setattr(codec, "_lease_host",
+                        lambda pool, n, dev: staged.append(n) or
+                        real(pool, n, dev))
+    assert np.array_equal(codec.reconstruct_span(survivors, x, 0,
+                                                 device=cuda), want)
+    assert len(staged) == 2            # the stack's staging and the row's
+    lease, pinned = codec.lease_pinned_stack(x.shape, cuda)
+    np.copyto(pinned, x)
+    staged.clear()
+    assert np.array_equal(codec.reconstruct_span(survivors, pinned, 0,
+                                                 device=cuda), want)
+    assert len(staged) == 1            # the row's only
+    get_pool().release(lease)
+    assert get_pool().snapshot()["leased_slots"] == 0

@@ -114,8 +114,9 @@ def test_inflight_knob_and_stage_stats(tmp_path, monkeypatch):
     assert st["inflight"] == 1
     for k in ("read", "dispatch", "encode_crc", "write"):
         assert st[k] >= 0 and 0 <= st[f"{k}_frac"] <= 1.5
-    assert st["backend"] == "cpu-fused-apply-crc"
-    assert st["crc_path"] == "fused-device"
+    # a CPU device takes the pooled route with the host CRC walk
+    assert st["backend"] == "device-pooled"
+    assert st["crc_path"] == "host"
     assert st["batches"] >= 1
 
 

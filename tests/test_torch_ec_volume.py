@@ -5,6 +5,7 @@ to a volume.  Every comparison is of bytes (tolerance 0).  The port runs
 on the CPU here: with WEED_EC_RECOVER_DEVICE=1 its recovered blocks go
 through kernel K1's plain version, else through the host codec."""
 
+import hashlib
 import itertools
 import os
 import random
@@ -272,9 +273,9 @@ def test_degraded_read_routes(port_encoded, monkeypatch, route):
     calls = []
     real = t_codec.apply_matrix
 
-    def counting(rows, data):
+    def counting(rows, data, out=None):
         calls.append(tuple(data.shape))
-        return real(rows, data)
+        return real(rows, data, out)
 
     monkeypatch.setattr(t_codec, "apply_matrix", counting)
     monkeypatch.setenv("WEED_EC_RECOVER_DEVICE", "1")
@@ -294,13 +295,15 @@ def test_reconstruct_span_routes_equal_jax(monkeypatch, n):
     inputs = rng.integers(0, 256, (10, n), dtype=np.uint8)
     want = j_codec.reconstruct_span(survivors, inputs, 3)
     fam = t_codes.get_family()
+    # slab_key is the stack's content identity (resident in the pool)
+    key = hashlib.blake2b(inputs.tobytes(), digest_size=16).digest()
     for knob in ("0", "1", "auto"):
         monkeypatch.setenv("WEED_EC_RECOVER_DEVICE", knob)
         for min_kb in ("0", "", "bad"):
             monkeypatch.setenv("WEED_EC_RECOVER_DEVICE_MIN_KB", min_kb)
             for family in (None, fam):
                 got = t_codec.reconstruct_span(survivors, inputs, 3,
-                                               slab_key=b"k", family=family,
+                                               slab_key=key, family=family,
                                                device="cpu")
                 assert np.array_equal(got, want)
 
@@ -336,7 +339,7 @@ def test_failing_decode_launch_raises(port_encoded, k1_plain, monkeypatch):
     """No route hides the device: a failing K1 launch fails the read."""
     d, _, live = port_encoded
 
-    def broken(rows, data):
+    def broken(rows, data, out=None):
         raise RuntimeError("gf_apply launch failed: cudaError 700")
 
     monkeypatch.setattr(t_codec, "apply_matrix", broken)
