@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # the whole run (one card)
     python3 chip_smoke.py --quick    # build and kernel checks only
     python3 chip_smoke.py --kernels  # build, kernel checks and timing
+    python3 chip_smoke.py --routes   # build, kernel checks, decode routes
 
 Phases:
   1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a);
@@ -14,8 +15,9 @@ Phases:
      by K1 and K2) in both forms at the encode shape and at compacted k,
      with the check that it writes into its leased slot and allocates
      nothing on the card in its steady state; time reconstruct_span's
-     host route, its K1 route (pinned staging) and its resident-slab hit
-     at 64 KiB, 256 KiB and 1 MiB spans;
+     host route, its K1 route from a pageable and from a pinned stack,
+     and its resident-slab hit at spans of 64 KiB to 4 MiB, in
+     interleaved rounds that give each time's spread;
   3. the raw-volume path, RS(10,4) over a seeded 256 MiB `.dat` (cut
      from 1 GiB to leave the run's time to phase 4): write_ec_files,
      rebuild_ec_files after three loss patterns, reconstruct_span and
@@ -415,81 +417,90 @@ def median_ms(fn, reps: int = 20) -> float:
     return float(np.median(times)) * 1e3
 
 
+ROUTE_SPANS = (64 << 10, 256 << 10, MIB, 4 * MIB)
+ROUTE_ROUNDS = 5
+
+
 def route_phase(dev) -> dict:
     """reconstruct_span's routes for one decode row x (10, S): the host
-    codec (the native library's GF apply), the device route (the stack
-    copied into a pinned slab leased from the DevicePool, H2D with
-    non_blocking=True, K1 into a leased slab, D2H to a pinned slab), the
-    same from a stack the caller assembled in a leased pinned slab (as
-    EcVolume does: no staging copy), and the resident-slab hit (slab_key
-    set, the stack already on the card),
-    as median host-clock ms per call, beside K1 alone cold in L2
-    (`time_cold`).  The routes' crossing is what
-    WEED_EC_RECOVER_DEVICE_MIN_KB (512) should sit at."""
+    codec (the native library's GF apply); the device route from a
+    pageable stack (H2D straight from it, K1 into a leased slab, D2H to a
+    pinned slab); the same from a stack assembled in the pinned slab that
+    `codec.survivor_stack` leases, as EcVolume's read ladder does; and the
+    resident-slab hit (slab_key set, the stack already on the card).  The
+    routes are timed in ROUTE_ROUNDS rounds that interleave them, each a
+    median of 20 calls (host clock); a route's line gives the median of
+    its rounds and their range, beside K1 alone cold in L2 (`time_cold`).
+    Where two routes' ranges overlap, the run does not say which is
+    faster.  The routes' crossing is what WEED_EC_RECOVER_DEVICE_MIN_KB
+    (512) should sit at."""
     check(native.lib() is not None, "the native host library did not build")
     rng = np.random.default_rng(SEED + 1)
     survivors = [1, 2, 3, 4, 6, 7, 8, 9, 10, 12]
     row = np.ascontiguousarray(decode_rows(10, 14, survivors, (0,)))
     out = {}
-    for span in (64 << 10, 256 << 10, MIB):
+    for span in ROUTE_SPANS:
         x = np.frombuffer(rng.bytes(10 * span), np.uint8).reshape(
             10, span).copy()
         want = codec._apply_rows_host(row, x)[0]
-        res = {}
         hits0 = get_pool().snapshot()["resident_hits"]
-        for route, knob, key in (("host", "0", None), ("device", "1", None),
-                                 ("resident", "1", b"route-%d" % span)):
-            with knobs(WEED_EC_RECOVER_DEVICE=knob,
-                       WEED_EC_RECOVER_DEVICE_MIN_KB="0"):
-                got = reconstruct_span(survivors, x, 0, slab_key=key,
-                                       device=dev)
+        with knobs(WEED_EC_RECOVER_DEVICE="1",
+                   WEED_EC_RECOVER_DEVICE_MIN_KB="0"), \
+                codec.survivor_stack(x.shape, dev) as slab:
+            check(slab is not None and torch.from_numpy(slab).is_pinned(),
+                  "survivor_stack leased no pinned slab for the card")
+            np.copyto(slab, x)
+            routes = {"host": ("0", None, x), "pageable": ("1", None, x),
+                      "pinned": ("1", None, slab),
+                      "resident": ("1", b"route-%d" % span, x)}
+            rounds = {route: [] for route in routes}
+            for route, (knob, key, stack) in routes.items():
+                with knobs(WEED_EC_RECOVER_DEVICE=knob):
+                    got = reconstruct_span(survivors, stack, 0, slab_key=key,
+                                           device=dev)
                 check(np.array_equal(got, want),
                       f"reconstruct_span {route} route differs at {span}")
-                res[route + "_ms"] = median_ms(
-                    lambda: reconstruct_span(survivors, x, 0, slab_key=key,
-                                             device=dev))
+            for _ in range(ROUTE_ROUNDS):
+                for route, (knob, key, stack) in routes.items():
+                    with knobs(WEED_EC_RECOVER_DEVICE=knob):
+                        rounds[route].append(median_ms(
+                            lambda: reconstruct_span(survivors, stack, 0,
+                                                     slab_key=key,
+                                                     device=dev)))
         hits = get_pool().snapshot()["resident_hits"] - hits0
-        check(hits >= 20, f"resident route hit the pool {hits} times")
-        # the route as the read ladder drives it: the stack assembled in
-        # a leased pinned slab, so it crosses without a staging copy
-        lease, pinned = codec.lease_pinned_stack(x.shape, dev)
-        np.copyto(pinned, x)
-        with knobs(WEED_EC_RECOVER_DEVICE="1",
-                   WEED_EC_RECOVER_DEVICE_MIN_KB="0"):
-            check(np.array_equal(reconstruct_span(survivors, pinned, 0,
-                                                  device=dev), want),
-                  f"reconstruct_span from a pinned stack differs at {span}")
-            res["pinned_stack_ms"] = median_ms(
-                lambda: reconstruct_span(survivors, pinned, 0, device=dev))
-        get_pool().release(lease)
+        check(hits >= 20 * ROUTE_ROUNDS,
+              f"resident route hit the pool {hits} times")
+        res = {}
+        for route, ms in rounds.items():
+            res[route + "_ms"] = float(np.median(ms))
+            res[route + "_range_ms"] = [min(ms), max(ms)]
         res.update(route_steps(dev, row, x))
         nsets = max(8, -(-64 * MIB // (10 * span)))
         sets = [(row, rand_bytes(rng, (10, span), dev)) for _ in range(nsets)]
         res["k1_ms"] = time_cold(rs_cuda.gf_apply, sets)
         out[span] = res
-        log(f"reconstruct_span (10, {span >> 10} KiB) -> 1 row: host "
-            f"{res['host_ms']:.4f} ms, device route (staged through a "
-            f"pinned slab) {res['device_ms']:.4f} ms, from a stack "
-            f"assembled pinned {res['pinned_stack_ms']:.4f} ms, resident hit "
-            f"{res['resident_ms']:.4f} ms ({hits} pool hits; K1 alone, "
-            f"cold: {res['k1_ms'] * 1e3:.3f} us)")
+        log(f"reconstruct_span (10, {span >> 10} KiB) -> 1 row, median "
+            f"[range] of {ROUTE_ROUNDS} rounds, ms: " + ", ".join(
+                f"{route} {res[route + '_ms']:.4f} "
+                f"[{res[route + '_range_ms'][0]:.4f}, "
+                f"{res[route + '_range_ms'][1]:.4f}]" for route in routes)
+            + f" ({hits} pool hits; K1 alone, cold: "
+            f"{res['k1_ms'] * 1e3:.3f} us)")
         log(f"  steps (median ms, host clock, each ending in a sync): "
-            f"stage copy into pinned {res['stage_ms']:.4f}, H2D pinned "
+            f"copy into a pinned buffer {res['stage_ms']:.4f}, H2D pinned "
             f"{res['h2d_pinned_ms']:.4f}, H2D pageable "
             f"{res['h2d_pageable_ms']:.4f}, K1 {res['k1_sync_ms']:.4f}, "
-            f"D2H {res['d2h_ms']:.4f}; the pageable route's body "
-            f"(H2D, K1, D2H, as before the pool) "
-            f"{res['pageable_route_ms']:.4f}")
+            f"D2H {res['d2h_ms']:.4f}; the route's body with no pool "
+            f"(pageable H2D, K1, D2H, each allocating) {res['bare_ms']:.4f}")
     return out
 
 
 def route_steps(dev, row, x) -> dict:
     """The device route's steps for one (10, S) stack, each timed alone
-    (median host-clock ms of 20 calls, each ending in a synchronize): the
-    copy into a pinned buffer, its H2D, an H2D from the pageable array
-    itself, K1, the D2H of the row; and the route's body without staging
-    (pageable H2D, K1, D2H), as `reconstruct_span` ran it before the
-    pool."""
+    (median host-clock ms of 20 calls, each ending in a synchronize): a
+    copy into a pinned buffer (what staging a pageable stack would add),
+    its H2D, an H2D from the pageable array itself, K1, the D2H of the
+    row; and the route's body with no pool (allocating H2D, K1, D2H)."""
     stream = torch.cuda.current_stream(dev)
     pinned = torch.empty(x.shape, dtype=torch.uint8, pin_memory=True)
     din = torch.empty(x.shape, dtype=torch.uint8, device=dev)
@@ -512,9 +523,42 @@ def route_steps(dev, row, x) -> dict:
             lambda: rs_cuda.gf_apply(row, din, out=dout))),
         "d2h_ms": median_ms(synced(
             lambda: hout.copy_(dout, non_blocking=True))),
-        "pageable_route_ms": median_ms(
+        "bare_ms": median_ms(
             lambda: rs_cuda.gf_apply(row, host.to(dev)).cpu().numpy()),
     }
+
+
+def route_profile(dev, span: int = 64 << 10, calls: int = 400):
+    """cProfile of `calls` device-route decodes of one row x (10, span)
+    from a pinned stack: where the route's host time goes beyond its
+    copies and K1 (the functions with the most time of their own)."""
+    import cProfile
+    import pstats
+
+    rng = np.random.default_rng(SEED + 2)
+    survivors = [1, 2, 3, 4, 6, 7, 8, 9, 10, 12]
+    with knobs(WEED_EC_RECOVER_DEVICE="1",
+               WEED_EC_RECOVER_DEVICE_MIN_KB="0"), \
+            codec.survivor_stack((10, span), dev) as slab:
+        np.copyto(slab, np.frombuffer(rng.bytes(10 * span), np.uint8)
+                  .reshape(10, span))
+        for _ in range(20):
+            reconstruct_span(survivors, slab, 0, device=dev)
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.enable()
+        for _ in range(calls):
+            reconstruct_span(survivors, slab, 0, device=dev)
+        prof.disable()
+        wall = time.perf_counter() - t0
+    log(f"route profile: {calls} pinned-route decodes of (10, "
+        f"{span >> 10} KiB) in {wall * 1e3:.3f} ms under cProfile "
+        f"(own time per call, us):")
+    stats = pstats.Stats(prof)
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:16]
+    for (file, line, func), (_, ncalls, own, cum, _) in rows:
+        log(f"  {own / calls * 1e6:9.2f} own {cum / calls * 1e6:9.2f} cum "
+            f"{ncalls // calls:3d}x {os.path.basename(file)}:{line} {func}")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -797,6 +841,9 @@ def needle_phase(dev, workdir: str) -> dict:
         f"coalesced {st2['coalesced']}, cache hits {st2['cache_hits']} "
         f"misses {st2['cache_misses']}, mean K1 input (10, "
         f"{widths:.3f} MiB)")
+    log(f"pass 2 stage seconds (summed over readers): fetch "
+        f"{st2['fetch_seconds']} decode {st2['decode_seconds']} serve "
+        f"{st2['serve_seconds']}")
     check(sum(counts) == len(written), "pass 2 missed needles")
     check(k1_2 > 0 and k1_2 == st2["batches"],
           f"pass 2: {k1_2} K1 launches for {st2['batches']} decode batches")
@@ -989,8 +1036,12 @@ def main() -> int:
                     help="build and check the kernels only")
     ap.add_argument("--kernels", action="store_true",
                     help="build, check and time the kernels; no main path")
+    ap.add_argument("--routes", action="store_true",
+                    help="build and check the kernels, time and profile "
+                         "reconstruct_span's routes; no main path")
     args = ap.parse_args()
-    mode = "quick" if args.quick else "kernels" if args.kernels else "all"
+    mode = ("quick" if args.quick else "kernels" if args.kernels
+            else "routes" if args.routes else "all")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1005,9 +1056,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
-    stats = kernel_phase(dev, mode)
+    stats = kernel_phase(dev, "quick" if mode == "routes" else mode)
     if mode != "quick":
         route_phase(dev)
+    if mode == "routes":
+        route_profile(dev)
     launches = {}
     if mode == "all":
         paths = {}

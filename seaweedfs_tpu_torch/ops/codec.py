@@ -13,16 +13,18 @@
 the degraded read's decode.  It routes by size: a survivor stack of at
 least WEED_EC_RECOVER_DEVICE_MIN_KB goes to K1 on the device, a smaller
 one to the host codec (native library, else NumPy), since below that a
-trip over the link costs more than the mat-vec.  The device route copies
-the stack to the card from pinned memory with non_blocking=True: from the
-stack itself when the caller assembled it in a pinned slab leased from the
-DevicePool (`lease_pinned_stack`; EcVolume does), else through a leased
-pinned staging slab; with a `slab_key` the uploaded stack stays resident
-in the pool for the next decode against the same survivors.
+trip over the link costs more than the mat-vec.  A caller that assembles
+the stack asks `survivor_stack` where to put it: in a pinned slab leased
+from the DevicePool when the route will send it to the card, so it
+crosses the link with non_blocking=True and no staging copy (EcVolume's
+read ladder does).  Any other stack crosses straight from its own memory.
+With a `slab_key` the uploaded stack stays resident in the pool for the
+next decode against the same survivors.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 
@@ -116,23 +118,33 @@ def recover_device_enabled(dev: torch.device) -> bool:
     return dev.type == "cuda"
 
 
-def device_route(nbytes: int, dev: torch.device) -> bool:
+def _device_route(nbytes: int, dev: torch.device) -> bool:
     """Whether reconstruct_span decodes a stack of `nbytes` on `dev` (a
     resolved device): the size threshold and the knob."""
     return nbytes >= recover_device_min_bytes() and \
         recover_device_enabled(dev)
 
 
-def lease_pinned_stack(shape: tuple, dev: torch.device):
-    """A pinned host slab leased from the DevicePool for a (d, L) survivor
-    stack bound for the device route on the card `dev`: a caller that
-    assembles the stack in it (np.stack(..., out=view)) spares the route
-    its staging copy.  Returns (lease, uint8 ndarray view of `shape`);
-    give the lease back with get_pool().release once the decode
-    returned."""
+@contextlib.contextmanager
+def survivor_stack(shape: tuple, dev: torch.device):
+    """Where to assemble a (d, L) survivor stack bound for
+    reconstruct_span on `dev` (a resolved device), as np.stack's `out=`.
+    When the route sends a stack of this size to a card, yields a uint8
+    view of a pinned host slab leased from the DevicePool: the stack then
+    crosses the link from it asynchronously, with no staging copy.  Else
+    yields None, and np.stack builds an ordinary array.  The slab goes
+    back to the pool when the block exits, so the decode must have
+    returned by then."""
     n = shape[0] * shape[1]
-    ls = _lease_host(get_pool(), n, dev)
-    return ls, ls.payload[:n].numpy().reshape(shape)
+    if dev.type != "cuda" or not _device_route(n, dev):
+        yield None
+        return
+    pool = get_pool()
+    ls = _lease_host(pool, n, dev)
+    try:
+        yield ls.payload[:n].numpy().reshape(shape)
+    finally:
+        pool.release(ls)
 
 
 def _apply_rows_host(rows: np.ndarray, inputs: np.ndarray) -> np.ndarray:
@@ -171,48 +183,45 @@ def _lease_device(pool, tag: str, nbytes: int, dev: torch.device):
 
 
 def _upload(pool, stack: np.ndarray, dev: torch.device,
-            into: torch.Tensor, held: list) -> torch.Tensor:
-    """Copy the host stack into `into` (a flat device slab), asynchronously
-    on the current stream, from pinned memory: the stack itself when it
-    lies in pinned memory already, else a leased pinned staging slab it
-    is first copied into (that lease goes into `held`: the caller
-    releases it after synchronizing the stream).  Returns the (d, L)
-    view of `into`."""
+            into: torch.Tensor) -> torch.Tensor:
+    """Copy the host stack into `into` (a flat device slab) on the current
+    stream and return its (d, L) view.  A stack in pinned memory (a
+    `survivor_stack` slab) crosses asynchronously.  Any other crosses
+    straight from its pageable memory, which the driver stages in pipelined
+    chunks: an explicit copy into a pinned slab first is not overlapped
+    with anything and measured slower on the H100 (PERF.md section 5)."""
     d, length = stack.shape
-    n = stack.nbytes
     src = torch.from_numpy(stack)
-    if dev.type != "cuda" or not src.is_pinned():
-        stage = _lease_host(pool, n, dev)
-        held.append(stage)
-        np.copyto(stage.payload[:n].numpy().reshape(d, length), stack)
-        src = stage.payload[:n].view(d, length)
-    din = into[:n].view(d, length)
-    din.copy_(src, non_blocking=True)
-    pool.note_h2d(n, device=dev)
+    din = into[:stack.nbytes].view(d, length)
+    din.copy_(src, non_blocking=dev.type == "cuda" and src.is_pinned())
+    pool.note_h2d(stack.nbytes, device=dev)
     return din
 
 
 def _device_decode(rows: np.ndarray, stack: np.ndarray, dev: torch.device,
                    resident_key=None) -> np.ndarray:
     """rows (t, d) x stack (d, L) with K1 on `dev`: the stack crosses the
-    link from a pinned staging slab into a leased device slab (or stays
-    resident under `resident_key`), K1 writes into a leased device slab,
-    and the result comes back through a pinned slab."""
+    link into a leased device slab (or stays resident under
+    `resident_key`), K1 writes into a leased device slab, and the result
+    comes back through a pinned slab."""
     pool = get_pool()
     d, length = stack.shape
     t = rows.shape[0]
+    # synchronized once on success; on an exception the finally clause
+    # waits instead, so no slab goes back while a queued copy reads it
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
     held = []
     resident = False
     try:
         if resident_key is None:
             din_slab = _lease_device(pool, "recover-in", stack.nbytes, dev)
             held.append(din_slab)
-            din = _upload(pool, stack, dev, din_slab.payload, held)
+            din = _upload(pool, stack, dev, din_slab.payload)
         else:
             def make():
                 flat = torch.empty(stack.nbytes, dtype=torch.uint8,
                                    device=dev)
-                return _upload(pool, stack, dev, flat, held)
+                return _upload(pool, stack, dev, flat)
             din = pool.acquire_resident(resident_key, make, stack.nbytes)
             resident = True
         dout_slab = _lease_device(pool, "recover-out", t * length, dev)
@@ -224,13 +233,14 @@ def _device_decode(rows: np.ndarray, stack: np.ndarray, dev: torch.device,
         held.append(hout_slab)
         hout = hout_slab.payload[:t * length].view(t, length)
         hout.copy_(dout, non_blocking=True)
-        if dev.type == "cuda":
-            torch.cuda.current_stream(dev).synchronize()
+        if stream is not None:
+            stream.synchronize()
+            stream = None
         pool.note_d2h(t * length, device=dev)
         return hout.numpy().copy()
     finally:
-        if dev.type == "cuda":  # no slab goes back while a copy reads it
-            torch.cuda.current_stream(dev).synchronize()
+        if stream is not None:
+            stream.synchronize()
         if resident:
             pool.release_resident(resident_key)
         for ls in held:
@@ -271,7 +281,7 @@ def reconstruct_span(survivors, inputs: np.ndarray, target: int,
         stack = family.to_lanes(np.ascontiguousarray(inputs))
     stack = np.ascontiguousarray(stack, dtype=np.uint8)
     rows = np.ascontiguousarray(rows, dtype=np.uint8)
-    if device_route(inputs.nbytes, dev):
+    if _device_route(inputs.nbytes, dev):
         key = None if slab_key is None else \
             ("recover", fam_name, tuple(survivors), slab_key)
         out = _device_decode(rows, stack, dev, key)

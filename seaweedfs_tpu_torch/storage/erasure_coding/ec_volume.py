@@ -12,9 +12,9 @@ Parity with ec_volume.go / ec_shard.go / ec_volume_delete.go / store_ec.go:
     journal (ec_volume_delete.go:53-98)
 
 Degraded reads decode through `ops.codec.reconstruct_span` on the
-volume's device (kernel K1 on the card); a survivor stack bound for the
-card is assembled in a pinned slab leased from the DevicePool, so it
-crosses the link without a staging copy.  Survivor fetches from other
+volume's device (kernel K1 on the card); the survivor stack is assembled
+where `ops.codec.survivor_stack` says, so a stack bound for the card
+crosses the link from pinned memory.  Survivor fetches from other
 servers go through the `remote_reader` hook; the reference's QoS and
 deadline propagation onto those fetches, its tracing spans and its
 inline-EC tail reader come with the slices that port rpc/, qos/,
@@ -34,7 +34,6 @@ import numpy as np
 
 from ... import device as device_mod
 from ...ops import codec as codec_mod
-from ...ops.device_pool import get_pool
 from .. import idx as idx_mod
 from .. import types as t
 from ..needle import Needle, get_actual_size
@@ -367,23 +366,17 @@ class EcVolume:
         the target row through the decode-plan cache and the span-decode
         batcher."""
         blk0 = time.perf_counter()
-        k = self.family.data_shards
-        lease = stack = None
-        if self.device.type == "cuda" and \
-                codec_mod.device_route(k * size, self.device):
-            # the stack crosses to the card: assemble it in pinned memory
-            lease, stack = codec_mod.lease_pinned_stack((k, size),
-                                                        self.device)
         try:
-            survivors, inputs = self._fetch_survivors(
-                target_shard, offset, size, out=stack)
-            RECOVER_STATS.add_stage("fetch", time.perf_counter() - blk0)
-            out = self._recover_batcher.decode(
-                survivors, target_shard, inputs)
+            with codec_mod.survivor_stack((self.family.data_shards, size),
+                                          self.device) as slab:
+                survivors, inputs = self._fetch_survivors(
+                    target_shard, offset, size, out=slab)
+                RECOVER_STATS.add_stage("fetch",
+                                        time.perf_counter() - blk0)
+                out = self._recover_batcher.decode(
+                    survivors, target_shard, inputs)
             return np.ascontiguousarray(out).tobytes()
         finally:
-            if lease is not None:  # the decode has returned
-                get_pool().release(lease)
             self._tls.busy = (getattr(self._tls, "busy", 0.0)
                               + (time.perf_counter() - blk0))
 

@@ -262,9 +262,11 @@ def test_pooled_route_and_deep_scrub_on_card(cuda, tmp_path, monkeypatch):
     assert out["volumes"][0]["ok"] and out["volumes"][0]["recomputed"]
 
 
-def test_pinned_stack_skips_the_staging_copy(cuda, monkeypatch):
-    """A stack assembled in a leased pinned slab crosses to the card from
-    that slab: the route leases no staging buffer for it."""
+def test_survivor_stack_needs_no_staging_copy(cuda, monkeypatch):
+    """No stack is copied into a staging slab on its way to the card: a
+    pageable one crosses from its own memory, one assembled in the slab
+    `survivor_stack` leases crosses from that slab.  The route leases only
+    the pinned slab its output row comes back through."""
     from seaweedfs_tpu_torch.ops import codec
     from seaweedfs_tpu_torch.ops.device_pool import get_pool
 
@@ -279,12 +281,15 @@ def test_pinned_stack_skips_the_staging_copy(cuda, monkeypatch):
                         real(pool, n, dev))
     assert np.array_equal(codec.reconstruct_span(survivors, x, 0,
                                                  device=cuda), want)
-    assert len(staged) == 2            # the stack's staging and the row's
-    lease, pinned = codec.lease_pinned_stack(x.shape, cuda)
-    np.copyto(pinned, x)
-    staged.clear()
-    assert np.array_equal(codec.reconstruct_span(survivors, pinned, 0,
-                                                 device=cuda), want)
-    assert len(staged) == 1            # the row's only
-    get_pool().release(lease)
+    assert staged == [x.shape[1]]      # the row's only
+    with codec.survivor_stack(x.shape, cuda) as slab:
+        assert torch.from_numpy(slab).is_pinned()
+        np.stack(list(x), out=slab)
+        staged.clear()
+        assert np.array_equal(codec.reconstruct_span(survivors, slab, 0,
+                                                     device=cuda), want)
+        assert staged == [x.shape[1]]
     assert get_pool().snapshot()["leased_slots"] == 0
+    monkeypatch.setenv("WEED_EC_RECOVER_DEVICE_MIN_KB", "1024")
+    with codec.survivor_stack(x.shape, cuda) as slab:
+        assert slab is None            # too small for the card's route

@@ -227,12 +227,27 @@ def test_step_cost_and_device_timeline():
     assert profiling.device_timeline()["timeline"] == []
 
 
-def test_background_checkpoint_waits_for_foreground(monkeypatch):
-    """A background batch waits while a foreground decode is in flight
-    and proceeds once it exits; the starvation floor bounds the wait."""
+class _Ticks:
+    """A clock that moves one second per reading, so a lane's recorded
+    wait counts the readings it took, the same in both packages."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        self.t += 1.0
+        return self.t
+
+
+def _lanes_record(lanes_cls, monkeypatch) -> list:
+    """One background batch stalled behind a foreground decode until it
+    exits, then the starvation floor at 0 and the lanes switched off:
+    the lanes' snapshots along the way."""
     monkeypatch.setenv("WEED_QOS_BG_MAX_STALL_MS", "60000")
-    lanes = DeviceLanes()
+    monkeypatch.delenv("WEED_QOS", raising=False)
+    lanes = lanes_cls(now=_Ticks())
     entered, release, done = (threading.Event() for _ in range(3))
+    waits = []
 
     def foreground():
         with lanes.foreground():
@@ -243,24 +258,47 @@ def test_background_checkpoint_waits_for_foreground(monkeypatch):
     fg.start()
     assert entered.wait(10)
     waiter = threading.Thread(
-        target=lambda: (lanes.background_checkpoint(), done.set()))
+        target=lambda: (waits.append(lanes.background_checkpoint()),
+                        done.set()))
     waiter.start()
     assert not done.wait(0.2)          # stalled behind the foreground
+    stalled = lanes.snapshot()
     release.set()
     assert done.wait(10)
     fg.join(10)
     waiter.join(10)
     assert not fg.is_alive() and not waiter.is_alive()
-    snap = lanes.snapshot()
-    assert snap["preemptions"] == 1 and snap["foreground_batches"] == 1
-    assert snap["background_batches"] == 1
-    assert snap["background_wait_seconds"] > 0
+    record = [stalled, lanes.snapshot()]
     monkeypatch.setenv("WEED_QOS_BG_MAX_STALL_MS", "0")
     with lanes.foreground():
-        assert lanes.background_checkpoint() >= 0.0  # floor: no wait
+        waits.append(lanes.background_checkpoint())  # floor: no stall
     monkeypatch.setenv("WEED_QOS", "0")
     with lanes.foreground():
-        assert lanes.background_checkpoint() == 0.0  # lanes off
+        waits.append(lanes.background_checkpoint())  # lanes off
+    record += [lanes.snapshot(), waits]
+    lanes.reset()
+    return record + [lanes.snapshot()]
+
+
+def test_background_checkpoint_waits_for_foreground(monkeypatch):
+    """A background batch waits while a foreground decode is in flight
+    and proceeds once it exits; the starvation floor bounds the wait and
+    WEED_QOS=0 turns the lanes off.  The port's DeviceLanes and the JAX
+    package's run the same sequence on the same clock and agree."""
+    from seaweedfs_tpu.qos import lanes as j_lanes
+
+    want = _lanes_record(j_lanes.DeviceLanes, monkeypatch)
+    got = _lanes_record(DeviceLanes, monkeypatch)
+    assert got == want
+    stalled, after, off, waits, cleared = got
+    assert stalled["foreground_active"] == 1
+    assert stalled["preemptions"] == 1 and stalled["background_batches"] == 0
+    assert after["preemptions"] == 1 and after["foreground_batches"] == 1
+    assert after["background_batches"] == 1
+    assert after["background_wait_seconds"] > 0
+    assert waits[0] > 0 and waits[1] >= 0.0 and waits[2] == 0.0
+    assert off["enabled"] is False and off["background_batches"] == 2
+    assert cleared["foreground_batches"] == 0
 
 
 def test_decode_batch_runs_in_foreground_lane():
