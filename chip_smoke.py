@@ -4,6 +4,7 @@
     python3 chip_smoke.py --quick    # build and kernel checks only
     python3 chip_smoke.py --kernels  # build, kernel checks and timing
     python3 chip_smoke.py --routes   # build, kernel checks, decode routes
+    python3 chip_smoke.py --inline   # build, kernel checks, phase 6 only
 
 Phases:
   1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a);
@@ -39,7 +40,23 @@ Phases:
      against the .vif CRCs), deep_scrub of all four clean, then again
      with one parity byte flipped (exactly that shard reported), and the
      encode auto-selection's choice with the measured link;
-  6. one JSON line of per-kernel numbers, then the card's name and power
+  6. inline write-path EC on the card at real size, through the Store
+     (the JAX package's inline defaults: RS(10,4) for collection `pics`,
+     64 KiB stripe units, tail flush every 500 ms, WEED_EC_INLINE=1 and
+     WEED_EC_INLINE_DEVICE=1): ~1 GiB of seeded needles through
+     Store.write_needle from 4 writer threads while a reader reads acked
+     needles back, drain; every parity log equal to the plain GF parity
+     of the data logs on the card, the audit clean, K1 launches in the
+     ingest window equal to the writer's device encodes (one pooled
+     parity step call per commit batch), no pool allocation after the
+     first batch; the volume closed, .ec01 and .ec11 deleted and healed
+     by a remount through DiskLocation, every needle read; .ec00 .ec05
+     .ec11 .ec13 lost and every needle read through the degraded ladder
+     (K1 per recovered block); deep_scrub clean, then exactly the row of
+     one flipped parity byte; the same for ~128 MiB of pm_msr (collection
+     `cold`: 3 K1 launches per encode call), and 256 MiB with
+     WEED_EC_INLINE_DEVICE=0 for the host codec's encode time per batch;
+  7. one JSON line of per-kernel numbers, then the card's name and power
      limit, then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -62,6 +79,7 @@ import numpy as np
 import torch
 
 from seaweedfs_tpu_torch.maintenance.deep_scrub import (deep_scrub,
+                                                        deep_scrub_host,
                                                         local_target)
 from seaweedfs_tpu_torch.ops import _build, codec, native, rs_cuda
 from seaweedfs_tpu_torch.ops import crc32c as crc_host
@@ -74,6 +92,8 @@ from seaweedfs_tpu_torch.parallel.mesh import (make_parity_step,
                                                parity_step_plain)
 from seaweedfs_tpu_torch.storage.erasure_coding import (decoder, encoder,
                                                         recover, to_ext)
+from seaweedfs_tpu_torch.storage.erasure_coding import codes as ec_codes
+from seaweedfs_tpu_torch.storage.erasure_coding import inline
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import (
     EcVolume, EcVolumeShard)
 from seaweedfs_tpu_torch.storage.needle import Needle
@@ -88,6 +108,11 @@ NEEDLE_VOLUME_BYTES = 1 << 30  # phase 4: one ~1 GiB needle volume
 STORE_VOLUMES = 4           # phase 5: four volumes of ~256 MiB of needles
 STORE_VOLUME_BYTES = 256 * MIB
 NEEDLE_MIN, NEEDLE_MAX = 1 << 10, 1 << 20  # log-uniform needle sizes
+INLINE_BYTES = 1 << 30      # phase 6: ~1 GiB of needles, RS(10,4)
+INLINE_MSR_BYTES = 128 * MIB   # phase 6: pm_msr
+INLINE_HOST_BYTES = 256 * MIB  # phase 6: RS on the host codec
+INLINE_WRITERS = 4          # writer threads of phase 6's ingest
+MSR_LOST = (0, 2, 5, 13)    # pm_msr losses (its tolerance is 9)
 LOST = (0, 5, 11, 13)       # two data and two parity shards
 READERS = 8                 # threads of phase 4's concurrent pass
 CHUNK = MIB                 # the pipeline's column chunk for 1 MiB blocks
@@ -1030,6 +1055,403 @@ def store_phase(dev, workdir: str) -> dict:
     return launches
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+
+def seeded_needles(nbytes: int, seed: int) -> dict:
+    """{id: (cookie, data)} of log-uniform [NEEDLE_MIN, NEEDLE_MAX] needles
+    until `nbytes` of data, cut from one seeded buffer made in bulk."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.log(NEEDLE_MIN), np.log(NEEDLE_MAX)
+    sizes = []
+    while sum(sizes) < nbytes:
+        sizes.append(int(np.exp(rng.uniform(lo, hi))))
+    blob = rng.bytes(sum(sizes))
+    cookies = rng.integers(1, 1 << 32, len(sizes))
+    out, pos = {}, 0
+    for i, size in enumerate(sizes):
+        out[1 + i] = (int(cookies[i]), blob[pos:pos + size])
+        pos += size
+    return out
+
+
+def ingest(store, vid: int, needles: dict, readers: bool = True) -> dict:
+    """Write `needles` through Store.write_needle from INLINE_WRITERS
+    threads (each its own stride of ids) while, with `readers`, one thread
+    reads acked needles back through Store.read_needle and checks them.
+    Returns the wall seconds and the reader's counts."""
+    ev = store.find_ec_volume(vid)
+    acked: list = []
+    done = [False]
+    reads = {"reads": 0, "tail_served": 0}
+    real_tail = ev.tail_reader
+
+    def counting_tail(sid, off, size):
+        got = real_tail(sid, off, size)
+        if got is not None:
+            reads["tail_served"] += 1
+        return got
+
+    ev.tail_reader = counting_tail
+
+    def writer(ids):
+        for nid in ids:
+            cookie, data = needles[nid]
+            n = Needle.create(data, name=f"obj-{nid:x}.jpg".encode(),
+                              mime=b"image/jpeg")
+            n.id, n.cookie = nid, cookie
+            store.write_needle(vid, n)
+            acked.append(nid)
+
+    def reader():
+        rng = np.random.default_rng(SEED + 6)
+        while not done[0]:
+            if not acked:
+                time.sleep(0.001)
+                continue
+            # the newest acks most often: they sit in the rows in flight
+            nid = acked[max(0, len(acked) - 1 - int(rng.integers(0, 64)))]
+            cookie, data = needles[nid]
+            n = store.read_needle(vid, nid, cookie=cookie)
+            check(n.data == data, f"needle {nid:x} read during ingest")
+            reads["reads"] += 1
+
+    ids = sorted(needles)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(INLINE_WRITERS + 1) as pool:
+        rd = pool.submit(reader) if readers else None
+        for f in [pool.submit(writer, ids[k::INLINE_WRITERS])
+                  for k in range(INLINE_WRITERS)]:
+            f.result()
+        write_s = time.perf_counter() - t0
+        ev.writer.drain(tail=True)
+        wall = time.perf_counter() - t0
+        done[0] = True
+        if rd is not None:
+            rd.result()
+    ev.tail_reader = real_tail
+    check(len(acked) == len(needles), "ingest lost acks")
+    return {"write_s": write_s, "wall_s": wall, **reads}
+
+
+def check_parity_logs(base: str, fam, unit: int, dev) -> int:
+    """Every parity log equals the plain GF parity (K1's plain version on
+    the card) of the zero-padded data logs, 16 stripe rows at a time.
+    Returns the rows checked."""
+    k, p = fam.data_shards, fam.parity_shards
+    rows = os.path.getsize(base + to_ext(k)) // unit
+    files = [open(base + to_ext(i), "rb") for i in range(k + p)]
+    matrix = np.ascontiguousarray(fam.parity_matrix())
+    try:
+        for r0 in range(0, rows, 16):
+            n = min(16, rows - r0) * unit
+            stack = np.stack([read_chunk(f, r0 * unit, n) for f in files])
+            lanes = torch.from_numpy(np.ascontiguousarray(
+                fam.to_lanes(stack[:k]))).to(dev)
+            want = fam.from_lanes(
+                rs_cuda.gf_apply_plain(matrix, lanes).cpu().numpy())
+            check(np.array_equal(want, stack[k:]),
+                  f"{fam.name} parity logs differ at rows {r0}..")
+    finally:
+        for f in files:
+            f.close()
+    return rows
+
+
+def read_all(store, vid: int, needles: dict) -> tuple[float, list]:
+    """Read every needle through Store.read_needle; (wall s, per-read s)."""
+    lat = []
+    t0 = time.perf_counter()
+    for nid, (cookie, data) in needles.items():
+        t1 = time.perf_counter()
+        n = store.read_needle(vid, nid, cookie=cookie)  # checks the CRC
+        lat.append(time.perf_counter() - t1)
+        check(n.data == data and n.cookie == cookie,
+              f"needle {nid:x} of volume {vid} read back differs")
+    return time.perf_counter() - t0, lat
+
+
+def lose_and_read(store, vid: int, needles: dict, lost,
+                  per_call: int) -> dict:
+    """Unmount and delete `lost` shard logs of the mounted volume and read
+    every needle through the degraded ladder; K1 launches must equal the
+    decode batches (plus any tail parity encode, `per_call` each)."""
+    ev = store.find_ec_volume(vid)
+    for sid in lost:
+        ev.shards.pop(sid).close()
+        os.remove(ev.base_file_name() + to_ext(sid))
+    recover.STATS.reset()
+    k1 = rs_cuda.launches["gf_apply"]
+    enc = ev.writer.device_encodes
+    wall, lat = read_all(store, vid, needles)
+    k1 = rs_cuda.launches["gf_apply"] - k1
+    enc = ev.writer.device_encodes - enc
+    st = recover.STATS.snapshot()
+    check(st["batches"] > 0 and k1 == st["batches"] + enc * per_call,
+          f"degraded reads: {k1} K1 launches for {st['batches']} decode "
+          f"batches and {enc} encodes")
+    return {"wall_s": wall, "p50_ms": pct_ms(lat, 50),
+            "p99_ms": pct_ms(lat, 99), "k1": k1, "batches": st["batches"],
+            "blocks": st["cache_misses"], "decode_s": st["decode_seconds"],
+            "fetch_s": st["fetch_seconds"]}
+
+
+def batch_encode_ms(w, reps: int = 20) -> dict:
+    """Median host-clock ms of one 16-row commit-batch encode, the card's
+    route (one parity step call) and the host codec's, on the calling
+    thread with no ingest running, in alternating turns."""
+    rng = np.random.default_rng(SEED + 9)
+    rows = [rng.bytes(w.row_bytes) for _ in range(16)]
+    times = {"1": [], "0": []}
+    for i in range(reps + 2):
+        for knob in (("1", "0") if i % 2 else ("0", "1")):
+            with knobs(WEED_EC_INLINE_DEVICE=knob):
+                t0 = time.perf_counter()
+                w._encode_rows(rows)
+                if i >= 2:
+                    times[knob].append(time.perf_counter() - t0)
+    return {"card_ms": float(np.median(times["1"])) * 1e3,
+            "host_ms": float(np.median(times["0"])) * 1e3}
+
+
+def tail_records(base: str) -> int:
+    return sum(r["kind"] == inline.KIND_TAIL
+               for r in inline.read_commit_log(base + ".scl"))
+
+
+def inline_volume(dev, workdir: str, vid: int, collection: str,
+                  nbytes: int, seed: int, lost) -> tuple[dict, dict]:
+    """One inline volume on the card: ingest, drain, parity logs against
+    the plain version, the audit, the window's K1 launches against the
+    writer's device encodes, pool allocations after the first batch, then
+    `lost` shard logs deleted and every needle read degraded.  Returns
+    its numbers and needles."""
+    fam = ec_codes.get_family(
+        ec_codes.family_for_collection(collection))
+    per_call = -(-fam.parity_shards * fam.sub_shards // rs_cuda.MAX_ROWS)
+    pool = get_pool()
+    needles = seeded_needles(nbytes, seed)
+    store = Store([workdir], device=dev)
+    try:
+        ev = store.add_volume(vid, collection)
+        check(isinstance(ev, inline.InlineEcVolume) and ev.family is fam,
+              f"volume {vid} of {collection!r} is not an inline volume of "
+              f"{fam.name}")
+        w = ev.writer
+        rs_cuda.reset_launches()
+        first = {}
+
+        def watch():  # the pool's allocations once the first batch ran
+            while not first:
+                if w.device_encodes >= 1:
+                    first["allocs"] = pool.snapshot()["allocs"]
+                    if dev.type == "cuda":
+                        first["mem"] = torch.cuda.memory_stats()[
+                            "allocation.all.allocated"]
+                    return
+                time.sleep(0.0005)
+
+        watcher = concurrent.futures.ThreadPoolExecutor(1)
+        fw = watcher.submit(watch)
+        logical_bytes = sum(len(d) for _, d in needles.values())
+        res = ingest(store, vid, needles)
+        fw.result(timeout=60)
+        watcher.shutdown()
+        k1 = rs_cuda.launches["gf_apply"]
+        st = w.encode_stats()
+        status = w.status()
+        allocs = pool.snapshot()["allocs"] - first["allocs"]
+        check(st["device_encodes"] > 0 and
+              k1 == st["device_encodes"] * per_call,
+              f"{fam.name}: {k1} K1 launches in the ingest window for "
+              f"{st['device_encodes']} device encodes x {per_call}")
+        check(allocs == 0, f"{fam.name}: the pool allocated {allocs} slabs "
+              "after the first commit batch")
+        if dev.type == "cuda":
+            grew = torch.cuda.memory_stats()["allocation.all.allocated"] \
+                - first["mem"]
+            check(grew == 0, f"{fam.name}: {grew} card allocations after "
+                  "the first commit batch")
+        base = ev.base_file_name()
+        rows = check_parity_logs(base, fam, w.unit, dev)
+        t0 = time.perf_counter()
+        audit = inline.audit_inline_volume(ev)
+        audit_s = time.perf_counter() - t0
+        check(audit["ok"] and audit["needles_checked"] == len(needles),
+              f"{fam.name} audit: {audit}")
+        alone = batch_encode_ms(w)
+        gib = logical_bytes / res["wall_s"] / (1 << 30)
+        out = {
+            "family": fam.name, "needles": len(needles),
+            "logical_bytes": logical_bytes, "ingest_s": res["wall_s"],
+            "write_s": res["write_s"], "ingest_gibps": gib,
+            "write_amp": status["write_amp"],
+            "batches": st["commit_batches"],
+            "encode_ms_per_batch": st["commit_encode_seconds"] * 1e3
+            / max(1, st["commit_batches"]),
+            "device_encodes": st["device_encodes"], "k1": k1,
+            "k1_per_encode": per_call, "tail_commits": tail_records(base),
+            "rows": rows, "audit_s": audit_s, "reads": res["reads"],
+            "tail_served": res["tail_served"], "pool_allocs_after": allocs,
+            "alone_card_ms": alone["card_ms"],
+            "alone_host_ms": alone["host_ms"],
+        }
+        log(f"inline {fam.name} ingest: {len(needles)} needles, "
+            f"{logical_bytes} B in {res['wall_s']:.3f} s "
+            f"({res['write_s']:.3f} s to the last ack), {gib:.3f} GiB/s of "
+            f"logical bytes; write amp {status['write_amp']}; "
+            f"{st['commit_batches']} commit batches, flusher encode "
+            f"{out['encode_ms_per_batch']:.3f} ms per batch on the card; "
+            f"{out['tail_commits']} tail commits; {res['reads']} reads "
+            f"during ingest ({res['tail_served']} tail spans)")
+        log(f"inline {fam.name}: K1 launches in the ingest window {k1} = "
+            f"{st['device_encodes']} device encodes x {per_call}; pool "
+            f"allocations after the first batch {allocs}; {rows} parity "
+            f"rows equal to the plain version; audit {audit_s:.3f} s clean")
+        log(f"inline {fam.name}: one 16-row batch encode alone (median of "
+            f"20, host clock): card {alone['card_ms']:.3f} ms, host codec "
+            f"{alone['host_ms']:.3f} ms")
+        if lost:
+            deg = lose_and_read(store, vid, needles, lost, per_call)
+            out["degraded"] = deg
+            log(f"inline {fam.name} degraded reads, {list(lost)} lost: "
+                f"{len(needles)} needles in {deg['wall_s']:.3f} s, p50 "
+                f"{deg['p50_ms']:.4f} ms p99 {deg['p99_ms']:.4f} ms; "
+                f"{deg['blocks']} recovered blocks, {deg['batches']} decode "
+                f"batches, K1 launches {deg['k1']}, fetch/decode s "
+                f"{deg['fetch_s']}/{deg['decode_s']}")
+    finally:
+        store.close()
+    out["launches"] = dict(rs_cuda.launches)
+    return out, needles
+
+
+def inline_phase(dev, workdir: str) -> dict:
+    """Phase 6, each volume in its own directory under `workdir` (a Store
+    mounts every inline volume of its directory); returns the kernels'
+    launches in it."""
+    check(native.lib() is not None, "the native host library did not build")
+    rs_dir, msr_dir, host_dir = (os.path.join(workdir, d)
+                                 for d in ("rs", "msr", "host"))
+    launches = {name: 0 for name in KERNELS}
+
+    def add(counts):
+        for name in launches:
+            launches[name] += counts.get(name, 0)
+
+    with knobs(WEED_EC_INLINE="1", WEED_EC_INLINE_DEVICE="1",
+               WEED_EC_CODE_PICS="rs_vandermonde", WEED_EC_CODE_COLD="pm_msr",
+               WEED_EC_STRIPE_KB="64", WEED_EC_INLINE_FLUSH_MS="500"):
+        rs, needles = inline_volume(dev, rs_dir, 1, "pics", INLINE_BYTES,
+                                    SEED + 6, lost=None)
+        add(rs["launches"])
+        base = os.path.join(rs_dir, "pics_1")
+        for sid in (1, 11):
+            os.remove(base + to_ext(sid))
+        rs_cuda.reset_launches()
+        t0 = time.perf_counter()
+        store = Store([rs_dir], device=dev)  # DiskLocation remounts, heals
+        heal_s = time.perf_counter() - t0
+        try:
+            ev = store.find_ec_volume(1)
+            check(isinstance(ev, inline.InlineEcVolume),
+                  "the remount did not mount the inline volume")
+            for sid in (1, 11):
+                check(os.path.getsize(base + to_ext(sid)) ==
+                      ev.writer.shard_extent(sid),
+                      f"healed .ec{sid:02d} is not at its committed extent")
+            heal_k1 = rs_cuda.launches["gf_apply"]
+            read_s, lat = read_all(store, 1, needles)
+            log(f"inline remount with .ec01 .ec11 deleted: healed in "
+                f"{heal_s:.3f} s ({heal_k1} K1 launches); {len(needles)} "
+                f"needles read in {read_s:.3f} s (p50 {pct_ms(lat, 50):.4f}"
+                f" ms p99 {pct_ms(lat, 99):.4f} ms)")
+            deg = lose_and_read(store, 1, needles, LOST, 1)
+            log(f"inline rs_vandermonde degraded reads, {list(LOST)} lost: "
+                f"{len(needles)} needles in {deg['wall_s']:.3f} s, p50 "
+                f"{deg['p50_ms']:.4f} ms p99 {deg['p99_ms']:.4f} ms; "
+                f"{deg['blocks']} recovered blocks, {deg['batches']} decode "
+                f"batches, K1 launches {deg['k1']}, fetch/decode s "
+                f"{deg['fetch_s']}/{deg['decode_s']}")
+        finally:
+            store.close()
+        t0 = time.perf_counter()
+        rep = deep_scrub_host(rs_dir, "pics", 1, device=dev)
+        scrub_s = time.perf_counter() - t0
+        check(rep["ok"] and rep["inline"] and not rep["corrupt"] and
+              rep["needles_checked"] == len(needles),
+              f"deep scrub of the inline volume: {rep}")
+        unit = 64 << 10
+        flip_byte(base + to_ext(12), 3 * unit + 123)
+        t0 = time.perf_counter()
+        rep = deep_scrub_host(rs_dir, "pics", 1, device=dev)
+        scrub2_s = time.perf_counter() - t0
+        check(rep["corrupt"] == [3] and not rep["ok"] and
+              rep["needles_bad"] == 0,
+              f"deep scrub after one flipped parity byte: {rep['corrupt']}")
+        log(f"inline deep_scrub (mount heals the 4 lost logs, audit): "
+            f"{scrub_s:.3f} s clean, {rep['rows_checked']} rows; after "
+            f"flipping one byte of pics_1.ec12: {scrub2_s:.3f} s, corrupt "
+            f"rows {rep['corrupt']}")
+        add(rs_cuda.launches)
+
+        msr, _ = inline_volume(dev, msr_dir, 2, "cold", INLINE_MSR_BYTES,
+                               SEED + 7, lost=MSR_LOST)
+        add(msr["launches"])
+        check(msr["k1_per_encode"] == 3, "pm_msr: not 3 K1 launches a call")
+    # the two parity routes side by side at 256 MiB, same ingest (4
+    # writers and the reader), in turns: card, host, host, card
+    pair = {"1": [], "0": []}
+    for turn, knob in enumerate(("1", "0", "0", "1")):
+        with knobs(WEED_EC_INLINE="1", WEED_EC_INLINE_DEVICE=knob,
+                   WEED_EC_CODE_PICS="rs_vandermonde", WEED_EC_STRIPE_KB="64",
+                   WEED_EC_INLINE_FLUSH_MS="500"):
+            rs_cuda.reset_launches()
+            needles = seeded_needles(INLINE_HOST_BYTES, SEED + 8)
+            store = Store([os.path.join(host_dir, str(turn))], device=dev)
+            try:
+                ev = store.add_volume(3, "pics")
+                res = ingest(store, 3, needles)
+                st = ev.writer.encode_stats()
+                check((st["device_encodes"] > 0) == (knob == "1") and
+                      rs_cuda.launches["gf_apply"] ==
+                      st["device_encodes"], f"route {knob}: launches "
+                      f"{rs_cuda.launches} for {st['device_encodes']}")
+                check(inline.audit_inline_volume(ev)["ok"],
+                      f"route {knob}: audit failed")
+                add(rs_cuda.launches)
+                logical = sum(len(d) for _, d in needles.values())
+                ms = st["commit_encode_seconds"] * 1e3 / max(
+                    1, st["commit_batches"])
+                pair[knob].append((logical / res["wall_s"] / (1 << 30), ms,
+                                   st["commit_batches"]))
+                log(f"inline 256 MiB, {'card' if knob == '1' else 'host'} "
+                    f"route (turn {turn}): {logical} B in "
+                    f"{res['wall_s']:.3f} s, "
+                    f"{pair[knob][-1][0]:.3f} GiB/s; "
+                    f"{st['commit_batches']} commit batches, flusher encode "
+                    f"{ms:.3f} ms per batch")
+            finally:
+                store.close()
+    host_ms = float(np.mean([m for _, m, _ in pair["0"]]))
+    summary = {k: rs[k] for k in ("ingest_gibps", "write_amp",
+                                  "encode_ms_per_batch", "batches",
+                                  "tail_commits", "device_encodes", "k1",
+                                  "audit_s")}
+    summary.update(heal_s=heal_s, degraded_p50_ms=deg["p50_ms"],
+                   degraded_p99_ms=deg["p99_ms"], host_encode_ms=host_ms,
+                   alone_card_ms=rs["alone_card_ms"],
+                   alone_host_ms=rs["alone_host_ms"],
+                   msr_alone_card_ms=msr["alone_card_ms"],
+                   msr_alone_host_ms=msr["alone_host_ms"],
+                   msr_ingest_gibps=msr["ingest_gibps"],
+                   msr_encode_ms_per_batch=msr["encode_ms_per_batch"],
+                   msr_k1=msr["k1"], msr_device_encodes=msr["device_encodes"])
+    log("inline summary: " + json.dumps(summary, sort_keys=True))
+    log(f"launches on the inline path: {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1039,9 +1461,13 @@ def main() -> int:
     ap.add_argument("--routes", action="store_true",
                     help="build and check the kernels, time and profile "
                          "reconstruct_span's routes; no main path")
+    ap.add_argument("--inline", action="store_true",
+                    help="build and check the kernels, then phase 6 (inline "
+                         "EC) alone")
     args = ap.parse_args()
     mode = ("quick" if args.quick else "kernels" if args.kernels
-            else "routes" if args.routes else "all")
+            else "routes" if args.routes else "inline" if args.inline
+            else "all")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1056,23 +1482,35 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
-    stats = kernel_phase(dev, "quick" if mode == "routes" else mode)
-    if mode != "quick":
+    stats = kernel_phase(dev, "quick" if mode in ("routes", "inline")
+                         else mode)
+    if mode in ("kernels", "routes", "all"):
         route_phase(dev)
     if mode == "routes":
         route_profile(dev)
+    if mode == "inline":
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            inline_phase(dev, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
     launches = {}
     if mode == "all":
+        # each path resets the launch counts before it runs and reads
+        # them after; the kernels each one must have launched
+        needs = {"raw": KERNELS, "needle": KERNELS, "store": KERNELS,
+                 "inline": ("gf_apply",)}
         paths = {}
         for label, phase in (("raw", main_path), ("needle", needle_phase),
-                             ("store", store_phase)):
+                             ("store", store_phase),
+                             ("inline", inline_phase)):
             workdir = tempfile.mkdtemp(prefix="chip_smoke_")
             try:
                 paths[label] = phase(dev, workdir)
             finally:
                 shutil.rmtree(workdir, ignore_errors=True)
-        for name in KERNELS:
-            for label, counts in paths.items():
+        for label, counts in paths.items():
+            for name in needs[label]:
                 check(counts.get(name, 0) > 0,
                       f"{name} was not launched on the {label} path")
         launches = {name: sum(c[name] for c in paths.values())

@@ -382,7 +382,9 @@ def deep_scrub_host(directory: str, collection: str, vid: int,
     again and its own CRC verified (catching, at needle granularity,
     corruption the file CRC localises only to a shard).  The walk reads
     through an EcVolume on `device`, so a needle behind a missing shard
-    is recovered there."""
+    is recovered there.  An inline-EC volume (a `.scl` commit log; its
+    shard logs have no whole-file CRC record) goes to
+    `verify_inline_volume` on `device`."""
     from ..storage import types as t
     from ..storage.erasure_coding.ec_volume import EcVolume, EcVolumeShard
     from ..storage.erasure_coding.encoder import load_volume_info
@@ -391,8 +393,10 @@ def deep_scrub_host(directory: str, collection: str, vid: int,
     base = (os.path.join(directory, f"{collection}_{vid}") if collection
             else os.path.join(directory, str(vid)))
     if os.path.exists(base + ".scl"):
-        raise NotImplementedError(
-            "inline EC volumes (shard logs) are not ported yet")
+        from ..storage.erasure_coding.inline import verify_inline_volume
+
+        return verify_inline_volume(directory, collection, vid,
+                                    device=device)
     info = load_volume_info(base) or {}
     stored = info.get("shard_crc32c")
     clean, corrupt, absent = verify_shard_files(base, stored,

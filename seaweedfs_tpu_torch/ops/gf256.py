@@ -45,6 +45,14 @@ def gf_mul(a: int, b: int) -> int:
     return int(EXP_TABLE[LOG_TABLE[a] + LOG_TABLE[b]])
 
 
+def gf_div(a: int, b: int) -> int:
+    if b == 0:
+        raise ZeroDivisionError("GF(2^8) division by zero")
+    if a == 0:
+        return 0
+    return int(EXP_TABLE[(LOG_TABLE[a] - LOG_TABLE[b]) % 255])
+
+
 def gf_inverse(a: int) -> int:
     if a == 0:
         raise ZeroDivisionError("0 has no inverse in GF(2^8)")
@@ -75,6 +83,10 @@ def gf_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Matrix product over GF(2^8). a: (m, k) uint8, b: (k, n) uint8."""
     products = mul_table()[a[:, :, None], b[None, :, :]]
     return np.bitwise_xor.reduce(products, axis=1)
+
+
+def gf_identity(n: int) -> np.ndarray:
+    return np.eye(n, dtype=np.uint8)
 
 
 def gf_invert(m: np.ndarray) -> np.ndarray:
@@ -123,6 +135,57 @@ def build_matrix(data_shards: int, total_shards: int) -> np.ndarray:
 def parity_matrix(data_shards: int, total_shards: int) -> np.ndarray:
     """The parity rows ((total-data) x data) of the encoding matrix."""
     return build_matrix(data_shards, total_shards)[data_shards:]
+
+
+def cauchy_matrix(xs: tuple[int, ...], ys: tuple[int, ...]) -> np.ndarray:
+    """Cauchy matrix C[i, j] = 1 / (xs[i] + ys[j]) over GF(2^8).  xs and
+    ys must be disjoint (no zero denominator); every square submatrix of
+    a Cauchy matrix is then invertible, so [I; C] is an MDS generator."""
+    if set(xs) & set(ys):
+        raise ValueError("cauchy_matrix: xs and ys must be disjoint")
+    c = np.zeros((len(xs), len(ys)), dtype=np.uint8)
+    for i, x in enumerate(xs):
+        for j, y in enumerate(ys):
+            c[i, j] = gf_inverse(x ^ y)
+    return c
+
+
+@functools.lru_cache(maxsize=32)
+def build_cauchy_matrix(data_shards: int, total_shards: int) -> np.ndarray:
+    """Systematic [I; C] generator with ys = 0..data-1, xs = data..total-1."""
+    ys = tuple(range(data_shards))
+    xs = tuple(range(data_shards, total_shards))
+    m = np.concatenate([gf_identity(data_shards), cauchy_matrix(xs, ys)])
+    m.setflags(write=False)
+    return m
+
+
+def cauchy_inverse(xs: tuple[int, ...], ys: tuple[int, ...]) -> np.ndarray:
+    """Closed-form inverse of the square Cauchy matrix 1/(xs[i] + ys[j]):
+
+    B[j, i] = prod_k(xs[i]+ys[k]) * prod_k(xs[k]+ys[j])
+              / ((xs[i]+ys[j]) * prod_{k!=i}(xs[i]+xs[k])
+                 * prod_{k!=j}(ys[j]+ys[k]))
+
+    O(e^2) products per entry, no Gauss-Jordan sweep."""
+    e = len(xs)
+    if len(ys) != e:
+        raise ValueError("cauchy_inverse: needs a square system")
+    inv = np.zeros((e, e), dtype=np.uint8)
+    for i in range(e):
+        for j in range(e):
+            num = 1
+            for k in range(e):
+                num = gf_mul(num, xs[i] ^ ys[k])
+                num = gf_mul(num, xs[k] ^ ys[j])
+            den = xs[i] ^ ys[j]
+            for k in range(e):
+                if k != i:
+                    den = gf_mul(den, xs[i] ^ xs[k])
+                if k != j:
+                    den = gf_mul(den, ys[j] ^ ys[k])
+            inv[j, i] = gf_div(num, den)
+    return inv
 
 
 def coeff_bit_matrix(coeffs: np.ndarray) -> np.ndarray:

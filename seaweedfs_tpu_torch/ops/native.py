@@ -3,8 +3,9 @@
 Bound: CRC32C (needle checksums, cold edges of the encode); the host
 GF(2^8) matrix apply, which serves degraded-read decodes too small to be
 worth a trip to the card, and its kernel-pinned form behind the "cpu"
-codec backend; and the fused span encode (parity plus chained shard
-CRCs) of the host encode pipeline.  `lib()` runs
+codec backend; the fused span encode (parity plus chained shard
+CRCs) of the host encode pipeline; and the inline-EC append's scatter of
+one needle over the data-shard logs.  `lib()` runs
 `make` in native/ once (a no-op when the library is fresh) and returns None
 when no toolchain and no prebuilt library exist; callers then take the
 pure-Python path.
@@ -51,4 +52,10 @@ def lib() -> ctypes.CDLL | None:
         ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
         ctypes.c_size_t, ctypes.c_int, ctypes.c_char_p,
         ctypes.POINTER(ctypes.c_uint32)]
+    if hasattr(cdll, "sw_inline_scatter"):  # absent in stale prebuilt libs
+        cdll.sw_inline_scatter.restype = ctypes.c_int
+        cdll.sw_inline_scatter.argtypes = [
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
+            ctypes.c_uint64, ctypes.c_uint64, ctypes.c_char_p,
+            ctypes.c_uint64]
     return cdll

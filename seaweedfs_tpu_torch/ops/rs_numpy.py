@@ -62,6 +62,11 @@ def decode_rows(data_shards: int, total_shards: int,
                                tuple(int(t) for t in targets))
 
 
+def decode_plan_cache_info():
+    """lru statistics (hits, misses, currsize) of the decode-plan cache."""
+    return _decode_rows_cached.cache_info()
+
+
 def gf_apply_matrix(matrix: np.ndarray, inputs: np.ndarray) -> np.ndarray:
     """out[i] = XOR_j mul(matrix[i, j], inputs[j]); (m, k) x (k, L)."""
     mt = gf256.mul_table()

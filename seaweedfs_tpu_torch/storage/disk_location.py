@@ -4,9 +4,9 @@ Counterpart of seaweedfs_tpu/storage/disk_location.py: volume discovery
 from .dat/.idx pairs, EC shard discovery from .ecx + .ecNN files, a
 persisted directory UUID for duplicate-mount fencing, and free-slot
 accounting.  EC volumes mount on `device` (where their degraded reads
-decode), resolved when the first shard mounts.  Inline-EC volumes (shard
-logs as the primary write path) come with the inline slice and raise
-NotImplementedError here.
+decode), resolved when the first shard mounts.  An inline-EC volume (shard
+logs as the primary write path, a `.scl` commit log beside them) mounts
+as one `InlineEcVolume` on `device`, which runs its crash-recovery replay.
 """
 
 from __future__ import annotations
@@ -25,9 +25,6 @@ _DAT_RE = re.compile(r"^(?:(?P<collection>.+)_)?(?P<vid>\d+)\.dat$")
 _VIF_RE = re.compile(r"^(?:(?P<collection>.+)_)?(?P<vid>\d+)\.vif$")
 _SHARD_RE = re.compile(
     r"^(?:(?P<collection>.+)_)?(?P<vid>\d+)\.ec(?P<shard>\d{2})$")
-
-_INLINE = ("inline EC volumes (shard logs, .scl) are not ported yet: they "
-           "come with the port of storage/erasure_coding/inline.py")
 
 
 class DiskLocation:
@@ -98,7 +95,19 @@ class DiskLocation:
                 if vid in self.volumes:
                     continue  # a normal volume takes precedence
                 if os.path.exists(base + ".scl"):
-                    raise NotImplementedError(_INLINE)
+                    # inline EC volume: mounting runs the stripe-commit
+                    # replay, so a crashed server comes back consistent
+                    if vid in self.ec_volumes:
+                        continue
+                    from .erasure_coding.inline import InlineEcVolume
+
+                    try:
+                        self.ec_volumes[vid] = InlineEcVolume(
+                            self.directory, collection, vid,
+                            device=self.device)
+                    except (OSError, ValueError):
+                        continue  # damaged volume: skip it
+                    continue
                 for shard_id in shard_ids:
                     self.mount_ec_shard(collection, vid, shard_id)
 
@@ -125,7 +134,19 @@ class DiskLocation:
 
     def add_inline_volume(self, vid: int, collection: str = "",
                           family: str = None):
-        raise NotImplementedError(_INLINE)
+        """Create an inline EC volume on `device`: shard logs are the
+        primary write path, no .dat ever exists
+        (storage/erasure_coding/inline.py)."""
+        from .erasure_coding.inline import InlineEcVolume
+
+        with self.lock:
+            if vid in self.volumes or vid in self.ec_volumes:
+                raise ValueError(f"volume {vid} already exists")
+            ev = InlineEcVolume(self.directory, collection, vid,
+                                family=family, create=True,
+                                device=self.device)
+            self.ec_volumes[vid] = ev
+            return ev
 
     def delete_volume(self, vid: int):
         with self.lock:

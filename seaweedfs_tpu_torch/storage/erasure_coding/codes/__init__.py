@@ -4,8 +4,11 @@ Families (all 14 shards on the wire, so shard spread and `.ecNN` naming
 are family-agnostic):
 
     rs_vandermonde  RS(10,4), today's format and the default.
-    cauchy          Cauchy MDS(10,4)             } not ported yet: asking
-    pm_msr          Product-matrix MSR(14,5)     } for them raises
+    cauchy          Cauchy MDS(10,4): same geometry, closed-form decode
+                    planning instead of Gauss-Jordan.
+    pm_msr          Product-matrix MSR(14,5): 2 bytes read per rebuilt byte
+                    on single-shard repair (vs 10 for RS) at 2.8x storage,
+                    the cold/archival point.
 
 Policy for a new volume's collection (first match wins):
 
@@ -25,12 +28,14 @@ import os
 import re
 import threading
 
-from .base import CodeFamily  # noqa: F401 (re-export)
+from .base import CodeFamily, RepairPlan  # noqa: F401 (re-export)
+from .cauchy import CauchyMDS
+from .pm_msr import ProductMatrixMSR
 from .rs_vandermonde import RSVandermonde
 
 DEFAULT_FAMILY = "rs_vandermonde"
-_FAMILIES = {RSVandermonde.name: RSVandermonde()}
-_LATER_FAMILIES = ("cauchy", "pm_msr")
+_FAMILIES = {cls.name: cls()
+             for cls in (RSVandermonde, CauchyMDS, ProductMatrixMSR)}
 
 
 def family_names() -> list:
@@ -41,14 +46,15 @@ def get_family(name: str = None) -> CodeFamily:
     """Resolve a family by name; None/"" means the default (RS)."""
     if not name:
         name = DEFAULT_FAMILY
-    if name in _LATER_FAMILIES:
-        raise NotImplementedError(
-            f"code family {name!r} is not ported; only {DEFAULT_FAMILY!r} is")
     try:
         return _FAMILIES[name]
     except KeyError:
         raise ValueError(
             f"unknown EC code family {name!r} (known: {family_names()})")
+
+
+def describe_families() -> dict:
+    return {name: fam.describe() for name, fam in _FAMILIES.items()}
 
 
 def _collection_env_key(collection: str) -> str:

@@ -2,7 +2,7 @@
 
 Delegates matrix building and the decode-plan cache to `ops.gf256` and
 `ops.rs_numpy`, so family decodes and the codec's own share one plan
-cache.
+cache (and its lru statistics).
 """
 
 from __future__ import annotations
@@ -22,3 +22,13 @@ class RSVandermonde(CodeFamily):
     def decode_rows(self, survivors, targets):
         return rs_numpy.decode_rows(self.data_shards, self.total_shards,
                                     survivors, targets)
+
+    def plan_cache_info(self) -> dict:
+        info = rs_numpy.decode_plan_cache_info()
+        total = info.hits + info.misses
+        return {"hits": info.hits, "misses": info.misses,
+                "size": info.currsize,
+                "hit_ratio": round(info.hits / total, 4) if total else None}
+
+    def decode_kind(self) -> str:
+        return "vandermonde gauss-jordan (shared lru cache)"

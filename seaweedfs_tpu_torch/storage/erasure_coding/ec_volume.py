@@ -15,10 +15,11 @@ Degraded reads decode through `ops.codec.reconstruct_span` on the
 volume's device (kernel K1 on the card); the survivor stack is assembled
 where `ops.codec.survivor_stack` says, so a stack bound for the card
 crosses the link from pinned memory.  Survivor fetches from other
-servers go through the `remote_reader` hook; the reference's QoS and
-deadline propagation onto those fetches, its tracing spans and its
-inline-EC tail reader come with the slices that port rpc/, qos/,
-tracing and inline EC.
+servers go through the `remote_reader` hook, and an inline-EC volume
+(inline.py) serves spans past its shard logs' durable extent through the
+`tail_reader` hook; the reference's QoS and deadline propagation onto
+remote fetches and its tracing spans come with the slices that port rpc/,
+qos/ and tracing.
 """
 
 from __future__ import annotations
@@ -137,6 +138,10 @@ class EcVolumeShard:
             self._f.close()
             self._f = None
 
+    def destroy(self):
+        self.close()
+        os.remove(self.file_name())
+
 
 # Remote fetch hook: (shard_id, offset, size) -> bytes | None
 ShardReader = Callable[[int, int, int], Optional[bytes]]
@@ -167,6 +172,11 @@ class EcVolume:
     `device` is where degraded reads decode: the CUDA card unless the
     caller passes "cpu".  It is resolved at mount, so a mount without a
     card and without device="cpu" raises."""
+
+    # inline EC volumes install a hook serving shard-log spans from the
+    # in-memory tail stripe: (shard_id, offset, size) -> bytes | None.
+    # Sealed volumes leave it None and the classic ladder applies.
+    tail_reader: Optional[ShardReader] = None
 
     def __init__(self, directory: str, collection: str, vid: int,
                  version: int = 3,
@@ -276,14 +286,34 @@ class EcVolume:
         return self.read_shard_span(shard_id, inner_offset, iv.size)
 
     def read_shard_span(self, shard_id: int, offset: int, size: int) -> bytes:
-        """Read ladder: local shard -> remote hook -> reconstruct."""
+        """Read ladder: local shard -> in-memory tail stripe (inline
+        volumes) -> remote hook -> reconstruct."""
         shard = self.shards.get(shard_id)
         if shard is not None:
             data = shard.read_at(size, offset)
             if len(data) == size:
                 return data
+            if self.tail_reader is not None:
+                # the span runs past the shard log's durable extent: the
+                # remainder lives in the partially-filled tail stripe
+                # (data still buffered, or parity not yet committed for
+                # the current row)
+                rest = self.tail_reader(shard_id, offset + len(data),
+                                        size - len(data))
+                if rest is None:
+                    # the flusher committed the row between the pread
+                    # and the tail lookup: the bytes are on disk now
+                    data = shard.read_at(size, offset)
+                    if len(data) == size:
+                        return data
+                else:
+                    return data + rest
             raise EcError(
                 f"short read shard {shard_id} at {offset}+{size}")
+        if self.tail_reader is not None:
+            data = self.tail_reader(shard_id, offset, size)
+            if data is not None:
+                return data
         if self.remote_reader is not None:
             try:
                 data = self.remote_reader(shard_id, offset, size)
@@ -405,6 +435,19 @@ class EcVolume:
                 if len(shards) >= k:
                     continue  # reconstruct needs exactly k survivors
                 data = shard.read_at(size, offset)
+                if len(data) != size and self.tail_reader is not None:
+                    # inline volume: the span runs past the shard log's
+                    # durable extent.  The tail stripe serves pending
+                    # rows; past that a DATA shard's content is zero by
+                    # definition (parity rows are encoded over the
+                    # zero-padded row), while a parity shard without tail
+                    # coverage is not a survivor
+                    rest = self.tail_reader(sid, offset + len(data),
+                                            size - len(data))
+                    if rest is None and sid < k:
+                        rest = b"\x00" * (size - len(data))
+                    if rest is not None:
+                        data += rest
                 if len(data) == size:
                     shards[sid] = np.frombuffer(data, dtype=np.uint8)
             elif self.remote_reader is not None:
@@ -477,6 +520,18 @@ class EcVolume:
         if self._ecj:
             self._ecj.close()
             self._ecj = None
+
+    def destroy(self):
+        base = self.base_file_name()
+        for shard in list(self.shards.values()):
+            shard.destroy()
+        self.shards.clear()
+        self.close()
+        for ext in (".ecx", ".ecj", ".vif"):
+            try:
+                os.remove(base + ext)
+            except FileNotFoundError:
+                pass
 
 
 def rebuild_ecx_file(base_file_name: str):

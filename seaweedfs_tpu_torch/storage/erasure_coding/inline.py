@@ -1,0 +1,1218 @@
+"""Inline write-path erasure coding: encode at ingest, no read-back.
+
+Counterpart of seaweedfs_tpu/storage/erasure_coding/inline.py.  Each
+needle PUT of an EC-policy collection streams straight into the striped
+append-only shard logs (`.ec00`..`.ec13`); a background flusher encodes
+parity per stripe row and appends a fixed-size stripe commit record to the
+`.scl` log, so a crashed server replays to the last complete stripe on
+mount.  Write amplification is (k+p)/k (1.4x for RS(10,4)), and parity is
+always current: degraded reads never wait on an `ec.encode` batch job.
+
+On-disk layout of an inline EC volume (collection ``c``, volume ``v``),
+byte for byte the JAX package's:
+
+    c_v.ec00..ec13   shard logs.  The logical needle stream is striped
+                     row-major over the family's k data shards in
+                     ``stripe unit``-sized blocks (locate.py's small-block
+                     layout with zero large rows, so every read / locate /
+                     recover path works unchanged); parity shards carry
+                     the encoded rows.
+    c_v.eci          needle index append log (16-byte idx entries,
+                     logical offsets biased by +8), flushed before a write
+                     is acked.
+    c_v.scl          stripe commit log: 192-byte records (below).
+    c_v.vif          JSON sidecar: code family + ``inline_ec`` config.
+    c_v.ecx/.ecj     empty placeholders so the EcVolume runtime mounts;
+                     lookups use the live needle map instead.
+
+Stripe commit record (192 bytes, big-endian):
+
+    0   magic  b"SCL1"                       (4)
+    4   kind   0 = full stripe, 1 = tail     (1)
+    5   reserved                             (3)
+    8   row_index   stripe row committed     (8)
+    16  logical_size  bytes ingested+durable (8)
+    24  idx_size      .eci bytes at commit   (8)
+    32  stripe_crc32c data row + parity row  (4)
+    36  reserved                             (4)
+    40  per-shard append offsets, 14 x u64   (112)
+    152 reserved                             (36)
+    188 record_crc32c over bytes [0, 188)    (4)
+
+Parity routes (WEED_EC_INLINE_DEVICE):
+
+    0 (default)  the native host GF kernel, one call per commit batch;
+    1            the writer's device (the card unless device="cpu"): one
+                 pooled parity step call per commit batch (K1 form,
+                 parallel/mesh.make_parity_step).  The batch's (k, R*unit)
+                 bytes cross from a pinned slab leased from the DevicePool
+                 to a leased device slot on the writer's own stream and
+                 become (k*alpha, R*unit/alpha) lanes there; the parity
+                 comes back through a pinned slab.  GF apply is
+                 column-wise and the unit is a multiple of alpha*8, so R
+                 rows' lanes laid end to end are the lanes of the R rows
+                 laid end to end.
+
+A device route that fails raises; there is no host fallback.  The
+flusher keeps a failing commit pending and retries it only on OSError
+(recovery recomputes the row on mount); any other error is kept and
+raised from append, drain, sync and close, so a writer whose kernel fails
+stops acking writes that would never get parity.
+
+Policy: WEED_EC_INLINE=1 turns the path on; a collection is EC-policy when
+the coding tier's resolution (WEED_EC_CODE_<COLLECTION> > PathConf
+``ec_code`` > WEED_EC_CODE) names a family for it.  The Prometheus mirrors
+of the writer's counters come with the port of stats/.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import struct
+import threading
+import time
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ... import device as device_mod
+from ...ops import crc32c as crc32c_mod
+from ...util import faults as _faults
+from .. import types as t
+from ..needle import Needle, get_actual_size
+from ..needle_map import NeedleMap
+from . import LARGE_BLOCK_SIZE, TOTAL_SHARDS_COUNT, to_ext
+from . import codes as ec_codes
+from .ec_volume import (EcDeletedError, EcNotFoundError, EcVolume,
+                        EcVolumeShard)
+from .encoder import load_volume_info, save_volume_info
+from .locate import inline_shard_extent, locate_data
+
+SCL_MAGIC = b"SCL1"
+SCL_RECORD_SIZE = 192
+KIND_FULL = 0
+KIND_TAIL = 1
+
+# most rows the flusher commits per encode call: bounds the batch buffer
+# at ~10 MB for the default 64 KiB unit while still amortising the
+# dispatch and parity pwrites across a deep backlog
+_MAX_COMMIT_ROWS = 16
+
+# logical offsets in the needle map are biased so offset 0 (a live needle
+# at the very start of the stream) is not mistaken for the map's "deleted"
+# sentinel (offset == 0); 8 keeps the /8 idx encoding
+_OFFSET_BASE = t.NEEDLE_PADDING_SIZE
+
+_log = logging.getLogger(__name__)
+
+
+def _env_on(name: str) -> bool:
+    return os.environ.get(name, "0").lower() not in ("", "0", "false", "no")
+
+
+# -- knobs -------------------------------------------------------------------
+
+def inline_enabled() -> bool:
+    """WEED_EC_INLINE=1 turns the inline write path on (default off)."""
+    return _env_on("WEED_EC_INLINE")
+
+
+def stripe_unit_bytes(family) -> int:
+    """Per-shard stripe block size: WEED_EC_STRIPE_KB (default 64 KiB),
+    rounded up so a block is divisible by the family's sub-shard (alpha)
+    lane count x 8: alpha-aligned for pm_msr, needle-padding aligned for
+    everyone."""
+    try:
+        kb = int(os.environ.get("WEED_EC_STRIPE_KB", "") or 64)
+    except ValueError:
+        kb = 64
+    unit = max(1, kb) << 10
+    align = max(8, family.sub_shards * 8)
+    return -(-unit // align) * align
+
+
+def tail_flush_interval() -> float:
+    """Seconds between tail-stripe parity flushes (WEED_EC_INLINE_FLUSH_MS,
+    default 500; 0 disables the timer, so tail parity lands only on
+    drain/close)."""
+    try:
+        ms = float(os.environ.get("WEED_EC_INLINE_FLUSH_MS", "") or 500.0)
+    except ValueError:
+        ms = 500.0
+    return max(0.0, ms / 1000.0)
+
+
+def device_encode_enabled() -> bool:
+    """WEED_EC_INLINE_DEVICE=1 routes stripe parity through the pooled
+    parity step on the writer's device; default is the host GF kernel."""
+    return _env_on("WEED_EC_INLINE_DEVICE")
+
+
+def inline_family_for(collection: str, path_conf=None) -> Optional[str]:
+    """The assign-time policy: the family name when ``collection`` is an
+    EC-policy collection AND inline encoding is on, else None (create a
+    classic volume).  Resolution is the coding tier's
+    (WEED_EC_CODE_<COLLECTION> > PathConf.ec_code > WEED_EC_CODE) with no
+    built-in default: a collection nobody configured stays classic."""
+    if not inline_enabled():
+        return None
+    name = os.environ.get(ec_codes._collection_env_key(collection))
+    if not name:
+        name = getattr(path_conf, "ec_code", "") or None
+    if not name:
+        name = os.environ.get("WEED_EC_CODE")
+    if not name:
+        return None
+    ec_codes.get_family(name)  # validate before any shard log is cut
+    return name
+
+
+# -- stripe commit records ----------------------------------------------------
+
+_REC_HEAD = struct.Struct(">4sB3xQQQI4x")     # 36 bytes
+_REC_OFFS = struct.Struct(">14Q")             # 112 bytes
+
+
+def pack_record(kind: int, row_index: int, logical_size: int,
+                idx_size: int, stripe_crc: int,
+                shard_offsets: list[int]) -> bytes:
+    body = _REC_HEAD.pack(SCL_MAGIC, kind, row_index, logical_size,
+                          idx_size, stripe_crc & 0xFFFFFFFF)
+    body += _REC_OFFS.pack(*shard_offsets)
+    body += b"\x00" * (SCL_RECORD_SIZE - 4 - len(body))
+    return body + struct.pack(">I", crc32c_mod.crc32c(body))
+
+
+def unpack_record(buf: bytes) -> Optional[dict]:
+    """Parse and validate one record; None when torn or corrupt."""
+    if len(buf) != SCL_RECORD_SIZE or buf[:4] != SCL_MAGIC:
+        return None
+    stored = struct.unpack(">I", buf[-4:])[0]
+    if stored != crc32c_mod.crc32c(buf[:-4]):
+        return None
+    _, kind, row, logical, idx_size, crc = _REC_HEAD.unpack(
+        buf[:_REC_HEAD.size])
+    offs = _REC_OFFS.unpack(
+        buf[_REC_HEAD.size:_REC_HEAD.size + _REC_OFFS.size])
+    return {"kind": kind, "row_index": row, "logical_size": logical,
+            "idx_size": idx_size, "stripe_crc": crc,
+            "shard_offsets": list(offs)}
+
+
+def read_commit_log(path: str) -> list[dict]:
+    """All valid records in append order, stopping at the first torn or
+    corrupt one (everything after a torn record is untrusted)."""
+    records = []
+    try:
+        with open(path, "rb") as f:
+            while True:
+                buf = f.read(SCL_RECORD_SIZE)
+                if len(buf) < SCL_RECORD_SIZE:
+                    break
+                rec = unpack_record(buf)
+                if rec is None:
+                    break
+                records.append(rec)
+    except FileNotFoundError:
+        pass
+    return records
+
+
+# -- the stripe accumulator ---------------------------------------------------
+
+class InlineEcWriter:
+    """Streams needle blobs into striped shard logs, encodes parity per
+    stripe row on a background flusher, and appends commit records.
+
+    Thread model: appends serialize on ``_lock``; a single lazy daemon
+    flusher thread drains full rows in order (so ``.scl`` rows commit
+    monotonically) and flushes the tail stripe on a timer.  Data and .eci
+    bytes are written through before an append returns, the ack contract
+    the crash-recovery replay relies on.  `device` is where the device
+    parity route runs (resolved here: the card unless device="cpu")."""
+
+    def __init__(self, base: str, family: Optional[str] = None,
+                 unit: Optional[int] = None, create: bool = False,
+                 version: int = 3, device=None):
+        from ...ops import native as _native
+        from ...parallel.batched_encode import _write_knobs, _WritebackPacer
+
+        self.base = base
+        self.version = version
+        self.device = device_mod.resolve(device)
+        info = load_volume_info(base) or {}
+        cfg = info.get("inline_ec") or {}
+        if not create and not cfg:
+            raise ValueError(f"{base}: not an inline EC volume (no "
+                             "inline_ec config in .vif)")
+        fam_name = family or info.get("code_family")
+        self.family = ec_codes.get_family(fam_name)
+        self.unit = int(cfg.get("stripe_unit") or unit
+                        or stripe_unit_bytes(self.family))
+        self.family.check_block(self.unit)
+        self.k = self.family.data_shards
+        self.p = self.family.total_shards - self.k
+        self.row_bytes = self.k * self.unit
+        self.large_block = int(cfg.get("large_block") or LARGE_BLOCK_SIZE)
+        if create:
+            save_volume_info(base, version=version, extra={
+                "code_family": self.family.name,
+                "inline_ec": {"stripe_unit": self.unit,
+                              "large_block": self.large_block}})
+            for ext in (".ecx", ".ecj"):
+                if not os.path.exists(base + ext):
+                    open(base + ext, "ab").close()
+        _, _, flush_bytes, drop = _write_knobs()
+        self._pacer = _WritebackPacer(flush_bytes, drop)
+        # snapshot the log sizes BEFORE O_CREAT: a deleted/lost shard log
+        # is recreated empty by the open below, and only this snapshot
+        # lets _recover tell "lost device" from "empty log"
+        self._premount_sizes = [
+            (os.path.getsize(base + to_ext(i))
+             if os.path.exists(base + to_ext(i)) else 0)
+            for i in range(TOTAL_SHARDS_COUNT)]
+        self._fds = [os.open(base + to_ext(i), os.O_CREAT | os.O_RDWR, 0o644)
+                     for i in range(TOTAL_SHARDS_COUNT)]
+        self._scatter = None
+        cdll = _native.lib()
+        if cdll is not None and hasattr(cdll, "sw_inline_scatter"):
+            import ctypes
+
+            self._scatter = cdll.sw_inline_scatter
+            self._data_fds = (ctypes.c_int32 * self.k)(*self._fds[:self.k])
+        self._scl_path = base + ".scl"
+        self._scl_fd = os.open(self._scl_path, os.O_CREAT | os.O_RDWR, 0o644)
+        self._scl_size = os.path.getsize(self._scl_path)
+        self._lock = threading.RLock()
+        self._cond = threading.Condition(self._lock)
+        # commit state
+        self.logical_size = 0       # bytes of needle stream ingested
+        self.durable_rows = 0       # rows with a FULL commit record
+        self.committed_logical = 0  # logical size at the last record
+        self._idx_bytes = 0         # .eci append position
+        self._pending: deque = deque()  # (row_index, bytes) FIFO
+        self._next_row = 0          # index of the row the tail is filling
+        self._tail = bytearray()
+        self._tail_version = 0      # bumped per append into the tail
+        self._tail_committed_version = 0
+        self._tail_parity_cache = None  # (row, version) -> (p, unit)
+        self._closed = False
+        self._error: Optional[BaseException] = None  # a non-OSError commit
+        self._flusher: Optional[threading.Thread] = None
+        # the device route: one encode at a time per writer, so it holds
+        # one set of leased slabs; its own stream, made on first use
+        self._dev_lock = threading.Lock()
+        self._stream = None
+        # accounting (physical bytes this writer put on disk)
+        self.physical_bytes = 0
+        self.stripes_committed = 0
+        # encode accounting: calls of the device parity step, and the
+        # flusher's full-row batches with their encode seconds
+        self.device_encodes = 0
+        self.commit_batches = 0
+        self.commit_encode_seconds = 0.0
+        if not create and os.path.exists(base + ".eci"):
+            self._recover()
+        self.nm = NeedleMap(base + ".eci")
+        self._idx_bytes = os.path.getsize(base + ".eci")
+
+    # -- geometry helpers ---------------------------------------------------
+
+    def shard_extent(self, shard_id: int,
+                     logical: Optional[int] = None) -> int:
+        """Valid bytes in shard ``shard_id``'s log at logical size L."""
+        logical = self.logical_size if logical is None else logical
+        if shard_id >= self.k:  # parity extends per committed row
+            rows = self.durable_rows
+            if self.committed_logical > rows * self.row_bytes:
+                rows += 1  # a tail record padded the partial row
+            return rows * self.unit
+        return inline_shard_extent(logical, self.unit, self.k, shard_id)
+
+    @property
+    def tail_bytes(self) -> int:
+        return len(self._tail)
+
+    def write_amp(self) -> float:
+        if not self.logical_size:
+            return 0.0
+        return self.physical_bytes / float(self.logical_size)
+
+    def _raise_error(self):
+        err = self._error
+        if err is not None:
+            raise RuntimeError(
+                f"{self.base}: inline EC parity failed; cut rows stay "
+                f"uncommitted until remount: {err!r}") from err
+
+    # -- append path --------------------------------------------------------
+
+    def append(self, nid: int, size_field: int, blob: bytes) -> int:
+        """Write one full needle record into the stream; returns its
+        logical offset.  The blob (header..padding) must be 8-aligned,
+        which Needle.to_bytes guarantees."""
+        if len(blob) % t.NEEDLE_PADDING_SIZE:
+            raise ValueError(
+                f"needle blob not {t.NEEDLE_PADDING_SIZE}-aligned")
+        with self._cond:
+            if self._closed:
+                raise OSError("inline EC writer closed")
+            self._raise_error()
+            off = self.logical_size
+            self._pwrite_logical(off, blob)
+            self.logical_size = off + len(blob)
+            self._tail += blob
+            self._tail_version += 1
+            was_idle = not self._pending
+            cut = False
+            while len(self._tail) >= self.row_bytes:
+                row = bytes(self._tail[:self.row_bytes])
+                del self._tail[:self.row_bytes]
+                self._pending.append((self._next_row, row))
+                self._next_row += 1
+                cut = True
+            self.nm.put(nid, off + _OFFSET_BASE, size_field)
+            self.nm.flush()  # acked writes survive SIGKILL
+            self._idx_bytes += t.NEEDLE_MAP_ENTRY_SIZE
+            self.physical_bytes += len(blob) + t.NEEDLE_MAP_ENTRY_SIZE
+            self._ensure_flusher()
+            if cut and was_idle:
+                # the flusher re-checks _pending before every wait, so
+                # only the empty->non-empty edge needs a wakeup
+                self._cond.notify_all()
+        return off
+
+    def delete(self, nid: int):
+        with self._cond:
+            nv = self.nm.get(nid)
+            if nv is None or t.size_is_deleted(nv.size):
+                return
+            self.nm.delete(nid, nv.offset)
+            self.nm.flush()
+            self._idx_bytes += t.NEEDLE_MAP_ENTRY_SIZE
+            self.physical_bytes += t.NEEDLE_MAP_ENTRY_SIZE
+
+    def _pwrite_logical(self, offset: int, blob: bytes):
+        """Write-through: scatter the blob's bytes to their striped
+        positions in the data shard logs (no .dat, no read-back).
+
+        While the volume sits in the small-row regime (everything below
+        ~k GB), block ``i`` lives at shard ``i % k`` offset
+        ``(i // k) * unit``: one native call issues every segment's pwrite
+        with the interpreter lock dropped.  Runs with fault rules loaded
+        take the per-segment path so the disk hooks see every write."""
+        size = len(blob)
+        view = memoryview(blob)
+        if offset + size < self.k * (self.large_block - self.unit):
+            if self._scatter is not None and not _faults.ACTIVE:
+                rc = self._scatter(self._data_fds, self.k, self.unit,
+                                   offset, bytes(blob), size)
+                if rc != 0:
+                    raise OSError(-rc, os.strerror(-rc))
+                if self._pacer.flush_bytes > 0:
+                    pos = 0
+                    while pos < size:  # accounting only, no I/O
+                        block, inner = divmod(offset + pos, self.unit)
+                        row, sid = divmod(block, self.k)
+                        take = min(size - pos, self.unit - inner)
+                        self._pacer.wrote(self._fds[sid],
+                                          row * self.unit + inner, take)
+                        pos += take
+                return
+            pos = 0
+            while pos < size:
+                block, inner = divmod(offset + pos, self.unit)
+                row, sid = divmod(block, self.k)
+                take = min(size - pos, self.unit - inner)
+                self._pwrite_shard(sid, row * self.unit + inner,
+                                   view[pos:pos + take])
+                pos += take
+            return
+        pos = 0
+        for iv in locate_data(self.large_block, self.unit,
+                              max(self.logical_size, offset + len(blob)),
+                              offset, len(blob), data_shards=self.k):
+            sid, inner = iv.to_shard_id_and_offset(
+                self.large_block, self.unit, data_shards=self.k)
+            seg = view[pos:pos + iv.size]
+            pos += iv.size
+            self._pwrite_shard(sid, inner, seg)
+
+    def _pwrite_shard(self, shard_id: int, offset: int, buf):
+        from ...parallel.batched_encode import _pwritev_full
+
+        if _faults.ACTIVE:
+            _faults.on_disk(self.base + to_ext(shard_id), "write")
+        fd = self._fds[shard_id]
+        _pwritev_full(fd, [buf], offset)
+        self._pacer.wrote(fd, offset, len(buf))
+
+    # -- tail reads (partially-filled stripe) --------------------------------
+
+    def tail_read(self, shard_id: int, offset: int,
+                  size: int) -> Optional[bytes]:
+        """Serve a shard-log span out of the in-memory stripe state: data
+        and parity of rows still pending commit, and the zero-padded tail
+        row.  Returns None for spans this writer cannot cover (then the
+        disk / remote / reconstruct ladder applies)."""
+        out = bytearray()
+        while size > 0:
+            row = offset // self.unit
+            inner = offset % self.unit
+            take = min(size, self.unit - inner)
+            seg = self._row_segment(row, shard_id)
+            if seg is None:
+                return None
+            out += seg[inner:inner + take]
+            offset += take
+            size -= take
+        return bytes(out)
+
+    def _row_segment(self, row: int, shard_id: int) -> Optional[bytes]:
+        with self._lock:
+            row_data = None
+            first_pending = (self._pending[0][0] if self._pending
+                             else self._next_row)
+            if row < first_pending:
+                return None  # already durable: read from disk
+            for r, data in self._pending:
+                if r == row:
+                    row_data = data
+                    break
+            if row_data is None:
+                if row != self._next_row or not self._tail:
+                    return None
+                row_data = bytes(self._tail).ljust(self.row_bytes, b"\x00")
+                cache_key = (row, self._tail_version)
+            else:
+                cache_key = (row, -1)
+            if shard_id < self.k:
+                return row_data[shard_id * self.unit:
+                                (shard_id + 1) * self.unit]
+            cached = self._tail_parity_cache
+            if cached is not None and cached[0] == cache_key:
+                parity = cached[1]
+            else:
+                parity = self._encode_row(row_data)
+                self._tail_parity_cache = (cache_key, parity)
+            return parity[shard_id - self.k].tobytes()
+
+    # -- parity encode -------------------------------------------------------
+
+    def _encode_row(self, row: bytes) -> np.ndarray:
+        """(k * unit,) row bytes -> (p, unit) parity."""
+        return self._encode_rows([row])
+
+    def _encode_rows(self, rows: list) -> np.ndarray:
+        """R consecutive stripe rows (each k * unit bytes) -> (p, R * unit)
+        parity, row i's in columns [i * unit, (i + 1) * unit), in one call
+        of the host GF kernel or of the device parity step."""
+        if len(rows) > _MAX_COMMIT_ROWS:
+            raise ValueError(f"{len(rows)} rows in one encode; at most "
+                             f"{_MAX_COMMIT_ROWS}")
+        if device_encode_enabled():
+            return self._encode_rows_device(rows)
+        from ...ops.codec import _apply_rows_host
+
+        unit = self.unit
+        data = np.empty((self.k, len(rows) * unit), dtype=np.uint8)
+        for i, row in enumerate(rows):
+            data[:, i * unit:(i + 1) * unit] = np.frombuffer(
+                row, dtype=np.uint8).reshape(self.k, unit)
+        # the native AVX2/GFNI ladder, not the NumPy table reference:
+        # per-stripe encode sits on the ack path's critical drain
+        return self.family.encode_blocks(data, apply_fn=_apply_rows_host)
+
+    def _encode_rows_device(self, rows: list) -> np.ndarray:
+        """_encode_rows through the pooled parity step's K1 form on the
+        writer's device: the rows' (k, R * unit) bytes assembled in a
+        leased pinned slab, one non-blocking H2D into a leased device
+        slot on the writer's stream; for alpha > 1 the slot's lanes
+        (k * alpha, R * unit / alpha) laid out on the card by a strided
+        copy into a second slot; one step call (one K1 launch per 16
+        parity lane rows: 1 for RS and Cauchy, 3 for pm_msr); the parity
+        lanes turned back into bytes the same way, the (p, R * unit)
+        parity back into a leased pinned slab, and an event sync before it
+        is returned.  The slabs hold _MAX_COMMIT_ROWS rows, so every batch
+        re-leases the same ones and the steady state allocates nothing on
+        the card."""
+        from ...ops.device_pool import get_pool, lease_tensor
+        from ...parallel.mesh import make_parity_step
+
+        fam, dev = self.family, self.device
+        a, k, p, unit = fam.sub_shards, self.k, self.p, self.unit
+        width = len(rows) * unit       # bytes of each shard in the batch
+        n = width // a                 # lane columns
+        cap = _MAX_COMMIT_ROWS * unit
+        cuda = dev.type == "cuda"
+        step = make_parity_step([dev], matrix=fam.parity_matrix(),
+                                key=("inline", fam.name))
+        slabs = [("inline-host-in", k, None), ("inline-in", k, dev),
+                 ("inline-out", p, dev), ("inline-host-out", p, None)]
+        if a > 1:
+            slabs += [("inline-lanes-in", k, dev),
+                      ("inline-lanes-out", p, dev)]
+        pool = get_pool()
+        with self._dev_lock:
+            leases = [lease_tensor(pool, tag, (m * cap,), torch.uint8, d,
+                                   pinned=cuda and d is None)
+                      for tag, m, d in slabs]
+            hin, din, dout, hout = (ls.payload for ls in leases[:4])
+            queued = False
+            try:
+                data = hin[:k * width].numpy().reshape(k, width)
+                for i, row in enumerate(rows):
+                    data[:, i * unit:(i + 1) * unit] = np.frombuffer(
+                        row, dtype=np.uint8).reshape(k, unit)
+                if cuda and self._stream is None:
+                    self._stream = torch.cuda.Stream(device=dev)
+                ctx = (torch.cuda.stream(self._stream) if cuda
+                       else contextlib.nullcontext())
+                with ctx:
+                    queued = cuda
+                    x, y = din[:k * width], dout[:p * width]
+                    x.copy_(hin[:k * width], non_blocking=cuda)
+                    if a == 1:
+                        step(x.view(k, 1, width), y.view(p, 1, width))
+                    else:
+                        # lane t % a of every byte t: fam.to_lanes and
+                        # fam.from_lanes as strided copies on the card
+                        xl = leases[4].payload[:k * width].view(k, a, n)
+                        yl = leases[5].payload[:p * width].view(p, a, n)
+                        xl.copy_(x.view(k, n, a).transpose(1, 2))
+                        step(xl.view(k * a, 1, n), yl.view(p * a, 1, n))
+                        y.view(p, n, a).copy_(yl.transpose(1, 2))
+                    hout[:p * width].copy_(y, non_blocking=cuda)
+                    if cuda:
+                        done = torch.cuda.Event()
+                        done.record(self._stream)
+                        done.synchronize()
+                        queued = False
+                pool.note_h2d(k * width, device=dev)
+                pool.note_d2h(p * width, device=dev)
+                self.device_encodes += 1
+                # the slab goes back to the pool below: keep a copy
+                return hout[:p * width].numpy().reshape(p, width).copy()
+            finally:
+                if queued:  # an error with copies in flight: let them end
+                    self._stream.synchronize()
+                for ls in leases:
+                    pool.release(ls)
+
+    # -- the flusher ---------------------------------------------------------
+
+    def _ensure_flusher(self):
+        if self._flusher is None or not self._flusher.is_alive():
+            self._flusher = threading.Thread(
+                target=self._flush_loop, daemon=True, name="inline-ec-flush")
+            self._flusher.start()
+
+    def _flush_loop(self):
+        while True:
+            task = None
+            with self._cond:
+                while task is None:
+                    if self._error is not None:
+                        return
+                    if self._pending:
+                        # drain a contiguous run of cut rows in one batch:
+                        # one encode + one parity pwrite per shard
+                        batch = []
+                        for r, row in self._pending:
+                            if batch and r != batch[-1][0] + 1:
+                                break
+                            batch.append((r, row))
+                            if len(batch) >= _MAX_COMMIT_ROWS:
+                                break
+                        task = ("rows", batch)
+                        break
+                    dirty = (self._tail and self._tail_version
+                             != self._tail_committed_version)
+                    if self._closed:
+                        task = ("tail",) if dirty else ("exit",)
+                        break
+                    interval = tail_flush_interval()
+                    if dirty and interval <= 0:
+                        dirty = False
+                    if not self._cond.wait(
+                            timeout=interval if dirty else 1.0):
+                        if dirty:
+                            task = ("tail",)
+                            break
+            if task[0] == "exit":
+                return
+            try:
+                if task[0] == "rows":
+                    self._commit_rows(task[1])
+                    with self._cond:
+                        done = {r for r, _ in task[1]}
+                        while self._pending and \
+                                self._pending[0][0] in done:
+                            self._pending.popleft()
+                        self._cond.notify_all()
+                else:
+                    self._commit_tail()
+            except OSError:
+                # a failing disk write: the row stays pending and
+                # recovery recomputes it on mount
+                _log.warning("%s: stripe commit failed, retrying",
+                             self.base, exc_info=True)
+                time.sleep(0.05)
+            except Exception as e:  # the encode route failed: stop acking
+                _log.error("%s: stripe parity failed", self.base,
+                           exc_info=True)
+                with self._cond:
+                    self._error = e
+                    self._cond.notify_all()
+                return
+
+    def _commit_row(self, row_index: int, row: bytes):
+        self._commit_rows([(row_index, row)])
+
+    def _commit_rows(self, batch: list):
+        """Encode and write a contiguous run of full stripe rows' parity
+        in ONE encode call and one pwrite per parity shard, then append
+        the per-row commit records; the background device lane yields to
+        foreground degraded-read decodes first."""
+        from ...qos.lanes import LANES
+
+        LANES.background_checkpoint()
+        first = batch[0][0]
+        unit = self.unit
+        t0 = time.perf_counter()
+        parity = self._encode_rows([row for _, row in batch])
+        encode_s = time.perf_counter() - t0
+        # parity[j] is already the shard log segment for rows
+        # first..first+R-1 laid end to end: one write per parity shard
+        for j in range(self.p):
+            self._pwrite_shard(self.k + j, first * unit, parity[j])
+        with self._lock:
+            logical = self.logical_size
+            idx_size = self._idx_bytes
+        for i, (row_index, row) in enumerate(batch):
+            self._append_record(KIND_FULL, row_index, logical, idx_size, row,
+                                parity[:, i * unit:(i + 1) * unit])
+        with self._lock:
+            self.durable_rows = max(self.durable_rows, batch[-1][0] + 1)
+            self.committed_logical = max(self.committed_logical, logical)
+            self.physical_bytes += len(batch) * (self.p * unit
+                                                 + SCL_RECORD_SIZE)
+            self.commit_batches += 1
+            self.commit_encode_seconds += encode_s
+
+    def _commit_tail(self):
+        from ...qos.lanes import LANES
+
+        with self._lock:
+            if not self._tail:
+                return
+            row_index = self._next_row
+            version = self._tail_version
+            row = bytes(self._tail).ljust(self.row_bytes, b"\x00")
+            logical = self.logical_size
+            idx_size = self._idx_bytes
+        LANES.background_checkpoint()
+        parity = self._encode_row(row)
+        for i in range(self.p):
+            self._pwrite_shard(self.k + i, row_index * self.unit, parity[i])
+        self._append_record(KIND_TAIL, row_index, logical, idx_size,
+                            row, parity)
+        with self._lock:
+            self._tail_committed_version = version
+            self.committed_logical = max(self.committed_logical, logical)
+            self.physical_bytes += self.p * self.unit + SCL_RECORD_SIZE
+
+    def _append_record(self, kind: int, row_index: int, logical: int,
+                       idx_size: int, row: bytes, parity: np.ndarray):
+        from ...parallel.batched_encode import _pwritev_full
+
+        crc = crc32c_mod.crc32c(row)
+        crc = crc32c_mod.crc32c(np.ascontiguousarray(parity), crc)
+        offs = [self.shard_extent(i, logical) if i < self.k
+                else (row_index + 1) * self.unit
+                for i in range(TOTAL_SHARDS_COUNT)]
+        rec = pack_record(kind, row_index, logical, idx_size, crc, offs)
+        if _faults.ACTIVE:
+            _faults.on_disk(self._scl_path, "commit")
+        _pwritev_full(self._scl_fd, [rec], self._scl_size)
+        self._scl_size += SCL_RECORD_SIZE
+        self.stripes_committed += 1
+
+    # -- drain / close -------------------------------------------------------
+
+    def drain(self, tail: bool = True, timeout: float = 30.0):
+        """Block until every cut row is committed; with ``tail`` also
+        force a tail-stripe commit of whatever is buffered.  Raises the
+        error that stopped the flusher, if one did."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            self._raise_error()
+            self._ensure_flusher()
+            self._cond.notify_all()
+            while self._pending and self._error is None:
+                if not self._cond.wait(
+                        timeout=max(0.0, deadline - time.monotonic())):
+                    break
+                if time.monotonic() >= deadline:
+                    break
+            self._raise_error()
+        if tail:
+            self._commit_tail()
+
+    def sync(self):
+        self._raise_error()
+        for fd in self._fds:
+            os.fsync(fd)
+        os.fsync(self._scl_fd)
+        self.nm.sync()
+
+    def encode_stats(self) -> dict:
+        """The parity encode's counters: device parity step calls, and
+        the flusher's full-row batches with their encode seconds."""
+        with self._lock:
+            return {"device_encodes": self.device_encodes,
+                    "commit_batches": self.commit_batches,
+                    "commit_encode_seconds": self.commit_encode_seconds}
+
+    def close(self, final_flush: bool = True):
+        """Stop the flusher, commit what it left behind (final_flush),
+        and close the logs.  The files are closed even when a commit
+        fails; the failure (or the error that stopped the flusher) is
+        raised after."""
+        with self._cond:
+            if self._closed:
+                return
+            self._closed = True
+            self._cond.notify_all()
+        flusher = self._flusher
+        if flusher is not None and flusher.is_alive():
+            flusher.join(timeout=10.0)
+        try:
+            if final_flush and self._error is None:
+                while True:
+                    with self._lock:
+                        item = self._pending.popleft() if self._pending \
+                            else None
+                    if item is None:
+                        break
+                    self._commit_row(*item)
+                if self._tail and \
+                        self._tail_version != self._tail_committed_version:
+                    self._commit_tail()
+        finally:
+            self.nm.close()
+            self._pacer.forget(self._fds)
+            for fd in self._fds:
+                os.close(fd)
+            os.close(self._scl_fd)
+        self._raise_error()
+
+    # -- crash recovery -------------------------------------------------------
+
+    def _recover(self):
+        """Mount-time replay: last valid commit record -> validate acked
+        tail writes from the .eci log -> recompute tail parity."""
+        records = read_commit_log(self._scl_path)
+        durable_rows = 0
+        committed_logical = 0
+        trusted_idx = 0
+        if records:
+            last = records[-1]
+            committed_logical = last["logical_size"]
+            trusted_idx = last["idx_size"]
+            durable_rows = last["row_index"] + (
+                1 if last["kind"] == KIND_FULL else 0)
+        # drop any torn trailing record
+        valid_scl = len(records) * SCL_RECORD_SIZE
+        if valid_scl != self._scl_size:
+            os.ftruncate(self._scl_fd, valid_scl)
+            self._scl_size = valid_scl
+        # a shard log shorter than its committed extent is a lost or
+        # replaced device, not a crash: heal it from the survivors
+        # before anything below reads the data logs
+        self._heal_short_shards(
+            committed_logical, durable_rows,
+            tail_rows=1 if records and records[-1]["kind"] == KIND_TAIL
+            else 0)
+        logical, idx_keep = self._replay_idx(committed_logical, trusted_idx)
+        self.logical_size = logical
+        self._idx_bytes = idx_keep
+        self.durable_rows = durable_rows
+        # canonicalize the logs: un-acked pre-crash bytes past each
+        # shard's valid extent must never be readable (parity below is
+        # recomputed over zero padding, and degraded reads zero-fill past
+        # a data log's end on the same assumption)
+        for sid in range(self.k):
+            os.ftruncate(self._fds[sid], inline_shard_extent(
+                logical, self.unit, self.k, sid))
+        for i in range(self.p):
+            os.ftruncate(self._fds[self.k + i], durable_rows * self.unit)
+        self.committed_logical = committed_logical
+        self._next_row = logical // self.row_bytes
+        # reload the tail row's valid bytes so later appends and tail
+        # parity see the real stream (never garbage past `logical`)
+        self._tail = bytearray(self._read_logical(
+            self._next_row * self.row_bytes,
+            logical - self._next_row * self.row_bytes))
+        self._tail_version = 1
+        # recompute parity for every row past the last FULL commit: the
+        # "replay to last complete stripe" step
+        for row in range(durable_rows, self._next_row):
+            start = row * self.row_bytes
+            self._commit_row(row, self._read_logical(start, self.row_bytes))
+        if self._tail:
+            self._commit_tail()
+
+    def _replay_idx(self, committed_logical: int,
+                    trusted_idx: int) -> tuple[int, int]:
+        """Walk the .eci append log in order; entries past the commit
+        watermark are validated against the shard-log bytes.  Truncates
+        the log at the first invalid entry.  Returns (logical size, kept
+        idx bytes)."""
+        from .. import idx as idx_mod
+        from ..needle import NeedleError
+
+        path = self.base + ".eci"
+        try:
+            with open(path, "rb") as f:
+                raw = f.read()
+        except FileNotFoundError:
+            raw = b""
+        esz = t.NEEDLE_MAP_ENTRY_SIZE
+        keep = len(raw) - len(raw) % esz
+        logical = committed_logical
+        pos = 0
+        while pos + esz <= keep:
+            nid, offset, size = idx_mod.unpack_entry(raw[pos:pos + esz])
+            if offset == 0 or size == t.TOMBSTONE_FILE_SIZE:
+                pos += esz
+                continue  # tombstone: no data bytes to validate
+            start = offset - _OFFSET_BASE
+            end = start + get_actual_size(size, self.version)
+            if pos + esz <= trusted_idx and end <= committed_logical:
+                logical = max(logical, end)
+                pos += esz
+                continue
+            blob = self._read_logical(start, end - start,
+                                      limit=max(logical, end))
+            n = Needle()
+            try:
+                n.read_bytes(blob, start, size, self.version)
+                valid = n.id == nid
+            except (NeedleError, ValueError, IndexError, struct.error):
+                valid = False
+            if not valid:
+                keep = pos  # first invalid entry: cut here
+                break
+            logical = max(logical, end)
+            pos += esz
+        if keep < len(raw):
+            with open(path, "r+b") as f:
+                f.truncate(keep)
+        return logical, keep
+
+    def _heal_short_shards(self, committed_logical: int,
+                           durable_rows: int, tail_rows: int):
+        """Rebuild the committed region of any shard log that mounted
+        shorter than its committed extent (deleted, truncated or replaced
+        on a fresh device: O_CREAT has already recreated a missing log as
+        an empty file, so without this reads would serve zeros instead of
+        reconstructing).  Data columns are decoded row by row from k
+        survivors against the committed parity; parity columns are then
+        re-encoded from the (healed) data.  Bytes past the commit
+        watermark are not recoverable from a lost device and are handled
+        by the idx replay, which drops entries whose bytes no longer
+        validate.  Data columns decode on the native host GF kernel;
+        parity columns re-encode through `_encode_row`'s route."""
+        from ...ops.codec import _apply_rows_host
+        from ...ops.rs_numpy import ReconstructError
+
+        if committed_logical <= 0:
+            return
+        total = self.k + self.p
+        n_rows = durable_rows + tail_rows      # parity rows on disk
+        data_rows = -(-committed_logical // self.row_bytes)
+        # first damaged row per shard (== intact up to that row)
+        dmg = {}
+        for sid in range(total):
+            if sid < self.k:
+                expect = inline_shard_extent(
+                    committed_logical, self.unit, self.k, sid)
+            else:
+                expect = n_rows * self.unit
+            have = min(self._premount_sizes[sid], expect)
+            if have < expect:
+                dmg[sid] = have // self.unit
+        if not dmg:
+            return
+
+        def column(sid: int, row: int) -> bytes:
+            """shard ``sid``'s unit for stripe ``row``, zero-padded to the
+            committed extent like the parity was encoded over."""
+            off = row * self.unit
+            if sid < self.k:
+                valid = inline_shard_extent(
+                    committed_logical, self.unit, self.k, sid)
+                take = max(0, min(self.unit, valid - off))
+            else:
+                take = self.unit
+            buf = os.pread(self._fds[sid], take, off) if take else b""
+            return buf.ljust(self.unit, b"\x00")
+
+        for row in range(data_rows):
+            targets = [sid for sid, frow in dmg.items()
+                       if sid < self.k and frow <= row]
+            if not targets:
+                continue
+            alive = [sid for sid in range(total)
+                     if dmg.get(sid, n_rows + 1) > row
+                     and (sid < self.k or row < n_rows)]
+            try:
+                survivors = self.family.choose_survivors(alive)
+            except ReconstructError as e:
+                raise OSError(
+                    f"{self.base}: inline EC volume lost shards "
+                    f"{sorted(dmg)} beyond the {self.family.name} "
+                    f"tolerance; stripe row {row} is unrecoverable"
+                ) from e
+            inputs = np.stack([
+                np.frombuffer(column(sid, row), dtype=np.uint8)
+                for sid in survivors])
+            out = self.family.decode_blocks(survivors, inputs, targets,
+                                            apply_fn=_apply_rows_host)
+            for i, sid in enumerate(targets):
+                self._pwrite_shard(sid, row * self.unit, out[i])
+        # parity columns: re-encode every damaged row from the data
+        for row in range(n_rows):
+            targets = [sid for sid, frow in dmg.items()
+                       if sid >= self.k and frow <= row]
+            if not targets:
+                continue
+            row_data = b"".join(column(sid, row) for sid in range(self.k))
+            parity = self._encode_row(row_data)
+            for sid in targets:
+                self._pwrite_shard(sid, row * self.unit, parity[sid - self.k])
+
+    def _read_logical(self, offset: int, size: int,
+                      limit: Optional[int] = None) -> bytes:
+        """Gather a logical-stream span back out of the data shard logs,
+        zero-padding past each shard's valid extent (so garbage beyond the
+        replayed logical size never pollutes parity)."""
+        if size <= 0:
+            return b""
+        limit = self.logical_size if limit is None else limit
+        out = bytearray()
+        for iv in locate_data(self.large_block, self.unit,
+                              max(limit, offset + size), offset, size,
+                              data_shards=self.k):
+            sid, inner = iv.to_shard_id_and_offset(
+                self.large_block, self.unit, data_shards=self.k)
+            valid = inline_shard_extent(limit, self.unit, self.k, sid)
+            take = max(0, min(iv.size, valid - inner))
+            buf = os.pread(self._fds[sid], take, inner) if take else b""
+            if len(buf) < iv.size:
+                buf += b"\x00" * (iv.size - len(buf))
+            out += buf
+        return bytes(out)
+
+    def status(self) -> dict:
+        with self._lock:
+            return {
+                "family": self.family.name,
+                "stripe_unit": self.unit,
+                "logical_size": self.logical_size,
+                "committed_logical": self.committed_logical,
+                "durable_rows": self.durable_rows,
+                "pending_rows": len(self._pending),
+                "tail_bytes": len(self._tail),
+                "stripes_committed": self.stripes_committed,
+                "physical_bytes": self.physical_bytes,
+                "write_amp": round(self.write_amp(), 4),
+                "file_count": self.nm.file_count,
+                "deleted_count": self.nm.deleted_count,
+            }
+
+
+# -- the volume ---------------------------------------------------------------
+
+class InlineEcVolume(EcVolume):
+    """An EC volume written inline: all 14 shard logs live on this server,
+    lookups go through the live needle map (the sorted .ecx only exists
+    for sealed volumes), and reads reuse the whole EcVolume ladder: local
+    shard pread, the in-memory tail stripe, then reconstruction on
+    `device`, where the writer's device parity route runs too."""
+
+    def __init__(self, directory: str, collection: str, vid: int,
+                 family: Optional[str] = None, create: bool = False,
+                 stripe_unit: Optional[int] = None, version: int = 3,
+                 device=None):
+        base = (os.path.join(directory, f"{collection}_{vid}")
+                if collection else os.path.join(directory, str(vid)))
+        dev = device_mod.resolve(device)
+        self.writer = InlineEcWriter(base, family=family, unit=stripe_unit,
+                                     create=create, version=version,
+                                     device=dev)
+        super().__init__(directory, collection, vid, version=version,
+                         large_block_size=self.writer.large_block,
+                         small_block_size=self.writer.unit, device=dev)
+        for sid in range(TOTAL_SHARDS_COUNT):
+            if os.path.exists(base + to_ext(sid)):
+                self.add_shard(EcVolumeShard(directory, collection, vid,
+                                             sid))
+        self.tail_reader = self.writer.tail_read
+        self.read_only = False
+        self.last_modified_ts = time.time()
+
+    # heartbeat / master bookkeeping ------------------------------------------
+    @property
+    def is_inline(self) -> bool:
+        return True
+
+    @property
+    def logical_size(self):
+        return self.writer.logical_size
+
+    @property
+    def shard_size(self) -> int:
+        rows = -(-self.writer.logical_size // self.writer.row_bytes)
+        return rows * self.writer.unit
+
+    def file_count(self) -> int:
+        return self.writer.nm.file_count
+
+    def deleted_count(self) -> int:
+        return self.writer.nm.deleted_count
+
+    def deleted_size(self) -> int:
+        return self.writer.nm.deleted_bytes
+
+    def max_file_key(self) -> int:
+        return self.writer.nm.max_file_key()
+
+    # -- write path -----------------------------------------------------------
+    def write_needle(self, n: Needle,
+                     check_cookie: bool = True) -> tuple[int, int, bool]:
+        if not n.append_at_ns:
+            n.append_at_ns = time.time_ns()
+        blob = n.to_bytes(self.version)
+        off = self.writer.append(n.id, n.size, blob)
+        self.last_modified_ts = time.time()
+        return off, n.size, False
+
+    def delete_needle(self, needle_id: int):
+        self.writer.delete(needle_id)
+        self.last_modified_ts = time.time()
+
+    # -- read path ------------------------------------------------------------
+    def find_needle_from_ecx(self, needle_id: int) -> tuple[int, int]:
+        nv = self.writer.nm.get(needle_id)
+        if nv is None:
+            raise EcNotFoundError(f"needle {needle_id:x} not found")
+        if t.size_is_deleted(nv.size):
+            raise EcDeletedError(f"needle {needle_id:x} deleted")
+        return nv.offset - _OFFSET_BASE, nv.size
+
+    # -- lifecycle ------------------------------------------------------------
+    def close(self):
+        try:
+            self.writer.close()
+        finally:
+            super().close()
+
+    def destroy(self):
+        try:
+            self.writer.close(final_flush=False)
+        finally:
+            super().destroy()
+            for ext in (".scl", ".eci"):
+                try:
+                    os.remove(self.base_file_name() + ext)
+                except FileNotFoundError:
+                    pass
+
+
+# -- deep-scrub audit ---------------------------------------------------------
+
+def verify_inline_volume(directory: str, collection: str, vid: int,
+                         device=None) -> dict:
+    """The deep scrub of an inline volume: mount it on `device` (running
+    the crash-recovery replay), recompute every committed stripe row's
+    parity and CRC against the shard logs and the commit records, then
+    re-read every live needle (header + CRC).  Same result shape as
+    deep_scrub_host."""
+    ev = InlineEcVolume(directory, collection, vid, device=device)
+    try:
+        return audit_inline_volume(ev)
+    finally:
+        ev.close()
+
+
+def audit_inline_volume(ev: "InlineEcVolume") -> dict:
+    """Audit an already-mounted inline volume.  Committed rows are
+    re-encoded in runs of up to _MAX_COMMIT_ROWS consecutive rows, one
+    encode call per run (on the card under WEED_EC_INLINE_DEVICE=1)."""
+    from ..needle import NeedleError
+    from .ec_volume import EcError
+
+    w = ev.writer
+    bad_rows: list[int] = []
+    checked = bad = 0
+    bad_needles: list[int] = []
+    w.drain()
+    latest: dict[int, dict] = {}
+    for rec in read_commit_log(w._scl_path):
+        latest[rec["row_index"]] = rec
+    order = sorted(latest)
+    runs, run = [], []
+    for r in order:
+        if run and (r != run[-1] + 1 or len(run) >= _MAX_COMMIT_ROWS):
+            runs.append(run)
+            run = []
+        run.append(r)
+    if run:
+        runs.append(run)
+    for run in runs:
+        rows = [w._read_logical(r * w.row_bytes, w.row_bytes) for r in run]
+        parity = w._encode_rows(rows)
+        for i, (row_index, row) in enumerate(zip(run, rows)):
+            rec = latest[row_index]
+            mine = np.ascontiguousarray(
+                parity[:, i * w.unit:(i + 1) * w.unit])
+            on_disk = b"".join(
+                os.pread(w._fds[w.k + j], w.unit, row_index * w.unit)
+                for j in range(w.p))
+            if on_disk != mine.tobytes():
+                bad_rows.append(row_index)
+                continue
+            # a full stripe is immutable after commit, so its recorded CRC
+            # must still match; a tail record's row keeps growing, and
+            # only the freshest one is checkable against current bytes
+            if rec["kind"] == KIND_FULL \
+                    or rec["logical_size"] == w.logical_size:
+                crc = crc32c_mod.crc32c(mine, crc32c_mod.crc32c(row))
+                if crc != rec["stripe_crc"]:
+                    bad_rows.append(row_index)
+    for nid, nv in list(w.nm.items_ascending()):
+        if t.size_is_deleted(nv.size):
+            continue
+        checked += 1
+        try:
+            ev.read_needle(nid)
+        except (EcError, NeedleError):
+            # a needle that fails its own checks is the verdict; a
+            # failing launch still raises
+            bad += 1
+            if len(bad_needles) < 64:
+                bad_needles.append(nid)
+    return {"volume": ev.volume_id, "collection": ev.collection,
+            "inline": True,
+            "rows_checked": len(latest),
+            "corrupt": sorted(set(bad_rows)), "missing": [],
+            "clean": not bad_rows,
+            "needles_checked": checked, "needles_bad": bad,
+            "bad_needles": bad_needles,
+            "ok": not (bad_rows or bad)}

@@ -78,6 +78,26 @@ def locate_data(large_block_length: int, small_block_length: int,
     return intervals
 
 
+def inline_shard_extent(logical_size: int, unit: int, data_shards: int,
+                        shard_id: int) -> int:
+    """Valid byte extent of one data shard's append-only log when
+    ``logical_size`` stream bytes have been striped row-major in
+    ``unit``-sized blocks over ``data_shards`` shards (the inline EC
+    layout: small blocks only, zero large rows).
+
+    Shards before the block the stream head is in have a full block in
+    the current row; the head shard has the partial remainder; later
+    shards end at the previous row."""
+    full_rows, rem = divmod(logical_size, unit * data_shards)
+    head_block, head_rem = divmod(rem, unit)
+    extent = full_rows * unit
+    if shard_id < head_block:
+        extent += unit
+    elif shard_id == head_block:
+        extent += head_rem
+    return extent
+
+
 def _locate_offset(large_block_length: int, small_block_length: int,
                    dat_size: int, offset: int,
                    data_shards: int = DATA_SHARDS_COUNT,

@@ -3,7 +3,11 @@
 Counterpart of seaweedfs_tpu/storage/store.py: owns the DiskLocations,
 routes reads, writes and deletes to volumes, runs the EC admin entry
 points (`ec_generate`, `ec_generate_batch`, `ec_rebuild`, mount and
-unmount), and assembles heartbeat payloads.
+unmount), and assembles heartbeat payloads.  Under WEED_EC_INLINE=1 an
+EC-policy collection's new volume is an inline-EC volume
+(storage/erasure_coding/inline.py): its needles stream straight into
+shard logs, it reports as a writable volume, and parity follows per
+stripe row.
 
 `device` is where the store's EC work runs: the CUDA card unless the
 caller passes device="cpu".  It is resolved where EC work happens (an
@@ -29,23 +33,13 @@ from typing import Callable, Optional
 from .disk_location import DiskLocation
 from .erasure_coding import encoder as ec_encoder
 from .erasure_coding.ec_volume import EcVolume
+from .erasure_coding.inline import inline_family_for
 from .needle import Needle
 from .super_block import ReplicaPlacement
 from .ttl import TTL
 from .volume import NotFoundError, Volume, VolumeError
 
 _DEVICE_BACKENDS = ("cuda", "tpu")
-
-
-def inline_family_for(collection: str, path_conf=None) -> Optional[str]:
-    """The assign-time inline-EC policy: None unless WEED_EC_INLINE is set
-    (a classic volume); with it set, inline EC volumes come with the port
-    of storage/erasure_coding/inline.py and this raises."""
-    if os.environ.get("WEED_EC_INLINE", "0").lower() in ("", "0", "false",
-                                                          "no"):
-        return None
-    raise NotImplementedError(
-        "WEED_EC_INLINE: inline EC volumes are not ported yet")
 
 
 class Store:
@@ -117,6 +111,8 @@ class Store:
             loc = max(self.locations, key=lambda l: l.free_slots())
             if loc.free_slots() <= 0:
                 raise VolumeError("no free volume slots")
+            # assign-time policy: an EC-policy collection under
+            # WEED_EC_INLINE=1 gets shard logs as its primary write path
             family = inline_family_for(collection)
             if family is not None:
                 return loc.add_inline_volume(vid, collection, family=family)
@@ -131,6 +127,11 @@ class Store:
                 if vid in loc.volumes:
                     loc.delete_volume(vid)
                     return
+                ev = loc.ec_volumes.get(vid)
+                if ev is not None and getattr(ev, "writer", None):
+                    loc.ec_volumes.pop(vid)
+                    ev.destroy()
+                    return
             raise NotFoundError(f"volume {vid} not found")
 
     def mark_volume_readonly(self, vid: int, read_only: bool = True):
@@ -144,6 +145,13 @@ class Store:
                      check_cookie: bool = True) -> tuple[int, bool]:
         v = self.find_volume(vid)
         if v is None:
+            ev = self.find_ec_volume(vid)
+            if ev is not None and getattr(ev, "writer", None):
+                # inline EC volume: the needle streams straight into the
+                # striped shard logs, parity follows per stripe
+                _, size, unchanged = ev.write_needle(
+                    n, check_cookie=check_cookie)
+                return size, unchanged
             raise NotFoundError(f"volume {vid} not found")
         try:
             _, size, unchanged = v.write_needle(n, check_cookie=check_cookie)
@@ -210,7 +218,8 @@ class Store:
         batched and host pipelines) and the code family in its .vif.
 
         code_family: None resolves the per-collection policy
-        (codes.family_for_collection); only RS is ported."""
+        (codes.family_for_collection); a family other than RS encodes
+        through its host loop (encoder._write_ec_files_family)."""
         from .erasure_coding import codes as ec_codes
 
         v = self.find_volume(vid)
@@ -256,7 +265,7 @@ class Store:
             if v is None:
                 raise NotFoundError(f"volume {vid} not found")
             # the shared pipeline speaks the RS layout; another family's
-            # collection encodes on its own (and raises: not ported)
+            # collection encodes on its own, through the family host loop
             if (ec_codes.family_for_collection(v.collection)
                     != ec_codes.DEFAULT_FAMILY):
                 self.ec_generate(vid)
@@ -292,20 +301,30 @@ class Store:
                 else self.locations[0]._base_name(collection, vid))
         info = ec_encoder.load_volume_info(base) or {}
         family = info.get("code_family") or ec_codes.DEFAULT_FAMILY
-        # the rebuild reads every present survivor in full
-        present_bytes = sum(
-            os.path.getsize(base + to_ext(i))
-            for i in range(TOTAL_SHARDS_COUNT)
-            if os.path.exists(base + to_ext(i)))
-        crcs = ec_encoder.rebuild_ec_files(
-            base, family=family, device=self.device,
-            encoder=self._resolve_ec_encoder(),
-            batched=True if self._forced_device() else None)
-        rebuilt_bytes = sum(
-            os.path.getsize(base + to_ext(sid)) for sid in crcs
-            if os.path.exists(base + to_ext(sid)))
-        if crcs and rebuilt_bytes:
-            ec_codes.note_rebuild(family, present_bytes, rebuilt_bytes)
+        if family != ec_codes.DEFAULT_FAMILY:
+            # the family's planned rebuild counts what it reads
+            rb_stats: dict = {}
+            crcs = ec_encoder.rebuild_ec_files(base, family=family,
+                                               device=self.device,
+                                               stats=rb_stats)
+            if rb_stats.get("rebuilt_bytes"):
+                ec_codes.note_rebuild(family, rb_stats["read_bytes"],
+                                      rb_stats["rebuilt_bytes"])
+        else:
+            # the RS rebuild reads every present survivor in full
+            present_bytes = sum(
+                os.path.getsize(base + to_ext(i))
+                for i in range(TOTAL_SHARDS_COUNT)
+                if os.path.exists(base + to_ext(i)))
+            crcs = ec_encoder.rebuild_ec_files(
+                base, device=self.device,
+                encoder=self._resolve_ec_encoder(),
+                batched=True if self._forced_device() else None)
+            rebuilt_bytes = sum(
+                os.path.getsize(base + to_ext(sid)) for sid in crcs
+                if os.path.exists(base + to_ext(sid)))
+            if crcs and rebuilt_bytes:
+                ec_codes.note_rebuild(family, present_bytes, rebuilt_bytes)
         stored = info.get("shard_crc32c")
         if isinstance(stored, list) and len(stored) == TOTAL_SHARDS_COUNT:
             bad = [sid for sid, crc in crcs.items()
@@ -356,6 +375,25 @@ class Store:
                         "modified_at_second": int(v.last_modified_ts),
                     })
                 for vid, ev in loc.ec_volumes.items():
+                    if getattr(ev, "writer", None):
+                        # inline EC volume: a WRITABLE volume to the
+                        # master, which keeps assigning fids to it; parity
+                        # is current, there is nothing to seal or encode
+                        max_file_key = max(max_file_key, ev.max_file_key())
+                        volumes.append({
+                            "id": vid,
+                            "collection": ev.collection,
+                            "size": ev.writer.logical_size,
+                            "file_count": ev.file_count(),
+                            "delete_count": ev.deleted_count(),
+                            "deleted_byte_count": ev.deleted_size(),
+                            "read_only": ev.read_only,
+                            "replica_placement": 0,
+                            "ttl": 0,
+                            "compact_revision": 0,
+                            "modified_at_second": int(ev.last_modified_ts),
+                        })
+                        continue
                     ec_shards.append({
                         "id": vid,
                         "collection": ev.collection,

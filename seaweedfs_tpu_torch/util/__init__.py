@@ -1,1 +1,1 @@
-"""Host utilities: platform probes."""
+"""Host utilities: platform probes and fault injection."""

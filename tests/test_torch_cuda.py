@@ -293,3 +293,47 @@ def test_survivor_stack_needs_no_staging_copy(cuda, monkeypatch):
     monkeypatch.setenv("WEED_EC_RECOVER_DEVICE_MIN_KB", "1024")
     with codec.survivor_stack(x.shape, cuda) as slab:
         assert slab is None            # too small for the card's route
+
+
+@pytest.mark.parametrize("family,launches", [("rs_vandermonde", 1),
+                                             ("cauchy", 1), ("pm_msr", 3)])
+@pytest.mark.parametrize("rows", [1, 5, 16])
+def test_inline_batch_step_matches_plain(cuda, tmp_path, monkeypatch,
+                                         family, launches, rows):
+    """An inline commit batch is one parity step call on the card: K1
+    once per 16 parity lane rows (RS and Cauchy: 1 launch, pm_msr's 36
+    lane rows: 3), equal to the plain GF parity of the rows' lanes and to
+    the host route; no allocation on the card after the first batch."""
+    from seaweedfs_tpu_torch.ops.device_pool import get_pool
+    from seaweedfs_tpu_torch.storage.erasure_coding.inline import \
+        InlineEcWriter
+
+    monkeypatch.setenv("WEED_EC_STRIPE_KB", "64")
+    monkeypatch.setenv("WEED_EC_INLINE_DEVICE", "1")
+    w = InlineEcWriter(str(tmp_path / "v"), family=family, create=True,
+                       device=cuda)
+    try:
+        fam, a = w.family, w.family.sub_shards
+        rng = np.random.default_rng(rows)
+        data = [rng.integers(0, 256, w.row_bytes, dtype=np.uint8).tobytes()
+                for _ in range(rows)]
+        w._encode_rows(data)  # first batch: leases and tables
+        pool = get_pool()
+        allocs = pool.snapshot()["allocs"]
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_stats()["allocation.all.allocated"]
+        before = rs_cuda.launches["gf_apply"]
+        got = w._encode_rows(data)
+        assert rs_cuda.launches["gf_apply"] - before == launches
+        assert pool.snapshot()["allocs"] == allocs
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] == mem
+        span = np.hstack([np.frombuffer(r, dtype=np.uint8).reshape(
+            w.k, w.unit) for r in data])
+        lanes = torch.from_numpy(np.ascontiguousarray(
+            fam.to_lanes(span))).to(cuda)
+        plain = rs_cuda.gf_apply_plain(fam.parity_matrix(), lanes)
+        assert np.array_equal(got, fam.from_lanes(plain.cpu().numpy()))
+        monkeypatch.setenv("WEED_EC_INLINE_DEVICE", "0")
+        assert np.array_equal(got, w._encode_rows(data))
+    finally:
+        w.close()

@@ -177,9 +177,10 @@ def test_code_family_registry():
     assert np.array_equal(fam.parity_matrix(),
                           j_codes.get_family().parity_matrix())
     for name in ("cauchy", "pm_msr"):
-        with pytest.raises(NotImplementedError):
-            t_codes.get_family(name)
-        with pytest.raises(NotImplementedError):
+        other = t_codes.get_family(name)
+        assert np.array_equal(other.encode_matrix(),
+                              j_codes.get_family(name).encode_matrix())
+        with pytest.raises(FileNotFoundError):
             t_enc.write_ec_files("/nonexistent", family=name, device="cpu")
     with pytest.raises(ValueError):
         t_codes.get_family("nope")

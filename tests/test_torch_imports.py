@@ -122,3 +122,45 @@ def test_kernel_wrappers_launch_only_on_cuda_tensors():
     assert rs_cuda.launches == before
     rs_cuda.reset_launches()
     assert set(rs_cuda.launches.values()) == {0}
+
+
+def test_new_slice_modules_are_covered():
+    """The inline-EC slice's modules are among the sources both checks
+    above walk."""
+    rel = {os.path.relpath(p, PKG) for p in _port_sources()[1:]}
+    for mod in ("storage/erasure_coding/inline.py",
+                "storage/erasure_coding/codes/cauchy.py",
+                "storage/erasure_coding/codes/pm_msr.py",
+                "util/faults.py"):
+        assert mod in rel
+
+
+def test_inline_and_family_entry_points_raise_without_cuda(no_cuda,
+                                                           tmp_path):
+    from seaweedfs_tpu_torch.maintenance.deep_scrub import deep_scrub_host
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.inline import (
+        InlineEcVolume, InlineEcWriter, verify_inline_volume)
+
+    base = str(tmp_path / "v")
+    with open(base + ".dat", "wb") as f:
+        f.write(bytes(range(256)) * 10)
+    calls = [
+        lambda: InlineEcVolume(str(tmp_path), "c", 1, family="cauchy",
+                               create=True),
+        lambda: InlineEcWriter(str(tmp_path / "w"), family="pm_msr",
+                               create=True),
+        lambda: encoder.write_ec_files(base, 10000, 100, family="cauchy"),
+        lambda: encoder.rebuild_ec_files(base, family="pm_msr"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not os.path.exists(base + ".ec00")
+    assert not os.path.exists(str(tmp_path / "c_1.ec00"))
+    InlineEcVolume(str(tmp_path), "c", 1, family="cauchy", create=True,
+                   device="cpu").close()
+    for call in (lambda: verify_inline_volume(str(tmp_path), "c", 1),
+                 lambda: deep_scrub_host(str(tmp_path), "c", 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

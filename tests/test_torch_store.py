@@ -18,11 +18,13 @@ import torch
 from seaweedfs_tpu.storage import needle as j_needle
 from seaweedfs_tpu.storage import store as j_store
 from seaweedfs_tpu.storage.erasure_coding import codes as j_codes
+from seaweedfs_tpu.storage.erasure_coding import encoder as j_enc
 from seaweedfs_tpu.storage.volume import VolumeError as JVolumeError
 from seaweedfs_tpu_torch.storage import needle as t_needle
 from seaweedfs_tpu_torch.storage import store as t_store
 from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
 from seaweedfs_tpu_torch.storage.erasure_coding import codes as t_codes
+from seaweedfs_tpu_torch.storage.erasure_coding import encoder as t_enc
 from seaweedfs_tpu_torch.storage.erasure_coding import to_ext
 from seaweedfs_tpu_torch.storage.volume import VolumeError
 
@@ -268,8 +270,7 @@ def test_family_for_collection_equal_jax(monkeypatch):
     assert t_codes.family_for_collection("x") == "rs_vandermonde"
     monkeypatch.setenv("WEED_EC_CODE_A_B_C", "cauchy")
     assert j_codes.family_for_collection("a-b.c") == "cauchy"
-    with pytest.raises(NotImplementedError):
-        t_codes.family_for_collection("a-b.c")
+    assert t_codes.family_for_collection("a-b.c") == "cauchy"
     assert t_codes._collection_env_key("") == \
         j_codes._collection_env_key("") == "WEED_EC_CODE_DEFAULT"
 
@@ -290,17 +291,25 @@ def test_store_family_policy_and_inline(tmp_path, monkeypatch):
     n.id, n.cookie = 1, 2
     ts.write_needle(1, n)
     monkeypatch.setenv("WEED_EC_CODE_PHOTOS", "pm_msr")
-    with pytest.raises(NotImplementedError):
-        ts.ec_generate(1)
-    with pytest.raises(NotImplementedError):
-        ts.ec_generate_batch([1])
+    base = str(tmp_path / "photos_1")
+    for encode in (lambda: ts.ec_generate(1),
+                   lambda: ts.ec_generate_batch([1])):
+        encode()   # the family host loop, whatever the backend
+        info = t_enc.load_volume_info(base)
+        assert info["code_family"] == "pm_msr"
+        assert info["shard_crc32c"] == j_enc.write_ec_files(
+            base, family="pm_msr")
     monkeypatch.delenv("WEED_EC_CODE_PHOTOS")
     assert t_store.inline_family_for("photos") is None
     monkeypatch.setenv("WEED_EC_INLINE", "1")
-    with pytest.raises(NotImplementedError, match="inline"):
-        ts.add_volume(2, "photos")
-    with pytest.raises(NotImplementedError, match="inline"):
-        ts.locations[0].add_inline_volume(3)
+    ts.add_volume(2, "photos")      # no EC policy: a classic volume
+    assert ts.find_volume(2) is not None
+    monkeypatch.setenv("WEED_EC_CODE_PHOTOS", "pm_msr")
+    assert t_store.inline_family_for("photos") == "pm_msr"
+    ev = ts.add_volume(3, "photos")
+    assert ts.find_ec_volume(3) is ev and ev.family.name == "pm_msr"
+    ev = ts.locations[0].add_inline_volume(4)
+    assert ev.family.name == "rs_vandermonde" and ev.writer.unit
     ts.close()
 
 
