@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels  # build, kernel checks and timing
     python3 chip_smoke.py --routes   # build, kernel checks, decode routes
     python3 chip_smoke.py --inline   # build, kernel checks, phase 6 only
+    python3 chip_smoke.py --cache    # build, kernel checks, phase 7 only
 
 Phases:
   1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a);
@@ -56,8 +57,26 @@ Phases:
      one flipped parity byte; the same for ~128 MiB of pm_msr (collection
      `cold`: 3 K1 launches per encode call), and 256 MiB with
      WEED_EC_INLINE_DEVICE=0 for the host codec's encode time per batch;
-  7. one JSON line of per-kernel numbers, then the card's name and power
+  7. the tiered read cache on the card in front of a degraded EC volume,
+     the filer's chunk-cache path over warm storage: WEED_READ_CACHE_HBM_MB
+     =1024 (the HBM tier: resident slabs of the device pool on the card),
+     64 MiB of RAM, no disk layer; 384 seeded 4 MiB needles (1.5 GiB)
+     through Store.write_needle, EC-encoded on the card (K2), .ec00 .ec05
+     .ec11 .ec13 deleted, the volume remounted as EC; 8,000 gets from 4
+     threads over a seeded Zipf(1.1) of the fids, each miss read through
+     Store.read_needle (a degraded read, K1 per recovered block) and put,
+     every chunk checked byte for byte; hits in both tiers, the HBM tier
+     evicting and within its 1 GiB, the pool's held bytes of the tier equal
+     to it, a background get admitting no fill, an overwritten needle
+     served new from the HBM tier, no slab of the tier left after clear();
+     RAM-hit, HBM-hit and miss latencies;
+  8. one JSON line of per-kernel numbers, then the card's name and power
      limit, then the result line.
+
+Phases 5 to 7 also hold the metrics registry's exposition against the
+components' own counters (encode bytes, degraded-read mirrors and spans,
+the device pool, deep scrub, inline EC, the read cache) and parse it
+strictly.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 check fails.  Imports nothing of JAX or of the JAX package.
@@ -69,6 +88,7 @@ import argparse
 import concurrent.futures
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -78,6 +98,8 @@ import time
 import numpy as np
 import torch
 
+from seaweedfs_tpu_torch import tracing
+from seaweedfs_tpu_torch.cache import TieredReadCache
 from seaweedfs_tpu_torch.maintenance.deep_scrub import (deep_scrub,
                                                         deep_scrub_host,
                                                         local_target)
@@ -90,6 +112,8 @@ from seaweedfs_tpu_torch.ops.gf256 import parity_matrix
 from seaweedfs_tpu_torch.ops.rs_numpy import decode_rows
 from seaweedfs_tpu_torch.parallel.mesh import (make_parity_step,
                                                parity_step_plain)
+from seaweedfs_tpu_torch.qos import qos_scope
+from seaweedfs_tpu_torch.stats import metrics
 from seaweedfs_tpu_torch.storage.erasure_coding import (decoder, encoder,
                                                         recover, to_ext)
 from seaweedfs_tpu_torch.storage.erasure_coding import codes as ec_codes
@@ -115,6 +139,13 @@ INLINE_WRITERS = 4          # writer threads of phase 6's ingest
 MSR_LOST = (0, 2, 5, 13)    # pm_msr losses (its tolerance is 9)
 LOST = (0, 5, 11, 13)       # two data and two parity shards
 READERS = 8                 # threads of phase 4's concurrent pass
+CACHE_NEEDLES = 384         # phase 7: 4 MiB chunks, 1.5 GiB in all
+CACHE_CHUNK = 4 * MIB       # the filer's default chunk size
+CACHE_GETS = 8000           # phase 7's gets, Zipf(CACHE_ZIPF) over the fids
+CACHE_ZIPF = 1.1
+CACHE_THREADS = 4
+CACHE_HBM_MB = 1024         # WEED_READ_CACHE_HBM_MB of phase 7
+CACHE_RAM_MB = 64           # WEED_READ_CACHE_MB of phase 7 (its default)
 CHUNK = MIB                 # the pipeline's column chunk for 1 MiB blocks
 SEED = 20261016
 PARITY = np.ascontiguousarray(parity_matrix(10, 14))
@@ -139,6 +170,105 @@ def log(*args):
 def check(cond: bool, what: str):
     if not cond:
         raise AssertionError(what)
+
+
+# -- the metrics exposition --------------------------------------------------
+
+_SAMPLE_RE = re.compile(
+    r'^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(?P<labels>.*)\})? '
+    r'(?P<value>-?(?:\d+\.?\d*(?:e[+-]?\d+)?|\+Inf|-Inf|NaN))$')
+_LABEL_RE = re.compile(
+    r'(?P<key>[a-zA-Z_][a-zA-Z0-9_]*)="(?P<val>(?:[^"\\]|\\.)*)"')
+
+
+def _labels(raw) -> tuple:
+    out, pos = [], 0
+    while raw and pos < len(raw):
+        m = _LABEL_RE.match(raw, pos)
+        check(m is not None, f"exposition: bad label body {raw!r}")
+        out.append((m.group("key"), m.group("val")))
+        pos = m.end()
+        if pos < len(raw):
+            check(raw[pos] == ",", f"exposition: bad label separator {raw!r}")
+            pos += 1
+    return tuple(sorted(out))
+
+
+def exposition() -> dict:
+    """The port's whole exposition, parsed strictly: HELP, then TYPE, then
+    samples for every family, each sample line `name{labels} value`, and
+    every histogram's buckets cumulative up to le="+Inf" = _count.
+    Returns {(sample name, labels): value} plus "_families"/"_lines"."""
+    text = metrics.REGISTRY.expose()
+    check(text.endswith("\n"), "exposition: no final newline")
+    out, kinds, family = {}, {}, None
+    buckets: dict = {}
+    lines = text.splitlines()
+    for line in lines:
+        if line.startswith("# HELP "):
+            family = line.split(" ", 3)[2]
+            check(family not in kinds, f"exposition: duplicate {family}")
+            kinds[family] = None
+        elif line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            check(name == family and kinds[name] is None and
+                  kind in ("counter", "gauge", "histogram"),
+                  f"exposition: bad TYPE line {line!r}")
+            kinds[name] = kind
+        else:
+            m = _SAMPLE_RE.match(line)
+            check(m is not None, f"exposition: bad sample line {line!r}")
+            name = m.group("name")
+            check(family is not None and kinds[family] is not None and
+                  (name == family or name in (family + "_bucket",
+                                              family + "_sum",
+                                              family + "_count")),
+                  f"exposition: sample {name} outside its family")
+            labels = _labels(m.group("labels"))
+            value = float(m.group("value").replace("+Inf", "inf"))
+            out[(name, labels)] = value
+            if name.endswith("_bucket"):
+                series = tuple(kv for kv in labels if kv[0] != "le")
+                buckets.setdefault((family, series), []).append(
+                    (float(dict(labels)["le"].replace("+Inf", "inf")), value))
+    for (family, series), bs in buckets.items():
+        les, counts = [b[0] for b in bs], [b[1] for b in bs]
+        check(les == sorted(les) and les[-1] == float("inf") and
+              counts == sorted(counts) and
+              out[(family + "_count", series)] == counts[-1],
+              f"exposition: histogram {family}{series} not cumulative")
+    out["_families"], out["_lines"] = len(kinds), len(lines)
+    return out
+
+
+def sample(expo: dict, name: str, **labels) -> float:
+    return expo.get((name, tuple(sorted(labels.items()))), 0.0)
+
+
+def sample_sum(expo: dict, name: str) -> float:
+    return sum(v for k, v in expo.items()
+               if isinstance(k, tuple) and k[0] == name)
+
+
+def log_exposition(where: str) -> dict:
+    expo = exposition()
+    log(f"exposition after {where}: {expo['_families']} families, "
+        f"{expo['_lines']} lines, parsed strictly (histograms cumulative)")
+    return expo
+
+
+def check_pool_gauges(pool, where: str):
+    """The DevicePool gauges equal the pool's own snapshot."""
+    snap, expo = pool.snapshot(), exposition()
+    p = "SeaweedFS_volumeServer_device_pool_"
+    got = {"bytes": sample(expo, p + "bytes"),
+           "hwm_bytes": sample(expo, p + "hwm_bytes"),
+           "free_slots": sample(expo, p + "slots", state="free"),
+           "leased_slots": sample(expo, p + "slots", state="leased"),
+           "resident_slabs": sample(expo, p + "slots", state="resident")}
+    want = {k: snap[k] for k in got}
+    check(got == want, f"{where}: device pool gauges {got} != snapshot "
+          f"{want}")
 
 
 def time_cold(fn, sets, reps: int = 24) -> float:
@@ -936,6 +1066,38 @@ def flip_byte(path: str, offset: int):
         f.write(bytes([b[0] ^ 0xFF]))
 
 
+def check_recover_metrics(before: dict, after: dict, rst: dict, k1: int):
+    """The EcRecover* mirrors moved by RecoverStats' own counts over a
+    window that began with RecoverStats reset; the recorded
+    ec.recover.decode spans equal its decode batches and K1's launches."""
+    p = "SeaweedFS_volumeServer_ec_recover_"
+
+    def moved(name, **labels):
+        return sample(after, p + name, **labels) - \
+            sample(before, p + name, **labels)
+
+    got = {"cache_hits": moved("cache_total", result="hit"),
+           "cache_misses": moved("cache_total", result="miss"),
+           "coalesced": moved("cache_total", result="coalesced"),
+           "spans": moved("spans_total", mode="solo")
+           + moved("spans_total", mode="batched"),
+           "batched_spans": moved("spans_total", mode="batched"),
+           "recovered_bytes": moved("bytes_total")}
+    want = {k: rst[k] for k in got}
+    check(got == want, f"EcRecover* mirrors {got} != RecoverStats {want}")
+    for stage in ("fetch", "decode", "serve"):
+        check(sample(after, p + "stage_seconds", stage=stage) ==
+              round(getattr(recover.STATS, f"{stage}_seconds"), 6),
+              f"EcRecoverStageSeconds{{{stage}}} != RecoverStats")
+    spans = tracing.RECORDER.aggregate("ec.recover.decode").get(
+        "ec.recover.decode", {}).get("count", 0)
+    check(spans == rst["batches"] == k1,
+          f"{spans} ec.recover.decode spans, {rst['batches']} decode "
+          f"batches, {k1} K1 launches")
+    log(f"recover metrics: EcRecover* mirrors = RecoverStats {want}; "
+        f"ec.recover.decode spans {spans} = decode batches = K1 launches")
+
+
 def store_phase(dev, workdir: str) -> dict:
     """Phase 5; returns the kernels' launches in it."""
     check(native.lib() is not None, "the native host library did not build")
@@ -943,6 +1105,10 @@ def store_phase(dev, workdir: str) -> dict:
     store = Store([workdir], device=dev, ec_encoder_backend="cuda")
     pool = get_pool()
     rs_cuda.reset_launches()
+    # every trace of this window is kept, so the spans can be counted
+    tracing_on = knobs(WEED_TRACE_SAMPLE="1", WEED_TRACE_MAX_TRACES="1000000")
+    tracing_on.__enter__()
+    expo0, pool0 = exposition(), pool.snapshot()
     try:
         t0 = time.perf_counter()
         kept, data_bytes = fill_store(store, vids, STORE_VOLUME_BYTES,
@@ -983,6 +1149,14 @@ def store_phase(dev, workdir: str) -> dict:
             f"{hits}, stage wall {st2['wall']} s, read {st2['read']} s, "
             f"pool allocs {st2['pool']['allocs']}")
         check(hits > 0, "the second encode re-leased no pool slab")
+        enc = sample(exposition(), "SeaweedFS_volumeServer_ec_encode_bytes_"
+                     "total") - sample(expo0, "SeaweedFS_volumeServer_ec_"
+                                       "encode_bytes_total")
+        check(enc == sum(dat.values()) + dat[1],
+              f"EcEncodeBytesCounter moved {enc}, the encodes took "
+              f"{sum(dat.values()) + dat[1]} B of .dat")
+        log(f"store metrics: EcEncodeBytesCounter +{int(enc)} = the .dat "
+            "bytes of ec_generate_batch and the repeat encode")
 
         base1 = os.path.join(workdir, "1")
         for v in vids:
@@ -993,6 +1167,8 @@ def store_phase(dev, workdir: str) -> dict:
             store.ec_mount("", v, [sid for sid in range(14)
                                    if v != 1 or sid not in LOST])
         recover.STATS.reset()
+        tracing.RECORDER.reset()
+        expo_r0, k1_r0 = exposition(), rs_cuda.launches["gf_apply"]
         t0 = time.perf_counter()
         for nid, (cookie, data) in kept.items():
             n = store.read_needle(1, nid, cookie=cookie)  # checks the CRC
@@ -1001,6 +1177,9 @@ def store_phase(dev, workdir: str) -> dict:
                   f"store needle {nid:x} read back differs")
         read_s = time.perf_counter() - t0
         rst = recover.STATS.snapshot()
+        check_recover_metrics(expo_r0, exposition(), rst,
+                              rs_cuda.launches["gf_apply"] - k1_r0)
+        check_pool_gauges(pool, "store degraded reads")
         log(f"store degraded reads: {len(kept)} needles of volume 1 in "
             f"{read_s:.3f} s, every one equal and CRC-checked; recovered "
             f"blocks {rst['cache_misses']}, decode batches {rst['batches']}"
@@ -1025,9 +1204,11 @@ def store_phase(dev, workdir: str) -> dict:
             return deep_scrub(targets, device=dev, stage_stats=stats)
 
         st3: dict = {}
+        expo_s0 = exposition()
         t0 = time.perf_counter()
         out = scrub(st3)
         scrub_s = time.perf_counter() - t0
+        scrubbed = out["scrubbed_bytes"]
         check(out["corrupt"] == [] and all(v["ok"] and v["recomputed"]
                                            for v in out["volumes"]),
               f"deep scrub of clean volumes: {out['corrupt']}")
@@ -1042,8 +1223,30 @@ def store_phase(dev, workdir: str) -> dict:
               f"deep scrub after one flipped parity byte: {out['corrupt']}")
         log("store deep_scrub after flipping one byte of 3.ec12: "
             f"{out['corrupt']}")
+        scrubbed += out["scrubbed_bytes"]
+        expo = exposition()
+        name = "SeaweedFS_volumeServer_maintenance_scrubbed_bytes_total"
+        check(sample(expo, name) - sample(expo_s0, name) == scrubbed,
+              f"MaintScrubbedBytesCounter moved "
+              f"{sample(expo, name) - sample(expo_s0, name)}, deep scrub "
+              f"reported {scrubbed}")
+        snap = pool.snapshot()
+        for way in ("h2d", "d2h"):
+            name = f"SeaweedFS_volumeServer_ec_device_{way}_bytes_total"
+            moved = sample_sum(expo, name) - sample_sum(expo0, name)
+            own = snap[f"{way}_bytes"] - pool0[f"{way}_bytes"]
+            check(moved == own, f"{name} moved {moved}, the pool's own "
+                  f"{way} total {own}")
+        check_pool_gauges(pool, "the Store phase")
+        log(f"store metrics: MaintScrubbedBytesCounter +{scrubbed}; "
+            "EcDevice H2D/D2H counters = the pool's own totals "
+            f"(+{snap['h2d_bytes'] - pool0['h2d_bytes']} / "
+            f"+{snap['d2h_bytes'] - pool0['d2h_bytes']} B); device pool "
+            "gauges = pool.snapshot()")
+        log_exposition("the Store phase")
         launches = dict(rs_cuda.launches)
     finally:
+        tracing_on.__exit__(None, None, None)
         store.close()
     h2d, d2h = platform.link_throughput(device=dev)
     log(f"encode auto-selection: prefer_batched_encode -> "
@@ -1219,6 +1422,33 @@ def tail_records(base: str) -> int:
                for r in inline.read_commit_log(base + ".scl"))
 
 
+def check_inline_metrics(before: dict, after: dict, w, status: dict):
+    """The EcInline* families moved with the writer's own counts over its
+    ingest, drain included."""
+    p = "SeaweedFS_ec_inline_"
+
+    def moved(name, **labels):
+        return sample(after, p + name, **labels) - \
+            sample(before, p + name, **labels)
+
+    rows = moved("stripes_committed_total", kind="full") + \
+        moved("stripes_committed_total", kind="tail")
+    logical = moved("bytes_total", kind="logical")
+    amp = sample(after, p + "write_amp")
+    check(rows == w.stripes_committed,
+          f"EcInlineStripesCommitted moved {rows}, the writer committed "
+          f"{w.stripes_committed} rows")
+    check(amp == round(status["write_amp"], 4),
+          f"EcInlineWriteAmp {amp} != {round(status['write_amp'], 4)}")
+    check(logical == status["logical_size"],
+          f"EcInlineBytesCounter{{logical}} moved {logical}, the writer "
+          f"ingested {status['logical_size']} B")
+    log(f"inline metrics: EcInlineStripesCommitted +{int(rows)} = the "
+        f"writer's rows; EcInlineWriteAmp {amp}; EcInlineBytesCounter"
+        f"{{logical}} +{int(logical)} = its logical bytes")
+    log_exposition("an inline ingest")
+
+
 def inline_volume(dev, workdir: str, vid: int, collection: str,
                   nbytes: int, seed: int, lost) -> tuple[dict, dict]:
     """One inline volume on the card: ingest, drain, parity logs against
@@ -1254,12 +1484,15 @@ def inline_volume(dev, workdir: str, vid: int, collection: str,
         watcher = concurrent.futures.ThreadPoolExecutor(1)
         fw = watcher.submit(watch)
         logical_bytes = sum(len(d) for _, d in needles.values())
-        res = ingest(store, vid, needles)
+        expo0 = exposition()
+        with knobs(WEED_TRACE_SAMPLE="1"):
+            res = ingest(store, vid, needles)
         fw.result(timeout=60)
         watcher.shutdown()
         k1 = rs_cuda.launches["gf_apply"]
         st = w.encode_stats()
         status = w.status()
+        check_inline_metrics(expo0, exposition(), w, status)
         allocs = pool.snapshot()["allocs"] - first["allocs"]
         check(st["device_encodes"] > 0 and
               k1 == st["device_encodes"] * per_call,
@@ -1452,6 +1685,265 @@ def inline_phase(dev, workdir: str) -> dict:
     return launches
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+
+def read_through(cache, store, vid: int, nid: int, cookie: int) -> tuple:
+    """The filer's read-through: a get, and on a miss the needle read
+    through the Store (a degraded read behind a lost shard) and put.
+    Returns (bytes, "hit" or "miss")."""
+    fid = f"{vid},{nid:x}"
+    got = cache.get(fid)
+    if got is not None:
+        return got, "hit"
+    data = store.read_needle(vid, nid, cookie=cookie).data
+    cache.put(fid, data)
+    return data, "miss"
+
+
+def cache_phase(dev, workdir: str) -> dict:
+    """Phase 7: the tiered read cache on the card (HBM tier 1 GiB, RAM
+    64 MiB, no disk layer) in front of an EC volume of 384 seeded 4 MiB
+    needles with 4 shards lost; returns the kernels' launches in it."""
+    check(native.lib() is not None, "the native host library did not build")
+    vid, vid_rw = 1, 2
+    rng = np.random.default_rng(SEED + 9)
+    blob = rng.bytes(CACHE_NEEDLES * CACHE_CHUNK)
+    cookies = rng.integers(1, 1 << 32, CACHE_NEEDLES)
+    ids = sorted(int(x) for x in rng.choice(1 << 24, CACHE_NEEDLES,
+                                            replace=False) + 1)
+    chunks = {nid: (int(cookies[i]),
+                    blob[i * CACHE_CHUNK:(i + 1) * CACHE_CHUNK])
+              for i, nid in enumerate(ids)}
+    pool = get_pool()
+    rs_cuda.reset_launches()
+    store = Store([workdir], device=dev, ec_encoder_backend="cuda")
+    cache = None
+    try:
+        t0 = time.perf_counter()
+        store.add_volume(vid)
+        for nid in ids:
+            cookie, data = chunks[nid]
+            n = Needle.create(data, name=f"chunk-{nid:x}".encode())
+            n.id, n.cookie = nid, cookie
+            store.write_needle(vid, n)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store.ec_generate(vid)
+        encode_s = time.perf_counter() - t0
+        base = os.path.join(workdir, str(vid))
+        dat = os.path.getsize(base + ".dat")
+        store.delete_volume(vid)
+        for sid in LOST:
+            os.remove(base + to_ext(sid))
+        store.ec_mount("", vid, [sid for sid in range(14) if sid not in LOST])
+        log(f"cache: {CACHE_NEEDLES} needles of {CACHE_CHUNK} B ({dat} B of "
+            f".dat) written through Store.write_needle in {write_s:.3f} s, "
+            f"EC-encoded on the card in {encode_s:.3f} s, "
+            f".ec00 .ec05 .ec11 .ec13 deleted and the volume remounted as EC")
+
+        with knobs(WEED_READ_CACHE_HBM_MB=str(CACHE_HBM_MB),
+                   WEED_READ_CACHE_MB=str(CACHE_RAM_MB)):
+            mem0 = torch.cuda.memory_allocated(dev)
+            cache = TieredReadCache()
+        hbm_cap = int(CACHE_HBM_MB * MIB)
+        check(cache.hbm is not None and cache.hbm.device == dev and
+              cache.hbm.capacity == hbm_cap and
+              cache.capacity == int(CACHE_RAM_MB * MIB),
+              "the read cache's HBM tier is not on the card at its budget")
+        # a seeded Zipf(1.1) over the fids: rank r drawn with weight r^-s
+        ranks = np.arange(1, CACHE_NEEDLES + 1, dtype=np.float64)
+        weights = ranks ** -CACHE_ZIPF
+        order = rng.permutation(ids)
+        draws = order[rng.choice(CACHE_NEEDLES, CACHE_GETS,
+                                 p=weights / weights.sum())]
+        lat = {"hit": [], "miss": []}
+        rec0, expo0 = recover.STATS.snapshot(), exposition()
+        snap0 = cache.stats_snapshot()
+        k1_0 = rs_cuda.launches["gf_apply"]
+
+        def reader(part):
+            out = {"hit": [], "miss": []}
+            for nid in part:
+                cookie, want = chunks[int(nid)]
+                t = time.perf_counter()
+                got, how = read_through(cache, store, vid, int(nid), cookie)
+                out[how].append(time.perf_counter() - t)
+                check(bytes(got) == want, f"chunk {int(nid):x} differs")
+            return out
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(CACHE_THREADS) as ex:
+            for res in ex.map(reader, [draws[k::CACHE_THREADS]
+                                       for k in range(CACHE_THREADS)]):
+                for k in lat:
+                    lat[k] += res[k]
+        reads_s = time.perf_counter() - t0
+        k1 = rs_cuda.launches["gf_apply"] - k1_0
+        snap = cache.stats_snapshot()
+        zipf_ratio = snap["hit_ratio"]
+        rec = recover.STATS.snapshot()
+        hbm = cache.hbm
+        grew = torch.cuda.memory_allocated(dev) - mem0
+        log(f"cache: {CACHE_GETS} gets from {CACHE_THREADS} threads over "
+            f"Zipf({CACHE_ZIPF}) of {CACHE_NEEDLES} fids in {reads_s:.3f} s, "
+            f"every chunk equal; tiers {json.dumps(snap, sort_keys=True)}; "
+            f"HBM tier {len(hbm)} chunks, {hbm.size_bytes} B, "
+            f"{hbm.evictions} evictions; card memory +{grew} B; "
+            f"degraded decode batches {rec['batches'] - rec0['batches']}, "
+            f"K1 launches {k1}")
+        check(snap["tier_hits"]["hbm"] > 0 and snap["tier_hits"]["ram"] > 0,
+              f"phase 7 tier hits {snap['tier_hits']}")
+        check(k1 > 0, "no K1 launch on the cache path's misses")
+        zipf_hbm = len(hbm)
+
+        # A chunk reaches the HBM tier after two RAM hits, and the RAM tier
+        # holds 16 chunks, so the Zipf draw promotes only its head (tens
+        # of chunks).  A sweep that reads every chunk three times in a row
+        # promotes all 384 (1.5 GiB) through the 1 GiB tier.
+        t0 = time.perf_counter()
+        for nid in ids:
+            for _ in range(3):
+                got, _ = read_through(cache, store, vid, nid, chunks[nid][0])
+            check(bytes(got) == chunks[nid][1], f"sweep chunk {nid:x}")
+        sweep_s = time.perf_counter() - t0
+        snap = cache.stats_snapshot()
+        grew = torch.cuda.memory_allocated(dev) - mem0
+        log(f"cache: the Zipf gets left {zipf_hbm} chunks in the HBM tier; "
+            f"a sweep reading each of the {CACHE_NEEDLES} chunks 3 times in "
+            f"{sweep_s:.3f} s left {len(hbm)} chunks, {hbm.size_bytes} B, "
+            f"after {hbm.evictions} evictions; card memory +{grew} B")
+        check(hbm.evictions > 0, "the HBM tier never evicted")
+        check(hbm.size_bytes <= hbm_cap, f"HBM tier {hbm.size_bytes} B")
+        check(hbm.held_bytes() == hbm.size_bytes,
+              f"the pool holds {hbm.held_bytes()} B of the tier's slabs, "
+              f"the tier {hbm.size_bytes} B")
+        check(grew >= hbm.size_bytes,
+              f"card memory grew {grew} B under {hbm.size_bytes} B of HBM "
+              "tier")
+
+        # the read-cache families equal the cache's own counters
+        expo = exposition()
+        moved = {t: sample(expo, "SeaweedFS_read_cache_requests_total",
+                           tier=t)
+                 - sample(expo0, "SeaweedFS_read_cache_requests_total",
+                          tier=t) for t in ("hbm", "ram", "disk", "miss")}
+        want = {t: snap["tier_hits"][t] - snap0["tier_hits"][t]
+                for t in ("hbm", "ram", "disk")}
+        want["miss"] = snap["misses"] - snap0["misses"]
+        fills = {o: sample(expo, "SeaweedFS_read_cache_fill_total",
+                           outcome=o)
+                 - sample(expo0, "SeaweedFS_read_cache_fill_total",
+                          outcome=o) for o in ("admitted", "qos_bypass")}
+        resident = {t: sample(expo, "SeaweedFS_read_cache_resident_bytes",
+                              tier=t) for t in ("ram", "hbm")}
+        check(moved == want and fills == {
+            o: snap["fills"][o] - snap0["fills"][o] for o in fills} and
+            resident == snap["resident_bytes"],
+            f"read cache samples {moved} {fills} {resident} != "
+            f"stats_snapshot {snap}")
+        log("cache exposition: " + json.dumps(
+            {"requests": moved, "fills": fills, "resident_bytes": resident},
+            sort_keys=True) + " = stats_snapshot()")
+
+        # hit latencies alone, one thread: RAM hits of the chunks in RAM,
+        # HBM hits of chunks in the HBM tier and not in RAM
+        ram_lat, hbm_lat = [], []
+        in_ram = list(cache.mem._data)
+        for _ in range(25):
+            for fid in in_ram[-8:]:
+                t = time.perf_counter()
+                cache.get(fid)
+                ram_lat.append(time.perf_counter() - t)
+        only_hbm = [f for f in list(hbm._keys)
+                    if cache.mem.get(f) is None][:200]
+        for fid in only_hbm:
+            before = cache.stats_snapshot()["tier_hits"]["hbm"]
+            t = time.perf_counter()
+            got = cache.get(fid)
+            hbm_lat.append(time.perf_counter() - t)
+            nid = int(fid.split(",")[1], 16)
+            check(got == chunks[nid][1] and
+                  cache.stats_snapshot()["tier_hits"]["hbm"] == before + 1,
+                  f"HBM hit of {fid}")
+        summary = {
+            "gets": CACHE_GETS, "threads": CACHE_THREADS,
+            "reads_s": reads_s, "hit_ratio": zipf_ratio,
+            "tier_hits": snap["tier_hits"], "misses": snap["misses"],
+            "hbm_chunks": len(hbm), "hbm_bytes": hbm.size_bytes,
+            "hbm_evictions": hbm.evictions, "card_bytes_grew": grew,
+            "k1": k1, "zipf_hbm_chunks": zipf_hbm, "sweep_s": sweep_s,
+            "ram_hit_ms": [pct_ms(ram_lat, 50), pct_ms(ram_lat, 99)],
+            "hbm_hit_ms": [pct_ms(hbm_lat, 50), pct_ms(hbm_lat, 99)],
+            "miss_ms": [pct_ms(lat["miss"], 50), pct_ms(lat["miss"], 99)],
+            "hit_ms_4_threads": [pct_ms(lat["hit"], 50),
+                                 pct_ms(lat["hit"], 99)],
+            "hbm_hit_samples": len(hbm_lat), "ram_hit_samples": len(ram_lat),
+        }
+        log("cache summary (p50, p99 ms): " + json.dumps(summary,
+                                                         sort_keys=True))
+        check(len(hbm_lat) > 0, "no chunk was in the HBM tier alone")
+
+        # a get under the background class admits no fill
+        cold = next(f for f in (f"{vid},{nid:x}" for nid in ids)
+                    if cache.mem.get(f) is None and f not in hbm._keys)
+        bypass0 = cache.stats_snapshot()["fills"]["qos_bypass"]
+        with qos_scope("background"):
+            nid = int(cold.split(",")[1], 16)
+            got, how = read_through(cache, store, vid, nid, chunks[nid][0])
+        check(how == "miss" and got == chunks[nid][1] and
+              cache.stats_snapshot()["fills"]["qos_bypass"] == bypass0 + 1
+              and cache.mem.get(cold) is None and cold not in hbm._keys,
+              "a background get filled the cache")
+
+        # R1 on the card: a promoted needle overwritten through the Store
+        # (on a writable volume) comes back new from the HBM tier
+        store.add_volume(vid_rw)
+        old, new = rng.bytes(CACHE_CHUNK), rng.bytes(CACHE_CHUNK)
+        for data in (old, new):
+            if data is new:
+                fid = f"{vid_rw},1"
+                for _ in range(3):
+                    read_through(cache, store, vid_rw, 1, 77)
+                check(fid in hbm._keys, "the old needle was not promoted")
+                cache.invalidate(fid, "overwrite")
+            n = Needle.create(data, name=b"overwritten")
+            n.id, n.cookie = 1, 77
+            store.write_needle(vid_rw, n)
+        got, how = read_through(cache, store, vid_rw, 1, 77)
+        check(how == "miss" and got == new, "the overwrite read through")
+        for _ in range(3):
+            read_through(cache, store, vid_rw, 1, 77)
+        check(fid in hbm._keys, "the new needle was not promoted")
+        for nid in ids[:20]:  # push it out of RAM
+            cache.put(f"{vid},{nid:x}", chunks[nid][1])
+        check(cache.mem.get(fid) is None, "the needle is still in RAM")
+        hits0 = cache.stats_snapshot()["tier_hits"]["hbm"]
+        got = cache.get(fid)
+        check(got == new and
+              cache.stats_snapshot()["tier_hits"]["hbm"] == hits0 + 1,
+              "R1: the HBM tier did not serve the overwritten bytes")
+        log("cache R1 on the card: overwrite, invalidate, read-through, "
+            "promote, out of RAM: the HBM tier served the new bytes")
+
+        cache.invalidate_volume(vid)
+        cache.invalidate_volume(vid_rw)
+        cache.clear()
+        held = pool.residents_under(hbm.pool_prefix)
+        check(held == {} and len(hbm) == 0,
+              f"the tier still holds {len(held)} slabs after clear()")
+        log("cache: invalidate_volume and clear() left no slab of the tier "
+            "in the pool")
+        log_exposition("the cache phase")
+        launches = dict(rs_cuda.launches)
+    finally:
+        if cache is not None:
+            cache.close()
+        store.close()
+    log(f"launches on the cache path: {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1464,10 +1956,13 @@ def main() -> int:
     ap.add_argument("--inline", action="store_true",
                     help="build and check the kernels, then phase 6 (inline "
                          "EC) alone")
+    ap.add_argument("--cache", action="store_true",
+                    help="build and check the kernels, then phase 7 (the "
+                         "tiered read cache) alone")
     args = ap.parse_args()
     mode = ("quick" if args.quick else "kernels" if args.kernels
             else "routes" if args.routes else "inline" if args.inline
-            else "all")
+            else "cache" if args.cache else "all")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1482,16 +1977,16 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
-    stats = kernel_phase(dev, "quick" if mode in ("routes", "inline")
-                         else mode)
+    stats = kernel_phase(dev, "quick" if mode in ("routes", "inline",
+                                                  "cache") else mode)
     if mode in ("kernels", "routes", "all"):
         route_phase(dev)
     if mode == "routes":
         route_profile(dev)
-    if mode == "inline":
+    if mode in ("inline", "cache"):
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
-            inline_phase(dev, workdir)
+            (inline_phase if mode == "inline" else cache_phase)(dev, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     launches = {}
@@ -1499,11 +1994,12 @@ def main() -> int:
         # each path resets the launch counts before it runs and reads
         # them after; the kernels each one must have launched
         needs = {"raw": KERNELS, "needle": KERNELS, "store": KERNELS,
-                 "inline": ("gf_apply",)}
+                 "inline": ("gf_apply",), "cache": KERNELS}
         paths = {}
         for label, phase in (("raw", main_path), ("needle", needle_phase),
                              ("store", store_phase),
-                             ("inline", inline_phase)):
+                             ("inline", inline_phase),
+                             ("cache", cache_phase)):
             workdir = tempfile.mkdtemp(prefix="chip_smoke_")
             try:
                 paths[label] = phase(dev, workdir)

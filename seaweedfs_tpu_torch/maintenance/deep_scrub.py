@@ -31,6 +31,7 @@ import torch
 
 from ..ops import crc32c as crc_host
 from ..qos import lanes as _lanes
+from ..stats import metrics as _stats
 from ..storage.erasure_coding import (DATA_SHARDS_COUNT,
                                       PARITY_SHARDS_COUNT,
                                       TOTAL_SHARDS_COUNT, to_ext)
@@ -363,6 +364,7 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
                 "lease_hits": (pool_after.get("lease_hits", 0)
                                - pool_before.get("lease_hits", 0))}
     total = sum(v["bytes"] for v in volumes)
+    _stats.MaintScrubbedBytesCounter.inc(total)
     # a parity record that disagrees with the recompute is corruption too
     # (of the parity file or of the record): both kinds are reported
     return {"volumes": volumes, "scrubbed_bytes": total,

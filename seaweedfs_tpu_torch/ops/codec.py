@@ -3,6 +3,9 @@
 `new_encoder(...)` is the port's `reedsolomon.New(10, 4)`:
 
   * "cuda"  (default) TorchEncoder on the card, kernel K1
+  * "jax", "tpu"  the JAX package's names for its device codec: the
+            TorchEncoder on `device` (the card unless device="cpu"), so
+            one `-ec.backend` setting drives either package
   * "torch" TorchEncoder on the CPU, K1's plain version
   * "cpu"   NativeEncoder, the host C++ kernel ladder (native/)
   * "numpy" the pure NumPy reference
@@ -300,7 +303,7 @@ def new_host_encoder(data_shards: int = 10, parity_shards: int = 4):
 
 
 def new_encoder(data_shards: int = 10, parity_shards: int = 4,
-                backend: str = "cuda"):
+                backend: str = "cuda", device=None):
     if backend == "auto":
         if torch.cuda.is_available():
             backend = "cuda"
@@ -310,6 +313,8 @@ def new_encoder(data_shards: int = 10, parity_shards: int = 4,
             backend = "numpy"
     if backend == "cuda":
         return TorchEncoder(data_shards, parity_shards, device="cuda")
+    if backend in ("jax", "tpu"):
+        return TorchEncoder(data_shards, parity_shards, device=device)
     if backend == "torch":
         return TorchEncoder(data_shards, parity_shards, device="cpu")
     if backend == "cpu":

@@ -41,6 +41,8 @@ import threading
 import time
 from typing import Any, Callable, Optional
 
+from ..stats import metrics as _stats
+
 DEFAULT_POOL_MB = 1024
 
 
@@ -104,6 +106,7 @@ class DevicePool:
         self._dev_bytes: dict[str, int] = {}
         self._dev_h2d: dict[str, int] = {}
         self._dev_d2h: dict[str, int] = {}
+        self._evictions_published = 0
         # occupancy telemetry: the peak bytes ever held, and the wall time
         # spent at >= 95% of that peak (a pool pinned at its watermark
         # asks for a larger WEED_EC_DEVICE_POOL_MB or a smaller batch)
@@ -133,7 +136,7 @@ class DevicePool:
                 self._leased_bytes += ls.nbytes
                 self._leased_count += 1
                 self.lease_hits += 1
-                self._note_occupancy_locked()
+                self._publish()
                 return ls
         payload = factory()
         ls = Lease(bucket_key, payload, nbytes, self._dev_label(device))
@@ -143,7 +146,7 @@ class DevicePool:
             self._dev_bytes[ls.device] = \
                 self._dev_bytes.get(ls.device, 0) + nbytes
             self._leased_count += 1
-            self._note_occupancy_locked()
+            self._publish()
         return ls
 
     def release(self, lease: Lease):
@@ -154,7 +157,7 @@ class DevicePool:
             self._free_order.append(lease)
             self._free_bytes += lease.nbytes
             self._evict_locked()
-            self._note_occupancy_locked()
+            self._publish()
 
     def discard(self, lease: Lease):
         """Release without retaining (the slab's geometry won't recur)."""
@@ -162,7 +165,7 @@ class DevicePool:
             self._leased_bytes -= lease.nbytes
             self._leased_count -= 1
             self._drop_dev_bytes_locked(lease)
-            self._note_occupancy_locked()
+            self._publish()
 
     def _drop_dev_bytes_locked(self, lease: Lease):
         dev = lease.device or "host"
@@ -186,6 +189,7 @@ class DevicePool:
                 res.refs += 1
                 res.last_used = time.monotonic()
                 self.resident_hits += 1
+                self._publish()
                 return res.payload
         payload = factory()
         with self._lock:
@@ -201,14 +205,31 @@ class DevicePool:
             res.refs += 1
             res.last_used = time.monotonic()
             self._evict_locked()
-            self._note_occupancy_locked()
+            self._publish()
             return res.payload
 
-    def release_resident(self, key):
+    def release_resident(self, key, drop: bool = False):
+        """Drop one reference to `key`.  With `drop`, a resident left with
+        no references leaves the pool at once instead of idling until the
+        byte cap evicts it: its content will never be asked for again
+        (the read cache's HBM tier keys each upload by a fresh
+        generation)."""
         with self._lock:
             res = self._residents.get(key)
             if res is not None and res.refs > 0:
                 res.refs -= 1
+                if drop and res.refs == 0:
+                    del self._residents[key]
+                    self._resident_bytes -= res.nbytes
+            self._publish()
+
+    def residents_under(self, prefix: tuple) -> dict:
+        """{key: (refs, nbytes)} of the residents whose tuple key starts
+        with `prefix`."""
+        n = len(prefix)
+        with self._lock:
+            return {k: (r.refs, r.nbytes) for k, r in self._residents.items()
+                    if isinstance(k, tuple) and k[:n] == prefix}
 
     # -- eviction / accounting ----------------------------------------
 
@@ -245,12 +266,14 @@ class DevicePool:
         with self._lock:
             self.h2d_bytes += nbytes
             self._dev_h2d[dev] = self._dev_h2d.get(dev, 0) + nbytes
+        _stats.EcDeviceH2dBytesCounter.labels(dev).inc(nbytes)
 
     def note_d2h(self, nbytes: int, device=None):
         dev = self._dev_label(device)
         with self._lock:
             self.d2h_bytes += nbytes
             self._dev_d2h[dev] = self._dev_d2h.get(dev, 0) + nbytes
+        _stats.EcDeviceD2hBytesCounter.labels(dev).inc(nbytes)
 
     def _note_occupancy_locked(self):
         """Advance the watermark clock (lock held): the time since the last
@@ -265,6 +288,26 @@ class DevicePool:
                            + self._resident_bytes)
         if self._occ_bytes > self._hwm_bytes:
             self._hwm_bytes = self._occ_bytes
+
+    def _publish(self):
+        """Mirror the pool's state into the Prometheus families (lock
+        held)."""
+        self._note_occupancy_locked()
+        _stats.DevicePoolHwmBytesGauge.set(self._hwm_bytes)
+        _stats.DevicePoolHwmSecondsGauge.set(self._hwm_seconds)
+        for dev, nbytes in self._dev_bytes.items():
+            _stats.DevicePoolDeviceBytesGauge.labels(dev).set(nbytes)
+        _stats.DevicePoolSlotsGauge.labels("free").set(
+            len(self._free_order))
+        _stats.DevicePoolSlotsGauge.labels("leased").set(self._leased_count)
+        _stats.DevicePoolSlotsGauge.labels("resident").set(
+            len(self._residents))
+        _stats.DevicePoolBytesGauge.set(
+            self._free_bytes + self._leased_bytes + self._resident_bytes)
+        if self.evictions > self._evictions_published:
+            _stats.DevicePoolEvictionsCounter.inc(
+                self.evictions - self._evictions_published)
+            self._evictions_published = self.evictions
 
     def snapshot(self) -> dict:
         # the QoS device lanes gate dispatch into this pool's slots, so

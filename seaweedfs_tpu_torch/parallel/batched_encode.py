@@ -60,11 +60,12 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
-from .. import profiling
+from .. import profiling, tracing
 from ..ops import crc32c as crc_host
 from ..ops.crc_device import finalize
 from ..ops.device_pool import get_pool, lease_tensor
 from ..qos import lanes as _lanes
+from ..stats import metrics as _stats
 from ..util.platform import available_cpu_count
 from .mesh import (k2_scratch_shape, make_ec_mesh, make_parity_step,
                    make_sharded_apply, make_sharded_encoder, split_batch,
@@ -517,6 +518,8 @@ class _PipelineIO:
     def result(self) -> dict[str, list[int]]:
         if self.errors:
             raise self.errors[0]
+        _stats.EcEncodeBytesCounter.inc(
+            sum(p.dat_size for p in self.plans))
         return {p.base: self.writers[vi].crcs
                 for vi, p in enumerate(self.plans)}
 
@@ -873,6 +876,8 @@ def _encode_units_device(plans, units, chunk, writers, devices, batch_units,
         if kernel_cost:
             stage_stats["kernel_cost"] = kernel_cost
         stage_stats["pool"] = pool.snapshot()
+    for k, v in timers.items():
+        _stats.EcEncodeStageSeconds.labels(k).set(round(v, 3))
     return result
 
 
@@ -1274,6 +1279,22 @@ def _encode_units_host(plans, host_codec,
         for k in ("read", "encode_crc", "write", "flush"):
             stage_stats[f"{k}_frac"] = (
                 round(timers[k] / wall, 3) if wall > 0 else 0.0)
+    _stats.EcEncodeBytesCounter.inc(sum(p.dat_size for p in plans))
+    for k, v in timers.items():
+        _stats.EcEncodeStageSeconds.labels(k).set(round(v, 3))
+    if pacer.flushes:
+        _stats.EcWritebackFlushCounter.inc(pacer.flushes)
+    # the stage timers aggregate busy seconds across worker threads, so
+    # they become synthesised child spans of one encode root (recorded
+    # before the root finishes: retention is decided at the root)
+    root = tracing.start(
+        "ec.encode_volumes",
+        tags={"volumes": len(plans), "workers": nworkers,
+              "writers": nwriters, "items": len(items)})
+    root.start_ts -= wall
+    for k, v in timers.items():
+        tracing.record_span(f"ec.encode.{k}", v, parent=root)
+    root.finish(duration=wall)
     return {p.base: vols[vi].crcs for vi, p in enumerate(plans)}
 
 

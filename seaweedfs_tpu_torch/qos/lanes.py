@@ -21,6 +21,9 @@ import os
 import threading
 import time
 
+from ..stats import metrics as _stats
+from . import classify
+
 FOREGROUND = "foreground"
 BACKGROUND = "background"
 
@@ -34,14 +37,8 @@ def _max_stall_seconds() -> float:
     return max(0.0, ms / 1000.0)
 
 
-def qos_enabled() -> bool:
-    """WEED_QOS=0 turns request classification, and with it the lanes,
-    off (seaweedfs_tpu/qos/classify.enabled)."""
-    return os.environ.get("WEED_QOS", "1") != "0"
-
-
 def lanes_enabled() -> bool:
-    if not qos_enabled():
+    if not classify.enabled():
         return False
     return os.environ.get("WEED_QOS_LANES", "1") != "0"
 
@@ -80,12 +77,15 @@ class DeviceLanes:
         with self._cond:
             self._fg_active += 1
             self.fg_batches += 1
+        _stats.QosLaneActiveGauge.labels(FOREGROUND).set(self._fg_active)
+        _stats.QosLaneBatchesCounter.labels(FOREGROUND).inc()
 
     def _fg_exit(self):
         with self._cond:
             self._fg_active = max(0, self._fg_active - 1)
             if self._fg_active == 0:
                 self._cond.notify_all()
+        _stats.QosLaneActiveGauge.labels(FOREGROUND).set(self._fg_active)
 
     def background_checkpoint(self) -> float:
         """Called by background dispatch loops before each device batch;
@@ -97,6 +97,7 @@ class DeviceLanes:
         with self._cond:
             if self._fg_active > 0:
                 self.preemptions += 1
+                _stats.QosLanePreemptionsCounter.inc()
                 t0 = self.now()
                 deadline = t0 + _max_stall_seconds()
                 while self._fg_active > 0:
@@ -107,6 +108,9 @@ class DeviceLanes:
                 waited = max(0.0, self.now() - t0)
                 self.bg_wait_seconds += waited
             self.bg_batches += 1
+        if waited:
+            _stats.QosLaneWaitSecondsCounter.inc(waited)
+        _stats.QosLaneBatchesCounter.labels(BACKGROUND).inc()
         return waited
 
     def snapshot(self) -> dict:

@@ -1,0 +1,535 @@
+"""Per-daemon access recorder + master-side usage aggregation.
+
+Every data-path daemon (volume server needle read/write, filer chunk
+fetch, S3 GET/PUT) feeds its own :class:`AccessRecorder` instance.
+The recorder keeps *sketches*, not keys: a Space-Saving top-K of hot
+fids, HyperLogLogs for distinct-key counts, log-bucketed latency
+quantiles per QoS class, and bounded per-collection / per-tenant
+ops+bytes accounting.  Memory is bounded by ``WEED_HEAT_MAX_KEYS``
+regardless of how many objects the workload touches.
+
+Heat is *recency-weighted*: every ``WEED_HEAT_EPOCH_S`` the whole
+state decays by ``WEED_HEAT_DECAY``, so a fid hot yesterday but idle
+today drains out instead of pinning the sketch (epoch-windowed
+exponential decay — the same shape as the QoS token buckets).
+
+Counterpart of seaweedfs_tpu/stats/access.py.
+
+Summaries travel as canonical JSON (``summary()``): volume servers
+attach theirs to the heartbeat they already send, and the master
+health plane's scrape loop pulls ``GET /debug/access`` from filer /
+S3 targets.  The leader folds them in a :class:`UsageAggregator`
+(sketch merge, never raw key shipping) and serves the cluster view at
+``GET /cluster/usage``; when one fid exceeds ``WEED_HEAT_HOT_SHARE``
+of fleet reads it fires an ``access.hotkey`` journal event.
+
+Knobs: ``WEED_HEAT`` (record at all, default on),
+``WEED_HEAT_MAX_KEYS``, ``WEED_HEAT_EPOCH_S``, ``WEED_HEAT_DECAY``,
+``WEED_HEAT_HOT_SHARE``, ``WEED_HEAT_MIN_READS``,
+``WEED_USAGE_TOPK``, ``WEED_USAGE_MAX_AGE_S``.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+import weakref
+from typing import Callable, Dict, List, Optional
+
+from . import metrics as _stats
+from .sketch import HyperLogLog, LogQuantile, SpaceSaving
+from .sketch import _hash64 as _sketch_hash
+
+OTHER = "~other"       # overflow bucket once entity maps hit capacity
+
+READ_OPS = ("read", "chunk")
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+class _Entity:
+    """Per-collection / per-tenant accounting cell."""
+
+    __slots__ = ("ops", "bytes", "hll")
+
+    def __init__(self):
+        self.ops: Dict[str, float] = {}
+        self.bytes: Dict[str, float] = {}
+        self.hll = HyperLogLog()
+
+    def scale(self, factor: float) -> None:
+        for d in (self.ops, self.bytes):
+            for k in d:
+                d[k] *= factor
+        # the HLL is a high-water mark; distinct-key decay happens by
+        # epoch-dropping at the aggregator (max-age), not in place
+
+    def to_dict(self) -> dict:
+        return {"ops": {k: round(v, 3) for k, v in sorted(self.ops.items())},
+                "bytes": {k: round(v, 3)
+                          for k, v in sorted(self.bytes.items())},
+                "distinct": self.hll.to_dict()}
+
+
+class AccessRecorder:
+    """Bounded-memory access accounting for one daemon.
+
+    Each server object (volume server, filer, S3 gateway) owns an
+    instance — all-in-one processes then still report one summary per
+    daemon role, the shape the leader's merge expects."""
+
+    def __init__(self, node: str = "",
+                 now: Callable[[], float] = time.time):
+        self.node = node
+        self.now = now
+        self.lock = threading.Lock()
+        # op -> bound counter child, so the hot path skips the
+        # registry's label-resolution lock
+        self._op_counters: dict = {}
+        # volume id -> str cache for the per-volume heat sketch
+        self._volkeys: Dict[int, str] = {}
+        self.reset()
+        _RECORDERS.add(self)
+
+    def reset(self) -> None:
+        """(Re)read knobs and drop all state — test seam, and how the
+        prefork workers start clean after fork."""
+        with self.lock:
+            self.enabled = os.environ.get("WEED_HEAT", "1") not in ("0", "")
+            self.max_keys = max(16, _env_int("WEED_HEAT_MAX_KEYS", 4096))
+            self.epoch_s = max(0.25, _env_float("WEED_HEAT_EPOCH_S", 60.0))
+            self.decay = min(1.0, max(0.0,
+                                      _env_float("WEED_HEAT_DECAY", 0.5)))
+            self.epoch_start = self.now()
+            self.hot = SpaceSaving(self.max_keys)
+            # per-volume read heat, the temperature detector's input
+            self.vol_hot = SpaceSaving(min(self.max_keys, 4096))
+            self.tenants: Dict[str, _Entity] = {}
+            self.collections: Dict[str, _Entity] = {}
+            self.latency: Dict[str, LogQuantile] = {}
+            self.sizes = LogQuantile()
+            self.tiers: Dict[str, float] = {}
+            self.distinct = HyperLogLog()
+            self.reads = self.writes = 0.0
+            self.bytes_read = self.bytes_written = 0.0
+            self.records = 0   # monotonic, never decayed
+            # HLL adds are idempotent, so a bounded seen-set makes
+            # repeats (the whole point of a zipfian data path) skip
+            # the hash-and-rank work; cleared wholesale when full —
+            # purely a fast path, never a correctness dependency
+            self._key_hash: Dict[str, int] = {}
+            self._hll_seen: set = set()
+            # metrics-counter increments batch under the recorder lock
+            # and flush every 64 records (and on summary())
+            self._pending_ops: Dict[str, int] = {}
+
+    # -- recording ---------------------------------------------------
+
+    def _maybe_roll(self, now: float) -> None:
+        elapsed = now - self.epoch_start
+        if elapsed < self.epoch_s:
+            return
+        epochs = int(elapsed // self.epoch_s)
+        factor = self.decay ** min(epochs, 64)
+        self.epoch_start += epochs * self.epoch_s
+        self.hot.scale(factor)
+        self.vol_hot.scale(factor)
+        self.sizes.scale(factor)
+        for lq in self.latency.values():
+            lq.scale(factor)
+        for ent in list(self.tenants.values()):
+            ent.scale(factor)
+        for ent in list(self.collections.values()):
+            ent.scale(factor)
+        for k in self.tiers:
+            self.tiers[k] *= factor
+        self.reads *= factor
+        self.writes *= factor
+        self.bytes_read *= factor
+        self.bytes_written *= factor
+
+    def _entity(self, table: Dict[str, _Entity], key: str) -> _Entity:
+        ent = table.get(key)
+        if ent is None:
+            if len(table) >= min(self.max_keys, 1024) and key != OTHER:
+                return self._entity(table, OTHER)
+            ent = table[key] = _Entity()
+        return ent
+
+    def record(self, op: str, collection: str = "", tenant: str = "",
+               volume: int = 0, fid: str = "", nbytes: int = 0,
+               latency_s: float = 0.0, qos_class: str = "",
+               cache_tier: str = "") -> None:
+        """One data-path access.  ``op`` is read/write/delete/chunk;
+        reads feed the hot-fid sketch, everything feeds usage."""
+        if not self.enabled:
+            return
+        now = self.now()
+        key = fid or (f"v{volume}" if volume else "")
+        with self.lock:
+            self._maybe_roll(now)
+            self.records += 1
+            seen = self._hll_seen
+            if len(seen) > 65536:
+                seen.clear()
+            if key:
+                # hash once per distinct key (bounded memo); the
+                # distinct HLL and both entity HLLs share it
+                khash = self._key_hash.get(key)
+                if khash is None:
+                    if len(self._key_hash) > 65536:
+                        self._key_hash.clear()
+                    khash = self._key_hash[key] = _sketch_hash(key)
+                if khash not in seen:
+                    seen.add(khash)
+                    self.distinct.add_hash(khash)
+            else:
+                khash = 0
+            is_read = op in READ_OPS
+            if is_read:
+                self.reads += 1.0
+                self.bytes_read += nbytes
+                if key:
+                    self.hot.offer(key)
+                if volume:
+                    vkey = self._volkeys.get(volume)
+                    if vkey is None:
+                        if len(self._volkeys) > 65536:
+                            self._volkeys.clear()
+                        vkey = self._volkeys[volume] = str(volume)
+                    self.vol_hot.offer(vkey)
+            elif op == "write":
+                self.writes += 1.0
+                self.bytes_written += nbytes
+            # the quantile sketches are statistical anyway: observe a
+            # systematic 1-in-4 sample at 4x weight, trading a little
+            # tail resolution for most of their data-path cost
+            if not self.records & 3:
+                if nbytes > 0:
+                    self.sizes.observe(float(nbytes), 4.0)
+                if latency_s > 0:
+                    cls = qos_class or "default"
+                    lq = self.latency.get(cls)
+                    if lq is None:
+                        if len(self.latency) < 64:
+                            lq = self.latency[cls] = LogQuantile()
+                        else:
+                            lq = self.latency.setdefault("default",
+                                                         LogQuantile())
+                    lq.observe(latency_s, 4.0)
+            if cache_tier:
+                self.tiers[cache_tier] = self.tiers.get(cache_tier, 0) + 1.0
+            for table, name in ((self.collections, collection or "default"),
+                                (self.tenants, tenant or "anonymous")):
+                ent = self._entity(table, name)
+                ops = ent.ops
+                ops[op] = ops.get(op, 0.0) + 1.0
+                byt = ent.bytes
+                byt[op] = byt.get(op, 0.0) + nbytes
+                if key:
+                    ek = (name, khash)
+                    if ek not in seen:
+                        seen.add(ek)
+                        ent.hll.add_hash(khash)
+            pending = self._pending_ops
+            pending[op] = pending.get(op, 0) + 1
+            if not self.records & 63:
+                self._flush_ops()
+
+    def _flush_ops(self) -> None:
+        """Flush batched per-op counts to the registry counter.
+        Caller holds ``self.lock``."""
+        for op, n in self._pending_ops.items():
+            counter = self._op_counters.get(op)
+            if counter is None:
+                counter = self._op_counters[op] = \
+                    _stats.AccessRecordsCounter.labels(op)
+            counter.inc(n)
+        self._pending_ops.clear()
+
+    # -- queries -----------------------------------------------------
+
+    def heat(self, fid: str) -> float:
+        """Decayed read count for one fid (read cache promotion)."""
+        with self.lock:
+            return self.hot.estimate(fid)
+
+    def tracked_keys(self) -> int:
+        with self.lock:
+            return len(self.hot)
+
+    def memory_bytes(self) -> int:
+        """Rough in-memory footprint of the sketch state (bench +
+        metrics; the point is the bound, not byte accuracy)."""
+        with self.lock:
+            n = (len(self.hot) + len(self.vol_hot)) * 96 + self.distinct.m
+            n += sum(len(lq.buckets) * 48 + 64
+                     for lq in self.latency.values())
+            n += len(self.sizes.buckets) * 48
+            for table in (self.tenants, self.collections):
+                for ent in table.values():
+                    n += ent.hll.m + 128
+            return n
+
+    def summary(self) -> dict:
+        """Canonical mergeable wire form of this daemon's view."""
+        with self.lock:
+            self._maybe_roll(self.now())
+            self._flush_ops()
+            return {
+                "node": self.node, "ts": round(self.now(), 3),
+                "records": self.records,
+                "reads": round(self.reads, 3),
+                "writes": round(self.writes, 3),
+                "bytes_read": round(self.bytes_read, 3),
+                "bytes_written": round(self.bytes_written, 3),
+                "hot": self.hot.to_dict(),
+                "volumes": self.vol_hot.to_dict(),
+                "distinct": self.distinct.to_dict(),
+                "sizes": self.sizes.to_dict(),
+                "latency": {cls: lq.to_dict()
+                            for cls, lq in sorted(self.latency.items())},
+                "tiers": {k: round(v, 3)
+                          for k, v in sorted(self.tiers.items())},
+                "collections": {k: ent.to_dict()
+                                for k, ent in
+                                sorted(self.collections.items())},
+                "tenants": {k: ent.to_dict()
+                            for k, ent in sorted(self.tenants.items())},
+            }
+
+
+# every live recorder, for the process-wide self-metrics gauges
+_RECORDERS: "weakref.WeakSet[AccessRecorder]" = weakref.WeakSet()
+
+# default recorder for callers without a server-scoped instance
+RECORDER = AccessRecorder()
+
+
+def record(op: str, **kw) -> None:
+    """Module-level convenience mirroring ``events.emit``."""
+    RECORDER.record(op, **kw)
+
+
+def reset() -> None:
+    RECORDER.reset()
+
+
+def tracked_keys_total() -> int:
+    return sum(r.tracked_keys() for r in list(_RECORDERS))
+
+
+def memory_bytes_total() -> int:
+    return sum(r.memory_bytes() for r in list(_RECORDERS))
+
+
+# ---------------------------------------------------------------------------
+# master-side aggregation
+
+
+def merge_summaries(parts: List[dict],
+                    capacity: Optional[int] = None) -> dict:
+    """Fold per-daemon summaries into one fleet summary — pure sketch
+    merge (Space-Saving union, HLL register max, bucket adds), exactly
+    the ``merge_expositions`` posture: daemons ship summaries, never
+    raw key streams."""
+    cap = capacity or max(16, _env_int("WEED_HEAT_MAX_KEYS", 4096))
+    hot = SpaceSaving(cap)
+    vol_hot = SpaceSaving(min(cap, 4096))
+    distinct = HyperLogLog()
+    sizes = LogQuantile()
+    latency: Dict[str, LogQuantile] = {}
+    tiers: Dict[str, float] = {}
+    collections: Dict[str, dict] = {}
+    tenants: Dict[str, dict] = {}
+    totals = {"reads": 0.0, "writes": 0.0, "bytes_read": 0.0,
+              "bytes_written": 0.0, "records": 0}
+
+    def _fold_entities(dst: Dict[str, dict], src: Dict[str, dict]):
+        for name, ent in (src or {}).items():
+            cell = dst.get(name)
+            if cell is None:
+                cell = dst[name] = {"ops": {}, "bytes": {},
+                                    "hll": HyperLogLog()}
+            for k, v in (ent.get("ops") or {}).items():
+                cell["ops"][k] = cell["ops"].get(k, 0.0) + float(v)
+            for k, v in (ent.get("bytes") or {}).items():
+                cell["bytes"][k] = cell["bytes"].get(k, 0.0) + float(v)
+            d = ent.get("distinct")
+            if d:
+                cell["hll"].merge(HyperLogLog.from_dict(d))
+
+    for part in parts:
+        if not part:
+            continue
+        for k in ("reads", "writes", "bytes_read", "bytes_written"):
+            totals[k] += float(part.get(k, 0) or 0)
+        totals["records"] += int(part.get("records", 0) or 0)
+        if part.get("hot"):
+            hot.merge(SpaceSaving.from_dict(part["hot"]))
+        if part.get("volumes"):
+            vol_hot.merge(SpaceSaving.from_dict(part["volumes"]))
+        if part.get("distinct"):
+            distinct.merge(HyperLogLog.from_dict(part["distinct"]))
+        if part.get("sizes"):
+            sizes.merge(LogQuantile.from_dict(part["sizes"]))
+        for cls, d in (part.get("latency") or {}).items():
+            lq = latency.get(cls)
+            if lq is None:
+                latency[cls] = LogQuantile.from_dict(d)
+            else:
+                lq.merge(LogQuantile.from_dict(d))
+        for k, v in (part.get("tiers") or {}).items():
+            tiers[k] = tiers.get(k, 0.0) + float(v)
+        _fold_entities(collections, part.get("collections") or {})
+        _fold_entities(tenants, part.get("tenants") or {})
+
+    return {"totals": totals, "hot": hot, "vol_hot": vol_hot,
+            "distinct": distinct, "sizes": sizes, "latency": latency,
+            "tiers": tiers, "collections": collections,
+            "tenants": tenants}
+
+
+def _quantile_view(lq: LogQuantile) -> dict:
+    return {"count": round(lq.count, 3), "mean": round(lq.mean(), 6),
+            "p50": round(lq.quantile(0.5), 6),
+            "p90": round(lq.quantile(0.9), 6),
+            "p99": round(lq.quantile(0.99), 6)}
+
+
+class UsageAggregator:
+    """Leader-resident fold of every daemon's latest access summary.
+
+    Each daemon's summary is a decayed *snapshot*, so the aggregator
+    keeps exactly one per node (replace, don't accumulate) and merges
+    across nodes on demand — double counting is structurally
+    impossible.  Nodes silent for ``WEED_USAGE_MAX_AGE_S`` age out.
+    """
+
+    def __init__(self, now: Callable[[], float] = time.time):
+        self.now = now
+        self.lock = threading.Lock()
+        self.parts: Dict[str, dict] = {}     # node -> summary
+        self._hot_emitted: Dict[str, float] = {}
+
+    def ingest(self, node: str, summary: Optional[dict]) -> None:
+        if not node or not isinstance(summary, dict):
+            return
+        with self.lock:
+            self.parts[node] = summary
+
+    def _fresh_parts(self) -> Dict[str, dict]:
+        max_age = max(1.0, _env_float("WEED_USAGE_MAX_AGE_S", 300.0))
+        cutoff = self.now() - max_age
+        with self.lock:
+            self.parts = {n: s for n, s in self.parts.items()
+                          if float(s.get("ts", 0) or 0) >= cutoff}
+            return dict(self.parts)
+
+    def usage(self, topk: Optional[int] = None) -> dict:
+        """The ``GET /cluster/usage`` body."""
+        k = topk or max(1, _env_int("WEED_USAGE_TOPK", 20))
+        parts = self._fresh_parts()
+        merged = merge_summaries(list(parts.values()))
+        totals = merged["totals"]
+        reads = totals["reads"] or 0.0
+        top = [{"fid": fid, "reads": round(cnt, 3),
+                "error": round(err, 3),
+                "share": round(cnt / reads, 4) if reads else 0.0}
+               for fid, cnt, err in merged["hot"].top(k)]
+        out = {
+            "ts": round(self.now(), 3),
+            "nodes": sorted(parts),
+            "totals": {"reads": round(totals["reads"], 3),
+                       "writes": round(totals["writes"], 3),
+                       "bytes_read": round(totals["bytes_read"], 3),
+                       "bytes_written": round(totals["bytes_written"], 3),
+                       "records": totals["records"],
+                       "distinct_keys":
+                           int(merged["distinct"].estimate())},
+            "top_keys": top,
+            "volumes": {vid: round(cnt, 3)
+                        for vid, cnt, _ in merged["vol_hot"].top(0)},
+            "tiers": {k2: round(v, 3)
+                      for k2, v in sorted(merged["tiers"].items())},
+            "sizes": _quantile_view(merged["sizes"]),
+            "latency": {cls: _quantile_view(lq)
+                        for cls, lq in sorted(merged["latency"].items())},
+            "collections": {}, "tenants": {},
+        }
+        for name, table in (("collections", merged["collections"]),
+                            ("tenants", merged["tenants"])):
+            for ent_name, cell in sorted(table.items()):
+                out[name][ent_name] = {
+                    "ops": {k2: round(v, 3)
+                            for k2, v in sorted(cell["ops"].items())},
+                    "bytes": {k2: round(v, 3)
+                              for k2, v in sorted(cell["bytes"].items())},
+                    "distinct_keys": int(cell["hll"].estimate()),
+                }
+        self._export(out)
+        return out
+
+    def _export(self, usage: dict) -> None:
+        """Mirror the assembled view into ``SeaweedFS_usage_*`` gauges
+        so the TSDB / Grafana see what ``/cluster/usage`` serves."""
+        t = usage["totals"]
+        _stats.UsageReadsGauge.labels().set(t["reads"])
+        _stats.UsageWritesGauge.labels().set(t["writes"])
+        _stats.UsageBytesGauge.labels("read").set(t["bytes_read"])
+        _stats.UsageBytesGauge.labels("write").set(t["bytes_written"])
+        _stats.UsageDistinctKeysGauge.labels().set(t["distinct_keys"])
+        _stats.UsageTenantsGauge.labels().set(len(usage["tenants"]))
+        _stats.UsageCollectionsGauge.labels().set(len(usage["collections"]))
+        top = usage["top_keys"]
+        _stats.UsageHotShareGauge.labels().set(
+            top[0]["share"] if top else 0.0)
+
+    def maybe_emit_hot_key(self, usage: Optional[dict] = None,
+                           node: str = "") -> Optional[dict]:
+        """Fire an ``access.hotkey`` journal event when the hottest
+        fid exceeds ``WEED_HEAT_HOT_SHARE`` of fleet reads (with
+        enough reads to mean anything); deduped per fid per epoch so
+        a steady hot key doesn't spam the journal."""
+        from . import events
+
+        share_gate = _env_float("WEED_HEAT_HOT_SHARE", 0.25)
+        min_reads = _env_float("WEED_HEAT_MIN_READS", 100.0)
+        if usage is None:
+            usage = self.usage(topk=1)
+        top = usage.get("top_keys") or []
+        reads = float(usage.get("totals", {}).get("reads", 0) or 0)
+        if not top or reads < min_reads:
+            return None
+        head = top[0]
+        if head["share"] < share_gate:
+            return None
+        epoch = max(0.25, _env_float("WEED_HEAT_EPOCH_S", 60.0))
+        now = self.now()
+        with self.lock:
+            last = self._hot_emitted.get(head["fid"], 0.0)
+            if now - last < epoch:
+                return None
+            self._hot_emitted[head["fid"]] = now
+            if len(self._hot_emitted) > 1024:
+                cut = sorted(self._hot_emitted.values())[512]
+                self._hot_emitted = {
+                    f: t for f, t in self._hot_emitted.items() if t > cut}
+        return events.emit(events.HOT_KEY, service="master", node=node,
+                           detail={"fid": head["fid"],
+                                   "share": head["share"],
+                                   "reads": head["reads"],
+                                   "fleet_reads": round(reads, 1)})

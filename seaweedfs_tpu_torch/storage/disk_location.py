@@ -7,19 +7,36 @@ accounting.  EC volumes mount on `device` (where their degraded reads
 decode), resolved when the first shard mounts.  An inline-EC volume (shard
 logs as the primary write path, a `.scl` commit log beside them) mounts
 as one `InlineEcVolume` on `device`, which runs its crash-recovery replay.
+
+A volume that fails to load from disk (a truncated or unknown superblock,
+a damaged `.vif`, an unknown code family, a missing file) is logged and
+skipped, so one damaged volume does not stop the server from starting.
+Only load errors are caught, by type: a failing CUDA call is not a
+damaged volume and raises.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import re
+import struct
 import threading
 import uuid as uuid_mod
 from typing import Optional
 
 from .erasure_coding import TOTAL_SHARDS_COUNT
-from .erasure_coding.ec_volume import EcVolume, EcVolumeShard
-from .volume import Volume
+from .erasure_coding.ec_volume import EcError, EcVolume, EcVolumeShard
+from .needle import NeedleError
+from .super_block import SuperBlockError
+from .volume import Volume, VolumeError
+
+_log = logging.getLogger(__name__)
+
+# what a damaged or unported volume on disk raises while it loads
+# (JSONDecodeError of a bad .vif is a ValueError)
+_LOAD_ERRORS = (OSError, ValueError, NotImplementedError, struct.error,
+                SuperBlockError, NeedleError, VolumeError, EcError)
 
 _DAT_RE = re.compile(r"^(?:(?P<collection>.+)_)?(?P<vid>\d+)\.dat$")
 _VIF_RE = re.compile(r"^(?:(?P<collection>.+)_)?(?P<vid>\d+)\.vif$")
@@ -75,8 +92,9 @@ class DiskLocation:
                             self.directory, collection, vid,
                             needle_map_kind=self.needle_map_kind,
                             fsync=self.fsync)
-                    except (OSError, ValueError, NotImplementedError):
-                        continue  # damaged or unported volume: skip it
+                    except _LOAD_ERRORS as e:
+                        _log.warning("skipping volume %d in %s: %r", vid,
+                                     self.directory, e)
             self.load_all_ec_shards()
 
     def load_all_ec_shards(self):
@@ -105,11 +123,16 @@ class DiskLocation:
                         self.ec_volumes[vid] = InlineEcVolume(
                             self.directory, collection, vid,
                             device=self.device)
-                    except (OSError, ValueError):
-                        continue  # damaged volume: skip it
+                    except _LOAD_ERRORS as e:
+                        _log.warning("skipping inline EC volume %d in %s: "
+                                     "%r", vid, self.directory, e)
                     continue
                 for shard_id in shard_ids:
-                    self.mount_ec_shard(collection, vid, shard_id)
+                    try:
+                        self.mount_ec_shard(collection, vid, shard_id)
+                    except _LOAD_ERRORS as e:
+                        _log.warning("skipping EC shard %d.%02d in %s: %r",
+                                     vid, shard_id, self.directory, e)
 
     def _base_name(self, collection: str, vid: int) -> str:
         base = f"{collection}_{vid}" if collection else str(vid)

@@ -28,6 +28,7 @@ import os
 import re
 import threading
 
+from ....stats import metrics as _stats
 from .base import CodeFamily, RepairPlan  # noqa: F401 (re-export)
 from .cauchy import CauchyMDS
 from .pm_msr import ProductMatrixMSR
@@ -82,11 +83,16 @@ _amp_totals: dict = {}  # family -> [read_bytes, rebuilt_bytes]
 
 def note_rebuild(family: str, read_bytes: int, rebuilt_bytes: int) -> None:
     """Record one rebuild's traffic: survivor bytes consumed and bytes
-    rebuilt (their ratio is the repair-bandwidth figure of merit)."""
+    rebuilt (their ratio is the repair-bandwidth figure of merit), and
+    mirror it into the maintenance_ec_rebuild_* families."""
     with _amp_lock:
         tot = _amp_totals.setdefault(family, [0, 0])
         tot[0] += int(read_bytes)
         tot[1] += int(rebuilt_bytes)
+        amp = tot[0] / tot[1] if tot[1] else 0.0
+    _stats.MaintEcRebuildReadBytes.labels(family).inc(int(read_bytes))
+    _stats.MaintEcRebuildRebuiltBytes.labels(family).inc(int(rebuilt_bytes))
+    _stats.MaintEcRebuildReadAmpGauge.labels(family).set(amp)
 
 
 def rebuild_read_amp_snapshot() -> dict:

@@ -17,9 +17,10 @@ where `ops.codec.survivor_stack` says, so a stack bound for the card
 crosses the link from pinned memory.  Survivor fetches from other
 servers go through the `remote_reader` hook, and an inline-EC volume
 (inline.py) serves spans past its shard logs' durable extent through the
-`tail_reader` hook; the reference's QoS and deadline propagation onto
-remote fetches and its tracing spans come with the slices that port rpc/,
-qos/ and tracing.
+`tail_reader` hook.  A degraded read is an ``ec.recover.serve`` span
+and each block's survivor fetch an ``ec.recover.fetch`` span under it;
+the reference's QoS and deadline propagation onto remote fetches comes
+with the slice that ports rpc/.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from ... import device as device_mod
+from ... import tracing
 from ...ops import codec as codec_mod
 from .. import idx as idx_mod
 from .. import types as t
@@ -346,43 +348,46 @@ class EcVolume:
         mat-vec (recover.py).  With no local shard to size blocks
         against (shard_size unknown) the exact span becomes the unit —
         still coalesced and cached."""
-        t0 = time.perf_counter()
         self._tls.busy = 0.0
-        cache_bytes, block, coalesce = recover_knobs()
-        shard_size = self.shard_size
-        # recovery units must be sub-shard-aligned so vector codes
-        # (alpha > 1) see whole interleaved lane groups; the KB-sized
-        # block knob is always a multiple of alpha already
-        align = self.family.sub_shards
-        if block <= 0 or shard_size <= 0:
-            lo = (offset // align) * align
-            end = -(-(offset + size) // align) * align
-            spans = [(lo, end - lo)]
-        else:
-            lo = (offset // block) * block
-            end = max(offset + size,
-                      min(shard_size,
-                          -(-(offset + size) // block) * block))
-            end = -(-end // align) * align
-            spans = [(s, min(block, end - s))
-                     for s in range(lo, end, block)]
-        parts = []
-        for bstart, blen in spans:
-            key = (target_shard, bstart, blen)
-            parts.append(self._recover_cache.get_or_recover(
-                key, lambda bs=bstart, bl=blen: self._recover_block(
-                    target_shard, bs, bl),
-                cache_bytes, coalesce))
-        blob = parts[0] if len(parts) == 1 else b"".join(parts)
-        out = blob[offset - spans[0][0]:offset - spans[0][0] + size]
-        if len(out) != size:
-            raise EcError(
-                f"recovered span short for shard {target_shard} at "
-                f"{offset}+{size}: got {len(out)}")
-        # the serve stage is the degraded read's wall minus this thread's
-        # fetch+decode busy seconds
+        with tracing.span(
+                "ec.recover.serve",
+                tags={"shard": target_shard, "offset": offset,
+                      "size": size}) as sp:
+            cache_bytes, block, coalesce = recover_knobs()
+            shard_size = self.shard_size
+            # recovery units must be sub-shard-aligned so vector codes
+            # (alpha > 1) see whole interleaved lane groups; the KB-sized
+            # block knob is always a multiple of alpha already
+            align = self.family.sub_shards
+            if block <= 0 or shard_size <= 0:
+                lo = (offset // align) * align
+                end = -(-(offset + size) // align) * align
+                spans = [(lo, end - lo)]
+            else:
+                lo = (offset // block) * block
+                end = max(offset + size,
+                          min(shard_size,
+                              -(-(offset + size) // block) * block))
+                end = -(-end // align) * align
+                spans = [(s, min(block, end - s))
+                         for s in range(lo, end, block)]
+            parts = []
+            for bstart, blen in spans:
+                key = (target_shard, bstart, blen)
+                parts.append(self._recover_cache.get_or_recover(
+                    key, lambda bs=bstart, bl=blen: self._recover_block(
+                        target_shard, bs, bl),
+                    cache_bytes, coalesce))
+            blob = parts[0] if len(parts) == 1 else b"".join(parts)
+            out = blob[offset - spans[0][0]:offset - spans[0][0] + size]
+            if len(out) != size:
+                raise EcError(
+                    f"recovered span short for shard {target_shard} at "
+                    f"{offset}+{size}: got {len(out)}")
+        # the span measured the whole degraded read; the serve stage is
+        # that wall minus this thread's fetch+decode busy seconds
         RECOVER_STATS.add_stage(
-            "serve", max(0.0, time.perf_counter() - t0 - self._tls.busy))
+            "serve", max(0.0, (sp.duration or 0.0) - self._tls.busy))
         return out
 
     # per-thread fetch+decode busy seconds inside the current span, so
@@ -399,10 +404,12 @@ class EcVolume:
         try:
             with codec_mod.survivor_stack((self.family.data_shards, size),
                                           self.device) as slab:
-                survivors, inputs = self._fetch_survivors(
-                    target_shard, offset, size, out=slab)
-                RECOVER_STATS.add_stage("fetch",
-                                        time.perf_counter() - blk0)
+                with tracing.span(
+                        "ec.recover.fetch",
+                        tags={"shard": target_shard, "bytes": size}) as fsp:
+                    survivors, inputs = self._fetch_survivors(
+                        target_shard, offset, size, out=slab)
+                RECOVER_STATS.add_stage("fetch", fsp.duration or 0.0)
                 out = self._recover_batcher.decode(
                     survivors, target_shard, inputs)
             return np.ascontiguousarray(out).tobytes()

@@ -61,8 +61,9 @@ stops acking writes that would never get parity.
 
 Policy: WEED_EC_INLINE=1 turns the path on; a collection is EC-policy when
 the coding tier's resolution (WEED_EC_CODE_<COLLECTION> > PathConf
-``ec_code`` > WEED_EC_CODE) names a family for it.  The Prometheus mirrors
-of the writer's counters come with the port of stats/.
+``ec_code`` > WEED_EC_CODE) names a family for it.  The writer mirrors
+its counters into the SeaweedFS_ec_inline_* families (`_note_metrics`,
+`_note_commit`).
 """
 
 from __future__ import annotations
@@ -81,6 +82,7 @@ import torch
 
 from ... import device as device_mod
 from ...ops import crc32c as crc32c_mod
+from ...stats import metrics as _stats
 from ...util import faults as _faults
 from .. import types as t
 from ..needle import Needle, get_actual_size
@@ -96,6 +98,9 @@ SCL_MAGIC = b"SCL1"
 SCL_RECORD_SIZE = 192
 KIND_FULL = 0
 KIND_TAIL = 1
+
+# bound once: append runs it per needle
+_LOGICAL_BYTES = _stats.EcInlineBytesCounter.labels("logical")
 
 # most rows the flusher commits per encode call: bounds the batch buffer
 # at ~10 MB for the default 64 KiB unit while still amortising the
@@ -384,6 +389,7 @@ class InlineEcWriter:
                 # the flusher re-checks _pending before every wait, so
                 # only the empty->non-empty edge needs a wakeup
                 self._cond.notify_all()
+        self._note_metrics(len(blob))
         return off
 
     def delete(self, nid: int):
@@ -680,6 +686,7 @@ class InlineEcWriter:
         foreground degraded-read decodes first."""
         from ...qos.lanes import LANES
 
+        t_commit = time.perf_counter()
         LANES.background_checkpoint()
         first = batch[0][0]
         unit = self.unit
@@ -703,10 +710,13 @@ class InlineEcWriter:
                                                  + SCL_RECORD_SIZE)
             self.commit_batches += 1
             self.commit_encode_seconds += encode_s
+        self._note_commit(KIND_FULL, time.perf_counter() - t_commit,
+                          rows=len(batch))
 
     def _commit_tail(self):
         from ...qos.lanes import LANES
 
+        t0 = time.perf_counter()
         with self._lock:
             if not self._tail:
                 return
@@ -725,6 +735,7 @@ class InlineEcWriter:
             self._tail_committed_version = version
             self.committed_logical = max(self.committed_logical, logical)
             self.physical_bytes += self.p * self.unit + SCL_RECORD_SIZE
+        self._note_commit(KIND_TAIL, time.perf_counter() - t0)
 
     def _append_record(self, kind: int, row_index: int, logical: int,
                        idx_size: int, row: bytes, parity: np.ndarray):
@@ -1018,6 +1029,21 @@ class InlineEcWriter:
                 buf += b"\x00" * (iv.size - len(buf))
             out += buf
         return bytes(out)
+
+    # -- telemetry ------------------------------------------------------------
+
+    def _note_metrics(self, nbytes: int):
+        _LOGICAL_BYTES.inc(nbytes)
+        _stats.EcInlineTailBytes.set(len(self._tail))
+
+    def _note_commit(self, kind: int, seconds: float, rows: int = 1):
+        _stats.EcInlineStripesCommitted.labels(
+            "tail" if kind == KIND_TAIL else "full").inc(rows)
+        _stats.EcInlineCommitSeconds.observe(seconds)
+        _stats.EcInlineTailBytes.set(len(self._tail))
+        _stats.EcInlineWriteAmp.set(round(self.write_amp(), 4))
+        _stats.EcInlineBytesCounter.labels("physical").inc(
+            rows * (self.p * self.unit + SCL_RECORD_SIZE))
 
     def status(self) -> dict:
         with self._lock:

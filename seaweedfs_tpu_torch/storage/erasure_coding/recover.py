@@ -26,24 +26,25 @@ Knobs (env, read per call so daemons/tests flip them live):
                              exact spans, no alignment)
   WEED_EC_RECOVER_COALESCE   0 disables single-flight + batching
 
-The counters are plain fields, with the device pool's resident-slab
-counters beside them; the reference's Prometheus mirrors come with the
-stats slice.  A batched decode runs in the foreground device lane
-(qos/lanes.py), so background device batches yield to it.
+The counters are mirrored into the SeaweedFS_volumeServer_ec_recover_*
+families, with the device pool's resident-slab counters beside them in
+`snapshot()`; each batched decode is an ``ec.recover.decode`` span.  A
+batched decode runs in the foreground device lane (qos/lanes.py), so
+background device batches yield to it.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-import time
 from collections import OrderedDict
 from typing import Callable, Optional
 
 import numpy as np
 
+from ... import tracing
 from ...qos.lanes import LANES
-
+from ...stats import metrics as _stats
 
 
 def recover_knobs() -> tuple[int, int, bool]:
@@ -89,6 +90,14 @@ class RecoverStats:
                 self.decode_seconds += seconds
             else:
                 self.serve_seconds += seconds
+        self._push_stage(stage)
+
+    def _push_stage(self, stage: str):
+        with self._lock:
+            val = {"fetch": self.fetch_seconds,
+                   "decode": self.decode_seconds,
+                   "serve": self.serve_seconds}[stage]
+        _stats.EcRecoverStageSeconds.labels(stage).set(round(val, 6))
 
     def cache_event(self, result: str, n: int = 1):
         with self._lock:
@@ -98,6 +107,7 @@ class RecoverStats:
                 self.cache_misses += n
             else:
                 self.coalesced += n
+        _stats.EcRecoverCacheCounter.labels(result).inc(n)
 
     def decoded(self, n_spans: int, nbytes: int):
         with self._lock:
@@ -106,6 +116,9 @@ class RecoverStats:
             if n_spans > 1:
                 self.batched_spans += n_spans
             self.recovered_bytes += nbytes
+        _stats.EcRecoverSpanCounter.labels(
+            "batched" if n_spans > 1 else "solo").inc(n_spans)
+        _stats.EcRecoverBytesCounter.inc(nbytes)
 
     def snapshot(self, wall: Optional[float] = None) -> dict:
         """Point-in-time dict of everything above; with `wall` (seconds
@@ -327,7 +340,8 @@ class SpanDecodeBatcher:
 
     def _decode_batch(self, survivors: tuple, target: int,
                       batch: list[_DecodeReq]) -> list[np.ndarray]:
-        t0 = time.perf_counter()
+        sp = tracing.start("ec.recover.decode", tags={"spans": len(batch)})
+        prev = tracing.swap(sp)
         try:
             if len(batch) == 1:
                 stacked = batch[0].inputs
@@ -350,8 +364,11 @@ class SpanDecodeBatcher:
         except BaseException as e:
             for r in batch:
                 r.error = e
+            sp.status = f"error: {type(e).__name__}"
             raise
         finally:
-            self.stats.add_stage("decode", time.perf_counter() - t0)
+            tracing.restore(prev)
+            sp.finish()
+            self.stats.add_stage("decode", sp.duration or 0.0)
             for r in batch:
                 r.event.set()

@@ -18,8 +18,9 @@ without a card, and its EC entry points raise without one.
 
   "cuda", "tpu"   force the batched device pipeline ("tpu" is the JAX
                   package's name, so one configuration drives either)
-  a codec name    ("cpu", "numpy", "torch", "auto") the host loop with
-                  that codec, through ops.codec.new_encoder
+  a codec name    ("cpu", "numpy", "torch", "jax", "auto") the host loop
+                  with that codec, through ops.codec.new_encoder on the
+                  store's device ("jax" is the device codec there)
   None            auto-select through util/platform.prefer_batched_encode
 """
 
@@ -30,6 +31,7 @@ import os
 import threading
 from typing import Callable, Optional
 
+from ..stats import metrics as _stats
 from .disk_location import DiskLocation
 from .erasure_coding import encoder as ec_encoder
 from .erasure_coding.ec_volume import EcVolume
@@ -40,6 +42,8 @@ from .ttl import TTL
 from .volume import NotFoundError, Volume, VolumeError
 
 _DEVICE_BACKENDS = ("cuda", "tpu")
+
+_log = logging.getLogger(__name__)
 
 
 class Store:
@@ -166,10 +170,16 @@ class Store:
 
     def _demote_readonly(self, vid: int, v: Volume, err: Exception):
         v.read_only = True
-        logging.getLogger(__name__).error(
-            "volume %d demoted read-only after disk error: %s", vid, err)
+        _stats.VolumeReadonlyDemotions.inc()
+        _log.error("volume %d demoted read-only after disk error: %s",
+                   vid, err)
         if self.on_demote is not None:
-            self.on_demote(vid)
+            # the heartbeat push is best-effort: the caller gets the
+            # write's VolumeError whatever the hook does
+            try:
+                self.on_demote(vid)
+            except Exception:
+                _log.exception("on_demote hook failed for volume %d", vid)
 
     def read_needle(self, vid: int, nid: int,
                     cookie: Optional[int] = None) -> Needle:
@@ -208,7 +218,8 @@ class Store:
                                          PARITY_SHARDS_COUNT)
 
             return codec.new_encoder(DATA_SHARDS_COUNT,
-                                     PARITY_SHARDS_COUNT, backend=backend)
+                                     PARITY_SHARDS_COUNT, backend=backend,
+                                     device=self.device)
         return backend
 
     def ec_generate(self, vid: int, encoder=None, code_family: str = None,

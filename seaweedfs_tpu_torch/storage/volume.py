@@ -24,6 +24,8 @@ import threading
 import time
 from typing import Optional
 
+from .. import tracing
+from ..stats import metrics as _stats
 from . import idx as idx_mod
 from . import types as t
 from .backend import DiskFile
@@ -295,7 +297,8 @@ class Volume:
         if self.fsync:
             # outside the lock: other writers append while this one waits
             # for the shared group-commit fsync
-            self._fsync_batcher().wait_durable()
+            with tracing.span("fsync.group_commit", tags={"vid": self.id}):
+                self._fsync_batcher().wait_durable()
         return offset, n.size, False
 
     def delete_needle(self, n: Needle) -> int:
@@ -314,7 +317,8 @@ class Volume:
             self.last_append_at_ns = n.append_at_ns
             self.nm.delete(n.id, offset)
         if self.fsync:
-            self._fsync_batcher().wait_durable()
+            with tracing.span("fsync.group_commit", tags={"vid": self.id}):
+                self._fsync_batcher().wait_durable()
         return size
 
     # -- read ----------------------------------------------------------------
@@ -385,6 +389,7 @@ class Volume:
         with self.lock:
             self.nm.sync()
             self.data.sync()
+        _stats.VolumeFsyncBatchCounter.inc()
 
     def sync(self):
         with self.lock:

@@ -37,10 +37,11 @@ bool guards the hot path):
                                              shard-log write, on_disk(path,
                                              "commit") per commit record
 
-The port's own copy of seaweedfs_tpu/util/faults.py.  The rpc hook
-sites, the storage/backend.py DiskFile hooks, the /debug/faults handler
-and the injected-fault metrics come with the ports of rpc/, the volume
-server and stats/; until then each rule's `fires` counts its faults.
+The port's own copy of seaweedfs_tpu/util/faults.py.  Each fired fault
+counts in SeaweedFS_faults_injected_total, and loading rules writes a
+``faults.active`` event to the journal.  The rpc hook sites, the
+storage/backend.py DiskFile hooks and the /debug/faults handler come with
+the ports of rpc/ and the volume server.
 """
 
 from __future__ import annotations
@@ -51,6 +52,9 @@ import os
 import threading
 import time
 from typing import Callable, List
+
+from ..stats import events as _events
+from ..stats import metrics as _stats
 
 
 class FaultInjected(Exception):
@@ -163,6 +167,9 @@ class FaultRegistry:
             self.seed = seed
             self.log = []
         _set_active(bool(rules))
+        if rules:
+            _events.emit(_events.FAULTS_ACTIVE, service="faults",
+                         detail={"rules": len(rules), "seed": seed})
 
     def add_rule(self, spec: str):
         rules = parse_spec(spec)
@@ -212,6 +219,8 @@ class FaultRegistry:
                     if len(self.log) < self.LOG_MAX:
                         self.log.append((rule.id, n, side, dst, route,
                                          rule.kind))
+        for rule in fired:
+            _stats.FaultsInjectedCounter.labels(rule.kind, rule.id).inc()
         return fired
 
     def on_rpc(self, side: str, dst: str, route: str):

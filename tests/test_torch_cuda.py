@@ -337,3 +337,59 @@ def test_inline_batch_step_matches_plain(cuda, tmp_path, monkeypatch,
         assert np.array_equal(got, w._encode_rows(data))
     finally:
         w.close()
+
+
+def test_hbm_tier_round_trips_4mib_on_card(cuda):
+    """A 4 MiB chunk goes up with one H2D copy into a resident slab of
+    the pool on the card and comes back byte for byte."""
+    from seaweedfs_tpu_torch.cache import HbmTier
+    from seaweedfs_tpu_torch.ops.device_pool import get_pool
+
+    tier = HbmTier(64 << 20)
+    assert tier.device.type == "cuda"
+    data = np.random.default_rng(4).bytes(4 << 20)
+    pool = get_pool()
+    h2d, d2h = pool.h2d_bytes, pool.d2h_bytes
+    assert tier.put("1,a", data)
+    (refs, nbytes), = pool.residents_under(tier.pool_prefix).values()
+    assert (refs, nbytes) == (1, 4 << 20)
+    payload = pool.acquire_resident(("read_cache", tier._tier, "1,a", 1),
+                                    lambda: None, 0)
+    assert payload.is_cuda and payload.numel() == 4 << 20
+    pool.release_resident(("read_cache", tier._tier, "1,a", 1))
+    assert tier.get("1,a") == data
+    assert pool.h2d_bytes - h2d == pool.d2h_bytes - d2h == 4 << 20
+    tier.close()
+    assert pool.residents_under(tier.pool_prefix) == {}
+
+
+def test_hbm_overwrite_serves_new_bytes_on_card(cuda):
+    """R1 on the card: after invalidate and a new put of the same fid,
+    the HBM tier serves the new bytes."""
+    from seaweedfs_tpu_torch.cache import TieredReadCache
+
+    chunk = 1 << 20
+    c = TieredReadCache(mem_bytes=2 * chunk, hbm_bytes=16 * chunk)
+    c.put("1,a", b"A" * chunk)
+    for _ in range(3):
+        c.get("1,a")
+    c.invalidate("1,a", "overwrite")
+    c.put("1,a", b"B" * chunk)
+    for _ in range(3):
+        c.get("1,a")
+    for fid in ("1,b", "1,c", "1,d"):
+        c.put(fid, b"x" * chunk)
+    assert c.get("1,a") == b"B" * chunk
+    assert c.stats_snapshot()["tier_hits"]["hbm"] == 1
+    c.close()
+
+
+def test_hbm_put_on_missing_device_raises(cuda):
+    """A tier asked for a device index that does not exist raises from
+    put: no quiet miss, no CPU copy."""
+    from seaweedfs_tpu_torch.cache import HbmTier
+
+    tier = HbmTier(1 << 20, device=f"cuda:{torch.cuda.device_count()}")
+    with pytest.raises(RuntimeError):  # torch.AcceleratorError is one
+        tier.put("1,a", b"x" * 1024)
+    assert len(tier) == 0

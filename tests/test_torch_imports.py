@@ -164,3 +164,30 @@ def test_inline_and_family_entry_points_raise_without_cuda(no_cuda,
                  lambda: deep_scrub_host(str(tmp_path), "c", 1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+@pytest.mark.parametrize("mod", [
+    "stats/__init__.py", "stats/metrics.py", "stats/events.py",
+    "stats/sketch.py", "stats/access.py", "tracing.py", "profiling.py",
+    "qos/__init__.py", "qos/classify.py", "cache/__init__.py",
+    "cache/ram.py", "cache/disk.py", "cache/hbm.py", "cache/read_cache.py"])
+def test_substrate_and_cache_modules_are_covered(mod):
+    """The observability substrate's and the read cache's modules are
+    among the sources both no-JAX checks above walk."""
+    rel = {os.path.relpath(p, PKG) for p in _port_sources()[1:]}
+    assert mod in rel
+
+
+def test_cache_entry_points_raise_without_cuda(no_cuda):
+    """The HBM tier, and a read cache given an HBM budget, run on the card
+    unless asked for the CPU; without an HBM budget the cache touches no
+    device."""
+    from seaweedfs_tpu_torch.cache import HbmTier, TieredReadCache
+
+    for call in (lambda: HbmTier(1 << 20),
+                 lambda: TieredReadCache(mem_bytes=1 << 20,
+                                         hbm_bytes=1 << 20)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert TieredReadCache(mem_bytes=1 << 20, hbm_bytes=0).hbm is None
+    assert HbmTier(1 << 20, device="cpu").put("1,a", b"x")

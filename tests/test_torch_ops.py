@@ -457,4 +457,28 @@ def test_numpy_backend_and_unknown_backend():
     assert isinstance(t_codec.new_encoder(10, 4, backend="numpy"),
                       t_rs_numpy.NumpyEncoder)
     with pytest.raises(ValueError):
-        t_codec.new_encoder(10, 4, backend="tpu")
+        t_codec.new_encoder(10, 4, backend="nope")
+
+
+@pytest.mark.parametrize("backend", ["jax", "tpu"])
+def test_jax_codec_names_give_the_device_codec(backend, monkeypatch):
+    """The JAX package's device codec names resolve to the port's
+    TorchEncoder on `device`; its parity and reconstruction equal the
+    JAX package's codec of the same name.  Without a card and without
+    device="cpu" the codec raises."""
+    enc = t_codec.new_encoder(10, 4, backend=backend, device="cpu")
+    assert isinstance(enc, rs_torch.TorchEncoder)
+    assert enc.device == torch.device("cpu")
+    ref = j_codec.new_encoder(10, 4, backend=backend)
+    full = _shards(7)
+    data = list(full[:10]) + [None] * 4
+    got, want = enc.encode(list(data)), ref.encode(list(data))
+    assert all(np.array_equal(np.asarray(a), np.asarray(b))
+               for a, b in zip(got, want))
+    damaged = [None if i in (0, 5, 11, 13) else s for i, s in enumerate(full)]
+    for g, w in zip(enc.reconstruct(list(damaged)),
+                    ref.reconstruct(list(damaged))):
+        assert np.array_equal(np.asarray(g), np.asarray(w))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_codec.new_encoder(10, 4, backend=backend)

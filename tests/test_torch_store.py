@@ -393,3 +393,115 @@ def test_ec_entry_points_raise_without_cuda(tmp_path, pinned_clock,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ts.ec_rebuild(1)
     ts.close()
+
+
+# -- repairs: a damaged volume on disk, a failing demotion hook, the JAX
+# package's codec names --------------------------------------------------
+
+def _damage(d: str, case: str):
+    """Write one damaged volume (id 5 or 6) beside the healthy volume 1."""
+    def put(name, data):
+        with open(os.path.join(d, name), "wb") as f:
+            f.write(data)
+
+    if case == "dat_3_bytes":
+        put("5.dat", b"\x03\x00\x00")
+    elif case == "version_9":
+        raw = bytearray(_bytes(os.path.join(d, "1.dat")))
+        raw[0] = 9
+        put("5.dat", bytes(raw))
+        put("5.idx", _bytes(os.path.join(d, "1.idx")))
+    elif case == "extra_overrun":
+        # the superblock's extra length (bytes 6-7) names 256 bytes; the
+        # file holds 10 after the header
+        raw = bytearray(_bytes(os.path.join(d, "1.dat"))[:8])
+        raw[6:8] = (256).to_bytes(2, "big")
+        put("5.dat", bytes(raw) + b"\x00" * 10)
+    elif case == "bad_vif":
+        put("6.ecx", b"")
+        put("6.ec00", b"\x00" * 64)
+        put("6.vif", b"{bad")
+    elif case == "unknown_family":
+        put("6.ecx", b"")
+        put("6.ec00", b"\x00" * 64)
+        put("6.vif", b'{"version": 3, "code_family": "nope"}')
+    else:
+        raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["dat_3_bytes", "version_9",
+                                  "extra_overrun", "bad_vif",
+                                  "unknown_family"])
+def test_damaged_volume_skipped_like_jax(tmp_path, pinned_clock, case):
+    """Both Stores start over a directory holding one damaged volume and
+    load the same volumes and EC volumes: the damaged one is skipped."""
+    js, ts, jd, td, _ = _stores(tmp_path, pinned_clock, [1], None, None)
+    js.close()
+    ts.close()
+    for d in (jd, td):
+        _damage(d, case)
+    js = j_store.Store([jd])
+    ts = t_store.Store([td], device="cpu")
+    for jl, tl in zip(js.locations, ts.locations):
+        assert sorted(jl.volumes) == sorted(tl.volumes) == [1]
+        assert sorted(jl.ec_volumes) == sorted(tl.ec_volumes)
+    assert ts.read_needle(1, 1).data == js.read_needle(1, 1).data
+    js.close()
+    ts.close()
+
+
+def test_failing_ec_mount_on_cuda_still_raises(tmp_path, monkeypatch):
+    """A mount that fails for want of a card is not a damaged volume."""
+    d = str(tmp_path)
+    _damage(d, "bad_vif")
+    os.remove(os.path.join(d, "6.vif"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_store.Store([d])
+
+
+def test_failing_demote_hook_keeps_volume_error(tmp_path, pinned_clock):
+    """A disk error on write demotes the volume in both packages; an
+    on_demote hook that raises does not replace the VolumeError, and each
+    package counts the demotion in its own registry."""
+    from seaweedfs_tpu.stats import metrics as j_metrics
+    from seaweedfs_tpu_torch.stats import metrics as t_metrics
+
+    js, ts, jd, td, _ = _stores(tmp_path, pinned_clock, [1], None, None)
+    before = (j_metrics.VolumeReadonlyDemotions._values.get((), 0.0),
+              t_metrics.VolumeReadonlyDemotions._values.get((), 0.0))
+
+    def eio(*a, **kw):
+        raise OSError(5, "Input/output error")
+
+    def hook(vid):
+        raise RuntimeError(f"heartbeat push failed for {vid}")
+
+    for store, mod, err in ((js, j_needle, JVolumeError),
+                            (ts, t_needle, VolumeError)):
+        store.on_demote = hook
+        store.find_volume(1).write_needle = eio
+        n = mod.Needle.create(b"after the disk died")
+        n.id, n.cookie = 999, 7
+        with pytest.raises(err, match="demoted read-only"):
+            store.write_needle(1, n)
+        assert store.find_volume(1).read_only
+    after = (j_metrics.VolumeReadonlyDemotions._values.get((), 0.0),
+             t_metrics.VolumeReadonlyDemotions._values.get((), 0.0))
+    assert after[0] - before[0] == after[1] - before[1] == 1
+    js.close()
+    ts.close()
+
+
+def test_jax_codec_name_encodes_like_jax(tmp_path, pinned_clock):
+    """-ec.backend=jax: the JAX package's device codec name drives the
+    port's TorchEncoder on the store's device; shard files, .ecx and the
+    .vif (with any shard CRCs) are byte-identical to the JAX package's."""
+    js, ts, jd, td, _ = _stores(tmp_path, pinned_clock, [1], "jax", "jax")
+    js.ec_generate(1)
+    ts.ec_generate(1)
+    _same_files(jd, td, 1, EC_FILES)
+    assert t_store.ec_encoder.load_volume_info(os.path.join(td, "1")) == \
+        j_enc.load_volume_info(os.path.join(jd, "1"))
+    js.close()
+    ts.close()
