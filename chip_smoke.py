@@ -6,6 +6,7 @@
     python3 chip_smoke.py --routes   # build, kernel checks, decode routes
     python3 chip_smoke.py --inline   # build, kernel checks, phase 6 only
     python3 chip_smoke.py --cache    # build, kernel checks, phase 7 only
+    python3 chip_smoke.py --server   # build, kernel checks, phase 8 only
 
 Phases:
   1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a);
@@ -70,10 +71,27 @@ Phases:
      to it, a background get admitting no fill, an overwritten needle
      served new from the HBM tier, no slab of the tier left after clear();
      RAM-hit, HBM-hit and miss latencies;
-  8. one JSON line of per-kernel numbers, then the card's name and power
+  8. the volume server over HTTP on the card: a VolumeServer
+     (-ec.backend=cuda) whose master is a closed local port, so its
+     heartbeats and EC location lookups fail with RpcError as they would
+     behind a dead master (the lookup's 11 s error tier must spare each
+     degraded read a connect); ~1 GiB of phase 4's seeded needles POSTed
+     raw from 8 connections of a load process that imports neither torch
+     nor the port (every ack's ETag = the needle's CRC32C), a sample GET
+     intact, then the shell's ec.encode sequence on one holder
+     (/admin/readonly, /admin/ec/generate on the card through K2,
+     /admin/ec/mount of 14 shards, /admin/delete_volume), .ec00 .ec05
+     .ec11 .ec13 dropped through /admin/ec/delete_shards, every needle
+     GET from 8 connections behind the lost shards (bytes and CRC, K1
+     launches = the decode batches of /admin/ec/recover_stats),
+     /admin/ec/rebuild against the .vif CRCs, /admin/ec/scrub clean, and
+     /metrics scraped and parsed strictly: the EcRecover* samples equal
+     /admin/ec/recover_stats, the device-pool gauges the pool, the
+     request counters the load process's own counts;
+  9. one JSON line of per-kernel numbers, then the card's name and power
      limit, then the result line.
 
-Phases 5 to 7 also hold the metrics registry's exposition against the
+Phases 5 to 8 also hold the metrics registry's exposition against the
 components' own counters (encode bytes, degraded-read mirrors and spans,
 the device pool, deep scrub, inline EC, the read cache) and parse it
 strictly.
@@ -146,6 +164,9 @@ CACHE_ZIPF = 1.1
 CACHE_THREADS = 4
 CACHE_HBM_MB = 1024         # WEED_READ_CACHE_HBM_MB of phase 7
 CACHE_RAM_MB = 64           # WEED_READ_CACHE_MB of phase 7 (its default)
+SERVER_BYTES = 1 << 30      # phase 8: ~1 GiB of needles over HTTP
+SERVER_CONNS = 8            # connections of phase 8's load process
+SERVER_SAMPLE = 1000        # needles of phase 8's intact GET sample
 CHUNK = MIB                 # the pipeline's column chunk for 1 MiB blocks
 SEED = 20261016
 PARITY = np.ascontiguousarray(parity_matrix(10, 14))
@@ -194,12 +215,14 @@ def _labels(raw) -> tuple:
     return tuple(sorted(out))
 
 
-def exposition() -> dict:
-    """The port's whole exposition, parsed strictly: HELP, then TYPE, then
-    samples for every family, each sample line `name{labels} value`, and
-    every histogram's buckets cumulative up to le="+Inf" = _count.
-    Returns {(sample name, labels): value} plus "_families"/"_lines"."""
-    text = metrics.REGISTRY.expose()
+def exposition(text: str = None) -> dict:
+    """The port's whole exposition (or `text`, a scraped one), parsed
+    strictly: HELP, then TYPE, then samples for every family, each sample
+    line `name{labels} value`, and every histogram's buckets cumulative
+    up to le="+Inf" = _count.  Returns {(sample name, labels): value}
+    plus "_families"/"_lines"."""
+    if text is None:
+        text = metrics.REGISTRY.expose()
     check(text.endswith("\n"), "exposition: no final newline")
     out, kinds, family = {}, {}, None
     buckets: dict = {}
@@ -257,9 +280,12 @@ def log_exposition(where: str) -> dict:
     return expo
 
 
-def check_pool_gauges(pool, where: str):
-    """The DevicePool gauges equal the pool's own snapshot."""
-    snap, expo = pool.snapshot(), exposition()
+def check_pool_gauges(pool, where: str, expo: dict = None):
+    """The DevicePool gauges (of `expo`, else of the registry now) equal
+    the pool's own snapshot."""
+    snap = pool.snapshot()
+    if expo is None:
+        expo = exposition()
     p = "SeaweedFS_volumeServer_device_pool_"
     got = {"bytes": sample(expo, p + "bytes"),
            "hwm_bytes": sample(expo, p + "hwm_bytes"),
@@ -1066,10 +1092,10 @@ def flip_byte(path: str, offset: int):
         f.write(bytes([b[0] ^ 0xFF]))
 
 
-def check_recover_metrics(before: dict, after: dict, rst: dict, k1: int):
-    """The EcRecover* mirrors moved by RecoverStats' own counts over a
-    window that began with RecoverStats reset; the recorded
-    ec.recover.decode spans equal its decode batches and K1's launches."""
+def check_recover_mirrors(before: dict, after: dict, rst: dict) -> dict:
+    """The EcRecover* samples moved by the counts `rst` (RecoverStats, or
+    /admin/ec/recover_stats) reports over a window that began with
+    RecoverStats reset."""
     p = "SeaweedFS_volumeServer_ec_recover_"
 
     def moved(name, **labels):
@@ -1085,6 +1111,15 @@ def check_recover_metrics(before: dict, after: dict, rst: dict, k1: int):
            "recovered_bytes": moved("bytes_total")}
     want = {k: rst[k] for k in got}
     check(got == want, f"EcRecover* mirrors {got} != RecoverStats {want}")
+    return want
+
+
+def check_recover_metrics(before: dict, after: dict, rst: dict, k1: int):
+    """check_recover_mirrors, the stage seconds, and the recorded
+    ec.recover.decode spans equal to the decode batches and K1's
+    launches."""
+    want = check_recover_mirrors(before, after, rst)
+    p = "SeaweedFS_volumeServer_ec_recover_"
     for stage in ("fetch", "decode", "serve"):
         check(sample(after, p + "stage_seconds", stage=stage) ==
               round(getattr(recover.STATS, f"{stage}_seconds"), 6),
@@ -1944,6 +1979,294 @@ def cache_phase(dev, workdir: str) -> dict:
     return launches
 
 
+# -- phase 8: the volume server over HTTP --------------------------------------
+
+# The load process of phase 8: stdlib and numpy only (no torch, nothing of
+# the port), so the server's interpreter lock is its own.  It makes the
+# same seeded needles as seeded_needles(), then POSTs or GETs the ids it
+# is given from its own keep-alive connections and writes what it saw.
+LOADER = r"""
+import http.client, itertools, json, sys, threading, time
+import numpy as np
+
+a = json.loads(sys.argv[1])
+rng = np.random.default_rng(a["seed"])
+lo, hi = np.log(a["min"]), np.log(a["max"])
+sizes = []
+while sum(sizes) < a["nbytes"]:
+    sizes.append(int(np.exp(rng.uniform(lo, hi))))
+blob = memoryview(rng.bytes(sum(sizes)))
+cookies = rng.integers(1, 1 << 32, len(sizes))
+needles, pos = {}, 0
+for i, size in enumerate(sizes):
+    needles[1 + i] = (int(cookies[i]), blob[pos:pos + size])
+    pos += size
+ids = a["ids"] or sorted(needles)
+host, port = a["addr"].split(":")
+counter = itertools.count()
+lat, etags, bad, moved = {}, {}, [], [0]
+lock = threading.Lock()
+
+
+def worker():
+    conn = http.client.HTTPConnection(host, int(port), timeout=300)
+    try:
+        while True:
+            i = next(counter)
+            if i >= len(ids):
+                return
+            nid = ids[i]
+            cookie, data = needles[nid]
+            path = "/%d,%x%08x" % (a["vid"], nid, cookie)
+            t0 = time.perf_counter()
+            if a["mode"] == "put":
+                conn.request("POST", path, body=data)
+            else:
+                conn.request("GET", path)
+            resp = conn.getresponse()
+            body = resp.read()
+            dt = time.perf_counter() - t0
+            if a["mode"] == "put":
+                ok = resp.status == 200
+                etag = json.loads(body).get("eTag") if ok else None
+                n = len(data)
+            else:
+                ok = resp.status == 200 and body == data
+                etag = (resp.getheader("Etag") or "").strip('"')
+                n = len(body)
+            with lock:
+                lat[nid] = dt
+                etags[nid] = etag
+                moved[0] += n
+                if not ok:
+                    bad.append([nid, resp.status, body[:200].decode(
+                        "latin-1")])
+    finally:
+        conn.close()
+
+
+assert not [m for m in sys.modules if m.split(".")[0] in (
+    "torch", "seaweedfs_tpu_torch", "seaweedfs_tpu", "jax")]
+t0 = time.perf_counter()
+threads = [threading.Thread(target=worker) for _ in range(a["conns"])]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+wall = time.perf_counter() - t0
+with open(a["out"], "w") as f:
+    json.dump({"n": len(lat), "bytes": moved[0], "wall": wall,
+               "lat": list(lat.values()),
+               "etags": {str(k): v for k, v in etags.items()},
+               "bad": bad}, f)
+"""
+
+
+def http_load(addr: str, vid: int, mode: str, ids, workdir: str) -> dict:
+    """Run the load process against `addr`: POST ("put") or GET the
+    seeded needles `ids` (all of them when None) from SERVER_CONNS
+    connections; returns its report."""
+    out = os.path.join(workdir, f"load_{mode}_{time.monotonic_ns()}.json")
+    spec = {"addr": addr, "vid": vid, "mode": mode, "ids": ids or [],
+            "nbytes": SERVER_BYTES, "seed": SEED + 12, "min": NEEDLE_MIN,
+            "max": NEEDLE_MAX, "conns": SERVER_CONNS, "out": out}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", LOADER, json.dumps(spec)],
+                         capture_output=True, text=True, timeout=900,
+                         cwd=workdir, env=env)
+    check(res.returncode == 0, f"the load process failed: {res.stderr}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def http_json(addr: str, path: str, payload=None, method=None):
+    """One request to the server; any non-2xx reply fails the run."""
+    from seaweedfs_tpu_torch.rpc.http_rpc import RpcError, call
+
+    try:
+        return call(addr, path, payload, method=method, timeout=3600)
+    except RpcError as e:
+        raise AssertionError(f"{path}: {e.status} {e}") from None
+
+
+def server_phase(dev, workdir: str) -> dict:
+    """Phase 8: a VolumeServer on the card over HTTP behind a dead master;
+    returns the kernels' launches in it."""
+    import socket
+
+    from seaweedfs_tpu_torch.rpc import policy
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+
+    check(native.lib() is not None, "the native host library did not build")
+    vid = 8
+    with socket.socket() as sock:  # a local port nothing listens on
+        sock.bind(("127.0.0.1", 0))
+        dead = f"127.0.0.1:{sock.getsockname()[1]}"
+    needles = seeded_needles(SERVER_BYTES, SEED + 12)
+    etag = {nid: "%08x" % crc_host.crc32c(data)
+            for nid, (_, data) in needles.items()}
+    total = sum(len(d) for _, d in needles.values())
+    lookups = []
+    real_call_policy = policy.call_policy
+
+    def counted(addr, path, *a, **kw):
+        lookups.append((time.monotonic(), path))
+        return real_call_policy(addr, path, *a, **kw)
+
+    policy.call_policy = counted
+    policy.reset_state()
+    rs_cuda.reset_launches()
+    vs = VolumeServer([workdir], dead, port=0, ec_encoder_backend="cuda")
+    vs.start()
+    out = {}
+    try:
+        addr = vs.address
+        check(vs.store.device is None, "the server's store was given a "
+              "device: it should resolve the card itself")
+        expo0 = exposition(http_get_text(addr, "/metrics"))
+        http_json(addr, "/admin/assign_volume", {"volume": vid})
+        put = http_load(addr, vid, "put", None, workdir)
+        check(not put["bad"] and put["n"] == len(needles),
+              f"PUT: {len(put['bad'])} failed, e.g. {put['bad'][:3]}")
+        wrong = [nid for nid in needles if put["etags"][str(nid)] !=
+                 etag[nid]]
+        check(not wrong, f"{len(wrong)} acks' ETags are not the needles' "
+              f"CRC32C, e.g. {wrong[:5]}")
+        out["put_mib_s"] = total / MIB / put["wall"]
+        out["put_req_s"] = put["n"] / put["wall"]
+        out["put_p50_ms"] = pct_ms(put["lat"], 50)
+        out["put_p99_ms"] = pct_ms(put["lat"], 99)
+        log(f"server: {put['n']} needles, {total} B POSTed raw from "
+            f"{SERVER_CONNS} connections in {put['wall']:.3f} s: "
+            f"{out['put_mib_s']:.1f} MiB/s, {out['put_req_s']:.0f} req/s, "
+            f"p50 {out['put_p50_ms']:.3f} ms, p99 {out['put_p99_ms']:.3f} "
+            "ms; every ETag = the needle's CRC32C")
+        sample_ids = sorted(np.random.default_rng(SEED + 13).choice(
+            sorted(needles), min(SERVER_SAMPLE, len(needles)),
+            replace=False).tolist())
+        intact = http_load(addr, vid, "get", sample_ids, workdir)
+        check(not intact["bad"], f"intact GET: {intact['bad'][:3]}")
+        out["get_intact_p50_ms"] = pct_ms(intact["lat"], 50)
+        out["get_intact_p99_ms"] = pct_ms(intact["lat"], 99)
+
+        # the shell's ec.encode sequence on one holder
+        http_json(addr, "/admin/readonly", {"volume": vid})
+        dat = os.path.getsize(os.path.join(workdir, f"{vid}.dat"))
+        k2 = rs_cuda.launches["fused_apply_crc"]
+        t0 = time.perf_counter()
+        http_json(addr, "/admin/ec/generate", {"volume": vid})
+        out["generate_s"] = time.perf_counter() - t0
+        k2 = rs_cuda.launches["fused_apply_crc"] - k2
+        check(k2 > 0, "K2 did not launch in /admin/ec/generate")
+        out["generate_gib_s"] = dat / (1 << 30) / out["generate_s"]
+        http_json(addr, "/admin/ec/mount", {"volume": vid,
+                                            "shard_ids": list(range(14))})
+        http_json(addr, "/admin/delete_volume", {"volume": vid})
+        http_json(addr, "/admin/ec/delete_shards",
+                  {"volume": vid, "shard_ids": list(LOST)})
+        base = os.path.join(workdir, str(vid))
+        check(not any(os.path.exists(base + to_ext(s)) for s in LOST),
+              "delete_shards left a lost shard on disk")
+        log(f"server: /admin/ec/generate of {dat} B on the card in "
+            f"{out['generate_s']:.3f} s ({out['generate_gib_s']:.3f} GiB/s, "
+            f"{k2} K2 launches); 14 shards mounted, the volume deleted, "
+            ".ec00 .ec05 .ec11 .ec13 dropped")
+
+        # every needle behind the lost shards, from 8 connections
+        recover.STATS.reset()
+        before = exposition(http_get_text(addr, "/metrics"))
+        k1 = rs_cuda.launches["gf_apply"]
+        lookups.clear()
+        t_window = time.monotonic()
+        degraded = http_load(addr, vid, "get", None, workdir)
+        window_s = time.monotonic() - t_window
+        k1 = rs_cuda.launches["gf_apply"] - k1
+        check(not degraded["bad"] and degraded["n"] == len(needles),
+              f"degraded GET: {len(degraded['bad'])} failed, e.g. "
+              f"{degraded['bad'][:3]}")
+        wrong = [nid for nid in needles if degraded["etags"][str(nid)] !=
+                 etag[nid]]
+        check(not wrong, f"{len(wrong)} degraded GETs' ETags are not the "
+              "needles' CRC32C")
+        rst = http_json(addr, "/admin/ec/recover_stats")
+        check(rst["batches"] > 0 and k1 == rst["batches"],
+              f"{k1} K1 launches in the degraded window, "
+              f"{rst['batches']} decode batches")
+        after = exposition(http_get_text(addr, "/metrics"))
+        check_recover_mirrors(before, after, rst)
+        ec_lookups = [t for t, path in lookups if path.startswith(
+            "/ec/lookup")]
+        check(len(ec_lookups) <= window_s / 11.0 + 1,
+              f"{len(ec_lookups)} EC location lookups to the dead master "
+              f"in a {window_s:.1f} s window: the error tier did not hold")
+        out["get_degraded_p50_ms"] = pct_ms(degraded["lat"], 50)
+        out["get_degraded_p99_ms"] = pct_ms(degraded["lat"], 99)
+        out["degraded_mib_s"] = degraded["bytes"] / MIB / degraded["wall"]
+        log(f"server: intact GET of {intact['n']} needles p50 "
+            f"{out['get_intact_p50_ms']:.3f} ms p99 "
+            f"{out['get_intact_p99_ms']:.3f} ms; degraded GET of all "
+            f"{degraded['n']} from {SERVER_CONNS} connections in "
+            f"{degraded['wall']:.3f} s ({out['degraded_mib_s']:.1f} MiB/s) "
+            f"p50 {out['get_degraded_p50_ms']:.3f} ms p99 "
+            f"{out['get_degraded_p99_ms']:.3f} ms; {k1} K1 launches = "
+            f"{rst['batches']} decode batches ({rst['batched_spans']} "
+            f"batched spans); {len(ec_lookups)} EC lookups to the dead "
+            f"master in {window_s:.1f} s")
+
+        # rebuild against the .vif CRCs, then scrub
+        t0 = time.perf_counter()
+        got = http_json(addr, "/admin/ec/rebuild", {"volume": vid})
+        out["rebuild_s"] = time.perf_counter() - t0
+        check(sorted(got["rebuilt_shard_ids"]) == list(LOST),
+              f"rebuild gave {got}")
+        stored = encoder.load_volume_info(base)["shard_crc32c"]
+        for sid in LOST:
+            with open(base + to_ext(sid), "rb") as f:
+                check(crc_host.crc32c(f.read()) == stored[sid],
+                      f"rebuilt .ec{sid:02d} does not match its .vif CRC")
+        http_json(addr, "/admin/ec/mount", {"volume": vid,
+                                            "shard_ids": list(LOST)})
+        scrub = http_json(addr, "/admin/ec/scrub", {"volume": vid})
+        check(scrub["clean"] == list(range(14)) and not scrub["corrupt"],
+              f"scrub after the rebuild: {scrub}")
+        log(f"server: /admin/ec/rebuild of {sorted(LOST)} in "
+            f"{out['rebuild_s']:.3f} s, each equal to its .vif CRC; "
+            "/admin/ec/scrub clean")
+
+        # the scrape against the load process's own counts and the pool
+        final = exposition(http_get_text(addr, "/metrics"))
+        req = "SeaweedFS_volumeServer_request_total"
+        writes = sample(final, req, type="write") - sample(expo0, req,
+                                                           type="write")
+        reads = sample(final, req, type="read") - sample(expo0, req,
+                                                         type="read")
+        check(writes == put["n"] and
+              reads == intact["n"] + degraded["n"],
+              f"request counters moved {writes} writes, {reads} reads; "
+              f"the load process sent {put['n']} POSTs and "
+              f"{intact['n'] + degraded['n']} GETs")
+        check_pool_gauges(get_pool(), "server", final)
+        log(f"server: /metrics ({final['_families']} families, "
+            f"{final['_lines']} lines, parsed strictly): request counters "
+            f"= the load process's {put['n']} POSTs and "
+            f"{intact['n'] + degraded['n']} GETs, device-pool gauges = "
+            "the pool, EcRecover* = /admin/ec/recover_stats")
+    finally:
+        policy.call_policy = real_call_policy
+        vs.stop()
+        policy.reset_state()
+    launches = dict(rs_cuda.launches)
+    log("server numbers: " + json.dumps(out, sort_keys=True))
+    log(f"launches on the server path: {launches}")
+    return launches
+
+
+def http_get_text(addr: str, path: str) -> str:
+    from seaweedfs_tpu_torch.rpc.http_rpc import call
+
+    return call(addr, path, parse=False).decode()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1959,10 +2282,14 @@ def main() -> int:
     ap.add_argument("--cache", action="store_true",
                     help="build and check the kernels, then phase 7 (the "
                          "tiered read cache) alone")
+    ap.add_argument("--server", action="store_true",
+                    help="build and check the kernels, then phase 8 (the "
+                         "volume server over HTTP) alone")
     args = ap.parse_args()
     mode = ("quick" if args.quick else "kernels" if args.kernels
             else "routes" if args.routes else "inline" if args.inline
-            else "cache" if args.cache else "all")
+            else "cache" if args.cache else "server" if args.server
+            else "all")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1978,15 +2305,17 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
     stats = kernel_phase(dev, "quick" if mode in ("routes", "inline",
-                                                  "cache") else mode)
+                                                  "cache", "server")
+                         else mode)
     if mode in ("kernels", "routes", "all"):
         route_phase(dev)
     if mode == "routes":
         route_profile(dev)
-    if mode in ("inline", "cache"):
+    if mode in ("inline", "cache", "server"):
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
-            (inline_phase if mode == "inline" else cache_phase)(dev, workdir)
+            {"inline": inline_phase, "cache": cache_phase,
+             "server": server_phase}[mode](dev, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     launches = {}
@@ -1994,12 +2323,14 @@ def main() -> int:
         # each path resets the launch counts before it runs and reads
         # them after; the kernels each one must have launched
         needs = {"raw": KERNELS, "needle": KERNELS, "store": KERNELS,
-                 "inline": ("gf_apply",), "cache": KERNELS}
+                 "inline": ("gf_apply",), "cache": KERNELS,
+                 "server": KERNELS}
         paths = {}
         for label, phase in (("raw", main_path), ("needle", needle_phase),
                              ("store", store_phase),
                              ("inline", inline_phase),
-                             ("cache", cache_phase)):
+                             ("cache", cache_phase),
+                             ("server", server_phase)):
             workdir = tempfile.mkdtemp(prefix="chip_smoke_")
             try:
                 paths[label] = phase(dev, workdir)

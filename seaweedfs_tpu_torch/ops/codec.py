@@ -264,8 +264,9 @@ def reconstruct_span(survivors, inputs: np.ndarray, target: int,
     resolved first in any case, so without a card and without
     device="cpu" this raises even for a span the host would serve.
 
-    slab_key: the content identity of `inputs` (the caller hashes the
-    survivor stack).  On the device route the upload then goes through
+    slab_key: an identity of `inputs`: equal keys must mean equal
+    stacks (EcVolume keys by its mount and the spans' positions, which
+    its immutable shard files make sound).  On the device route the upload then goes through
     the DevicePool's resident slabs under ("recover", family, survivors,
     slab_key): consecutive decodes against the same survivor spans (a
     different missing target, or a block recovered again after cache

@@ -19,11 +19,16 @@ Two kinds of slab, one accounting domain:
             that outlive one call, so repeated degraded reads against the
             same survivor stack decode from device memory instead of
             crossing the link again.  A resident with refs == 0 stays
-            cached until the byte cap evicts it (LRU).
+            cached until the byte cap evicts it.
 
 `WEED_EC_DEVICE_POOL_MB` caps the bytes the pool retains for idle slabs
 (free leases and unreferenced residents); leased or referenced slabs are
-never evicted, so the cap bounds retention, not admission.  The default,
+never evicted, so the cap bounds retention, not admission.  Idle slabs
+leave least recently used first, free leases and idle residents alike.
+The JAX package's pool evicts every free lease before any idle resident,
+so once degraded reads have filled its cap with residents, each released
+lease is dropped at once and the next batch allocates again; the port
+does not copy that (ROADMAP §3, R2).  The default,
 1024, is above the JAX package's 256 because here the pool also holds the
 pinned host side: one encode at the default geometry (64 MiB batches,
 WEED_EC_DEVICE_INFLIGHT=3) leases ~0.7 GiB of pinned staging, device
@@ -35,6 +40,7 @@ accounting.  Device labels are `str(torch.device)`; None is the host.
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import threading
@@ -63,13 +69,14 @@ class Lease:
     leased for, part of its free-list identity: a slab leased for one
     device is never handed to a caller staging for another."""
 
-    __slots__ = ("key", "payload", "nbytes", "device")
+    __slots__ = ("key", "payload", "nbytes", "device", "last_used")
 
     def __init__(self, key, payload, nbytes: int, device=None):
         self.key = key
         self.payload = payload
         self.nbytes = nbytes
         self.device = device
+        self.last_used = 0
 
 
 class _Resident:
@@ -80,7 +87,7 @@ class _Resident:
         self.payload = payload
         self.nbytes = nbytes
         self.refs = 0
-        self.last_used = 0.0
+        self.last_used = 0
 
 
 class DevicePool:
@@ -92,7 +99,11 @@ class DevicePool:
         self._leased_bytes = 0
         self._free_bytes = 0
         self._resident_bytes = 0
+        self._idle_resident_bytes = 0             # of refs == 0 residents
         self._leased_count = 0
+        # use order of idle slabs: a release stamps a lease, an acquire
+        # stamps a resident; eviction takes the lowest stamp first
+        self._uses = itertools.count(1)
         # monotonic counters
         self.allocs = 0
         self.lease_hits = 0
@@ -153,6 +164,7 @@ class DevicePool:
         with self._lock:
             self._leased_bytes -= lease.nbytes
             self._leased_count -= 1
+            lease.last_used = next(self._uses)
             self._free.setdefault(lease.key, []).append(lease)
             self._free_order.append(lease)
             self._free_bytes += lease.nbytes
@@ -186,8 +198,8 @@ class DevicePool:
         with self._lock:
             res = self._residents.get(key)
             if res is not None:
-                res.refs += 1
-                res.last_used = time.monotonic()
+                self._ref_locked(res)
+                res.last_used = next(self._uses)
                 self.resident_hits += 1
                 self._publish()
                 return res.payload
@@ -198,12 +210,13 @@ class DevicePool:
                 res = _Resident(key, payload, nbytes)
                 self._residents[key] = res
                 self._resident_bytes += nbytes
+                self._idle_resident_bytes += nbytes  # until _ref_locked
                 self.resident_misses += 1
                 self.allocs += 1
             else:
                 self.resident_hits += 1
-            res.refs += 1
-            res.last_used = time.monotonic()
+            self._ref_locked(res)
+            res.last_used = next(self._uses)
             self._evict_locked()
             self._publish()
             return res.payload
@@ -221,7 +234,14 @@ class DevicePool:
                 if drop and res.refs == 0:
                     del self._residents[key]
                     self._resident_bytes -= res.nbytes
+                elif res.refs == 0:
+                    self._idle_resident_bytes += res.nbytes
             self._publish()
+
+    def _ref_locked(self, res: _Resident):
+        if res.refs == 0:
+            self._idle_resident_bytes -= res.nbytes
+        res.refs += 1
 
     def residents_under(self, prefix: tuple) -> dict:
         """{key: (refs, nbytes)} of the residents whose tuple key starts
@@ -234,31 +254,32 @@ class DevicePool:
     # -- eviction / accounting ----------------------------------------
 
     def _evict_locked(self):
-        """Drop idle bytes (free leases first, then refs == 0 residents,
-        LRU) until under the cap."""
+        """Drop idle bytes (free leases and refs == 0 residents, least
+        recently used first) until under the cap."""
         cap = _cap_bytes()
-
-        def idle():
-            return self._free_bytes + sum(
-                r.nbytes for r in self._residents.values() if r.refs == 0)
-
-        while self._free_order and idle() > cap:
-            ls = self._free_order.pop(0)
-            self._free[ls.key].remove(ls)
-            if not self._free[ls.key]:
-                del self._free[ls.key]
-            self._free_bytes -= ls.nbytes
-            self._drop_dev_bytes_locked(ls)
-            self.evictions += 1
-        while idle() > cap:
-            victims = sorted(
-                (r for r in self._residents.values() if r.refs == 0),
-                key=lambda r: r.last_used)
-            if not victims:
-                break
-            v = victims[0]
-            del self._residents[v.key]
-            self._resident_bytes -= v.nbytes
+        idle = self._free_bytes + self._idle_resident_bytes
+        if idle <= cap:
+            return  # the common case: no sort of the idle residents
+        residents = sorted(
+            (r for r in self._residents.values() if r.refs == 0),
+            key=lambda r: r.last_used)
+        while idle > cap and (self._free_order or residents):
+            if residents and (not self._free_order or
+                              residents[0].last_used <
+                              self._free_order[0].last_used):
+                v = residents.pop(0)
+                del self._residents[v.key]
+                self._resident_bytes -= v.nbytes
+                self._idle_resident_bytes -= v.nbytes
+                idle -= v.nbytes
+            else:
+                ls = self._free_order.pop(0)
+                self._free[ls.key].remove(ls)
+                if not self._free[ls.key]:
+                    del self._free[ls.key]
+                self._free_bytes -= ls.nbytes
+                self._drop_dev_bytes_locked(ls)
+                idle -= ls.nbytes
             self.evictions += 1
 
     def note_h2d(self, nbytes: int, device=None):

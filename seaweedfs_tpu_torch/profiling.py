@@ -20,7 +20,8 @@ Counterpart of seaweedfs_tpu/profiling.py.
   * cluster side: ``merge_folded`` combines per-daemon profiles under
     per-daemon root frames into one cluster flamegraph.
 
-The ``/debug/pprof`` handlers come with the RPC layer.
+Every daemon mounts ``GET /debug/pprof`` (``profile?seconds=N&hz=M``,
+``heap``, ``device``) through :func:`mount`.
 
 Knobs (env, read live like the WEED_TRACE_* family):
   WEED_PROF_HZ          always-on sampling rate (default 5; 0 disables)
@@ -361,7 +362,7 @@ def merge_folded(profiles: dict[str, str]) -> str:
                    sorted(merged.items(), key=lambda kv: -kv[1]))
 
 
-# -- heap snapshot (the RPC layer serves it as /debug/pprof/heap) ------------
+# -- HTTP surface -------------------------------------------------------------
 
 def _heap_text(req) -> str:
     import tracemalloc
@@ -385,3 +386,55 @@ def _heap_text(req) -> str:
     lines.extend(str(stat) for stat in
                  snapshot.statistics("lineno")[:limit])
     return "\n".join(lines) + "\n"
+
+
+def pprof_handler(req):
+    """RpcServer route for the /debug/pprof family.  Register with the
+    bare prefix — longest-prefix matching routes profile/heap/device
+    here, like traces_handler."""
+    from .rpc.http_rpc import Response, RpcError
+
+    rest = req.path[len("/debug/pprof"):].strip("/")
+    if not rest:
+        prof = _PROFILER
+        return {
+            "endpoints": ["/debug/pprof/profile?seconds=N&hz=M",
+                          "/debug/pprof/heap", "/debug/pprof/device"],
+            "always_on": prof.snapshot() if prof is not None else None,
+            "hz": prof_hz(),
+        }
+    if rest == "profile":
+        try:
+            seconds = float(req.param("seconds") or 2.0)
+        except ValueError:
+            seconds = 2.0
+        try:
+            hz = float(req.param("hz") or 99.0)
+        except ValueError:
+            hz = 99.0
+        seconds = max(0.0, min(seconds, 120.0))
+        hz = max(1.0, min(hz, 1000.0))
+        if seconds == 0:  # cumulative always-on profile, no wait
+            prof = _PROFILER
+            if prof is None:
+                raise RpcError(
+                    "always-on profiler not running; use ?seconds=N", 400)
+            text = prof.folded()
+        else:
+            text = profile_burst(seconds, hz,
+                                 exclude={threading.get_ident()})
+        return Response(text.encode(),
+                        content_type="text/plain; charset=utf-8")
+    if rest == "heap":
+        return Response(_heap_text(req).encode(),
+                        content_type="text/plain; charset=utf-8")
+    if rest == "device":
+        return device_timeline()
+    raise RpcError(f"unknown pprof endpoint {rest!r}", 404)
+
+
+def mount(server):
+    """Register /debug/pprof on an RpcServer and start the always-on
+    sampler (every daemon front end calls this, like faults.mount)."""
+    server.add("GET", "/debug/pprof", pprof_handler)
+    ensure_started()

@@ -533,3 +533,215 @@ class UsageAggregator:
                                    "share": head["share"],
                                    "reads": head["reads"],
                                    "fleet_reads": round(reads, 1)})
+
+
+def access_handler(req, recorder: Optional[AccessRecorder] = None):
+    rec = recorder or RECORDER
+    return rec.summary()
+
+
+def mount(server, recorder: Optional[AccessRecorder] = None) -> None:
+    """Register ``GET /debug/access`` (the qos.mount/faults.mount
+    pattern) so the leader scrape loop can pull non-heartbeat daemons
+    (filer, S3 gateway) into the fleet view."""
+    server.add("GET", "/debug/access",
+               lambda req: access_handler(req, recorder))
+
+
+# ---------------------------------------------------------------------------
+# master-side aggregation
+
+
+def merge_summaries(parts: List[dict],
+                    capacity: Optional[int] = None) -> dict:
+    """Fold per-daemon summaries into one fleet summary — pure sketch
+    merge (Space-Saving union, HLL register max, bucket adds), exactly
+    the ``merge_expositions`` posture: daemons ship summaries, never
+    raw key streams."""
+    cap = capacity or max(16, _env_int("WEED_HEAT_MAX_KEYS", 4096))
+    hot = SpaceSaving(cap)
+    vol_hot = SpaceSaving(min(cap, 4096))
+    distinct = HyperLogLog()
+    sizes = LogQuantile()
+    latency: Dict[str, LogQuantile] = {}
+    tiers: Dict[str, float] = {}
+    collections: Dict[str, dict] = {}
+    tenants: Dict[str, dict] = {}
+    totals = {"reads": 0.0, "writes": 0.0, "bytes_read": 0.0,
+              "bytes_written": 0.0, "records": 0}
+
+    def _fold_entities(dst: Dict[str, dict], src: Dict[str, dict]):
+        for name, ent in (src or {}).items():
+            cell = dst.get(name)
+            if cell is None:
+                cell = dst[name] = {"ops": {}, "bytes": {},
+                                    "hll": HyperLogLog()}
+            for k, v in (ent.get("ops") or {}).items():
+                cell["ops"][k] = cell["ops"].get(k, 0.0) + float(v)
+            for k, v in (ent.get("bytes") or {}).items():
+                cell["bytes"][k] = cell["bytes"].get(k, 0.0) + float(v)
+            d = ent.get("distinct")
+            if d:
+                cell["hll"].merge(HyperLogLog.from_dict(d))
+
+    for part in parts:
+        if not part:
+            continue
+        for k in ("reads", "writes", "bytes_read", "bytes_written"):
+            totals[k] += float(part.get(k, 0) or 0)
+        totals["records"] += int(part.get("records", 0) or 0)
+        if part.get("hot"):
+            hot.merge(SpaceSaving.from_dict(part["hot"]))
+        if part.get("volumes"):
+            vol_hot.merge(SpaceSaving.from_dict(part["volumes"]))
+        if part.get("distinct"):
+            distinct.merge(HyperLogLog.from_dict(part["distinct"]))
+        if part.get("sizes"):
+            sizes.merge(LogQuantile.from_dict(part["sizes"]))
+        for cls, d in (part.get("latency") or {}).items():
+            lq = latency.get(cls)
+            if lq is None:
+                latency[cls] = LogQuantile.from_dict(d)
+            else:
+                lq.merge(LogQuantile.from_dict(d))
+        for k, v in (part.get("tiers") or {}).items():
+            tiers[k] = tiers.get(k, 0.0) + float(v)
+        _fold_entities(collections, part.get("collections") or {})
+        _fold_entities(tenants, part.get("tenants") or {})
+
+    return {"totals": totals, "hot": hot, "vol_hot": vol_hot,
+            "distinct": distinct, "sizes": sizes, "latency": latency,
+            "tiers": tiers, "collections": collections,
+            "tenants": tenants}
+
+
+def _quantile_view(lq: LogQuantile) -> dict:
+    return {"count": round(lq.count, 3), "mean": round(lq.mean(), 6),
+            "p50": round(lq.quantile(0.5), 6),
+            "p90": round(lq.quantile(0.9), 6),
+            "p99": round(lq.quantile(0.99), 6)}
+
+
+class UsageAggregator:
+    """Leader-resident fold of every daemon's latest access summary.
+
+    Each daemon's summary is a decayed *snapshot*, so the aggregator
+    keeps exactly one per node (replace, don't accumulate) and merges
+    across nodes on demand — double counting is structurally
+    impossible.  Nodes silent for ``WEED_USAGE_MAX_AGE_S`` age out.
+    """
+
+    def __init__(self, now: Callable[[], float] = time.time):
+        self.now = now
+        self.lock = threading.Lock()
+        self.parts: Dict[str, dict] = {}     # node -> summary
+        self._hot_emitted: Dict[str, float] = {}
+
+    def ingest(self, node: str, summary: Optional[dict]) -> None:
+        if not node or not isinstance(summary, dict):
+            return
+        with self.lock:
+            self.parts[node] = summary
+
+    def _fresh_parts(self) -> Dict[str, dict]:
+        max_age = max(1.0, _env_float("WEED_USAGE_MAX_AGE_S", 300.0))
+        cutoff = self.now() - max_age
+        with self.lock:
+            self.parts = {n: s for n, s in self.parts.items()
+                          if float(s.get("ts", 0) or 0) >= cutoff}
+            return dict(self.parts)
+
+    def usage(self, topk: Optional[int] = None) -> dict:
+        """The ``GET /cluster/usage`` body."""
+        k = topk or max(1, _env_int("WEED_USAGE_TOPK", 20))
+        parts = self._fresh_parts()
+        merged = merge_summaries(list(parts.values()))
+        totals = merged["totals"]
+        reads = totals["reads"] or 0.0
+        top = [{"fid": fid, "reads": round(cnt, 3),
+                "error": round(err, 3),
+                "share": round(cnt / reads, 4) if reads else 0.0}
+               for fid, cnt, err in merged["hot"].top(k)]
+        out = {
+            "ts": round(self.now(), 3),
+            "nodes": sorted(parts),
+            "totals": {"reads": round(totals["reads"], 3),
+                       "writes": round(totals["writes"], 3),
+                       "bytes_read": round(totals["bytes_read"], 3),
+                       "bytes_written": round(totals["bytes_written"], 3),
+                       "records": totals["records"],
+                       "distinct_keys":
+                           int(merged["distinct"].estimate())},
+            "top_keys": top,
+            "volumes": {vid: round(cnt, 3)
+                        for vid, cnt, _ in merged["vol_hot"].top(0)},
+            "tiers": {k2: round(v, 3)
+                      for k2, v in sorted(merged["tiers"].items())},
+            "sizes": _quantile_view(merged["sizes"]),
+            "latency": {cls: _quantile_view(lq)
+                        for cls, lq in sorted(merged["latency"].items())},
+            "collections": {}, "tenants": {},
+        }
+        for name, table in (("collections", merged["collections"]),
+                            ("tenants", merged["tenants"])):
+            for ent_name, cell in sorted(table.items()):
+                out[name][ent_name] = {
+                    "ops": {k2: round(v, 3)
+                            for k2, v in sorted(cell["ops"].items())},
+                    "bytes": {k2: round(v, 3)
+                              for k2, v in sorted(cell["bytes"].items())},
+                    "distinct_keys": int(cell["hll"].estimate()),
+                }
+        self._export(out)
+        return out
+
+    def _export(self, usage: dict) -> None:
+        """Mirror the assembled view into ``SeaweedFS_usage_*`` gauges
+        so the TSDB / Grafana see what ``/cluster/usage`` serves."""
+        t = usage["totals"]
+        _stats.UsageReadsGauge.labels().set(t["reads"])
+        _stats.UsageWritesGauge.labels().set(t["writes"])
+        _stats.UsageBytesGauge.labels("read").set(t["bytes_read"])
+        _stats.UsageBytesGauge.labels("write").set(t["bytes_written"])
+        _stats.UsageDistinctKeysGauge.labels().set(t["distinct_keys"])
+        _stats.UsageTenantsGauge.labels().set(len(usage["tenants"]))
+        _stats.UsageCollectionsGauge.labels().set(len(usage["collections"]))
+        top = usage["top_keys"]
+        _stats.UsageHotShareGauge.labels().set(
+            top[0]["share"] if top else 0.0)
+
+    def maybe_emit_hot_key(self, usage: Optional[dict] = None,
+                           node: str = "") -> Optional[dict]:
+        """Fire an ``access.hotkey`` journal event when the hottest
+        fid exceeds ``WEED_HEAT_HOT_SHARE`` of fleet reads (with
+        enough reads to mean anything); deduped per fid per epoch so
+        a steady hot key doesn't spam the journal."""
+        from . import events
+
+        share_gate = _env_float("WEED_HEAT_HOT_SHARE", 0.25)
+        min_reads = _env_float("WEED_HEAT_MIN_READS", 100.0)
+        if usage is None:
+            usage = self.usage(topk=1)
+        top = usage.get("top_keys") or []
+        reads = float(usage.get("totals", {}).get("reads", 0) or 0)
+        if not top or reads < min_reads:
+            return None
+        head = top[0]
+        if head["share"] < share_gate:
+            return None
+        epoch = max(0.25, _env_float("WEED_HEAT_EPOCH_S", 60.0))
+        now = self.now()
+        with self.lock:
+            last = self._hot_emitted.get(head["fid"], 0.0)
+            if now - last < epoch:
+                return None
+            self._hot_emitted[head["fid"]] = now
+            if len(self._hot_emitted) > 1024:
+                cut = sorted(self._hot_emitted.values())[512]
+                self._hot_emitted = {
+                    f: t for f, t in self._hot_emitted.items() if t > cut}
+        return events.emit(events.HOT_KEY, service="master", node=node,
+                           detail={"fid": head["fid"],
+                                   "share": head["share"],
+                                   "reads": head["reads"],
+                                   "fleet_reads": round(reads, 1)})

@@ -10,14 +10,16 @@ live, so an operator can pivot from "what happened" straight into
 Counterpart of seaweedfs_tpu/stats/events.py.  A leader merges remote
 daemons' journals with a per-origin cursor; every journal carries a
 random ``origin`` token so a merge never re-ingests its own events
-(all-in-one processes share this module's global JOURNAL).  The
-``GET /cluster/events`` handler comes with the RPC layer.
+(all-in-one processes share this module's global JOURNAL).  Every
+daemon serves ``GET /cluster/events?since=<seq>`` (``follow=<seconds>``
+streams) through :func:`mount`.
 
 Knob: ``WEED_EVENTS_MAX`` — ring capacity per process (default 2048).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -151,3 +153,46 @@ def emit(kind: str, service: str = "", node: str = "",
     """Module-level convenience: append to the process journal."""
     return JOURNAL.emit(kind, service=service, node=node, detail=detail,
                         **kw)
+
+
+def events_handler(req, journal: Optional[EventJournal] = None):
+    """``GET /cluster/events?since=N[&limit=M][&follow=seconds]``.
+
+    Plain mode returns a JSON snapshot; ``follow`` streams newline-
+    delimited JSON events over chunked transfer-encoding until the
+    window elapses (Response iterator bodies already stream)."""
+    from ..rpc.http_rpc import Response
+
+    j = journal or JOURNAL
+    try:
+        since = int(req.param("since", 0) or 0)
+        limit = int(req.param("limit", 0) or 0)
+        follow = float(req.param("follow", 0) or 0)
+    except (TypeError, ValueError):
+        return Response(b'{"error": "bad cursor"}', status=400,
+                        content_type="application/json")
+    if follow <= 0:
+        return {"journal": j.token, "seq": j.seq,
+                "events": j.since(since, limit)}
+
+    def stream():
+        cursor = since
+        deadline = time.time() + min(follow, 300.0)
+        # first line identifies the journal so pollers learn the token
+        yield (json.dumps({"journal": j.token, "seq": j.seq})
+               + "\n").encode()
+        while time.time() < deadline:
+            fresh = j.wait(cursor, min(1.0, deadline - time.time()))
+            for e in fresh:
+                cursor = max(cursor, e["seq"])
+                yield (json.dumps(e) + "\n").encode()
+
+    return Response(stream(), content_type="application/x-ndjson")
+
+
+def mount(server, journal: Optional[EventJournal] = None):
+    """Register GET /cluster/events on an RpcServer (the faults.mount /
+    qos.mount pattern) — every daemon serves its local journal; the
+    master leader additionally serves the merged cluster view."""
+    server.add("GET", "/cluster/events",
+               lambda req: events_handler(req, journal))

@@ -4,8 +4,9 @@ Counterpart of seaweedfs_tpu/stats/metrics.py.  A dependency-free
 registry of counters, gauges and histograms that produces the Prometheus
 text exposition format.  Every family the JAX package registers is
 registered here under the same name, help string, labels and buckets,
-so one dashboard (`grafana/`) reads either package.  The HTTP surface
-(`metrics_handler`, `start_metrics_server`) comes with the RPC layer.
+so one dashboard (`grafana/`) reads either package.  `metrics_handler`
+serves it at /metrics on every daemon; `start_metrics_server` serves it
+on a port of its own.
 """
 
 from __future__ import annotations
@@ -867,3 +868,31 @@ def merge_expositions(parts: "list[tuple[str, str]]") -> str:
         out.extend(meta[family])
         out.extend(samples[family])
     return "\n".join(out) + "\n"
+
+
+def metrics_handler(req):
+    """RpcServer route serving the registry in text exposition format."""
+    from ..rpc.http_rpc import Response
+
+    return Response(REGISTRY.expose().encode(),
+                    content_type="text/plain; version=0.0.4")
+
+
+def start_metrics_server(host: str = "127.0.0.1",
+                         port: int = 0):
+    """Dedicated metrics endpoint on its own port (the reference's
+    -metricsPort; stats/metrics.go StartMetricsServer).  Daemons whose
+    main port serves a user namespace (filer paths, s3 buckets) cannot
+    mount /metrics there without shadowing user data."""
+    from .. import profiling, qos, tracing
+    from ..rpc.http_rpc import RpcServer
+    from ..util import faults
+
+    server = RpcServer(host, port, service_name="metrics")
+    server.add("GET", "/metrics", metrics_handler)
+    server.add("GET", "/debug/traces", tracing.traces_handler)
+    faults.mount(server)
+    profiling.mount(server)
+    qos.mount(server)
+    server.start()
+    return server

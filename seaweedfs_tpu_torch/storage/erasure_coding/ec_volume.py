@@ -19,13 +19,13 @@ servers go through the `remote_reader` hook, and an inline-EC volume
 (inline.py) serves spans past its shard logs' durable extent through the
 `tail_reader` hook.  A degraded read is an ``ec.recover.serve`` span
 and each block's survivor fetch an ``ec.recover.fetch`` span under it;
-the reference's QoS and deadline propagation onto remote fetches comes
-with the slice that ports rpc/.
+each remote fetch carries the caller's deadline and QoS class.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import itertools
 import os
 import struct
 import threading
@@ -37,6 +37,8 @@ import numpy as np
 from ... import device as device_mod
 from ... import tracing
 from ...ops import codec as codec_mod
+from ...qos import classify as qos_classify
+from ...rpc.http_rpc import current_deadline, set_deadline
 from .. import idx as idx_mod
 from .. import types as t
 from ..needle import Needle, get_actual_size
@@ -49,6 +51,11 @@ from .recover import (STATS as RECOVER_STATS, RecoveredBlockCache,
 
 _recover_pool_lock = threading.Lock()
 _recover_pool_inst = None
+
+# one number per mounted EcVolume: the first part of its resident slab
+# keys, so a volume mounted again never meets the uploads of an earlier
+# mount of the same id
+_mounts = itertools.count()
 
 
 def _recover_pool():
@@ -193,10 +200,12 @@ class EcVolume:
         self.device = device_mod.resolve(device)
         self.shards: dict[int, EcVolumeShard] = {}
         self.remote_reader: Optional[ShardReader] = None
+        self.shard_locations: dict[int, list[str]] = {}  # shard id -> addrs
         # code family rides in .vif metadata: volumes encoded before the
         # coding tier existed have no record and resolve to the RS default
         info = load_volume_info(self.base_file_name()) or {}
         self.family = get_family(info.get("code_family"))
+        self._mount = next(_mounts)
         # degraded-read machinery: per-volume recovered-block LRU (keys
         # are shard offsets, which only mean anything within one volume)
         # + the same-survivor-set span-decode batcher
@@ -407,11 +416,12 @@ class EcVolume:
                 with tracing.span(
                         "ec.recover.fetch",
                         tags={"shard": target_shard, "bytes": size}) as fsp:
-                    survivors, inputs = self._fetch_survivors(
+                    survivors, inputs, sealed = self._fetch_survivors(
                         target_shard, offset, size, out=slab)
                 RECOVER_STATS.add_stage("fetch", fsp.duration or 0.0)
                 out = self._recover_batcher.decode(
-                    survivors, target_shard, inputs)
+                    survivors, target_shard, inputs,
+                    span=(offset, size) if sealed else None)
             return np.ascontiguousarray(out).tobytes()
         finally:
             self._tls.busy = (getattr(self._tls, "busy", 0.0)
@@ -419,7 +429,7 @@ class EcVolume:
 
     def _fetch_survivors(self, target_shard: int, offset: int,
                          size: int, out: Optional[np.ndarray] = None
-                         ) -> tuple[tuple, np.ndarray]:
+                         ) -> tuple[tuple, np.ndarray, bool]:
         """Collect exactly data_shards survivor spans for one recovery
         (recoverOneRemoteEcShardInterval, store_ec.go:328-382).
 
@@ -429,10 +439,13 @@ class EcVolume:
         an outage costs ~one RPC round-trip, not ten serial ones.  Queued
         stragglers are cancelled; in-flight ones drain on the shared pool
         (remote_reader calls carry their own timeouts).  Returns (sorted
-        survivor ids, (k, L) stack in that order) — the decode-plan cache
-        key and its matching input, stacked into `out` when given."""
+        survivor ids, (k, L) stack in that order, sealed) — the
+        decode-plan cache key and its matching input, stacked into `out`
+        when given; `sealed` is False when the tail stripe or zero fill
+        supplied part of the stack."""
         k = self.family.data_shards
         shards: dict[int, np.ndarray] = {}
+        sealed = True
         remote_candidates: list[int] = []
         for sid in range(TOTAL_SHARDS_COUNT):
             if sid == target_shard:
@@ -455,13 +468,31 @@ class EcVolume:
                         rest = b"\x00" * (size - len(data))
                     if rest is not None:
                         data += rest
+                        sealed = False
                 if len(data) == size:
                     shards[sid] = np.frombuffer(data, dtype=np.uint8)
             elif self.remote_reader is not None:
                 remote_candidates.append(sid)
         if len(shards) < k and remote_candidates:
+            # pool workers don't share this thread's locals: pin the
+            # caller's propagated deadline and QoS context on each fetch
+            # so survivor RPCs stay inside the budget the client handed
+            # us and keep their class downstream
+            dl = current_deadline()
+            qctx = (qos_classify.current_class(),
+                    qos_classify.current_tenant())
+
+            def fetch(sid: int):
+                prev = set_deadline(dl)
+                prev_q = qos_classify.set_qos(*qctx)
+                try:
+                    return self.remote_reader(sid, offset, size)
+                finally:
+                    qos_classify.set_qos(*prev_q)
+                    set_deadline(prev)
+
             pool = _recover_pool()
-            futs = {pool.submit(self.remote_reader, sid, offset, size): sid
+            futs = {pool.submit(fetch, sid): sid
                     for sid in remote_candidates}
             try:
                 for fut in cf.as_completed(futs):
@@ -483,17 +514,27 @@ class EcVolume:
                 f"{target_shard}, only {len(shards)} available")
         survivors = tuple(sorted(shards))[:k]
         return survivors, np.stack([shards[sid] for sid in survivors],
-                                   out=out)
+                                   out=out), sealed
 
     def _decode_span(self, survivors: tuple, target: int,
-                     inputs: np.ndarray) -> np.ndarray:
+                     inputs: np.ndarray, spans: tuple) -> np.ndarray:
         """The batcher's decode hook: one cached decode row applied to
         the (possibly multi-span) survivor stack on this volume's
-        device."""
+        device.  `spans` holds each stacked request's (offset, size), or
+        None for a span the tail stripe helped fill.
+
+        The device route keeps the upload resident in the slab pool under
+        this mount and these spans (the codec adds the survivor ids):
+        another missing shard of the same row, or a block recovered
+        again after the block LRU evicted it, reuses the copy on the
+        card.  Position is identity because a mounted volume's shard
+        files are never rewritten; only a tail-filled span can change,
+        and a stack with one is not kept."""
+        slab_key = None if None in spans else (self._mount, spans)
         return codec_mod.reconstruct_span(
             survivors, inputs, target,
             self.family.data_shards, TOTAL_SHARDS_COUNT,
-            family=self.family, device=self.device)
+            slab_key=slab_key, family=self.family, device=self.device)
 
     # -- delete (ec_volume_delete.go) -----------------------------------------
     def delete_needle(self, needle_id: int):

@@ -276,10 +276,11 @@ class RecoveredBlockCache:
 
 
 class _DecodeReq:
-    __slots__ = ("inputs", "event", "out", "error")
+    __slots__ = ("inputs", "span", "event", "out", "error")
 
-    def __init__(self, inputs: np.ndarray):
+    def __init__(self, inputs: np.ndarray, span):
         self.inputs = inputs
+        self.span = span
         self.event = threading.Event()
         self.out: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
@@ -292,9 +293,12 @@ class SpanDecodeBatcher:
     drains everything queued for its key, decodes the stacked (d, ΣL)
     input in one call, then splits the output back per request.
     Requests arriving while a decode is in flight queue for the next
-    round (the leader loops until its key's queue is empty)."""
+    round (the leader loops until its key's queue is empty).
 
-    def __init__(self, decode_fn: Callable[[tuple, int, np.ndarray],
+    `decode_fn(survivors, target, stacked, spans)` also gets each
+    stacked request's `span` tag, in stacking order."""
+
+    def __init__(self, decode_fn: Callable[[tuple, int, np.ndarray, tuple],
                                            np.ndarray],
                  stats: RecoverStats = STATS):
         self._decode_fn = decode_fn
@@ -304,11 +308,12 @@ class SpanDecodeBatcher:
         self.stats = stats
 
     def decode(self, survivors: tuple, target: int,
-               inputs: np.ndarray) -> np.ndarray:
+               inputs: np.ndarray, span=None) -> np.ndarray:
         """inputs: (d, L) survivor stack in `survivors` order -> (L,)
-        recovered bytes of `target`."""
+        recovered bytes of `target`.  `span` is handed to the decode hook
+        as this request's tag (EcVolume: its (offset, size))."""
         key = (survivors, target)
-        req = _DecodeReq(inputs)
+        req = _DecodeReq(inputs, span)
         with self._lock:
             self._queues.setdefault(key, []).append(req)
             leader = key not in self._busy
@@ -351,7 +356,8 @@ class SpanDecodeBatcher:
             # background batches (bulk encode, scrub) yield at their next
             # checkpoint
             with LANES.foreground():
-                out = self._decode_fn(survivors, target, stacked)
+                out = self._decode_fn(survivors, target, stacked,
+                                      tuple(r.span for r in batch))
             outs = []
             col = 0
             for r in batch:

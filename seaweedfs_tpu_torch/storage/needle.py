@@ -152,6 +152,15 @@ class Needle:
         n.checksum = crc32c_mod.crc32c(n.data)
         return n
 
+    def parse_path(self, fid: str):
+        """Set id/cookie from an "<idhex><cookie8hex>[_delta]" string."""
+        delta = 0
+        if "_" in fid:
+            fid, delta_s = fid.rsplit("_", 1)
+            delta = int(delta_s)
+        self.id, self.cookie = t.parse_needle_id_cookie(fid)
+        self.id += delta
+
     # -- serialisation --------------------------------------------------------
     def _computed_size(self, version: int) -> int:
         if version == VERSION1:
@@ -296,6 +305,9 @@ class Needle:
                 self.append_at_ns = struct.unpack(
                     ">Q", body[ts_off:ts_off + t.TIMESTAMP_SIZE])[0]
         self.checksum = crc32c_mod.crc32c(self.data)
+
+    def etag(self) -> str:
+        return struct.pack(">I", self.checksum).hex()
 
 
 def read_needle_header(blob: bytes) -> tuple["Needle", int]:

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import io
 import os
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 
@@ -126,6 +126,12 @@ class BaseNeedleMap:
 
     def __contains__(self, nid: int) -> bool:
         return self._get(nid) is not None
+
+    def ascending_visit(self, fn: Callable[[int, NeedleValue], None]):
+        """Visit entries in ascending id order (memdb.go:100-123): the
+        ordering contract .ecx files depend on."""
+        for nid, offset, size in self._visit_ascending():
+            fn(nid, NeedleValue(offset, size))
 
     def items_ascending(self) -> Iterator[tuple[int, NeedleValue]]:
         for nid, offset, size in self._visit_ascending():

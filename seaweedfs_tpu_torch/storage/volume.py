@@ -9,11 +9,17 @@ Semantics parity with the reference's weed/storage/volume*.go:
   * read: index lookup -> one pread -> CRC verify (volume_read.go:19-60)
   * load: superblock read + index/dat integrity check that truncates a
     corrupt tail (volume_checking.go:17-60)
+  * vacuum: Compact2 copy-live-by-index into .cpd/.cpx with bumped compaction
+    revision, then CommitCompact with makeupDiff replaying writes that raced
+    the copy (volume_vacuum.go:67,102,190)
+  * zero-copy reads: read_needle_slice hands the payload's .dat range and a
+    dup'd fd to the HTTP layer's sendfile
 
-The port keeps its index in the Python needle maps (needle_map.py).
-Vacuum (compaction), zero-copy sendfile reads and tiered (remote) volumes
-come with later slices; a volume whose .vif records remote files is
-refused.
+The port keeps its index in the Python needle maps (needle_map.py), so
+read_only and the append/modify timestamps are plain attributes (the JAX
+package merges them with its native engine's view).  Tiered (remote)
+volumes come with a later slice (ROADMAP item 7); a volume whose .vif
+records remote files is refused.
 """
 
 from __future__ import annotations
@@ -132,6 +138,9 @@ class Volume:
         self.last_append_at_ns = 0
         self.last_modified_ts = 0
         self.read_only = False
+        self.is_compacting = False
+        self.last_compact_index_offset = 0
+        self.last_compact_revision = 0
         self._load(replica_placement or ReplicaPlacement(), ttl)
 
     # -- naming --------------------------------------------------------------
@@ -343,6 +352,78 @@ class Volume:
             return n
 
     # -- scan (export/fsck support; volume_read.go:213-232) ------------------
+    def read_needle_blob(self, offset: int, size: int) -> bytes:
+        return self.data.read_at(get_actual_size(size, self.version), offset)
+
+    def read_needle_slice(self, nid: int, cookie: Optional[int] = None,
+                          min_size: int = 0):
+        """Zero-copy read: ``(needle, data_offset, data_length, fd)``
+        where `needle` carries full metadata (flags/name/mime/etag/TTL)
+        but an EMPTY data field — the payload is meant to go straight
+        from the .dat to the socket via sendfile.  Returns None when the
+        record is not eligible (v1 volume, remote tier, compressed or
+        manifest payload, below `min_size`) so the caller falls back to
+        read_needle(); raises the same errors as read_needle for
+        missing/deleted/expired needles.  The returned fd is dup'd — the
+        caller owns it and must close it — so a racing vacuum commit that
+        swaps the .dat cannot invalidate an in-flight transfer."""
+        from .needle import VERSION1, VERSION3
+
+        with self.lock:
+            if self.version == VERSION1:
+                return None
+            fileno = getattr(self.data, "fileno", None)
+            raw_fd = fileno() if fileno is not None else None
+            if raw_fd is None:
+                return None  # remote tier (or closed handle)
+            nv = self.nm.get(nid)
+            if nv is None or nv.offset == 0:
+                raise NotFoundError(f"needle {nid:x} not found")
+            if t.size_is_deleted(nv.size):
+                raise DeletedError(f"needle {nid:x} already deleted")
+            if nv.size <= 0:
+                return None  # empty payload: nothing to sendfile
+            head = self.data.read_at(t.NEEDLE_HEADER_SIZE + 4, nv.offset)
+            if len(head) < t.NEEDLE_HEADER_SIZE + 4:
+                raise NotFoundError(f"needle {nid:x}: truncated record")
+            n = Needle()
+            n.parse_header(head)
+            if n.size != nv.size:
+                return None  # index/data divergence: read_needle reports it
+            data_size = int.from_bytes(
+                head[t.NEEDLE_HEADER_SIZE:t.NEEDLE_HEADER_SIZE + 4], "big")
+            if data_size < min_size or data_size == 0:
+                return None
+            # the metadata sections, CRC and (v3) appendAtNs trail the data
+            meta_len = n.size - 4 - data_size
+            tail_len = meta_len + t.NEEDLE_CHECKSUM_SIZE
+            if self.version == VERSION3:
+                tail_len += t.TIMESTAMP_SIZE
+            tail_off = nv.offset + t.NEEDLE_HEADER_SIZE + 4 + data_size
+            tail = self.data.read_at(tail_len, tail_off)
+            if len(tail) < tail_len:
+                raise NotFoundError(f"needle {nid:x}: truncated record")
+            # a synthetic zero-length dataSize prefix parses just the
+            # metadata sections into the needle, skipping the payload
+            n._parse_body_v2(b"\x00\x00\x00\x00" + tail[:meta_len])
+            n.data = b""
+            # stored CRC, unverified (the payload never enters memory);
+            # the write path stores the raw value, so the etag matches
+            n.checksum = int.from_bytes(tail[meta_len:meta_len + 4], "big")
+            if self.version == VERSION3:
+                n.append_at_ns = int.from_bytes(tail[meta_len + 4:], "big")
+            if cookie is not None and n.cookie != cookie:
+                raise CookieMismatchError(
+                    f"cookie mismatch for needle {nid:x}")
+            if n.is_compressed or n.is_chunk_manifest:
+                return None  # the response path needs these in memory
+            if n.has_ttl and self.ttl and n.last_modified:
+                expiry = n.last_modified + self.ttl.minutes() * 60
+                if time.time() >= expiry:
+                    raise NotFoundError(f"needle {nid:x} expired")
+            fd = os.dup(raw_fd)
+        return n, nv.offset + t.NEEDLE_HEADER_SIZE + 4, data_size, fd
+
     def scan(self):
         """Yield (needle, offset) for every record in the .dat, in file order."""
         pos = self.super_block.block_size
@@ -374,6 +455,123 @@ class Volume:
 
     def max_file_key(self) -> int:
         return self.nm.max_file_key()
+
+    # -- lifecycle -----------------------------------------------------------
+    def garbage_level(self) -> float:
+        if self.content_size() == 0:
+            return 0.0
+        return self.deleted_size() / self.content_size()
+
+    def index_file_size(self) -> int:
+        return self.file_stat()[1]
+
+    # -- vacuum --------------------------------------------------------------
+    def compact(self):
+        """Copy live needles (by index) into .cpd/.cpx with a bumped
+        compaction revision (Compact2, volume_vacuum.go:67-100)."""
+        with self.lock:
+            self.is_compacting = True
+            # flush buffered idx appends before snapshotting the watermark,
+            # or makeupDiff would replay the whole index
+            self.nm.flush()
+            self.data.sync()
+            self.last_compact_index_offset = self.index_file_size()
+            self.last_compact_revision = self.super_block.compaction_revision
+            # snapshot the live map: writes may race the copy (makeupDiff
+            # replays them at commit) and would otherwise mutate the dict
+            # mid-iteration
+            snapshot = [(nid, nv.offset, nv.size)
+                        for nid, nv in self.nm.items_ascending()]
+        try:
+            self._copy_data_based_on_index(snapshot)
+        finally:
+            self.is_compacting = False
+
+    def _copy_data_based_on_index(self, snapshot):
+        new_sb = SuperBlock(
+            version=self.super_block.version,
+            replica_placement=self.super_block.replica_placement,
+            ttl=self.super_block.ttl,
+            compaction_revision=self.super_block.compaction_revision + 1,
+            extra=self.super_block.extra,
+        )
+        now = time.time()
+        with DiskFile(self.file_name(".cpd"), create=True) as dst, \
+                open(self.file_name(".cpx"), "wb") as new_idx:
+            dst.truncate(0)
+            dst.write_at(new_sb.to_bytes(), 0)
+            new_offset = new_sb.block_size
+            for nid, offset, size in snapshot:
+                if offset == 0 or t.size_is_deleted(size):
+                    continue
+                blob = self.read_needle_blob(offset, size)
+                n = Needle()
+                n.read_bytes(blob, offset, size, self.version)
+                if (n.has_ttl and self.ttl and n.last_modified
+                        and now >= n.last_modified + self.ttl.minutes() * 60):
+                    continue
+                dst.write_at(blob, new_offset)
+                new_idx.write(idx_mod.pack_entry(nid, new_offset, n.size))
+                new_offset += len(blob)
+
+    def commit_compact(self):
+        """Swap in .cpd/.cpx, replaying any writes that raced the copy
+        (CommitCompact + makeupDiff, volume_vacuum.go:102-190)."""
+        with self.lock:
+            self.nm.flush()
+            try:
+                self._makeup_diff()
+            except VolumeError:
+                os.remove(self.file_name(".cpd"))
+                os.remove(self.file_name(".cpx"))
+                raise
+            self.nm.close()
+            self.data.close()
+            os.replace(self.file_name(".cpd"), self.file_name(".dat"))
+            os.replace(self.file_name(".cpx"), self.file_name(".idx"))
+            self._load(self.super_block.replica_placement,
+                       self.super_block.ttl)
+
+    def _makeup_diff(self):
+        idx_path = self.file_name(".idx")
+        index_size = os.path.getsize(idx_path)
+        if index_size <= self.last_compact_index_offset:
+            return
+        # newest-first unique entries appended after the compaction snapshot
+        updated: dict[int, tuple[int, int]] = {}
+        with open(idx_path, "rb") as f:
+            off = index_size - t.NEEDLE_MAP_ENTRY_SIZE
+            while off >= self.last_compact_index_offset:
+                f.seek(off)
+                nid, a_off, size = idx_mod.unpack_entry(
+                    f.read(t.NEEDLE_MAP_ENTRY_SIZE))
+                updated.setdefault(nid, (a_off, size))
+                off -= t.NEEDLE_MAP_ENTRY_SIZE
+        if not updated:
+            return
+        with open(self.file_name(".cpd"), "rb") as f:
+            new_sb = SuperBlock.from_file(f)
+        if new_sb.compaction_revision != self.last_compact_revision + 1:
+            raise VolumeError(
+                f"compact revision {new_sb.compaction_revision} != "
+                f"{self.last_compact_revision + 1}")
+        with DiskFile(self.file_name(".cpd")) as dst, \
+                open(self.file_name(".cpx"), "ab") as new_idx:
+            for nid, (a_off, size) in updated.items():
+                offset = dst.size()
+                if offset % t.NEEDLE_PADDING_SIZE != 0:
+                    offset += (t.NEEDLE_PADDING_SIZE
+                               - offset % t.NEEDLE_PADDING_SIZE)
+                if a_off != 0 and t.size_is_valid(size):
+                    blob = self.read_needle_blob(a_off, size)
+                    dst.write_at(blob, offset)
+                    new_idx.write(idx_mod.pack_entry(nid, offset, size))
+                else:
+                    tomb = Needle(id=nid, cookie=0x12345678,
+                                  append_at_ns=time.time_ns())
+                    dst.write_at(tomb.to_bytes(self.version), offset)
+                    new_idx.write(idx_mod.pack_entry(
+                        nid, 0, t.TOMBSTONE_FILE_SIZE))
 
     # -- lifecycle -----------------------------------------------------------
     def _fsync_batcher(self) -> _FsyncBatcher:

@@ -18,9 +18,8 @@ slow reply to the hop or kernel stage that caused it.  Here:
     unsampled spans bypass the recorder entirely, so the steady-state
     cost with sampling off is just the duration measurement; a slow
     span promotes its trace from that span onward;
-  * ``Recorder.index`` (recent traces) and ``Recorder.get`` (one full
-    span tree) are what ``GET /debug/traces`` serves once the RPC layer
-    mounts it.
+  * ``GET /debug/traces`` (recent index) and ``GET /debug/traces/<id>``
+    (full span tree) are mounted on every daemon.
 
 Counterpart of seaweedfs_tpu/tracing.py.
 
@@ -435,3 +434,22 @@ class Recorder:
 
 
 RECORDER = Recorder()
+
+
+def traces_handler(req):
+    """RpcServer route for GET /debug/traces (index) and
+    GET /debug/traces/<id> (full tree).  Register with the bare prefix —
+    longest-prefix matching routes both shapes here."""
+    from .rpc.http_rpc import RpcError
+
+    rest = req.path[len("/debug/traces"):].strip("/")
+    if not rest:
+        try:
+            limit = int(req.param("limit") or 100)
+        except ValueError:
+            limit = 100
+        return {"traces": RECORDER.index(limit=limit)}
+    tree = RECORDER.get(rest)
+    if tree is None:
+        raise RpcError(f"trace {rest} not found (evicted or dropped)", 404)
+    return tree

@@ -33,15 +33,18 @@ Example — 5% 503s to one volume server plus 50 ms on every lookup:
 Hook points (all no-ops while no rules are loaded — a single module
 bool guards the hot path):
 
+  * rpc/http_rpc.py call()/call_stream()  -> on_rpc("client", dst, route)
+  * RpcServer._dispatch                   -> on_rpc("server", dst, route)
   * storage/erasure_coding/inline.py      -> on_disk(path, "write") per
                                              shard-log write, on_disk(path,
                                              "commit") per commit record
 
 The port's own copy of seaweedfs_tpu/util/faults.py.  Each fired fault
 counts in SeaweedFS_faults_injected_total, and loading rules writes a
-``faults.active`` event to the journal.  The rpc hook sites, the
-storage/backend.py DiskFile hooks and the /debug/faults handler come with
-the ports of rpc/ and the volume server.
+``faults.active`` event to the journal.  Every daemon mounts GET/POST
+/debug/faults (debug_handler) to inspect counters and flip rules live.
+The storage/backend.py DiskFile hooks come with the native engine
+(ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -286,3 +289,32 @@ def on_disk(path: str, op: str):
 
 def load_env():
     REGISTRY.load_env()
+
+
+def debug_handler(req):
+    """GET/POST /debug/faults — mounted on every daemon.
+
+    GET returns {seed, rules[], log[]}.  POST accepts JSON:
+      {"spec": "...", "seed": N}  replace the rule set
+      {"add": "rule[;rule]"}      append rules
+      {"clear": true}             drop all rules
+      {"reset": true}             rewind counters/log for replay
+    """
+    if req.handler.command == "GET":
+        return REGISTRY.snapshot()
+    body = req.json()
+    if body.get("clear"):
+        REGISTRY.clear()
+    if body.get("reset"):
+        REGISTRY.reset_counters()
+    if "spec" in body:
+        REGISTRY.configure(body["spec"], int(body.get("seed", 0)))
+    elif "add" in body:
+        REGISTRY.add_rule(body["add"])
+    return REGISTRY.snapshot()
+
+
+def mount(server):
+    """Register the /debug/faults routes on an RpcServer."""
+    server.add("GET", "/debug/faults", debug_handler)
+    server.add("POST", "/debug/faults", debug_handler)

@@ -393,3 +393,40 @@ def test_hbm_put_on_missing_device_raises(cuda):
     with pytest.raises(RuntimeError):  # torch.AcceleratorError is one
         tier.put("1,a", b"x" * 1024)
     assert len(tier) == 0
+
+
+def test_volume_server_over_http_on_card(cuda, tmp_path, monkeypatch):
+    """A port VolumeServer on the card: 16 POSTs, /admin/ec/generate
+    (K2), four shards lost, every object served over HTTP through K1."""
+    from seaweedfs_tpu_torch.rpc.http_rpc import call
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+
+    monkeypatch.setenv("WEED_EC_RECOVER_DEVICE", "1")
+    monkeypatch.setenv("WEED_EC_RECOVER_DEVICE_MIN_KB", "0")
+    vs = VolumeServer([str(tmp_path)], "127.0.0.1:1", port=0,
+                      ec_encoder_backend="cuda")
+    vs.server.start()
+    try:
+        addr = vs.address
+        call(addr, "/admin/assign_volume", {"volume": 5})
+        rng = np.random.default_rng(16)
+        stored = {}
+        for i in range(1, 17):
+            fid = f"5,{i:x}{0x1000 + i:08x}"
+            stored[fid] = rng.bytes(int(rng.integers(100, 300000)))
+            call(addr, f"/{fid}", raw=stored[fid], method="POST")
+        rs_cuda.reset_launches()
+        call(addr, "/admin/readonly", {"volume": 5})
+        call(addr, "/admin/ec/generate", {"volume": 5})
+        assert rs_cuda.launches["fused_apply_crc"] > 0
+        call(addr, "/admin/ec/mount", {"volume": 5,
+                                       "shard_ids": list(range(14))})
+        call(addr, "/admin/delete_volume", {"volume": 5})
+        call(addr, "/admin/ec/delete_shards",
+             {"volume": 5, "shard_ids": [0, 5, 11, 13]})
+        rs_cuda.reset_launches()
+        for fid, data in stored.items():
+            assert call(addr, f"/{fid}", parse=False) == data
+        assert rs_cuda.launches["gf_apply"] > 0
+    finally:
+        vs.stop()

@@ -208,6 +208,38 @@ class TestResidents:
         assert snap["devices"]["host"]["h2d_bytes"] == 150
 
 
+    def test_idle_residents_do_not_evict_a_released_lease(self,
+                                                           monkeypatch):
+        """R2 (ROADMAP §3): two idle 1 KiB residents fill a 2 KiB cap,
+        then a 1 KiB lease is released and leased again.  The JAX pool
+        evicts every free lease before any idle resident, so it drops
+        the released slab at once and builds another (the thrash a pool
+        full of degraded-read residents puts on every encode batch); the
+        port evicts the least recently used idle slab, the first
+        resident, and hands the released slab back."""
+        monkeypatch.setenv("WEED_EC_DEVICE_POOL_MB", "0.002")
+        records = []
+        for mod, _ in PACKAGES:
+            pool, slabs = mod.DevicePool(), _Slabs()
+            for key in ("r1", "r2"):
+                pool.acquire_resident(key, slabs(key), 1 << 10)
+                pool.release_resident(key)
+            first = pool.lease("k", slabs(), 1 << 10)
+            pool.release(first)
+            again = pool.lease("k", slabs(), 1 << 10)
+            snap = _view(pool.snapshot())
+            records.append((again.payload == first.payload,
+                            {k: snap[k] for k in ("allocs", "lease_hits",
+                                                  "resident_slabs",
+                                                  "evictions")}))
+        (j_same, j_snap), (t_same, t_snap) = records
+        assert not j_same and j_snap == {"allocs": 4, "lease_hits": 0,
+                                         "resident_slabs": 2,
+                                         "evictions": 1}
+        assert t_same and t_snap == {"allocs": 3, "lease_hits": 1,
+                                     "resident_slabs": 1, "evictions": 1}
+
+
 class TestProcessPool:
     def test_singleton_and_reset(self):
         for mod, _ in PACKAGES:

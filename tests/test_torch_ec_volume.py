@@ -407,7 +407,7 @@ def test_concurrent_readers_stack_spans(jax_encoded, k1_plain, monkeypatch):
         with batcher._lock:
             return sum(len(q) for q in batcher._queues.values())
 
-    def slow_first(survivors, target, inputs):
+    def slow_first(survivors, target, inputs, spans):
         if not first.is_set():
             # hold the first decode until the other 7 spans have queued
             first.set()
@@ -415,7 +415,7 @@ def test_concurrent_readers_stack_spans(jax_encoded, k1_plain, monkeypatch):
             deadline = time.monotonic() + 30
             while queued() < 7 and time.monotonic() < deadline:
                 time.sleep(0.001)
-        return real(survivors, target, inputs)
+        return real(survivors, target, inputs, spans)
 
     batcher._decode_fn = slow_first
     gate = threading.Barrier(8)
@@ -648,7 +648,7 @@ def test_recovered_block_cache_lru_and_single_flight():
 def test_batcher_error_reaches_every_waiter():
     stats = t_recover.RecoverStats()
 
-    def bad(survivors, target, inputs):
+    def bad(survivors, target, inputs, spans):
         raise RuntimeError("decode failed")
 
     batcher = t_recover.SpanDecodeBatcher(bad, stats)
@@ -668,3 +668,98 @@ def test_search_sorted_index_equals_jax(tmp_path, seed):
         for k in itertools.chain(keys[::7], rng.integers(1, 1 << 40, 50)):
             assert t_ecv.search_sorted_index(f.fileno(), len(keys), int(k)) \
                 == j_ecv.search_sorted_index(f.fileno(), len(keys), int(k))
+
+
+# -- F4: the resident decode route --------------------------------------------
+
+
+@pytest.mark.parametrize("nids,hits", [((1,), 1), ((1, 2, 3), 3)])
+def test_second_decode_reuses_the_resident_upload_like_jax(
+        jax_encoded, k1_plain, tmp_path, nids, hits):
+    """Needles read twice with .ec00 and .ec05 lost, the recovered block
+    cache cleared between the passes: the second pass decodes the same
+    survivor spans again, and both packages serve it from the slab
+    already resident on the device: one upload of the 41,000-byte
+    survivor stack, one resident slab.  Needle 1 lies in .ec00 and
+    needle 2 in .ec05 of the same row, so reading needles 1-3 adds a hit
+    in each pass for the other lost shard (needle 3 then hits the
+    recovered block cache)."""
+    from seaweedfs_tpu.ops import device_pool as j_pool
+    from seaweedfs_tpu_torch.ops import device_pool as t_pool
+
+    d, _, live = jax_encoded
+    snaps = []
+    for mod, pool_mod, name in ((t_ecv, t_pool, "t"), (j_ecv, j_pool, "j")):
+        pool_mod.reset_pool()
+        kw = {"device": "cpu"} if mod is t_ecv else {}
+        ev = _mount(mod, _copy_volume(d, tmp_path / name), lost=(0, 5), **kw)
+        try:
+            for _ in range(2):
+                ev._recover_cache.clear()
+                for nid in nids:
+                    cookie, data = live[nid]
+                    assert ev.read_needle(nid, cookie=cookie).data == data
+            snap = pool_mod.get_pool().snapshot()
+        finally:
+            ev.close()
+            pool_mod.reset_pool()
+        snaps.append({k: snap[k] for k in ("resident_hits",
+                                           "resident_slabs", "h2d_bytes")})
+    assert snaps[0] == snaps[1] == {"resident_hits": hits,
+                                    "resident_slabs": 1,
+                                    "h2d_bytes": 41000}
+
+
+def test_resident_keys_are_the_mount_and_the_spans(jax_encoded, k1_plain,
+                                                   tmp_path):
+    """A resident survivor stack is keyed by the mount and the spans'
+    positions: the same span decoded again hits it, a remount of the
+    same volume never meets an earlier mount's upload, and a stack the
+    tail stripe helped fill is not kept at all."""
+    from seaweedfs_tpu_torch.ops import device_pool as t_pool
+
+    d, _, live = jax_encoded
+    d = _copy_volume(d, tmp_path / "t")
+    cookie, data = live[1]
+    t_pool.reset_pool()
+    try:
+        for mount in range(2):
+            ev = _mount(t_ecv, d, lost=(0, 5), device="cpu")
+            try:
+                for _ in range(2):
+                    ev._recover_cache.clear()
+                    assert ev.read_needle(1, cookie=cookie).data == data
+                survivors = tuple(i for i in range(14)
+                                  if i not in (0, 5))[:10]
+                stack = np.stack([np.frombuffer(
+                    ev.shards[i].read_at(64, 0), dtype=np.uint8)
+                    for i in survivors])
+                slabs = t_pool.get_pool().snapshot()["resident_slabs"]
+                ev._decode_span(survivors, 0, stack, ((0, 64), None))
+                assert t_pool.get_pool().snapshot()["resident_slabs"] \
+                    == slabs
+            finally:
+                ev.close()
+            snap = t_pool.get_pool().snapshot()
+            assert (snap["resident_hits"], snap["resident_slabs"],
+                    snap["h2d_bytes"]) == (mount + 1, mount + 1,
+                                           (41000 + 640) * (mount + 1))
+    finally:
+        t_pool.reset_pool()
+
+
+def test_batcher_hands_the_spans_in_stacking_order():
+    seen = []
+
+    def decode(survivors, target, inputs, spans):
+        seen.append(spans)
+        return inputs[0]
+
+    batcher = t_recover.SpanDecodeBatcher(decode, t_recover.RecoverStats())
+    out = batcher.decode((1, 2), 0, np.ones((2, 5), dtype=np.uint8),
+                         span=(40, 5))
+    assert out.tolist() == [1] * 5 and seen == [((40, 5),)]
+    batcher._decode_batch((1, 2), 0, [
+        t_recover._DecodeReq(np.zeros((2, 3), dtype=np.uint8), (0, 3)),
+        t_recover._DecodeReq(np.ones((2, 2), dtype=np.uint8), None)])
+    assert seen[1] == ((0, 3), None)

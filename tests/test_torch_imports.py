@@ -191,3 +191,40 @@ def test_cache_entry_points_raise_without_cuda(no_cuda):
             call()
     assert TieredReadCache(mem_bytes=1 << 20, hbm_bytes=0).hbm is None
     assert HbmTier(1 << 20, device="cpu").put("1,a", b"x")
+
+
+@pytest.mark.parametrize("mod", [
+    "rpc/__init__.py", "rpc/http_rpc.py", "rpc/policy.py", "qos/shm.py",
+    "qos/admission.py", "qos/quota.py", "security/__init__.py",
+    "security/jwt_auth.py", "stats/healthz.py", "query/__init__.py",
+    "query/json_query.py", "util/ui.py", "storage/volume_backup.py",
+    "storage/tools.py", "volume_server/__init__.py",
+    "volume_server/server.py"])
+def test_server_slice_modules_are_covered(mod):
+    """The volume server's slice (RPC, admission, security, HTTP
+    surfaces, storage pieces, the server) is among the sources both
+    no-JAX checks above walk."""
+    rel = {os.path.relpath(p, PKG) for p in _port_sources()[1:]}
+    assert mod in rel
+
+
+def test_volume_server_ec_routes_fail_without_cuda(no_cuda, tmp_path):
+    """A volume server left on its default device answers an EC encode
+    with a 500 that names the missing card, and writes no shard: the
+    device error is the request's reply, never a host encode."""
+    from seaweedfs_tpu_torch.rpc.http_rpc import RpcError, call
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+
+    vs = VolumeServer([str(tmp_path)], "127.0.0.1:1", port=0,
+                      ec_encoder_backend="cuda")
+    vs.server.start()
+    try:
+        call(vs.address, "/admin/assign_volume", {"volume": 3})
+        call(vs.address, "/3,01000000aa", raw=b"hello", method="POST")
+        assert call(vs.address, "/3,01000000aa", parse=False) == b"hello"
+        with pytest.raises(RpcError) as e:
+            call(vs.address, "/admin/ec/generate", {"volume": 3})
+        assert e.value.status == 500 and "no CUDA device" in str(e.value)
+        assert not os.path.exists(str(tmp_path / "3.ec00"))
+    finally:
+        vs.stop()

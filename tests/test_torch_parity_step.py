@@ -307,7 +307,7 @@ def test_decode_batch_runs_in_foreground_lane():
 
     seen = []
 
-    def decode(survivors, target, inputs):
+    def decode(survivors, target, inputs, spans):
         seen.append(LANES.snapshot()["foreground_active"])
         return inputs[0]
 

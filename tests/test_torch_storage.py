@@ -4,6 +4,8 @@ volumes, byte for byte (tolerance 0), with each package reading what the
 other wrote."""
 
 import itertools
+import os
+import shutil
 import threading
 import time
 
@@ -443,3 +445,273 @@ def test_tiered_volume_refused(tmp_path):
         files=[t_vif.RemoteFile("s3", "d", "k")]))
     with pytest.raises(NotImplementedError):
         t_volume.Volume(str(tmp_path), "", 5)
+
+
+# -- compaction, zero-copy slices, backup and offline tools ---------------------
+
+
+def _seeded_volume(mod_volume, mod_needle, directory, ops, vid=9, **kw):
+    v = mod_volume.Volume(str(directory), "c", vid, **kw)
+    _apply(v, mod_needle, ops)
+    return v
+
+
+def _dirs(tmp_path):
+    tdir, jdir = tmp_path / "t", tmp_path / "j"
+    tdir.mkdir()
+    jdir.mkdir()
+    return tdir, jdir
+
+
+def test_compaction_files_identical(tmp_path, pinned_clock):
+    """compact, writes racing the copy, commit_compact (makeup diff):
+    both packages leave byte-identical .dat/.idx and the same reads."""
+    ops = _seeded_ops(17, count=80)
+    race = [("write", 200, 0x9000, {"data": b"late" * 50}),
+            ("delete", 5, 0x5005, None), ("write", 7, 0x5007,
+                                          {"data": b"rewrite"})]
+    tdir, jdir = _dirs(tmp_path)
+    vols = []
+    for directory, vmod, nmod in ((tdir, t_volume, t_needle),
+                                  (jdir, j_volume, j_needle)):
+        pinned_clock()
+        v = _seeded_volume(vmod, nmod, directory, ops)
+        level = v.garbage_level()
+        before = v.data.size()  # the .idx may still sit in a write buffer
+        v.compact()
+        _apply(v, nmod, race)
+        v.commit_compact()
+        vols.append((v, level, before, v.file_stat(), v.index_file_size(),
+                     v.super_block.compaction_revision))
+    (tv, *trest), (jv, *jrest) = vols
+    assert trest == jrest and trest[0] > 0 and trest[2][0] < trest[1]
+    live = _live(ops + race)
+    # compaction drops deleted needles from the map: a read of one is a
+    # miss, no longer a tombstone
+    _read_all(tv, live, (t_volume.DeletedError, t_volume.NotFoundError))
+    tv.close()
+    jv.close()
+    for ext in (".dat", ".idx"):
+        assert (tdir / ("c_9" + ext)).read_bytes() == \
+            (jdir / ("c_9" + ext)).read_bytes(), ext
+    assert not (tdir / "c_9.cpd").exists()
+
+
+def test_commit_compact_refuses_a_revision_mismatch(tmp_path, pinned_clock):
+    v = _seeded_volume(t_volume, t_needle, tmp_path, _seeded_ops(3, 20))
+    v.compact()
+    _apply(v, t_needle, [("write", 99, 1, {"data": b"x"})])
+    v.last_compact_revision += 5
+    with pytest.raises(t_volume.VolumeError, match="compact revision"):
+        v.commit_compact()
+    assert not (tmp_path / "c_9.cpd").exists()
+    assert v.read_needle(99).data == b"x"
+    v.close()
+
+
+def test_read_needle_slice_equal(tmp_path, pinned_clock):
+    rng = np.random.default_rng(23)
+    ops = []
+    for i in range(1, 40):
+        flags = FLAG_SETS[int(rng.integers(0, len(FLAG_SETS)))]
+        flags = tuple(f for f in flags if f != "ttl")
+        size = int(rng.choice([0, 10, 5000, 70000]))
+        kw = _needle_parts(rng, flags, size=size)
+        ops.append(("write", i, 0x700 + i, kw))
+    ops.append(("delete", 4, 0x704, None))
+    tdir, jdir = _dirs(tmp_path)
+    pinned_clock()
+    tv = _seeded_volume(t_volume, t_needle, tdir, ops)
+    pinned_clock()
+    jv = _seeded_volume(j_volume, j_needle, jdir, ops)
+
+    def view(v, errs, nid, cookie, min_size):
+        try:
+            got = v.read_needle_slice(nid, cookie, min_size=min_size)
+        except errs as e:
+            return type(e).__name__
+        if got is None:
+            return None
+        n, off, length, fd = got
+        try:
+            payload = os.pread(fd, length, off)
+        finally:
+            os.close(fd)
+        return (n.id, n.cookie, n.size, n.flags, n.name, n.mime,
+                n.last_modified, n.pairs, n.checksum, n.append_at_ns,
+                n.etag(), off, length, payload, n.data)
+
+    terrs = (t_volume.NotFoundError, t_volume.DeletedError,
+             t_volume.CookieMismatchError)
+    jerrs = (j_volume.NotFoundError, j_volume.DeletedError,
+             j_volume.CookieMismatchError)
+    seen = set()
+    for i in range(1, 42):
+        for cookie in (0x700 + i, None, 1):
+            for min_size in (0, 65536):
+                t_view = view(tv, terrs, i, cookie, min_size)
+                assert t_view == view(jv, jerrs, i, cookie, min_size)
+                seen.add("slice" if isinstance(t_view, tuple)
+                         else t_view if isinstance(t_view, str)
+                         else "NoneType")
+                if isinstance(t_view, tuple):
+                    assert t_view[13] == tv.read_needle(i).data
+    assert {"slice", "NoneType", "DeletedError", "NotFoundError",
+            "CookieMismatchError"} <= seen
+    tv.close()
+    jv.close()
+
+
+def test_volume_backup_equal(tmp_path, pinned_clock):
+    """binary search by append time, the tail stream and an incremental
+    backup between replicas, in both packages on identical volumes."""
+    from seaweedfs_tpu.storage import volume_backup as j_vb
+    from seaweedfs_tpu_torch.storage import volume_backup as t_vb
+
+    ops = _seeded_ops(29, count=50)
+    tdir, jdir = _dirs(tmp_path)
+    out = []
+    for directory, vmod, nmod, vb in ((tdir, t_volume, t_needle, t_vb),
+                                      (jdir, j_volume, j_needle, j_vb)):
+        pinned_clock()
+        src = _seeded_volume(vmod, nmod, directory, ops[:40])
+        stamps = [0, 1_700_000_000_000_000_000]
+        for n, off in src.scan():
+            stamps.append(n.append_at_ns)
+        found = [vb.binary_search_by_append_at_ns(src, s) for s in stamps]
+        blob, cursor = vb.read_appended_bytes(src, stamps[10], limit=3000)
+        chunks, length, cur2 = vb.iter_appended_bytes(src, stamps[10],
+                                                      limit=3000)
+        streamed = b"".join(chunks)
+        dst = vmod.Volume(str(directory), "c", 10)
+        applied = vb.incremental_backup(
+            dst, lambda since: vb.read_appended_bytes(src, since,
+                                                      limit=2000)[0])
+        _apply(src, nmod, ops[40:])
+        applied2 = vb.incremental_backup(
+            dst, lambda since: vb.read_appended_bytes(src, since)[0])
+        out.append((found, blob, cursor, streamed, length, cur2, applied,
+                    applied2, dst.last_append_at_ns, dst.file_count()))
+        src.close()
+        dst.close()
+    assert out[0] == out[1]
+    assert out[0][1] == out[0][3] and out[0][6] > 0 and out[0][7] > 0
+    for ext in (".dat", ".idx"):
+        assert (tdir / ("c_10" + ext)).read_bytes() == \
+            (jdir / ("c_10" + ext)).read_bytes(), ext
+        assert (tdir / ("c_10" + ext)).read_bytes() == \
+            (tdir / ("c_9" + ext)).read_bytes(), ext
+
+
+def test_offline_tools_equal(tmp_path, pinned_clock):
+    """scan_dat, rebuild_index, export_volume (with its tar) and
+    compact_offline on identical volume files."""
+    from seaweedfs_tpu.storage import tools as j_tools
+    from seaweedfs_tpu_torch.storage import tools as t_tools
+
+    ops = _seeded_ops(37, count=40)
+    tdir, jdir = _dirs(tmp_path)
+    out = []
+    for directory, vmod, nmod, tools in ((tdir, t_volume, t_needle, t_tools),
+                                         (jdir, j_volume, j_needle,
+                                          j_tools)):
+        pinned_clock()
+        _seeded_volume(vmod, nmod, directory, ops).close()
+        scanned = [(n.id, n.size, n.data, off) for n, off in
+                   tools.scan_dat(str(directory / "c_9.dat"))]
+        idx_before = (directory / "c_9.idx").read_bytes()
+        (directory / "c_9.idx").unlink()
+        count = tools.rebuild_index(str(directory), "c", 9)
+        idx_rebuilt = (directory / "c_9.idx").read_bytes()
+        tar = str(directory / "export.tar")
+        records = tools.export_volume(str(directory), "c", 9,
+                                      output_tar=tar)
+        records_del = tools.export_volume(str(directory), "c", 9,
+                                          include_deleted=True)
+        with open(tar, "rb") as f:
+            tar_members = sorted(m.name for m in
+                                 __import__("tarfile").open(fileobj=f))
+        (directory / "c_9.idx").write_bytes(idx_before)
+        compacted = tools.compact_offline(str(directory), "c", 9)
+        out.append((scanned, count, idx_rebuilt, records, records_del,
+                    tar_members, compacted,
+                    (directory / "c_9.dat").read_bytes(),
+                    (directory / "c_9.idx").read_bytes()))
+    assert out[0] == out[1]
+    assert out[0][6]["reclaimed"] > 0 and len(out[0][3]) > 0
+
+
+def test_scrub_ec_volume_equal(tmp_path):
+    """scrub_ec_volume reports and repairs a corrupt and a missing shard
+    equal to the JAX package's, rebuilt shards byte-identical."""
+    from seaweedfs_tpu.storage import tools as j_tools
+    from seaweedfs_tpu_torch.storage import tools as t_tools
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder as t_enc
+
+    src = tmp_path / "src"
+    src.mkdir()
+    rng = np.random.default_rng(5)
+    v = t_volume.Volume(str(src), "", 7)
+    for i in range(1, 30):
+        n = t_needle.Needle.create(rng.bytes(int(rng.integers(100, 30000))))
+        n.id, n.cookie = i, i
+        v.write_needle(n)
+    v.close()
+    base = str(src / "7")
+    crcs = t_enc.write_ec_files(base, 10000, 100, device="cpu", batched=True)
+    t_enc.save_volume_info(base, version=3,
+                           extra={"shard_crc32c": list(crcs)})
+    out = []
+    for name, tools in (("t", t_tools), ("j", j_tools)):
+        d = tmp_path / name
+        shutil.copytree(src, d)
+        with open(d / "7.ec03", "r+b") as f:
+            f.seek(17)
+            f.write(b"\xff")
+        (d / "7.ec12").unlink()
+        kw = {"device": "cpu"} if tools is t_tools else {}
+        clean = tools.scrub_ec_volume(str(d), "", 7, **kw)
+        repaired = tools.scrub_ec_volume(str(d), "", 7, repair=True, **kw)
+        after = tools.scrub_ec_volume(str(d), "", 7, **kw)
+        out.append((clean, repaired, after,
+                    [(d / f"7.ec{i:02d}").read_bytes() for i in range(14)]))
+    assert out[0] == out[1]
+    assert out[0][1]["repaired"] == [3, 12]
+    assert out[0][2]["corrupt"] == [] and out[0][2]["missing"] == []
+    assert out[0][3] == [(src / f"7.ec{i:02d}").read_bytes()
+                         for i in range(14)]
+
+
+def test_needle_parse_path_and_etag_equal():
+    for fid in ["01637037d6", "1637037d6_3", "ab00000000", "ffffffff0a0b0c0d"]:
+        got = []
+        for mod in (t_needle, j_needle):
+            n = mod.Needle()
+            n.parse_path(fid)
+            got.append((n.id, n.cookie))
+        assert got[0] == got[1], fid
+    for data in (b"", b"x", b"hello" * 1000):
+        assert t_needle.Needle.create(data).etag() == \
+            j_needle.Needle.create(data).etag()
+
+
+def test_needle_map_ascending_visit_equal(tmp_path):
+    rng = np.random.default_rng(3)
+    got = []
+    for mod, d in ((t_nm, tmp_path / "t"), (j_nm, tmp_path / "j")):
+        d.mkdir()
+        nm = mod.NeedleMap(str(d / "1.idx"))
+        for _ in range(300):
+            nid = int(rng.integers(1, 200))
+            if rng.random() < 0.8:
+                nm.put(nid, int(rng.integers(1, 1 << 20)) * 8,
+                       int(rng.integers(1, 5000)))
+            else:
+                nm.delete(nid, 8)
+        seen = []
+        nm.ascending_visit(lambda nid, nv: seen.append(
+            (nid, nv.offset, nv.size)))
+        nm.close()
+        got.append(seen)
+        rng = np.random.default_rng(3)
+    assert got[0] == got[1] and got[0] == sorted(got[0])
