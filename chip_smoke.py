@@ -107,7 +107,9 @@ import concurrent.futures
 import json
 import os
 import re
+import select
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -121,7 +123,7 @@ from seaweedfs_tpu_torch.cache import TieredReadCache
 from seaweedfs_tpu_torch.maintenance.deep_scrub import (deep_scrub,
                                                         deep_scrub_host,
                                                         local_target)
-from seaweedfs_tpu_torch.ops import _build, codec, native, rs_cuda
+from seaweedfs_tpu_torch.ops import _build, codec, gf256, native, rs_cuda
 from seaweedfs_tpu_torch.ops import crc32c as crc_host
 from seaweedfs_tpu_torch.ops.codec import new_encoder, reconstruct_span
 from seaweedfs_tpu_torch.ops.crc_device import batched_crc32c_raw, finalize
@@ -167,9 +169,18 @@ CACHE_RAM_MB = 64           # WEED_READ_CACHE_MB of phase 7 (its default)
 SERVER_BYTES = 1 << 30      # phase 8: ~1 GiB of needles over HTTP
 SERVER_CONNS = 8            # connections of phase 8's load process
 SERVER_SAMPLE = 1000        # needles of phase 8's intact GET sample
+PREFORK_WORKERS = 4         # phase 9: WEED_HTTP_WORKERS (parent + 3)
+PREFORK_EC_BYTES = 1 << 30  # phase 9: volume 1, EC with 4 shards lost
+PREFORK_PUT_BYTES = 256 * MIB  # phase 9: PUTs into volume 2
+PREFORK_DELETES = 50        # phase 9: needles deleted, then GET 404
+PREFORK_RESPAWN_GETS = 400  # phase 9: degraded GETs on the respawned worker
+PREFORK_TCP_READS = 1000    # phase 9: TCP reads, intact and degraded each
+PREFORK_RECONNECT = 16      # requests per load connection before reopening
+PREFORK_LOAD_PROCS = 4      # phase 9's split-client passes: load processes
 CHUNK = MIB                 # the pipeline's column chunk for 1 MiB blocks
 SEED = 20261016
 PARITY = np.ascontiguousarray(parity_matrix(10, 14))
+PHASE_NUMBERS: dict = {}    # each phase's end-to-end numbers, by phase
 SPIN_CYCLES = 200_000_000   # ~0.1 s of card time to queue timed runs behind
 
 KERNELS = {
@@ -492,6 +503,61 @@ def k5_phase(dev, rng, mode: str) -> dict:
     return res
 
 
+def k7_phase(dev, rng):
+    """The portable step forms ("K7") at the encode path's shapes: every
+    rs_torch.apply_matrix method launches K1 once on a (10, 1 MiB + 3)
+    stack, batched_encode_step, batched_swar_encode_step and the
+    words=False encoder launch K2 once on (6, 10, 1 MiB), and
+    _parity_bits_matmul K1 once; each equals the kernel's plain version
+    on the card and, at 4,099 bytes, its own CPU formulation."""
+    from seaweedfs_tpu_torch.ops import rs_torch
+    from seaweedfs_tpu_torch.parallel import mesh
+
+    bm = gf256.coeff_bit_matrix(PARITY).astype(np.int8)
+    consts = rs_torch._bit_constants_cached(*rs_cuda._matrix_key(PARITY))
+    x = rand_bytes(rng, (10, MIB + 3), dev)
+    want = rs_cuda.gf_apply_plain(PARITY, x)
+    small = rand_bytes(rng, (10, 4099), dev)
+    for method in rs_torch.METHODS:
+        rs_cuda.reset_launches()
+        got = rs_torch.apply_matrix(PARITY, x, method=method)
+        check(rs_cuda.launches["gf_apply"] == 1 and torch.equal(got, want),
+              f"K7 apply_matrix(method={method!r}) on the card")
+        check(torch.equal(rs_torch.apply_matrix(PARITY, small,
+                                                method=method).cpu(),
+                          rs_torch.apply_matrix(PARITY, small.cpu(),
+                                                method=method)),
+              f"K7 {method!r}: the card differs from its CPU form")
+    data = rand_bytes(rng, (6, 10, MIB), dev)
+    want_par, want_crc = rs_cuda.fused_apply_crc_plain(PARITY, data)
+    for name, step in (
+            ("batched_encode_step",
+             lambda d: mesh.batched_encode_step(bm, d)),
+            ("batched_swar_encode_step",
+             lambda d: mesh.batched_swar_encode_step(consts, d)),
+            ("make_sharded_encoder(words=False)",
+             mesh.make_sharded_encoder(words=False))):
+        rs_cuda.reset_launches()
+        par, crc = step(data)
+        check(rs_cuda.launches["fused_apply_crc"] == 1 and
+              torch.equal(par, want_par) and
+              torch.equal(crc.to(torch.int64), want_crc.to(torch.int64)),
+              f"K7 {name} on the card")
+        cpu = small.view(1, 10, -1)[:, :, :4096].cpu()
+        check(all(torch.equal(a.cpu().to(b.dtype), b) for a, b in zip(
+            step(cpu.to(dev)), step(cpu))), f"K7 {name}: the card "
+            "differs from its CPU form")
+    rs_cuda.reset_launches()
+    par = mesh._parity_bits_matmul(bm, data)
+    check(rs_cuda.launches["gf_apply"] == 1 and torch.equal(par, want_par),
+          "K7 _parity_bits_matmul on the card")
+    rs_cuda.reset_launches()
+    log("K7 step forms: apply_matrix swar/mxu/pallas (K1), "
+        "batched_encode_step, batched_swar_encode_step, "
+        "make_sharded_encoder(words=False) (K2) and _parity_bits_matmul "
+        "(K1) equal the plain versions and their CPU forms")
+
+
 def kernel_phase(dev, mode: str) -> dict:
     rng = np.random.default_rng(SEED)
     par = PARITY
@@ -528,6 +594,7 @@ def kernel_phase(dev, mode: str) -> dict:
     k1(row, misaligned(rng, (10, MIB), 3, dev))
     log(f"kernels match their plain versions (max_abs_err {errs})")
     k5 = k5_phase(dev, rng, mode)
+    k7_phase(dev, rng)
     if mode == "quick":
         return {}
     # one K2 encode launch moves 60 MiB in and 24 MiB out (+ the CRCs),
@@ -2010,11 +2077,19 @@ lock = threading.Lock()
 
 def worker():
     conn = http.client.HTTPConnection(host, int(port), timeout=300)
+    sent = 0
     try:
         while True:
             i = next(counter)
             if i >= len(ids):
                 return
+            sent += 1
+            if a["reconnect"] and sent % a["reconnect"] == 0:
+                # a new connection: SO_REUSEPORT spreads connections, not
+                # requests, over a prefork server's processes
+                conn.close()
+                conn = http.client.HTTPConnection(host, int(port),
+                                                  timeout=300)
             nid = ids[i]
             cookie, data = needles[nid]
             path = "/%d,%x%08x" % (a["vid"], nid, cookie)
@@ -2047,6 +2122,10 @@ def worker():
 
 assert not [m for m in sys.modules if m.split(".")[0] in (
     "torch", "seaweedfs_tpu_torch", "seaweedfs_tpu", "jax")]
+if a["gate"]:  # one of several load processes: start on the parent's word
+    print("ready", flush=True)
+    sys.stdin.readline()
+start = time.time()
 t0 = time.perf_counter()
 threads = [threading.Thread(target=worker) for _ in range(a["conns"])]
 for t in threads:
@@ -2056,27 +2135,66 @@ for t in threads:
 wall = time.perf_counter() - t0
 with open(a["out"], "w") as f:
     json.dump({"n": len(lat), "bytes": moved[0], "wall": wall,
+               "start": start, "end": time.time(),
                "lat": list(lat.values()),
                "etags": {str(k): v for k, v in etags.items()},
                "bad": bad}, f)
 """
 
 
-def http_load(addr: str, vid: int, mode: str, ids, workdir: str) -> dict:
+def http_load(addr: str, vid: int, mode: str, ids, workdir: str,
+              nbytes: int = SERVER_BYTES, seed: int = SEED + 12,
+              reconnect: int = 0, procs: int = 1) -> dict:
     """Run the load process against `addr`: POST ("put") or GET the
-    seeded needles `ids` (all of them when None) from SERVER_CONNS
-    connections; returns its report."""
-    out = os.path.join(workdir, f"load_{mode}_{time.monotonic_ns()}.json")
-    spec = {"addr": addr, "vid": vid, "mode": mode, "ids": ids or [],
-            "nbytes": SERVER_BYTES, "seed": SEED + 12, "min": NEEDLE_MIN,
-            "max": NEEDLE_MAX, "conns": SERVER_CONNS, "out": out}
+    seeded needles `ids` (all of them when None; seeded_needles(nbytes,
+    seed)) from SERVER_CONNS connections, each reopened every `reconnect`
+    requests when nonzero; returns its report.  With `procs` > 1 the
+    connections and the ids are split over that many load processes
+    (contiguous slices), started together once each has made its data;
+    the report merges theirs, its wall from the first start to the last
+    end."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, "-c", LOADER, json.dumps(spec)],
-                         capture_output=True, text=True, timeout=900,
-                         cwd=workdir, env=env)
-    check(res.returncode == 0, f"the load process failed: {res.stderr}")
-    with open(out) as f:
-        return json.load(f)
+    if ids is None and procs > 1:
+        ids = sorted(seeded_needles(nbytes, seed))
+    slices = [ids] if procs == 1 else [
+        ids[i * len(ids) // procs:(i + 1) * len(ids) // procs]
+        for i in range(procs)]
+    runs = []
+    for i, part in enumerate(slices):
+        out = os.path.join(workdir, f"load_{mode}_{time.monotonic_ns()}_"
+                           f"{i}.json")
+        spec = {"addr": addr, "vid": vid, "mode": mode, "ids": part or [],
+                "nbytes": nbytes, "seed": seed, "min": NEEDLE_MIN,
+                "max": NEEDLE_MAX, "conns": SERVER_CONNS // procs,
+                "out": out, "reconnect": reconnect, "gate": procs > 1}
+        proc = subprocess.Popen(
+            [sys.executable, "-c", LOADER, json.dumps(spec)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=workdir, env=env)
+        runs.append((proc, out))
+    if procs > 1:
+        for proc, _ in runs:
+            check(proc.stdout.readline().strip() == "ready",
+                  "a load process did not start")
+        for proc, _ in runs:
+            proc.stdin.write("go\n")
+            proc.stdin.flush()
+    reports = []
+    for proc, out in runs:
+        _, err = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"the load process failed: {err}")
+        with open(out) as f:
+            reports.append(json.load(f))
+    if procs == 1:
+        return reports[0]
+    merged = {"n": sum(r["n"] for r in reports),
+              "bytes": sum(r["bytes"] for r in reports),
+              "wall": (max(r["end"] for r in reports)
+                       - min(r["start"] for r in reports)),
+              "lat": [x for r in reports for x in r["lat"]],
+              "etags": {k: v for r in reports for k, v in r["etags"].items()},
+              "bad": [x for r in reports for x in r["bad"]]}
+    return merged
 
 
 def http_json(addr: str, path: str, payload=None, method=None):
@@ -2136,6 +2254,7 @@ def server_phase(dev, workdir: str) -> dict:
         out["put_req_s"] = put["n"] / put["wall"]
         out["put_p50_ms"] = pct_ms(put["lat"], 50)
         out["put_p99_ms"] = pct_ms(put["lat"], 99)
+        out["put_wall_s"] = put["wall"]
         log(f"server: {put['n']} needles, {total} B POSTed raw from "
             f"{SERVER_CONNS} connections in {put['wall']:.3f} s: "
             f"{out['put_mib_s']:.1f} MiB/s, {out['put_req_s']:.0f} req/s, "
@@ -2148,6 +2267,8 @@ def server_phase(dev, workdir: str) -> dict:
         check(not intact["bad"], f"intact GET: {intact['bad'][:3]}")
         out["get_intact_p50_ms"] = pct_ms(intact["lat"], 50)
         out["get_intact_p99_ms"] = pct_ms(intact["lat"], 99)
+        out["get_intact_req_s"] = intact["n"] / intact["wall"]
+        out["get_intact_mib_s"] = intact["bytes"] / MIB / intact["wall"]
 
         # the shell's ec.encode sequence on one holder
         http_json(addr, "/admin/readonly", {"volume": vid})
@@ -2202,6 +2323,8 @@ def server_phase(dev, workdir: str) -> dict:
         out["get_degraded_p50_ms"] = pct_ms(degraded["lat"], 50)
         out["get_degraded_p99_ms"] = pct_ms(degraded["lat"], 99)
         out["degraded_mib_s"] = degraded["bytes"] / MIB / degraded["wall"]
+        out["degraded_req_s"] = degraded["n"] / degraded["wall"]
+        out["degraded_wall_s"] = degraded["wall"]
         log(f"server: intact GET of {intact['n']} needles p50 "
             f"{out['get_intact_p50_ms']:.3f} ms p99 "
             f"{out['get_intact_p99_ms']:.3f} ms; degraded GET of all "
@@ -2256,8 +2379,576 @@ def server_phase(dev, workdir: str) -> dict:
         vs.stop()
         policy.reset_state()
     launches = dict(rs_cuda.launches)
+    PHASE_NUMBERS["server"] = out
     log("server numbers: " + json.dumps(out, sort_keys=True))
     log(f"launches on the server path: {launches}")
+    return launches
+
+
+# Phase 9's server, run in a fresh interpreter (fork + exec): it imports
+# only the port (asserted), leaves CUDA uninitialized until its processes
+# dispatch (asserted before the group forks), adds a /debug/ route that
+# reports this process's kernel launches, decode batches and requests,
+# and stops on SIGTERM.  "rehearse" runs it on the CPU with each kernel's
+# plain version counted as the card counts the kernel.
+PREFORK_SERVER = r"""
+import json, os, signal, sys, threading
+
+a = json.loads(sys.argv[1])
+sys.path.insert(0, a["repo"])
+import torch
+
+from seaweedfs_tpu_torch.ops import rs_cuda
+from seaweedfs_tpu_torch.rpc import prefork
+from seaweedfs_tpu_torch.storage.erasure_coding import recover
+from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu")]
+assert not bad, bad
+device = None
+if a["rehearse"]:
+    from seaweedfs_tpu_torch import device as device_mod
+    from seaweedfs_tpu_torch.ops import rs_torch
+    from seaweedfs_tpu_torch.parallel import batched_encode, mesh
+
+    real_resolve, real_mesh = device_mod.resolve, mesh.make_ec_mesh
+    device_mod.resolve = lambda d=None: real_resolve(
+        "cpu" if d is None or str(d).startswith("cuda") else d)
+    mesh.make_ec_mesh = batched_encode.make_ec_mesh = (
+        lambda d=None: real_mesh("cpu" if d is None else d))
+    batched_encode.words_capable = lambda *_: True
+    real_k1, real_k2 = rs_torch.gf_apply, mesh.fused_apply_crc
+
+    def k1(*args, **kw):
+        rs_cuda.count_launch("gf_apply")
+        return real_k1(*args, **kw)
+
+    def k2(*args, **kw):
+        rs_cuda.count_launch("fused_apply_crc")
+        return real_k2(*args, **kw)
+
+    rs_torch.gf_apply, mesh.fused_apply_crc = k1, k2
+    os.environ["WEED_EC_RECOVER_DEVICE"] = "1"
+vs = VolumeServer([a["dir"]], a["master"], port=a["port"],
+                  ec_encoder_backend="cuda", enable_tcp=True)
+assert not torch.cuda.is_initialized(), "CUDA initialized before the fork"
+
+
+def smoke(req):
+    return {"wid": prefork.worker_id(), "pid": os.getpid(),
+            "role": prefork.role(), "launches": dict(rs_cuda.launches),
+            "recover": recover.STATS.snapshot(),
+            "reads": vs._req_counts["read"],
+            "writes": vs._req_counts["write"],
+            "cuda_initialized": torch.cuda.is_initialized(),
+            "tcp_port": getattr(vs, "tcp_port", 0),
+            "template": (vs.server._prefork.template_pid
+                         if vs.server._prefork is not None else 0)}
+
+
+vs.server.add("GET", "/debug/smoke", smoke)
+vs.start()
+done = threading.Event()
+signal.signal(signal.SIGTERM, lambda *_: done.set())
+print("READY", flush=True)
+done.wait()
+vs.stop()
+"""
+
+
+def free_port() -> int:
+    """A free local port below 45536 (the TCP fast path listens on the
+    HTTP port + 20000)."""
+    import socket
+
+    while True:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        if port < 45536:
+            return port
+
+
+def proc_alive(pid: int) -> bool:
+    """A process that exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            state = [ln for ln in f if ln.startswith("State:")]
+    except OSError:
+        return False
+    return bool(state) and "Z" not in state[0].split()[1]
+
+
+class PreforkFleet:
+    """Phase 9's server process (with `workers` processes) and its
+    registry."""
+
+    def __init__(self, workdir: str, data: str, master: str,
+                 rehearse: bool, workers: int = PREFORK_WORKERS):
+        self.workers = workers
+        self.reg = os.path.join(workdir, f"registry_{workers}")
+        os.makedirs(self.reg)
+        self.port = free_port()
+        self.addr = f"127.0.0.1:{self.port}"
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env.update(WEED_HTTP_WORKERS=str(workers),
+                   WEED_PREFORK_DIR=self.reg)
+        self.log_path = os.path.join(workdir, f"server_{workers}.log")
+        self.log = open(self.log_path, "w")
+        spec = {"repo": os.path.dirname(os.path.abspath(__file__)),
+                "dir": data, "master": master, "port": self.port,
+                "rehearse": rehearse}
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", PREFORK_SERVER, json.dumps(spec)],
+            env=env, cwd=workdir, stdout=subprocess.PIPE, stderr=self.log,
+            text=True)
+        ready, _, _ = select.select([self.proc.stdout], [], [], 300)
+        line = self.proc.stdout.readline() if ready else ""
+        if line.strip() != "READY":
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        check(line.strip() == "READY", "the prefork server did not start: "
+              + self.tail())
+        if workers > 1:
+            self.wait_registered()
+
+    def tail(self) -> str:
+        if not self.log.closed:
+            self.log.flush()
+        with open(self.log_path) as f:
+            return f.read()[-4000:]
+
+    def entries(self) -> dict:
+        groups = [g for g in os.listdir(self.reg) if g.startswith("volume-")]
+        check(len(groups) == 1, f"prefork registry groups {groups}")
+        out, gdir = {}, os.path.join(self.reg, groups[0])
+        for name in os.listdir(gdir):
+            if name.startswith("w") and name.endswith(".json"):
+                try:
+                    with open(os.path.join(gdir, name)) as f:
+                        e = json.load(f)
+                except ValueError:
+                    continue  # mid-write
+                out[e["wid"]] = e
+        return out
+
+    def wait_registered(self, gone_pid: int = 0, timeout: float = 120.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            ent = self.entries()
+            if len(ent) == self.workers and all(
+                    e["pid"] != gone_pid for e in ent.values()):
+                return ent
+            check(self.proc.poll() is None, "the prefork server exited: "
+                  + self.tail())
+            time.sleep(0.1)
+        check(False, f"workers never registered: {self.entries()}")
+
+    def smoke(self) -> dict:
+        """/debug/smoke of every process, through its own sideband."""
+        if self.workers == 1:
+            return {0: http_json(self.addr, "/debug/smoke")}
+        return {wid: http_json(e["sideband"], "/debug/smoke")
+                for wid, e in self.entries().items()}
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        self.proc.stdout.close()
+        self.log.close()
+
+
+def load_numbers(rep: dict, total_bytes: int = None) -> dict:
+    n = rep["n"]
+    return {"wall_s": rep["wall"], "n": n,
+            "mib_s": (total_bytes if total_bytes is not None
+                      else rep["bytes"]) / MIB / rep["wall"],
+            "req_s": n / rep["wall"], "p50_ms": pct_ms(rep["lat"], 50),
+            "p99_ms": pct_ms(rep["lat"], 99)}
+
+
+def check_launches_are_batches(info: dict, where: str):
+    for wid, w in info.items():
+        check(w["launches"]["gf_apply"] == w["recover"]["batches"],
+              f"{where}: worker {wid} launched K1 "
+              f"{w['launches']['gf_apply']} times for "
+              f"{w['recover']['batches']} decode batches")
+
+
+def recover_samples(expo: dict, name: str) -> float:
+    """The sum over every worker label of an EcRecover* counter."""
+    p = "SeaweedFS_volumeServer_ec_recover_" + name
+    return sum(v for k, v in expo.items() if isinstance(k, tuple)
+               and k[0] == p)
+
+
+def one_process_baseline(workdir: str, data: str, master: str,
+                         ec_needles: dict, put_needles: dict, live: list,
+                         rehearse: bool) -> dict:
+    """The same server with WEED_HTTP_WORKERS=1 over the directory phase
+    9's fleet left, driven as the fleet was: half of volume 1's degraded
+    GETs from one load process, the other half from
+    PREFORK_LOAD_PROCS (its block cache cold, as the fleet's was), and
+    volume 2's live needles from one and from PREFORK_LOAD_PROCS."""
+    base = PreforkFleet(workdir, data, master, rehearse, workers=1)
+    out = {}
+    try:
+        ids = sorted(ec_needles)
+        half = len(ids) // 2
+        for key, part, procs, vid, nbytes, seed in (
+                ("degraded", ids[:half], 1, 1, PREFORK_EC_BYTES, SEED + 20),
+                ("degraded_split", ids[half:], PREFORK_LOAD_PROCS, 1,
+                 PREFORK_EC_BYTES, SEED + 20),
+                ("get_intact", live, 1, 2, PREFORK_PUT_BYTES, SEED + 21),
+                ("get_intact_split", live, PREFORK_LOAD_PROCS, 2,
+                 PREFORK_PUT_BYTES, SEED + 21)):
+            rep = http_load(base.addr, vid, "get", part, workdir,
+                            nbytes=nbytes, seed=seed,
+                            reconnect=PREFORK_RECONNECT, procs=procs)
+            check(not rep["bad"] and rep["n"] == len(part),
+                  f"one-process {key}: {rep['bad'][:3]}")
+            out[key] = load_numbers(rep)
+        info = base.smoke()
+        check_launches_are_batches(info, "the one-process server")
+        out["launches"] = info[0]["launches"]
+    finally:
+        base.stop()
+    check(base.proc.returncode == 0, "the one-process server exited "
+          f"{base.proc.returncode}: " + base.tail())
+    log("prefork: the same passes against WEED_HTTP_WORKERS=1 (MiB/s, "
+        "req/s, p50 ms, p99 ms): " + json.dumps(
+            {k: [round(v[m], 3) for m in ("mib_s", "req_s", "p50_ms",
+                                          "p99_ms")]
+             for k, v in out.items() if k != "launches"}))
+    return out
+
+
+def prefork_phase(dev, workdir: str, rehearse: bool = False) -> dict:
+    """Phase 9: the volume server with WEED_HTTP_WORKERS=4 and the TCP
+    fast path, started in a fresh interpreter over a directory holding an
+    EC volume with 4 lost shards; returns the kernels' launches on the
+    path, summed over this process (the setup encode) and every server
+    process (the killed worker's counts read before the kill)."""
+    from seaweedfs_tpu_torch.rpc.http_rpc import RpcError, call
+    from seaweedfs_tpu_torch.wdclient.volume_tcp_client import \
+        VolumeTcpClient
+
+    check(native.lib() is not None, "the native host library did not build")
+    rs_cuda.reset_launches()
+    data = os.path.join(workdir, "data")
+    os.makedirs(data)
+    ec_needles = seeded_needles(PREFORK_EC_BYTES, SEED + 20)
+    ec_etag = {nid: "%08x" % crc_host.crc32c(d)
+               for nid, (_, d) in ec_needles.items()}
+    store = Store([data], ec_encoder_backend="cuda")
+    try:
+        store.add_volume(1)
+        store.add_volume(2)
+        t0 = time.perf_counter()
+        for nid, (cookie, blob) in ec_needles.items():
+            n = Needle.create(blob)
+            n.id, n.cookie = nid, cookie
+            store.write_needle(1, n)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store.ec_generate(1)
+        gen_s = time.perf_counter() - t0
+        store.delete_volume(1)
+    finally:
+        store.close()
+    for sid in LOST:
+        os.remove(os.path.join(data, "1" + to_ext(sid)))
+    setup = dict(rs_cuda.launches)
+    check(setup["fused_apply_crc"] > 0, "the setup encode launched no K2")
+    ec_bytes = sum(len(d) for _, d in ec_needles.values())
+    log(f"prefork: volume 1 set up: {len(ec_needles)} needles, {ec_bytes} "
+        f"B written in {write_s:.3f} s, encoded on the card in "
+        f"{gen_s:.3f} s ({setup['fused_apply_crc']} K2 launches), .dat/.idx "
+        "and .ec00 .ec05 .ec11 .ec13 removed; volume 2 empty")
+    import socket as _socket
+    with _socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        dead = f"127.0.0.1:{sock.getsockname()[1]}"
+    fleet = PreforkFleet(workdir, data, dead, rehearse)
+    out = {"usable_cores": platform.available_cpu_count()}
+    totals = {"gf_apply": 0, "fused_apply_crc": 0}
+    pids = set()
+    try:
+        addr = fleet.addr
+        ent = fleet.entries()
+        check(ent[0]["pid"] == fleet.proc.pid, "worker 0 is not the parent")
+        info = fleet.smoke()
+        template = info[0]["template"]
+        pids |= {e["pid"] for e in ent.values()} | {template}
+        check(not any(w["cuda_initialized"] for w in info.values()),
+              f"a process made a CUDA context before any request: {info}")
+        check(info[0]["tcp_port"] > 0, "the TCP fast path did not start")
+        log(f"prefork: {PREFORK_WORKERS} processes on {addr} (parent pid "
+            f"{fleet.proc.pid}, template {template}, workers "
+            f"{sorted(e['pid'] for w, e in ent.items() if w)}); "
+            f"{out['usable_cores']} usable cores; TCP port "
+            f"{info[0]['tcp_port']}")
+
+        # 3: every needle of volume 1, behind the lost shards: the first
+        # half (by offset) from one load process, as phase 8; the second
+        # from PREFORK_LOAD_PROCS, so whether the client or the server
+        # bounds the rate shows without a warm block cache
+        ids = sorted(ec_needles)
+        half = len(ids) // 2
+        deg = http_load(addr, 1, "get", ids[:half], workdir,
+                        nbytes=PREFORK_EC_BYTES, seed=SEED + 20,
+                        reconnect=PREFORK_RECONNECT)
+        deg_split = http_load(addr, 1, "get", ids[half:], workdir,
+                              nbytes=PREFORK_EC_BYTES, seed=SEED + 20,
+                              reconnect=PREFORK_RECONNECT,
+                              procs=PREFORK_LOAD_PROCS)
+        etags = {**deg["etags"], **deg_split["etags"]}
+        check(not deg["bad"] and not deg_split["bad"] and
+              deg["n"] + deg_split["n"] == len(ec_needles),
+              f"degraded GET: {len(deg['bad']) + len(deg_split['bad'])} "
+              f"failed, e.g. {(deg['bad'] + deg_split['bad'])[:3]}")
+        wrong = [nid for nid in ec_needles
+                 if etags[str(nid)] != ec_etag[nid]]
+        check(not wrong, f"{len(wrong)} degraded ETags are not CRC32C")
+        info = fleet.smoke()
+        check_launches_are_batches(info, "degraded GETs")
+        k1_procs = [wid for wid, w in info.items()
+                    if w["launches"]["gf_apply"] > 0]
+        check(len(k1_procs) >= 3, f"K1 launched in processes {k1_procs} "
+              "only; at least 3 of 4 must decode")
+        out["degraded"] = load_numbers(deg)
+        out["degraded_split"] = load_numbers(deg_split)
+        log(f"prefork: degraded GET of {deg['n']} needles from one load "
+            f"process in {deg['wall']:.3f} s ({out['degraded']['mib_s']:.1f}"
+            f" MiB/s, {out['degraded']['req_s']:.0f} req/s, p50 "
+            f"{out['degraded']['p50_ms']:.3f} ms, p99 "
+            f"{out['degraded']['p99_ms']:.3f} ms); the other "
+            f"{deg_split['n']} from {PREFORK_LOAD_PROCS} in "
+            f"{deg_split['wall']:.3f} s "
+            f"({out['degraded_split']['mib_s']:.1f} MiB/s, "
+            f"{out['degraded_split']['req_s']:.0f} req/s, p50 "
+            f"{out['degraded_split']['p50_ms']:.3f} ms, p99 "
+            f"{out['degraded_split']['p99_ms']:.3f} ms); K1 launches = "
+            "decode batches per process: " + json.dumps(
+                {w: [i["launches"]["gf_apply"], i["recover"]["batches"]]
+                 for w, i in info.items()}))
+
+        # 4: PUTs (forwarded to the parent), GETs from the workers
+        put_needles = seeded_needles(PREFORK_PUT_BYTES, SEED + 21)
+        put_bytes = sum(len(d) for _, d in put_needles.values())
+        put_etag = {nid: "%08x" % crc_host.crc32c(d)
+                    for nid, (_, d) in put_needles.items()}
+        reads0 = {w: i["reads"] for w, i in info.items()}
+        put = http_load(addr, 2, "put", None, workdir,
+                        nbytes=PREFORK_PUT_BYTES, seed=SEED + 21,
+                        reconnect=PREFORK_RECONNECT)
+        check(not put["bad"] and put["n"] == len(put_needles),
+              f"PUT: {len(put['bad'])} failed, e.g. {put['bad'][:3]}")
+        check(all(put["etags"][str(n)] == put_etag[n] for n in put_needles),
+              "a PUT's ETag is not its needle's CRC32C")
+        info = fleet.smoke()
+        writes = {w: i["writes"] for w, i in info.items()}
+        check(writes[0] == put["n"] and not any(
+            writes[w] for w in writes if w),
+            f"writes by process {writes}: all must land in the parent")
+        got = http_load(addr, 2, "get", None, workdir,
+                        nbytes=PREFORK_PUT_BYTES, seed=SEED + 21,
+                        reconnect=PREFORK_RECONNECT)
+        check(not got["bad"], f"GET of the PUTs: {got['bad'][:3]}")
+        got_split = http_load(addr, 2, "get", None, workdir,
+                              nbytes=PREFORK_PUT_BYTES, seed=SEED + 21,
+                              reconnect=PREFORK_RECONNECT,
+                              procs=PREFORK_LOAD_PROCS)
+        check(not got_split["bad"] and got_split["n"] == len(put_needles),
+              f"split GET of the PUTs: {got_split['bad'][:3]}")
+        info = fleet.smoke()
+        served = {w: i["reads"] - reads0[w] for w, i in info.items()}
+        check(sum(1 for w, r in served.items() if w and r) >= 2,
+              f"GETs of the PUTs served by process {served}")
+        out["put"] = load_numbers(put, put_bytes)
+        out["get_intact"] = load_numbers(got)
+        out["get_intact_split"] = load_numbers(got_split)
+        gone = sorted(put_needles)[:PREFORK_DELETES]
+        for nid in gone:
+            call(addr, "/2,%x%08x" % (nid, put_needles[nid][0]),
+                 method="DELETE")
+        for nid in gone:
+            for e in fleet.entries().values():
+                try:
+                    call(e["sideband"], "/2,%x%08x" % (
+                        nid, put_needles[nid][0]), parse=False)
+                    check(False, f"worker {e['wid']} served deleted {nid}")
+                except RpcError as err:
+                    check(err.status == 404, f"deleted {nid} on worker "
+                          f"{e['wid']}: {err.status} {err}")
+        log(f"prefork: PUT {put['n']} needles ({put_bytes} B, forwarded "
+            f"to the parent) in {put['wall']:.3f} s "
+            f"({out['put']['mib_s']:.1f} MiB/s, {out['put']['req_s']:.0f} "
+            f"req/s, p50 {out['put']['p50_ms']:.3f} ms, p99 "
+            f"{out['put']['p99_ms']:.3f} ms); GET back in "
+            f"{got['wall']:.3f} s ({out['get_intact']['mib_s']:.1f} MiB/s, "
+            f"{out['get_intact']['req_s']:.0f} req/s, p50 "
+            f"{out['get_intact']['p50_ms']:.3f} ms, p99 "
+            f"{out['get_intact']['p99_ms']:.3f} ms), served by process "
+            f"{served}; again from {PREFORK_LOAD_PROCS} load processes in "
+            f"{got_split['wall']:.3f} s "
+            f"({out['get_intact_split']['mib_s']:.1f} MiB/s, "
+            f"{out['get_intact_split']['req_s']:.0f} req/s, p50 "
+            f"{out['get_intact_split']['p50_ms']:.3f} ms, p99 "
+            f"{out['get_intact_split']['p99_ms']:.3f} ms); {len(gone)} "
+            "DELETEs then GET = 404 on every process")
+
+        # 5: /admin/ec/generate of volume 2 runs K2 in the parent
+        before = fleet.smoke()
+        http_json(addr, "/admin/readonly", {"volume": 2})
+        t0 = time.perf_counter()
+        http_json(addr, "/admin/ec/generate", {"volume": 2})
+        out["generate_s"] = time.perf_counter() - t0
+        info = fleet.smoke()
+        k2 = {w: i["launches"]["fused_apply_crc"]
+              - before[w]["launches"]["fused_apply_crc"]
+              for w, i in info.items()}
+        check(k2[0] > 0 and not any(k2[w] for w in k2 if w),
+              f"K2 launches of /admin/ec/generate by process {k2}")
+        log(f"prefork: /admin/ec/generate of volume 2 in "
+            f"{out['generate_s']:.3f} s, {k2[0]} K2 launches in the parent "
+            "(after the forks), none in the workers")
+
+        # 6: SIGKILL a worker; its respawn decodes through its own K1
+        victim = fleet.entries()[2]
+        for name in totals:
+            totals[name] += info[2]["launches"][name]
+        os.kill(victim["pid"], signal.SIGKILL)
+        t0 = time.monotonic()
+        ent = fleet.wait_registered(gone_pid=victim["pid"])
+        out["respawn_s"] = time.monotonic() - t0
+        fresh = ent[2]
+        pids.add(fresh["pid"])
+        ids = sorted(ec_needles)[:PREFORK_RESPAWN_GETS]
+        rsp = http_load(fresh["sideband"], 1, "get", ids, workdir,
+                        nbytes=PREFORK_EC_BYTES, seed=SEED + 20)
+        check(not rsp["bad"], f"respawned worker's GETs: {rsp['bad'][:3]}")
+        w2 = http_json(fresh["sideband"], "/debug/smoke")
+        check(w2["pid"] == fresh["pid"] and w2["launches"]["gf_apply"] > 0
+              and w2["launches"]["gf_apply"] == w2["recover"]["batches"],
+              f"the respawned worker {w2}")
+        log(f"prefork: worker 2 (pid {victim['pid']}) SIGKILLed, respawned "
+            f"from the template as pid {fresh['pid']} in "
+            f"{out['respawn_s']:.2f} s; it served {rsp['n']} degraded GETs "
+            f"with {w2['launches']['gf_apply']} K1 launches = "
+            f"{w2['recover']['batches']} decode batches")
+
+        # 7: the TCP fast path, 8 threads
+        live = [n for n in sorted(put_needles) if n not in set(gone)]
+        tcp_ids = ([("2,%x%08x" % (n, put_needles[n][0]), put_needles[n][1])
+                    for n in live[:PREFORK_TCP_READS]],
+                   [("1,%x%08x" % (n, ec_needles[n][0]), ec_needles[n][1])
+                    for n in sorted(ec_needles)[:PREFORK_TCP_READS]])
+        check(all(len(items) == PREFORK_TCP_READS for items in tcp_ids),
+              "too few needles for the TCP reads")
+        client = VolumeTcpClient(max_conns_per_server=SERVER_CONNS)
+        try:
+            for label, items in zip(("tcp_intact", "tcp_degraded"),
+                                    tcp_ids):
+                def read(item):
+                    t = time.perf_counter()
+                    body = client.read_needle(addr, item[0])
+                    return body == item[1], time.perf_counter() - t, \
+                        len(body)
+                t0 = time.perf_counter()
+                with concurrent.futures.ThreadPoolExecutor(
+                        SERVER_CONNS) as ex:
+                    res = list(ex.map(read, items))
+                wall = time.perf_counter() - t0
+                check(all(r[0] for r in res), f"{label}: a TCP read "
+                      "differs from the needle")
+                out[label] = {"n": len(res), "wall_s": wall,
+                              "req_s": len(res) / wall,
+                              "mib_s": sum(r[2] for r in res) / MIB / wall,
+                              "p50_ms": pct_ms([r[1] for r in res], 50),
+                              "p99_ms": pct_ms([r[1] for r in res], 99)}
+        finally:
+            client.close()
+        log("prefork: TCP reads byte-equal from 8 threads: " + json.dumps(
+            {k: out[k] for k in ("tcp_intact", "tcp_degraded")},
+            sort_keys=True))
+
+        # 8: the aggregated exposition against each process's stats
+        info = fleet.smoke()
+        expo = exposition(http_get_text(addr, "/metrics"))
+        workers_seen = {dict(k[1]).get("worker") for k in expo
+                        if isinstance(k, tuple) and k[0].startswith(
+                            "SeaweedFS_volumeServer_ec_recover_")}
+        check(workers_seen >= {str(w) for w in info},
+              f"the merged exposition has workers {workers_seen}")
+        for name, key in (("bytes_total", "recovered_bytes"),):
+            check(recover_samples(expo, name) ==
+                  sum(i["recover"][key] for i in info.values()),
+                  f"EcRecover {name} over the workers "
+                  f"{recover_samples(expo, name)} != the processes' "
+                  f"{sum(i['recover'][key] for i in info.values())}")
+        spans = recover_samples(expo, "spans_total")
+        check(spans == sum(i["recover"]["spans"] for i in info.values()),
+              f"EcRecover spans over the workers {spans} != the processes'")
+        native_reads = sum(v for k, v in expo.items() if isinstance(k, tuple)
+                           and k[0].startswith(
+                               "SeaweedFS_volumeServer_native")
+                           and dict(k[1]).get("type") in ("read", "ec_read"))
+        check(native_reads >= 2 * PREFORK_TCP_READS,
+              f"{native_reads} native TCP reads for "
+              f"{2 * PREFORK_TCP_READS} TCP reads")
+        log(f"prefork: /metrics merged over workers {sorted(workers_seen)} "
+            f"({expo['_families']} families, {expo['_lines']} lines, parsed "
+            f"strictly): EcRecover bytes and spans = the processes' "
+            f"recover stats; native TCP reads {native_reads:.0f}")
+        for wid, i in info.items():
+            for name in totals:
+                totals[name] += i["launches"][name]
+        check_launches_are_batches(info, "the whole phase")
+    finally:
+        fleet.stop()
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and any(proc_alive(p) for p in pids):
+        time.sleep(0.2)
+    left = [p for p in pids if proc_alive(p)]
+    check(not left, f"processes of the group left after SIGTERM: {left}")
+    check(fleet.proc.returncode == 0, "the prefork server exited "
+          f"{fleet.proc.returncode}: " + fleet.tail())
+    check(not os.listdir(fleet.reg), "the prefork registry was left")
+    log(f"prefork: SIGTERM to the parent; none of {sorted(pids)} remains, "
+        "registry removed")
+    one = one_process_baseline(workdir, data, dead, ec_needles, put_needles,
+                               live, rehearse)
+    one_launches = one.pop("launches")
+    out["one_process"] = one
+    for name in totals:
+        totals[name] += one_launches[name]
+    ph8 = PHASE_NUMBERS.get("server")
+    if ph8:
+        out["phase8"] = {
+            "put": {"mib_s": ph8["put_mib_s"], "req_s": ph8["put_req_s"],
+                    "p50_ms": ph8["put_p50_ms"], "p99_ms": ph8["put_p99_ms"],
+                    "wall_s": ph8["put_wall_s"]},
+            "get_intact": {"mib_s": ph8["get_intact_mib_s"],
+                           "req_s": ph8["get_intact_req_s"],
+                           "p50_ms": ph8["get_intact_p50_ms"],
+                           "p99_ms": ph8["get_intact_p99_ms"]},
+            "degraded": {"mib_s": ph8["degraded_mib_s"],
+                         "req_s": ph8["degraded_req_s"],
+                         "p50_ms": ph8["get_degraded_p50_ms"],
+                         "p99_ms": ph8["get_degraded_p99_ms"],
+                         "wall_s": ph8["degraded_wall_s"]}}
+    PHASE_NUMBERS["prefork"] = out
+    log("prefork numbers (phase 8's single process beside them): "
+        + json.dumps(out, sort_keys=True))
+    launches = {name: setup[name] + totals[name] for name in totals}
+    log(f"launches on the prefork path: {launches}")
     return launches
 
 
@@ -2285,11 +2976,15 @@ def main() -> int:
     ap.add_argument("--server", action="store_true",
                     help="build and check the kernels, then phase 8 (the "
                          "volume server over HTTP) alone")
+    ap.add_argument("--prefork", action="store_true",
+                    help="build and check the kernels, then phase 9 (the "
+                         "volume server with prefork workers and the TCP "
+                         "fast path) alone")
     args = ap.parse_args()
     mode = ("quick" if args.quick else "kernels" if args.kernels
             else "routes" if args.routes else "inline" if args.inline
             else "cache" if args.cache else "server" if args.server
-            else "all")
+            else "prefork" if args.prefork else "all")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2305,17 +3000,19 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
     stats = kernel_phase(dev, "quick" if mode in ("routes", "inline",
-                                                  "cache", "server")
+                                                  "cache", "server",
+                                                  "prefork")
                          else mode)
     if mode in ("kernels", "routes", "all"):
         route_phase(dev)
     if mode == "routes":
         route_profile(dev)
-    if mode in ("inline", "cache", "server"):
+    if mode in ("inline", "cache", "server", "prefork"):
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             {"inline": inline_phase, "cache": cache_phase,
-             "server": server_phase}[mode](dev, workdir)
+             "server": server_phase,
+             "prefork": prefork_phase}[mode](dev, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     launches = {}
@@ -2324,13 +3021,14 @@ def main() -> int:
         # them after; the kernels each one must have launched
         needs = {"raw": KERNELS, "needle": KERNELS, "store": KERNELS,
                  "inline": ("gf_apply",), "cache": KERNELS,
-                 "server": KERNELS}
+                 "server": KERNELS, "prefork": KERNELS}
         paths = {}
         for label, phase in (("raw", main_path), ("needle", needle_phase),
                              ("store", store_phase),
                              ("inline", inline_phase),
                              ("cache", cache_phase),
-                             ("server", server_phase)):
+                             ("server", server_phase),
+                             ("prefork", prefork_phase)):
             workdir = tempfile.mkdtemp(prefix="chip_smoke_")
             try:
                 paths[label] = phase(dev, workdir)

@@ -306,7 +306,7 @@ def new_host_encoder(data_shards: int = 10, parity_shards: int = 4):
 def new_encoder(data_shards: int = 10, parity_shards: int = 4,
                 backend: str = "cuda", device=None):
     if backend == "auto":
-        if torch.cuda.is_available():
+        if device_mod.cuda_present():
             backend = "cuda"
         elif native.lib() is not None:
             backend = "cpu"

@@ -565,7 +565,7 @@ def _encode_units_device(plans, units, chunk, writers, devices, batch_units,
         pstep = make_parity_step(devices, fused_crc=fused)
         backend = "device-pooled-fused-crc" if fused else "device-pooled"
     else:
-        wstep = make_sharded_encoder()
+        wstep = make_sharded_encoder(words=True)
         backend = "device-words"
 
     n_slots = max(_SLOTS, depth + 1)

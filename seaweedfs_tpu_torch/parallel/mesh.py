@@ -2,13 +2,21 @@
 
 Counterpart of seaweedfs_tpu/parallel/mesh.py:
 
-  shard_devices / make_ec_mesh  the devices the EC dispatch splits batches
-                        over (WEED_EC_DEVICE_SHARD); a "mesh" here is a
-                        list of torch devices, batches split on their B
+  make_mesh             every device (or the given ones) as a "mesh": here
+                        a list of torch devices, batches split on their B
                         axis, one launch per device;
+  shard_devices / make_ec_mesh  the devices the EC dispatch splits batches
+                        over (WEED_EC_DEVICE_SHARD);
   make_sharded_encoder  the encode step: (B, d, L) data -> parity and the
-                        raw CRC32C images of all d + p rows (K2 with the
-                        parity matrix);
+                        raw CRC32C images of all d + p rows; words=True is
+                        K2 with the parity matrix, words=False the portable
+                        step (batched_encode_step / batched_swar_encode_step);
+  batched_encode_step / batched_swar_encode_step / _parity_bits_matmul
+                        the reference's portable step forms ("K7"): K2 (K1
+                        for the parity-only form) on a CUDA tensor; on a
+                        CPU tensor each keeps its own plain formulation, the
+                        GF(2) bit-matmul or SWAR over packed int32 words,
+                        with K4's plain CRC;
   make_sharded_apply    the rebuild step: (B, d, L) survivors -> the t
                         missing rows and their raw CRC images (K2 with a
                         reconstruction matrix; K2 also CRCs the inputs,
@@ -36,8 +44,25 @@ import torch
 from .. import device as device_mod
 from .. import profiling
 from ..ops import gf256, rs_cuda
-from ..ops.crc_device import finalize
-from ..ops.rs_cuda import fused_apply_crc, gf_apply, k2_scratch_shape
+from ..ops.crc_device import batched_crc32c_raw, finalize
+from ..ops.rs_cuda import (_matrix_key, fused_apply_crc, gf_apply,
+                           k2_scratch_shape)
+from ..ops.rs_torch import (_bit_constants_cached, _bit_matrix_cached,
+                            bits_matmul, swar_words)
+
+
+def make_mesh(devices=None) -> list:
+    """The reference's mesh over all devices, as the port's list of torch
+    devices: every CUDA card when None (raising without one), else
+    `devices` (one device or a list) resolved.  Unlike make_ec_mesh it is
+    not cut by WEED_EC_DEVICE_SHARD."""
+    if devices is None:
+        device_mod.resolve(None)
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    elif isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    return [device_mod.resolve(d) for d in devices]
 
 
 def shard_devices(devices: list) -> list:
@@ -89,15 +114,86 @@ def words_capable(devices: list, chunk_len: int) -> bool:
             and chunk_len % 4 == 0)
 
 
-def make_sharded_encoder(data_shards: int = 10, parity_shards: int = 4):
-    """step(data (B, d, L) uint8 tensor, out=None, crc=None, partial=None)
-    -> (parity (B, p, L) uint8, crc_raw (B, d + p) int64), on data's
-    device; the keywords are K2's preallocated outputs and scratch."""
+def _coefficients(bit_matrix) -> np.ndarray:
+    """The (p, d) GF(2^8) matrix behind a (8p, 8d) bit matrix: column 8j
+    of row block i holds the bits of gf_mul(M[i, j], 1) = M[i, j]."""
+    bm = np.asarray(bit_matrix.cpu() if isinstance(bit_matrix, torch.Tensor)
+                    else bit_matrix, dtype=np.uint8)
+    p8, d8 = bm.shape
+    col0 = bm[:, 0::8].reshape(p8 // 8, 8, d8 // 8).astype(np.uint32)
+    return np.ascontiguousarray(
+        (col0 << np.arange(8, dtype=np.uint32)[None, :, None]).sum(1),
+        dtype=np.uint8)
+
+
+def _parity_bits_matmul(bit_matrix, data: torch.Tensor) -> torch.Tensor:
+    """(B, d, L) uint8 -> (B, p, L) uint8 parity for a (8p, 8d) bit
+    matrix: K1 over the (d, B*L) stack on a CUDA tensor, the GF(2)
+    bit-matmul on the CPU."""
+    b, d, length = data.shape
+    if data.device.type == "cuda":
+        m = _coefficients(bit_matrix)
+        stack = data.permute(1, 0, 2).reshape(d, b * length).contiguous()
+        return gf_apply(m, stack).view(-1, b, length).permute(1, 0, 2)
+    bm = torch.as_tensor(np.asarray(bit_matrix.cpu() if isinstance(
+        bit_matrix, torch.Tensor) else bit_matrix))
+    return bits_matmul(bm, data)
+
+
+def batched_swar_encode_step(consts, data: torch.Tensor):
+    """The reference's CPU-mesh step: SWAR parity over packed int32 words
+    plus the raw CRC32C images of all rows.  consts (p, d, 8) int32 =
+    gf_mul(M[i, j], 1 << b); data (B, d, L) uint8 with L % 4 == 0 ->
+    (parity (B, p, L) uint8, crc_raw (B, d + p) int64).  K2 on a CUDA
+    tensor."""
+    c = torch.as_tensor(np.asarray(consts.cpu() if isinstance(
+        consts, torch.Tensor) else consts, dtype=np.int32))
+    if data.device.type == "cuda":
+        m = np.ascontiguousarray(c[:, :, 0].numpy(), dtype=np.uint8)
+        return fused_apply_crc(m, data)
+    b, d, length = data.shape
+    words = data.contiguous().view(torch.int32)
+    parity = swar_words(c, words).view(torch.uint8).view(b, -1, length)
+    return parity, batched_crc32c_raw(torch.cat([data, parity], dim=1))
+
+
+def batched_encode_step(bit_matrix, data: torch.Tensor):
+    """The reference's flagship step: (B, d, L) uint8 -> (parity (B, p, L),
+    crc_raw (B, d + p) int64), the raw CRC32C images of every data and
+    parity row.  K2 on a CUDA tensor; on the CPU the bit-matmul parity
+    and K4's plain CRC."""
+    if data.device.type == "cuda":
+        return fused_apply_crc(_coefficients(bit_matrix), data)
+    parity = _parity_bits_matmul(bit_matrix, data)
+    return parity, batched_crc32c_raw(torch.cat([data, parity], dim=1))
+
+
+def make_sharded_encoder(data_shards: int = 10, parity_shards: int = 4,
+                         words: bool = False):
+    """The encode step on data's device: (B, d, L) uint8 tensor ->
+    (parity (B, p, L) uint8, crc_raw (B, d + p) int64).
+
+    words=True   K2 with the parity matrix; step(data, out=None, crc=None,
+                 partial=None) takes K2's preallocated outputs and scratch
+                 (the words route of parallel/batched_encode).
+    words=False  the portable step: batched_encode_step on a CUDA tensor
+                 (K2) and on the CPU for odd L, batched_swar_encode_step
+                 on the CPU when L % 4 == 0, as the reference picks on a
+                 CPU mesh."""
     matrix = np.ascontiguousarray(
         gf256.parity_matrix(data_shards, data_shards + parity_shards))
+    if words:
+        def step(data: torch.Tensor, out=None, crc=None, partial=None):
+            return fused_apply_crc(matrix, data, out, crc, partial)
+        return step
+    key = _matrix_key(matrix)
+    bit_matrix = _bit_matrix_cached(*key)
+    consts = _bit_constants_cached(*key)
 
-    def step(data: torch.Tensor, out=None, crc=None, partial=None):
-        return fused_apply_crc(matrix, data, out, crc, partial)
+    def step(data: torch.Tensor):
+        if data.device.type == "cpu" and data.shape[-1] % 4 == 0:
+            return batched_swar_encode_step(consts, data)
+        return batched_encode_step(bit_matrix, data)
     return step
 
 
@@ -262,5 +358,6 @@ def encode_batch(data: np.ndarray, device=None):
     uint32) with the CRCs finalized to standard CRC32C of each row."""
     dev = device_mod.resolve(device)
     data = np.ascontiguousarray(data, dtype=np.uint8)
-    parity, crc_raw = make_sharded_encoder()(torch.from_numpy(data).to(dev))
+    parity, crc_raw = make_sharded_encoder(words=True)(
+        torch.from_numpy(data).to(dev))
     return parity.cpu().numpy(), finalize(crc_raw, data.shape[-1])

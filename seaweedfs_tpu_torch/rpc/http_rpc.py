@@ -12,10 +12,9 @@ Every request runs on its own handler thread.  Torch keeps the current
 CUDA device per thread, so a handler that reaches the card resolves its
 device through `device.resolve`, never through thread state.
 
-The prefork workers of the JAX package (WEED_HTTP_WORKERS > 1) are not
-ported yet: a CUDA context does not survive a fork.  An RpcServer refuses
-WEED_HTTP_WORKERS > 1, and `fanout_prefixes` stays a set that nothing
-fans out to.
+With WEED_HTTP_WORKERS > 1 an explicitly bound server preforks its
+workers (rpc/prefork.py): workers forward writes to the parent, retry a
+local 404 there, and fan drain/leave out to the fleet.
 """
 
 from __future__ import annotations
@@ -37,15 +36,7 @@ from .. import tracing
 from ..qos import classify as _qos
 from ..stats import metrics as _stats
 from ..util import faults as _faults
-
-
-def worker_count() -> int:
-    """The configured WEED_HTTP_WORKERS (>= 1; bad values mean 1)."""
-    raw = os.environ.get("WEED_HTTP_WORKERS", "")
-    try:
-        return max(1, int(raw)) if raw else 1
-    except ValueError:
-        return 1
+from . import prefork as _prefork
 
 
 class RpcError(Exception):
@@ -287,15 +278,24 @@ class RpcServer:
         self._inflight = _stats.RpcInflightGauge.labels(service_name)
         self._sendfile_bytes = \
             _stats.GatewaySendfileBytesCounter.labels(service_name)
-        # prefork (WEED_HTTP_WORKERS) is not ported yet: refused, never
-        # quietly served by one process
-        if worker_count() > 1:
-            raise NotImplementedError(
-                "WEED_HTTP_WORKERS > 1 (prefork workers) is not ported "
-                "yet (ROADMAP item 7)")
-        # admin routes a prefork group would re-deliver to every worker;
-        # kept for the daemons that declare them, nothing fans out yet
+        # prefork (WEED_HTTP_WORKERS): only explicitly-bound ports shard
+        # into worker processes; port-0 servers are ephemeral (test
+        # fixtures, embedded sidecars) and must never fork the host
+        # process
+        self._prefork = None
+        self._prefork_workers = (
+            _prefork.worker_count()
+            if port != 0 and _prefork.fork_available() else 1)
+        # admin routes the parent re-delivers to every worker after
+        # handling them itself (graceful drain / leave must reach the
+        # whole fleet, whichever process accepted the request)
         self.fanout_prefixes: set[str] = set()
+        # GET/HEAD routes workers must proxy to worker 0 anyway: state
+        # that lives only in the parent process (raft leadership, the
+        # heartbeat-fed topology) — a worker's fork-time copy would
+        # answer with stale or leaderless state, not just miss new keys
+        self.parent_prefixes: set[str] = set()
+        self._on_worker_start: list[Callable[[int], None]] = []
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -398,6 +398,37 @@ class RpcServer:
                 length = int(self.headers.get("Content-Length") or 0)
                 body = self.rfile.read(length) if length else b""
                 req = Request(self, path, query, body)
+                pf = outer._prefork
+                # admin routes that must reach the whole fleet: the
+                # receiving process executes them locally and re-delivers
+                # to every peer below — a worker must NOT forward them to
+                # the parent, since the forwarded copy (FWD marked) is
+                # served strictly locally and the fanout would be lost
+                fanout_path = (
+                    pf is not None and
+                    _prefork.FWD_HEADER not in self.headers and
+                    any(path.startswith(p)
+                        for p in outer.fanout_prefixes))
+                if pf is not None and _prefork.is_worker() and \
+                        not fanout_path and \
+                        _prefork.FWD_HEADER not in self.headers and \
+                        not path.startswith("/debug/") and \
+                        (method not in ("GET", "HEAD") or
+                         any(path.startswith(p)
+                             for p in outer.parent_prefixes)):
+                    # prefork workers are read replicas of a fork-time
+                    # snapshot: every mutation is relayed to the single
+                    # writer (the parent) over its control sideband
+                    try:
+                        resp = pf.forward_to_parent(method, raw_path,
+                                                    body, self.headers)
+                    except RpcError as e:
+                        resp = Response(
+                            json.dumps({"error": str(e)}).encode(),
+                            e.status, "application/json",
+                            headers=dict(e.headers))
+                    self._reply(resp)
+                    return
                 route, prefix = outer._match(method, path)
                 # route label for the span name / hop vector: the matched
                 # prefix ("*" = default route), never the raw path — label
@@ -460,6 +491,25 @@ class RpcServer:
                         resp = Response(
                             json.dumps({"error": f"{type(e).__name__}: {e}"}
                                        ).encode(), 500, "application/json")
+                    if pf is not None and \
+                            _prefork.FWD_HEADER not in self.headers:
+                        if resp.status == 404 and _prefork.is_worker() \
+                                and method in ("GET", "HEAD"):
+                            # fork-snapshot miss: data written after this
+                            # worker was born is visible to the parent
+                            try:
+                                resp = pf.forward_to_parent(
+                                    method, raw_path, body, self.headers)
+                            except RpcError:
+                                pass  # keep the honest local 404
+                        elif resp.status < 400 and fanout_path:
+                            # whichever process accepted the admin
+                            # request (with SO_REUSEPORT that is a
+                            # non-parent worker (N-1)/N of the time)
+                            # re-delivers it to every peer, parent
+                            # included — drain/leave must never
+                            # dead-end in one process
+                            pf.fanout(method, raw_path, body, self.headers)
                     if resp.status >= 400:
                         sp.status = f"error {resp.status}"
                     if sp.sampled:
@@ -684,7 +734,18 @@ class RpcServer:
                     time.sleep(0.01)
                 return False
 
+        self._handler_cls = Handler
+        self._server_cls = Server
         self.httpd = Server((host, port), Handler, bind_and_activate=False)
+        if self._prefork_workers > 1 and _prefork.reuseport_available():
+            # ALL sockets on a port must set SO_REUSEPORT for a later
+            # one to join, so the parent's main listener opts in up
+            # front when workers will shard this port
+            try:
+                self.httpd.socket.setsockopt(
+                    socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+            except OSError:
+                pass
         try:
             self.httpd.server_bind()
             self.httpd.server_activate()
@@ -767,16 +828,57 @@ class RpcServer:
         self.routes[(method, prefix)] = fn
         self._rebuild_match_tables()
 
+    def _new_listener(self, host: str, port: int, reuseport: bool = False):
+        """Another HTTP server sharing this RpcServer's routes: worker
+        listeners on the shared port (SO_REUSEPORT) and the loopback
+        sidebands the prefork group uses for forwarding/scraping."""
+        srv = self._server_cls((host, port), self._handler_cls,
+                               bind_and_activate=False)
+        srv.daemon_threads = True
+        if reuseport:
+            srv.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        try:
+            srv.server_bind()
+            srv.server_activate()
+        except BaseException:
+            srv.server_close()
+            raise
+        return srv
+
+    def on_worker_start(self, fn: Callable[[int], None]):
+        """Register a post-fork hook (runs in each worker child before
+        it starts accepting).  Daemons use this to reopen per-process
+        resources — e.g. the filer's sqlite connection, which cannot be
+        shared across a fork."""
+        self._on_worker_start.append(fn)
+
+    def on_worker_start_fire(self, wid: int):
+        for fn in self._on_worker_start:
+            try:
+                fn(wid)
+            except Exception:
+                pass
+
     @property
     def address(self) -> str:
         return f"{self.host}:{self.port}"
 
     def start(self):
+        if self._prefork_workers > 1 and self._prefork is None:
+            # the parent keeps serving as worker 0 on the listener it
+            # already owns; N-1 workers shard the same port.  The group
+            # forks its template before this process starts serving.
+            self._prefork = _prefork.PreforkGroup(self,
+                                                  self._prefork_workers)
+            self._prefork.start()
         self._thread = threading.Thread(target=self.httpd.serve_forever,
                                         daemon=True)
         self._thread.start()
 
     def stop(self):
+        if self._prefork is not None and not _prefork.is_worker():
+            self._prefork.stop()
+            self._prefork = None
         self.httpd.shutdown()
         # sever live keep-alive connections: their handler threads would
         # otherwise keep answering from this daemon's torn-down state
@@ -824,6 +926,38 @@ class _ConnPool:
         except ValueError:
             return default
 
+
+    def configure_for_prefork(self, workers: int):
+        """Per-process-aware sizing: with N workers on this host, each
+        process keeps 1/N of the per-peer idle budget (floor 2) and
+        reaps idle sockets faster — otherwise N workers hold N full
+        pools against every peer, multiplying its fd load by N."""
+        if workers <= 1:
+            return
+        base = self._env_max_idle(16)
+        trimmed = []
+        with self._lock:
+            self.max_idle = max(2, base // workers)
+            self.idle_ttl = min(self.idle_ttl, 10.0)
+            for idle in self._idle.values():
+                while len(idle) > self.max_idle:
+                    trimmed.append(idle.pop(0)[0])
+        for conn in trimmed:
+            conn.close()
+
+    def reinit_after_fork(self):
+        """Forget every pooled connection WITHOUT closing the sockets,
+        and REPLACE the lock rather than acquire it.  Freshly-forked
+        workers inherit the parent's pooled fds; reusing them would
+        interleave two processes' requests on one TCP stream, and
+        close()ing them here is unnecessary (the child drops its
+        reference either way — the parent still owns the socket).  The
+        lock must not be acquired: the parent keeps serving while it
+        forks, so a child can inherit it mid-hold and would deadlock
+        before ever binding its listener."""
+        self._lock = threading.Lock()
+        self._idle = {}
+        self._last_sweep = 0.0
 
     def _sweep(self, now: float):
         """Background-free lazy reap: every get/put piggybacks a cheap

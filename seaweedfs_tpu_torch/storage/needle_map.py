@@ -1,7 +1,7 @@
 """Needle index kinds: id -> (offset, size), plus volume statistics.
 
 Equivalent of the reference's NeedleMapper family (weed/storage/
-needle_map.go:15-38):
+needle_map.go:15-38: memory / leveldb / leveldbMedium / leveldbLarge):
 
   * NeedleMap        — dict-backed (kind "memory"): simplest, ~100 B/entry
                        under CPython; fine for small volumes.
@@ -10,20 +10,27 @@ needle_map.go:15-38):
                        arrays (compact_map.go:10-48), with a sorted bulk
                        region + small overflow dict merged in batches, and
                        a fully vectorised .idx bulk loader.
-
-The disk-backed kind "sqlite" (the reference's leveldb variants) is not
-ported yet and raises NotImplementedError.
+  * SqliteNeedleMap  — disk-backed (kind "sqlite"): the leveldb-variant
+                       analogue for RAM-constrained servers; the .idx
+                       remains the durable log, the DB is the lookup
+                       structure, rebuilt from .idx when stale
+                       (needle_map_leveldb.go semantics).
 
 All kinds share the same bookkeeping the reference's mapMetric maintains
 (cumulative file/deleted counts and byte totals, max key), an append-log
 .idx writer, and ascending iteration for .ecx generation (memdb.go
 AscendingVisit).
+
+The port's own copy of seaweedfs_tpu/storage/needle_map.py.  The native
+engine's map (storage/native_engine.py NativeNeedleMap) replaces the
+"memory" kind when the engine's library builds, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import io
 import os
+import sqlite3
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -32,6 +39,12 @@ from . import idx as idx_mod
 from . import types as t
 
 _IDX_DTYPE = np.dtype([("key", ">u8"), ("off", ">u4"), ("size", ">i4")])
+
+# prefork gateways: the parent process serves all writes while forked
+# workers serve reads from their fork-time map snapshot.  Flushing every
+# idx append lets workers tail the file (refresh_from_idx) to pick up
+# needles written after the fork without any IPC.
+FLUSH_APPENDS = False
 
 
 class NeedleValue:
@@ -56,9 +69,11 @@ class BaseNeedleMap:
         self.max_key = 0
         self._index_file: Optional[io.BufferedWriter] = None
         self.index_path = index_path
+        self._idx_tail = 0  # bytes of the .idx this map has consumed
         if index_path is not None:
             if os.path.exists(index_path):
                 self._load_from_idx(index_path)
+                self._idx_tail = os.path.getsize(index_path)
             self._index_file = open(index_path, "ab")
 
     # kind-specific storage hooks -------------------------------------------
@@ -115,9 +130,41 @@ class BaseNeedleMap:
         self._apply(nid, 0, t.TOMBSTONE_FILE_SIZE)
         self._append_idx(nid, offset, t.TOMBSTONE_FILE_SIZE)
 
+    def set_in_memory(self, nid: int, offset: int, size: int):
+        """Update the map without touching the idx log (for rebuilds)."""
+        self._apply(nid, offset, size)
+
     def _append_idx(self, nid: int, offset: int, size: int):
         if self._index_file is not None:
             self._index_file.write(idx_mod.pack_entry(nid, offset, size))
+            self._idx_tail += t.NEEDLE_MAP_ENTRY_SIZE
+            if FLUSH_APPENDS:
+                self._index_file.flush()
+
+    def refresh_from_idx(self) -> int:
+        """Replay entries another process appended to the .idx since this
+        map last read it (prefork workers tailing the parent's writes).
+        Returns the number of entries applied.  Only valid for maps that
+        are not appending concurrently themselves — the prefork design
+        guarantees that by forwarding all writes to the parent."""
+        if self.index_path is None or not os.path.exists(self.index_path):
+            return 0
+        size = os.path.getsize(self.index_path)
+        size -= size % t.NEEDLE_MAP_ENTRY_SIZE
+        if size <= self._idx_tail:
+            return 0
+        applied = 0
+        with open(self.index_path, "rb") as f:
+            f.seek(self._idx_tail)
+            while self._idx_tail + t.NEEDLE_MAP_ENTRY_SIZE <= size:
+                entry = f.read(t.NEEDLE_MAP_ENTRY_SIZE)
+                if len(entry) < t.NEEDLE_MAP_ENTRY_SIZE:
+                    break
+                nid, off, sz = idx_mod.unpack_entry(entry)
+                self._apply(nid, off, sz)
+                self._idx_tail += t.NEEDLE_MAP_ENTRY_SIZE
+                applied += 1
+        return applied
 
     # -- query --------------------------------------------------------------
     def get(self, nid: int) -> Optional[NeedleValue]:
@@ -337,34 +384,161 @@ class CompactNeedleMap(BaseNeedleMap):
     def __len__(self):
         return int(self._keys.size) + len(self._overflow)
 
+    def bytes_per_entry(self) -> float:
+        n = len(self)
+        if n == 0:
+            return 0.0
+        core = (self._keys.nbytes + self._offs.nbytes + self._sizes.nbytes)
+        return core / max(1, self._keys.size)
+
+
+class SqliteNeedleMap(BaseNeedleMap):
+    """sqlite-backed map (kind "sqlite") for RAM-constrained servers.
+
+    The .idx append log stays authoritative; the DB (at index_path +
+    ".sqlite") is a lookup structure rebuilt from the .idx whenever its
+    recorded idx size is stale — needle_map_leveldb.go's recovery story.
+    Cumulative metrics persist in a meta table on flush/close; after a
+    crash they are re-derived from live rows (same degradation as the
+    reference's metric recomputation).
+    """
+
+    def __init__(self, index_path: Optional[str] = None,
+                 db_path: Optional[str] = None):
+        if db_path is None:
+            db_path = (index_path + ".sqlite") if index_path else ":memory:"
+        # volume-server handlers run on per-connection threads; access is
+        # serialised by Volume.lock, so cross-thread use is safe
+        self._db = sqlite3.connect(db_path, check_same_thread=False)
+        self._db.execute("PRAGMA journal_mode=WAL")
+        self._db.execute("PRAGMA synchronous=NORMAL")
+        self._db.execute(
+            "CREATE TABLE IF NOT EXISTS needles ("
+            "key INTEGER PRIMARY KEY, off INTEGER, size INTEGER)")
+        self._db.execute(
+            "CREATE TABLE IF NOT EXISTS meta (k TEXT PRIMARY KEY, v INTEGER)")
+        self._pending = 0
+        super().__init__(index_path)
+
+    def _meta(self, k: str) -> Optional[int]:
+        row = self._db.execute("SELECT v FROM meta WHERE k=?", (k,)).fetchone()
+        return None if row is None else int(row[0])
+
+    def _set_meta(self, k: str, v: int):
+        self._db.execute(
+            "INSERT INTO meta(k, v) VALUES(?, ?) "
+            "ON CONFLICT(k) DO UPDATE SET v=excluded.v", (k, v))
+
+    def _load_from_idx(self, path: str):
+        idx_size = os.path.getsize(path)
+        if self._meta("idx_size") == idx_size:
+            # DB is current: restore metrics, skip the replay
+            for attr in ("file_count", "deleted_count", "deleted_bytes",
+                         "content_bytes", "max_key"):
+                v = self._meta(attr)
+                if v is not None:
+                    setattr(self, attr, v)
+            return
+        self._db.execute("DELETE FROM needles")
+        super()._load_from_idx(path)
+        self._persist_meta(idx_size)
+
+    def _persist_meta(self, idx_size: Optional[int] = None):
+        if idx_size is None and self.index_path:
+            if self._index_file is not None:
+                self._index_file.flush()
+            idx_size = (os.path.getsize(self.index_path)
+                        if os.path.exists(self.index_path) else 0)
+        self._set_meta("idx_size", idx_size or 0)
+        for attr in ("file_count", "deleted_count", "deleted_bytes",
+                     "content_bytes", "max_key"):
+            self._set_meta(attr, getattr(self, attr))
+        self._db.commit()
+
+    @staticmethod
+    def _sql_key(nid: int) -> int:
+        # sqlite INTEGER is signed 64-bit; wrap u64 keys into its range
+        return nid - (1 << 64) if nid >= (1 << 63) else nid
+
+    @staticmethod
+    def _from_sql_key(k: int) -> int:
+        return k + (1 << 64) if k < 0 else k
+
+    def _get(self, nid):
+        row = self._db.execute(
+            "SELECT off, size FROM needles WHERE key=?",
+            (self._sql_key(nid),)).fetchone()
+        if row is None:
+            return None
+        return t.from_stored_offset(int(row[0])), int(row[1])
+
+    def _set(self, nid, offset, size):
+        self._db.execute(
+            "INSERT INTO needles(key, off, size) VALUES(?, ?, ?) "
+            "ON CONFLICT(key) DO UPDATE SET off=excluded.off, "
+            "size=excluded.size",
+            (self._sql_key(nid), t.to_stored_offset(offset), size))
+        self._bump()
+
+    def _mark_deleted(self, nid):
+        self._db.execute("UPDATE needles SET size=-size WHERE key=?",
+                         (self._sql_key(nid),))
+        self._bump()
+
+    def _bump(self):
+        self._pending += 1
+        if self._pending >= 1024:
+            self._db.commit()
+            self._pending = 0
+
+    def _visit_ascending(self):
+        # two passes ordered by the unsigned key value (negative sql keys
+        # are the u64 upper half)
+        for clause in ("key >= 0", "key < 0"):
+            cur = self._db.execute(
+                f"SELECT key, off, size FROM needles WHERE {clause} "
+                "ORDER BY key")
+            for k, off, size in cur:
+                yield (self._from_sql_key(int(k)),
+                       t.from_stored_offset(int(off)), int(size))
+
+    def __len__(self):
+        return int(self._db.execute(
+            "SELECT COUNT(*) FROM needles").fetchone()[0])
+
+    def flush(self):
+        super().flush()
+        self._persist_meta()
+
+    def close(self):
+        super().close()
+        self._persist_meta(
+            os.path.getsize(self.index_path)
+            if self.index_path and os.path.exists(self.index_path) else 0)
+        self._db.close()
+
 
 _KINDS = {
     "memory": NeedleMap,
     "compact": CompactNeedleMap,
+    "sqlite": SqliteNeedleMap,
 }
-_LATER_KINDS = ("sqlite",)  # kinds of the reference not ported yet
-
-
-def _kind(kind: str):
-    if kind in _LATER_KINDS:
-        raise NotImplementedError(
-            f"needle map kind {kind!r} is not ported yet")
-    try:
-        return _KINDS[kind]
-    except KeyError:
-        raise ValueError(f"unknown needle map kind {kind!r}") from None
 
 
 def new_needle_map(kind: str = "memory",
                    index_path: Optional[str] = None) -> BaseNeedleMap:
     """Factory mirroring NeedleMapKind selection (needle_map.go:15-22)."""
-    return _kind(kind)(index_path)
+    try:
+        cls = _KINDS[kind]
+    except KeyError:
+        raise ValueError(f"unknown needle map kind {kind!r}") from None
+    return cls(index_path)
 
 
 def load_needle_map_from_idx(path: str, kind: str = "memory"
                              ) -> BaseNeedleMap:
     """Read-only map from an existing .idx (no append log) — the shape
     WriteSortedFileFromIdx consumes (ec_encoder.go:27-54, readNeedleMap)."""
-    nm = _kind(kind)()
+    nm = _KINDS[kind]()
     nm._load_from_idx(path)
     return nm

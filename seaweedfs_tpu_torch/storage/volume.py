@@ -15,15 +15,17 @@ Semantics parity with the reference's weed/storage/volume*.go:
   * zero-copy reads: read_needle_slice hands the payload's .dat range and a
     dup'd fd to the HTTP layer's sendfile
 
-The port keeps its index in the Python needle maps (needle_map.py), so
-read_only and the append/modify timestamps are plain attributes (the JAX
-package merges them with its native engine's view).  Tiered (remote)
-volumes come with a later slice (ROADMAP item 7); a volume whose .vif
-records remote files is refused.
+The "memory" map kind becomes the native engine's map when its library
+builds (storage/native_engine.py; SW_NATIVE=0 keeps the Python maps), and
+read_only and the append/modify timestamps then merge the engine's view:
+its TCP fast path writes volumes without entering Python.  A volume whose
+.vif records remote tier files is served read-only from that tier
+(storage/tier.py) when its local .dat is gone.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import struct
 import threading
@@ -33,6 +35,7 @@ from typing import Optional
 from .. import tracing
 from ..stats import metrics as _stats
 from . import idx as idx_mod
+from . import native_engine
 from . import types as t
 from .backend import DiskFile
 from .needle import (CURRENT_VERSION, FLAG_HAS_TTL, Needle, NeedleError,
@@ -135,9 +138,9 @@ class Volume:
         self.lock = threading.RLock()
         self.data: Optional[DiskFile] = None
         self.nm: Optional[BaseNeedleMap] = None
-        self.last_append_at_ns = 0
-        self.last_modified_ts = 0
-        self.read_only = False
+        self._last_append_at_ns = 0
+        self._last_modified_ts = 0
+        self._read_only = False
         self.is_compacting = False
         self.last_compact_index_offset = 0
         self.last_compact_revision = 0
@@ -157,17 +160,81 @@ class Volume:
     def ttl(self) -> TTL:
         return self.super_block.ttl
 
+    # -- native-engine coupling ----------------------------------------------
+    # read_only and the append/modify timestamps are mirrored with the
+    # native engine: its TCP fast path writes volumes without entering
+    # Python, so these views merge both sides.
+
+    @property
+    def read_only(self) -> bool:
+        return self._read_only
+
+    @read_only.setter
+    def read_only(self, value: bool):
+        self._read_only = value
+        nm = getattr(self, "nm", None)
+        if isinstance(nm, native_engine.NativeNeedleMap):
+            nm.set_flags(read_only=value)
+
+    @property
+    def last_append_at_ns(self) -> int:
+        nm = getattr(self, "nm", None)
+        if isinstance(nm, native_engine.NativeNeedleMap):
+            return max(self._last_append_at_ns, nm.last_append_ns())
+        return self._last_append_at_ns
+
+    @last_append_at_ns.setter
+    def last_append_at_ns(self, value: int):
+        self._last_append_at_ns = value
+
+    @property
+    def last_modified_ts(self) -> int:
+        nm = getattr(self, "nm", None)
+        if isinstance(nm, native_engine.NativeNeedleMap):
+            return max(self._last_modified_ts, nm.last_modified())
+        return self._last_modified_ts
+
+    @last_modified_ts.setter
+    def last_modified_ts(self, value: int):
+        self._last_modified_ts = value
+
+    def _append_blob(self, blob: bytes) -> int:
+        """Append one record to the .dat.  In native mode the engine's
+        per-volume mutex serializes this with TCP fast-path writes."""
+        if isinstance(self.nm, native_engine.NativeNeedleMap):
+            return self.nm.append_dat(blob)
+        return self.data.append(blob)
+
+    def _native_writable(self) -> bool:
+        """Whether the native fast path may write this volume directly.
+        Replicated and TTL volumes qualify too: the engine fans writes
+        out to the vid's published replica set (svn_set_replicas; 307
+        when unconfigured) and stamps lastModified for the TTL read
+        check, so neither bypasses production semantics."""
+        return self.version == CURRENT_VERSION
+
     # -- load/create ---------------------------------------------------------
     def _load(self, replica_placement: ReplicaPlacement, ttl: TTL):
         dat = self.file_name(".dat")
         exists = os.path.exists(dat)
+        tiered = None
+        # a .vif recording remote tier files means the volume was tiered
+        # (volume.tier.upload).  The remote is authoritative and the
+        # volume is readonly: a kept local .dat (keep_local=True) is only
+        # a read cache, never a write target, so the two can't diverge
+        # across restarts.
         vif = load_volume_info(self.file_name(".vif"))
         if vif is not None and vif.files:
-            # the reference serves such a volume from its remote tier
-            raise NotImplementedError(
-                f"volume {self.id} is tiered to remote files; tiered "
-                "volumes are not ported yet")
-        if not exists:
+            self.read_only = True
+            if not exists:
+                from .tier import open_tiered_dat
+
+                tiered = open_tiered_dat(vif)
+        if tiered is not None:
+            self.data = tiered
+            self.super_block = SuperBlock.from_file(
+                io.BytesIO(self.data.read_at(1024, 0)))
+        elif not exists:
             self.data = DiskFile(dat, create=True)
             self.super_block = SuperBlock(
                 version=CURRENT_VERSION,
@@ -178,12 +245,38 @@ class Volume:
             with open(dat, "rb") as f:
                 self.super_block = SuperBlock.from_file(f)
         idx_path = self.file_name(".idx")
-        if exists:
+        if exists or tiered is not None:
             self.last_append_at_ns = self._check_integrity(idx_path)
+        if exists:
             # seed quiescence tracking from the .dat mtime so -quietFor
             # gates survive a restart (volume_loading.go:63 semantics)
             self.last_modified_ts = int(os.path.getmtime(dat))
-        self.nm = new_needle_map(self.needle_map_kind, idx_path)
+        self.nm = self._new_needle_map(dat, idx_path, tiered)
+
+    def _new_needle_map(self, dat: str, idx_path: str, tiered):
+        """Pick the index implementation.  The in-memory kinds upgrade to
+        the native engine's shared map when the library is available (one
+        index serves both the Python handlers and the native TCP fast
+        path); sqlite and tiered volumes keep their Python maps."""
+        want_native = (self.needle_map_kind in ("memory", "native")
+                       and tiered is None
+                       and native_engine.available()
+                       and isinstance(self.data, DiskFile))
+        if want_native:
+            try:
+                return native_engine.NativeNeedleMap(
+                    dat, idx_path, self.version, self._native_writable(),
+                    self.read_only, self.fsync,
+                    ttl_sec=self.ttl.minutes() * 60 if self.ttl else 0,
+                    extra_copies=(
+                        self.super_block.replica_placement.copy_count()
+                        - 1),
+                    ttl_raw=self.ttl.to_uint32() if self.ttl else 0)
+            except (OSError, RuntimeError):
+                pass
+        kind = ("memory" if self.needle_map_kind == "native"
+                else self.needle_map_kind)
+        return new_needle_map(kind, idx_path)
 
     def _check_integrity(self, idx_path: str) -> int:
         """Verify index<->dat consistency; truncate corrupt tails.
@@ -297,9 +390,14 @@ class Volume:
                         f"mismatching cookie {n.cookie:x}")
             n.append_at_ns = time.time_ns()
             blob = n.to_bytes(self.version)
-            offset = self.data.append(blob)
+            offset = self._append_blob(blob)
             self.last_append_at_ns = n.append_at_ns
-            if nv is None or nv.offset < offset:
+            if isinstance(self.nm, native_engine.NativeNeedleMap):
+                # the "newer offset wins" check must read the map under
+                # its own lock: a native-port write to the same id may
+                # have landed after our pre-append lookup
+                self.nm.put_if_newer(n.id, offset, n.size)
+            elif nv is None or nv.offset < offset:
                 self.nm.put(n.id, offset, n.size)
             if n.last_modified > self.last_modified_ts:
                 self.last_modified_ts = n.last_modified
@@ -322,7 +420,7 @@ class Volume:
             n.data = b""
             n.append_at_ns = time.time_ns()
             blob = n.to_bytes(self.version)
-            offset = self.data.append(blob)
+            offset = self._append_blob(blob)
             self.last_append_at_ns = n.append_at_ns
             self.nm.delete(n.id, offset)
         if self.fsync:
@@ -519,11 +617,20 @@ class Volume:
         (CommitCompact + makeupDiff, volume_vacuum.go:102-190)."""
         with self.lock:
             self.nm.flush()
+            if isinstance(self.nm, native_engine.NativeNeedleMap):
+                # barrier: no native fast-path write may land after the
+                # diff replay reads the idx tail (clients get a 307 and
+                # retry over HTTP, which blocks on self.lock)
+                self.nm.quiesce()
             try:
                 self._makeup_diff()
             except VolumeError:
                 os.remove(self.file_name(".cpd"))
                 os.remove(self.file_name(".cpx"))
+                if isinstance(self.nm, native_engine.NativeNeedleMap):
+                    # aborted commit: the old files stay live, so native
+                    # writes may resume
+                    self.nm.set_flags(writable=self._native_writable())
                 raise
             self.nm.close()
             self.data.close()

@@ -35,6 +35,7 @@ bool guards the hot path):
 
   * rpc/http_rpc.py call()/call_stream()  -> on_rpc("client", dst, route)
   * RpcServer._dispatch                   -> on_rpc("server", dst, route)
+  * storage/backend.py DiskFile, MmapFile -> on_disk(path, op)
   * storage/erasure_coding/inline.py      -> on_disk(path, "write") per
                                              shard-log write, on_disk(path,
                                              "commit") per commit record
@@ -43,8 +44,6 @@ The port's own copy of seaweedfs_tpu/util/faults.py.  Each fired fault
 counts in SeaweedFS_faults_injected_total, and loading rules writes a
 ``faults.active`` event to the journal.  Every daemon mounts GET/POST
 /debug/faults (debug_handler) to inspect counters and flip rules live.
-The storage/backend.py DiskFile hooks come with the native engine
-(ROADMAP item 7).
 """
 
 from __future__ import annotations

@@ -46,8 +46,8 @@ def available_cpu_count() -> int:
 
 
 def on_cuda() -> bool:
-    """True when a CUDA card is present."""
-    return torch.cuda.is_available()
+    """True when a CUDA card is present (found without a CUDA context)."""
+    return device_mod.cuda_present()
 
 
 def link_throughput(probe_bytes: int = _LINK_PROBE_BYTES,

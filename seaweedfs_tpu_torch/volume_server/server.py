@@ -23,13 +23,17 @@ kernel K2 on the card, and a read behind a lost shard decodes through K1.
 A CUDA error inside a handler is that request's 500 reply, never a quiet
 host decode.
 
-Not ported yet, and refused at construction rather than skipped: prefork
-workers (WEED_HTTP_WORKERS > 1, refused by RpcServer), the native TCP
-fast path (enable_tcp=True) and tier backends (tier_backends), all
-ROADMAP item 7; the tier and remote routes (`/admin/volume/tier_upload`,
-`tier_download`, `/admin/remote/fetch_write`) are not registered.  The
-maintenance worker that pulls curator jobs from the master waits for the
-control plane (ROADMAP item 8); `start` starts none.
+Prefork workers (WEED_HTTP_WORKERS > 1 on an explicit port) serve reads
+from their snapshot of the Store plus the .idx tail and forward writes
+to the parent (rpc/prefork.py).  Each worker is forked from the group's
+template, before the parent touches the card, and makes its own CUDA
+context at its first K1; it pins torch to one CPU thread.  `enable_tcp`
+starts the native engine's TCP fast path (the Python loop where the
+engine is missing), and `tier_backends` registers remote tiers for
+`/admin/volume/tier_upload`, `tier_download` and
+`/admin/remote/fetch_write`.  The maintenance worker that pulls curator
+jobs from the master waits for the control plane (ROADMAP item 8);
+`start` starts none.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from typing import Optional
 import numpy as np
 
 from .. import profiling, qos, tracing
+from ..rpc import prefork as _prefork
 from ..rpc import policy
 from ..rpc.http_rpc import (FileSlice, Request, Response, RpcError,
                             RpcServer, call, call_stream, sendfile_enabled,
@@ -87,6 +92,17 @@ def _resp_len(resp) -> int:
         return int(headers.get("Content-Length", 0) or 0)
     except (TypeError, ValueError):
         return 0
+
+
+class _EcBindingEntry:
+    """One EC volume's native serving state (binding + the EcVolume
+    instance it was built from, to detect remounts)."""
+
+    __slots__ = ("ev", "binding")
+
+    def __init__(self, ev, binding):
+        self.ev = ev
+        self.binding = binding
 
 
 class _InflightGate:
@@ -219,6 +235,15 @@ def _is_gzippable(name: bytes, mime: bytes) -> bool:
     return any(n.endswith(e) for e in _GZIPPABLE_EXT)
 
 
+def _pin_worker_threads(_wid: int):
+    """Post-fork hook of a prefork worker: one torch CPU thread, so the
+    worker never enters a parallel region of a thread pool it inherited
+    (see rpc/prefork.py)."""
+    import torch
+
+    torch.set_num_threads(1)
+
+
 class VolumeServer:
     def __init__(self, directories: list[str], master_address: str,
                  host: str = "127.0.0.1", port: int = 0,
@@ -232,14 +257,6 @@ class VolumeServer:
                  max_inflight_requests: int = 0, device=None):
         if read_mode not in ("local", "proxy", "redirect"):
             raise ValueError(f"unknown readMode {read_mode!r}")
-        if enable_tcp:
-            raise NotImplementedError(
-                "enable_tcp (the native TCP fast path) is not ported yet "
-                "(ROADMAP item 7)")
-        if tier_backends:
-            raise NotImplementedError(
-                "tier_backends (remote tiers) are not ported yet "
-                "(ROADMAP item 7)")
         self.read_mode = read_mode
         self.upload_gate = _InflightGate(upload_limit_mb << 20)
         self.download_gate = _InflightGate(download_limit_mb << 20)
@@ -253,9 +270,26 @@ class VolumeServer:
             default_limit=max_inflight_requests)
         # workload analytics sketches for this daemon's needle traffic
         self.access_recorder = access.AccessRecorder(node="volume")
+        self.enable_tcp = enable_tcp
+        self._tcp_sock = None
+        # tier backends must be registered before Store discovery so
+        # .vif-only (tiered) volumes load (storage/tier.py registry)
+        if tier_backends:
+            from ..storage import tier
+
+            for conf in tier_backends:
+                tier.register_tier_backend(conf)
         self.server = RpcServer(host, port, service_name="volume")
-        # drain/leave would reach every prefork worker, not just the
-        # process that executed them (no prefork group yet)
+        if self.server._prefork_workers > 1:
+            # workers serve reads from their fork-time needle-map
+            # snapshot and tail the .idx for needles the parent wrote
+            # after the fork — which requires unbuffered idx appends
+            from ..storage import needle_map as _needle_map
+
+            _needle_map.FLUSH_APPENDS = True
+            self.server.on_worker_start(_pin_worker_threads)
+        # drain/leave must reach every prefork worker, not just the
+        # parent that executed them
         self.server.fanout_prefixes.update({"/admin/drain",
                                             "/admin/leave"})
         # the configured seed list survives leader redirects so a dead
@@ -312,17 +346,293 @@ class VolumeServer:
     # -- lifecycle -----------------------------------------------------------
     def start(self):
         self.server.start()
+        if self.enable_tcp:
+            self._start_tcp()
         self._heartbeat_thread = threading.Thread(
             target=self._heartbeat_loop, daemon=True)
         self._heartbeat_thread.start()
 
     def stop(self):
         self._stop.set()
+        if getattr(self, "_native_owner", False) or \
+                getattr(self, "_native_jwt_owner", False) or \
+                getattr(self, "_native_listener_owner", False):
+            from ..storage import native_engine
+
+            if getattr(self, "_native_owner", False):
+                for vid in getattr(self, "_native_bound", set()):
+                    native_engine.unserve_volume(vid)
+                for vid, entry in getattr(self, "_native_ec", {}).items():
+                    native_engine.unserve_ec_volume(vid)
+                    entry.binding.close()
+                native_engine.release_serving()
+                self._native_owner = False
+            if getattr(self, "_native_jwt_owner", False):
+                native_engine.server_set_jwt("", "", 10)
+                self._native_jwt_owner = False
+            if getattr(self, "_native_listener_owner", False):
+                native_engine.server_stop()
+                self._native_listener_owner = False
+        if self._tcp_sock is not None:
+            try:
+                self._tcp_sock.close()
+            except OSError:
+                pass
         self.server.stop()
         self.read_cache.close()
         self.store.close()
 
+    # -- native fast-path serving registry ------------------------------------
+    def _sync_native_serving(self):
+        """Keep the native TCP server's vid->volume bindings in step with
+        the store (only the server instance that owns the process-wide
+        native listener binds; others leave the registry alone)."""
+        if not getattr(self, "_native_owner", False):
+            return
+        from ..storage import native_engine
+
+        current = {}
+        ec_current = {}
+        for loc in self.store.locations:
+            for vid, v in list(loc.volumes.items()):
+                # TTL volumes serve natively too: the engine 404s
+                # expired needles itself (svn_set_ttl, set at map
+                # creation — volume_read.go:27-35 semantics)
+                if isinstance(v.nm, native_engine.NativeNeedleMap):
+                    current[vid] = v.nm
+            for vid, ev in list(loc.ec_volumes.items()):
+                ec_current[vid] = ev
+        bound = getattr(self, "_native_bound", set())
+        for vid in bound - current.keys():
+            native_engine.unserve_volume(vid)
+        for vid, nm in current.items():
+            native_engine.serve_volume(vid, nm)
+        self._native_bound = set(current)
+        # EC volumes: bind local-shard read serving; rebind when the
+        # EcVolume instance or its shard set changed (mount/copy/rebuild)
+        ec_bound = getattr(self, "_native_ec", {})
+        for vid in set(ec_bound) - ec_current.keys():
+            native_engine.unserve_ec_volume(vid)
+            ec_bound.pop(vid).binding.close()
+        for vid, ev in ec_current.items():
+            entry = ec_bound.get(vid)
+            if entry is not None and entry.ev is not ev:
+                native_engine.unserve_ec_volume(vid)
+                entry.binding.close()
+                entry = None
+            if entry is None:
+                try:
+                    binding = native_engine.NativeEcBinding(ev)
+                except (OSError, RuntimeError):
+                    continue  # e.g. .ecx missing mid-copy: retry next sync
+                entry = _EcBindingEntry(ev, binding)
+                ec_bound[vid] = entry
+            else:
+                entry.binding.sync_shards(ev)
+            native_engine.serve_ec_volume(vid, entry.binding)
+        self._native_ec = ec_bound
+        self._sync_native_replicas()
+
+    def _sync_native_replicas(self):
+        """Publish each replicated volume's peer fast-path addresses to
+        the engine so native writes fan out without a 307 round-trip
+        (store_replicate.go:24-141's location set, refreshed from the
+        master's lookup on the heartbeat cadence; resolution failures
+        just leave the vid unpublished — writes fall back to the Python
+        handler's fan-out)."""
+        from ..storage import native_engine
+        from ..wdclient.volume_tcp_client import VolumeTcpClient
+
+        now = time.monotonic()
+        cache = getattr(self, "_replica_sync", None)
+        if cache is None:
+            cache = self._replica_sync = {"at": 0.0, "vids": {},
+                                          "fresh": {}}
+        if now - cache["at"] < max(self.pulse_seconds * 4, 4.0):
+            return
+        cache["at"] = now
+        client = getattr(self, "_replica_tcp", None)
+        if client is None:
+            client = self._replica_tcp = VolumeTcpClient()
+        # bound the heartbeat-path work: unpublished vids first, then
+        # round-robin refresh of published ones every REFRESH seconds,
+        # at most BUDGET lookups per tick (each is a blocking master
+        # round-trip — hundreds of replicated volumes must not stall
+        # the heartbeat thread for seconds)
+        BUDGET, REFRESH = 16, 30.0
+        candidates = []
+        for loc in self.store.locations:
+            for vid, v in list(loc.volumes.items()):
+                extra = v.super_block.replica_placement.copy_count() - 1
+                if extra <= 0 or not isinstance(
+                        v.nm, native_engine.NativeNeedleMap):
+                    continue
+                age = now - cache["fresh"].get(vid, 0.0)
+                if vid not in cache["vids"]:
+                    candidates.append((0.0, vid))  # never resolved
+                elif age >= REFRESH:
+                    candidates.append((-age, vid))  # stalest first
+        candidates.sort()
+        for _, vid in candidates[:BUDGET]:
+            try:
+                lookup = call(self.master_address,
+                              f"/dir/lookup?volumeId={vid}", timeout=5)
+                others = [l["url"] for l in lookup.get("locations", [])
+                          if l["url"] != self.store.url]
+                addrs = [client.tcp_address(u) for u in others]
+            except Exception:
+                continue  # unpublished: native writes 307 for now
+            cache["fresh"][vid] = now
+            if cache["vids"].get(vid) != addrs:
+                native_engine.set_replicas(vid, addrs)
+                cache["vids"][vid] = addrs
+
+    # -- TCP fast path (volume_server_tcp, port+20000) -----------------------
+    def _start_tcp(self):
+        """Prefer the native engine's off-GIL server; fall back to the
+        Python loop (reads only) when the library is missing, JWT signing
+        requires the Python guard, or another in-process volume server
+        already owns the native listener."""
+        from ..storage import native_engine
+        from ..wdclient.volume_tcp_client import TCP_PORT_OFFSET
+
+        if native_engine.available():
+            host, port = self.server.address.rsplit(":", 1)
+            wanted = int(port) + TCP_PORT_OFFSET
+            bound = native_engine.server_port()
+            if bound <= 0:
+                try:
+                    bound = native_engine.server_start(
+                        host, wanted if wanted <= 65535 else 0,
+                        http_redirect=self.server.address)
+                    self._native_listener_owner = True
+                except OSError:
+                    bound = 0
+            # the listener may already exist (combined process: the
+            # master starts it for assign leases); SERVING vids is a
+            # separate, single-claim role per process
+            if bound > 0 and native_engine.claim_serving():
+                # JWT-secured clusters ride the fast path too: the
+                # engine verifies fid-scoped HS256 tokens itself
+                # (guard.go:18-50 semantics).  Keys are set only AFTER
+                # the serving claim succeeds: a server that did not
+                # engage must neither set nor (on stop) clear the
+                # engine-global keys another in-process server relies
+                # on — clearing them would fail open.
+                if self.guard.signing or self.guard.read_signing:
+                    native_engine.server_set_jwt(
+                        self.guard.signing.key,
+                        self.guard.read_signing.key,
+                        self.guard.signing.expires_after_seconds)
+                    self._native_jwt_owner = True
+                # the listener may predate this volume server (combined
+                # process: the master starts it for assign leases) —
+                # the HTTP 302 fallback must point at OUR full handler
+                native_engine.server_set_redirect(self.server.address)
+                self.tcp_port = bound
+                self._native_owner = True
+                self._native_bound = set()
+                self._sync_native_serving()
+                return
+        if not self.enable_tcp:
+            return
+        self._start_tcp_python()
+
+    def _start_tcp_python(self):
+        import socket
+        import struct
+
+        from ..wdclient.volume_tcp_client import TCP_PORT_OFFSET
+
+        host, port = self.server.address.rsplit(":", 1)
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        wanted = int(port) + TCP_PORT_OFFSET
+        try:
+            sock.bind((host, wanted if wanted <= 65535 else 0))
+        except OSError:
+            sock.bind((host, 0))  # convention port taken: ephemeral,
+            # clients discover it via /admin/status tcp_port
+        sock.listen(64)
+        self._tcp_sock = sock
+        self.tcp_port = sock.getsockname()[1]
+
+        def reply(conn, status: int, payload: bytes):
+            conn.sendall(struct.pack(">II", status, len(payload))
+                         + payload)
+
+        def serve_conn(conn):
+            try:
+                buf = b""
+                while not self._stop.is_set():
+                    while b"\n" not in buf:
+                        chunk = conn.recv(4096)
+                        if not chunk:
+                            return
+                        buf += chunk
+                    line, _, buf = buf.partition(b"\n")
+                    parts = line.decode(errors="replace").split()
+                    if len(parts) not in (2, 3) or parts[0] != "G":
+                        reply(conn, 400, b"bad request")
+                        return
+                    fid = parts[1]
+                    # same read security as the HTTP path: an optional
+                    # JWT rides as the third token
+                    if self.guard.read_signing:
+                        try:
+                            self.guard.verify_read(
+                                parts[2] if len(parts) == 3 else "",
+                                fid)
+                        except PermissionError as e:
+                            reply(conn, 401, str(e).encode())
+                            continue
+                    try:
+                        vid, nid, cookie = t.parse_file_id(fid)
+                        n = self.store.read_needle(vid, nid,
+                                                   cookie=cookie)
+                        data = n.data
+                        if n.is_compressed:
+                            # fast path has no Accept-Encoding: agree
+                            # with the HTTP handler and serve plain
+                            import gzip as _gzip
+
+                            data = _gzip.decompress(data)
+                        reply(conn, 0, data)
+                    except (NotFoundError, EcNotFoundError,
+                            DeletedError, EcDeletedError,
+                            CookieMismatchError):
+                        reply(conn, 404, b"not found")
+                    except Exception as e:
+                        reply(conn, 500, str(e).encode())
+            finally:
+                conn.close()
+
+        def accept_loop():
+            while not self._stop.is_set():
+                try:
+                    conn, _ = sock.accept()
+                except OSError:
+                    return
+                threading.Thread(target=serve_conn, args=(conn,),
+                                 daemon=True).start()
+
+        threading.Thread(target=accept_loop, daemon=True).start()
+
+    def _h_metrics(self, req: Request):
+        """Prometheus exposition, with the native engine's off-GIL
+        request counters folded in at scrape time."""
+        if getattr(self, "_native_owner", False):
+            from ..storage import native_engine
+
+            for op, n in native_engine.server_stats().items():
+                stats.VolumeServerNativeRequestCounter.labels(
+                    op).set_cumulative(n)
+        return stats.metrics_handler(req)
+
     def heartbeat_once(self):
+        # keep native fast-path bindings fresh (handles change across
+        # vacuum commits and volume add/delete)
+        self._sync_native_serving()
         hb = self.store.collect_heartbeat()
         hb["telemetry"] = self._telemetry()
         if self.access_recorder.enabled:
@@ -375,7 +685,7 @@ class VolumeServer:
         g = self._guarded
         s.add("GET", "/admin/status",
               g(lambda r: {**self.store.status(),
-                           "tcp_port": 0}))
+                           "tcp_port": getattr(self, "tcp_port", 0)}))
         s.add("POST", "/admin/assign_volume", g(self._h_assign_volume))
         s.add("POST", "/admin/delete_volume", g(self._h_delete_volume))
         s.add("POST", "/admin/readonly", g(self._h_readonly))
@@ -408,10 +718,15 @@ class VolumeServer:
               g(self._h_ec_rebuild_projected))
         s.add("POST", "/admin/volume/configure_replication",
               g(self._h_configure_replication))
+        s.add("POST", "/admin/volume/tier_upload", g(self._h_tier_upload))
+        s.add("POST", "/admin/volume/tier_download",
+              g(self._h_tier_download))
+        s.add("POST", "/admin/remote/fetch_write",
+              g(self._h_remote_fetch_write))
         s.add("POST", "/admin/drain", g(self._h_drain))
         s.add("POST", "/admin/leave", g(self._h_leave))
         s.add("POST", "/query", self._h_query)
-        s.add("GET", "/metrics", stats.metrics_handler)
+        s.add("GET", "/metrics", self._h_metrics)
         s.add("GET", "/debug/traces", tracing.traces_handler)
         faults.mount(s)
         profiling.mount(s)
@@ -463,7 +778,7 @@ class VolumeServer:
                     loc.directory for loc in self.store.locations),
                 "data center": self.store.data_center or "-",
                 "rack": self.store.rack or "-",
-                "tcp fast path": "off",
+                "tcp fast path": getattr(self, "tcp_port", 0) or "off",
             })),
             ui.section("Volumes", ui.table(
                 ("id", "collection", "size", "files", "deleted",
@@ -488,6 +803,63 @@ class VolumeServer:
             v.data.sync()
         self._try_heartbeat()
         return {"volume": v.id, "replication": str(rp)}
+
+    def _h_tier_upload(self, req: Request):
+        """VolumeTierMoveDatToRemote (volume_grpc_tier_upload.go): ship
+        the .dat to a configured tier backend; volume turns readonly."""
+        from ..storage import tier
+
+        p = req.json()
+        v = self._volume_or_404(int(p["volume"]))
+        try:
+            remote = tier.tier_upload(
+                v, p["backend"], p.get("bucket", "volumes"),
+                keep_local=bool(p.get("keep_local")))
+        except ValueError as e:
+            raise RpcError(str(e), 400)
+        self._try_heartbeat()
+        return {"volume": v.id, "key": remote.key,
+                "size": remote.file_size}
+
+    def _h_remote_fetch_write(self, req: Request):
+        """FetchAndWriteNeedle (volume_grpc_remote.go:16-83): pull a
+        remote object's byte range from the external store DIRECTLY into
+        a local needle, so remote.cache of large objects never
+        round-trips the bytes through the filer process.  Fans out to
+        the volume's replicas like a normal write."""
+        from ..remote_storage import (RemoteConf, RemoteLocation,
+                                      make_remote_client)
+
+        p = req.json()
+        vid = int(p["volume"])
+        nid = int(p["needle_id"])
+        cookie = int(p["cookie"])
+        self._volume_or_404(vid)
+        client = make_remote_client(RemoteConf.from_dict(p["remote_conf"]))
+        loc = RemoteLocation.parse(p["remote_location"])
+        offset = int(p.get("offset", 0))
+        size = int(p.get("size", -1))
+        data = client.read_range(loc, offset, size) if size >= 0 \
+            else client.read_file(loc)
+        n = Needle.create(data)
+        n.id, n.cookie = nid, cookie
+        self.store.write_needle(vid, n)
+        fid = f"{vid},{nid:x}{cookie:08x}"
+        self._replicate(vid, fid, "POST", data,
+                        {"Content-Type": "application/octet-stream"})
+        return {"size": len(data), "eTag": n.etag()}
+
+    def _h_tier_download(self, req: Request):
+        """VolumeTierMoveDatFromRemote (volume_grpc_tier_download.go)."""
+        from ..storage import tier
+
+        v = self._volume_or_404(int(req.json()["volume"]))
+        try:
+            size = tier.tier_download(v)
+        except ValueError as e:
+            raise RpcError(str(e), 400)
+        self._try_heartbeat()
+        return {"volume": v.id, "size": size}
 
     def _h_drain(self, req: Request):
         """Graceful-drain step 1 (scale.drain): demote every local
@@ -724,6 +1096,7 @@ class VolumeServer:
             # volume not local: readMode local|proxy|redirect
             # (volume_server_handlers_read.go:30-70)
             return self._read_nonlocal(vid, method, req, fid)
+        self._refresh_worker_view(v)
         n = self._cached_needle(v, vid, nid, cookie)
         if n is None:
             resp = self._sendfile_read(v, vid, nid, cookie, method, req)
@@ -734,7 +1107,9 @@ class VolumeServer:
             try:
                 n = self.store.read_needle(vid, nid, cookie=cookie)
             except (NotFoundError, EcNotFoundError):
-                raise RpcError("not found", 404)
+                n = self._retry_after_idx_refresh(v, vid, nid, cookie)
+                if n is None:
+                    raise RpcError("not found", 404)
             except (DeletedError, EcDeletedError):
                 raise RpcError("already deleted", 404)
             except (CookieMismatchError,) as e:
@@ -747,6 +1122,42 @@ class VolumeServer:
             return self._build_read_response(n, method, req)
         finally:
             self.download_gate.release(len(n.data))
+
+    def _refresh_worker_view(self, v):
+        """Prefork worker: tail the .idx BEFORE resolving a read, not
+        only on a local miss: deletes and overwrites the parent applied
+        after the fork still RESOLVE in this worker's stale snapshot (to
+        the old offset/size), so a miss-only refresh would serve deleted
+        or superseded bytes indefinitely (DELETE-then-GET returning 200
+        with the old data).  The no-news case is one fstat:
+        refresh_from_idx compares the .idx size against the consumed
+        tail and returns without reading.  Every map kind of the port
+        tails, the native engine's too (the JAX package's native map
+        does not)."""
+        if v is None or not _prefork.is_worker():
+            return
+        with v.lock:
+            try:
+                v.nm.refresh_from_idx()
+            except OSError:
+                pass  # racing a vacuum's .idx swap: serve the snapshot
+
+    def _retry_after_idx_refresh(self, v, vid: int, nid: int,
+                                 cookie: int):
+        """Prefork worker: a needle-map miss may be a needle the parent
+        wrote after our fork.  Tail the (flush-per-append) .idx and
+        retry once before 404ing; the HTTP layer additionally retries
+        residual misses against the parent process."""
+        if not _prefork.is_worker() or v is None:
+            return None
+        with v.lock:
+            applied = v.nm.refresh_from_idx()
+        if not applied:
+            return None
+        try:
+            return self.store.read_needle(vid, nid, cookie=cookie)
+        except (VolumeError, EcNotFoundError, EcDeletedError):
+            return None
 
     def _sendfile_read(self, v, vid: int, nid: int, cookie: int,
                        method: str, req: Request):

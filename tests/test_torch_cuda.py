@@ -430,3 +430,109 @@ def test_volume_server_over_http_on_card(cuda, tmp_path, monkeypatch):
         assert rs_cuda.launches["gf_apply"] > 0
     finally:
         vs.stop()
+
+
+FORK_CHILD = r"""
+import json, os, sys
+
+a = json.loads(sys.argv[1])
+sys.path.insert(0, a["repo"])
+os.environ["WEED_EC_RECOVER_DEVICE"] = "1"
+os.environ["WEED_EC_RECOVER_DEVICE_MIN_KB"] = "0"
+import torch
+
+from seaweedfs_tpu_torch.ops import rs_cuda
+from seaweedfs_tpu_torch.storage.store import Store
+
+store = Store([a["dir"]], ec_encoder_backend="cuda")
+ev = store.find_ec_volume(1)
+assert ev is not None and ev.device.type == "cuda", ev
+assert not torch.cuda.is_initialized(), "the Store made a CUDA context"
+want = {int(k): v for k, v in a["needles"].items()}
+pid = os.fork()
+if pid == 0:
+    ok = 1
+    try:
+        for nid, (cookie, crc) in want.items():
+            n = store.read_needle(1, nid, cookie=cookie)
+            assert n.checksum == crc, nid
+        assert rs_cuda.launches["gf_apply"] > 0
+        ok = 0
+    finally:
+        os._exit(ok)
+_, status = os.waitpid(pid, 0)
+assert os.WIFEXITED(status) and os.WEXITSTATUS(status) == 0, status
+print("CHILD-OK", flush=True)
+"""
+
+
+def test_forked_child_decodes_through_k1(cuda, tmp_path):
+    """The fork rule on the card: in a fresh interpreter a Store over an
+    EC volume with four lost shards leaves CUDA uninitialized, and a
+    child forked after it reads every degraded needle through its own
+    K1 (a Store that initialized CUDA before the fork failed here)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from seaweedfs_tpu_torch.storage.erasure_coding import to_ext
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    rng = np.random.default_rng(31)
+    needles = {}
+    store = Store([str(tmp_path)], ec_encoder_backend="cuda")
+    try:
+        store.add_volume(1)
+        for nid in range(1, 25):
+            n = Needle.create(rng.bytes(int(rng.integers(1, 400_000))))
+            n.id, n.cookie = nid, int(rng.integers(1, 1 << 32))
+            store.write_needle(1, n)
+            needles[nid] = (n.cookie, n.checksum)
+        store.ec_generate(1)
+        store.delete_volume(1)
+    finally:
+        store.close()
+    for sid in (0, 5, 11, 13):
+        os.remove(tmp_path / ("1" + to_ext(sid)))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-c", FORK_CHILD, json.dumps(
+            {"repo": repo, "dir": str(tmp_path), "needles": needles})],
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0 and "CHILD-OK" in res.stdout, res.stderr
+
+
+@pytest.mark.parametrize("length", [1, 7, 4096, 65536 + 3])
+def test_portable_step_forms_on_card(cuda, length):
+    """K7 on the card: every apply_matrix method launches K1, the batched
+    steps launch K2, each equal to its CPU formulation."""
+    from seaweedfs_tpu_torch.ops import gf256, rs_torch
+    from seaweedfs_tpu_torch.parallel import mesh
+
+    x = _bytes(length, (10, length), cuda)
+    for method in rs_torch.METHODS:
+        rs_cuda.reset_launches()
+        got = rs_torch.apply_matrix(PARITY, x, method=method)
+        assert rs_cuda.launches["gf_apply"] == 1
+        assert torch.equal(got.cpu(), rs_torch.apply_matrix(
+            PARITY, x.cpu(), method=method))
+    data = _bytes(length + 1, (2, 10, length), cuda)
+    bm = gf256.coeff_bit_matrix(PARITY).astype(np.int8)
+    consts = rs_torch._bit_constants_cached(*rs_cuda._matrix_key(PARITY))
+    want = mesh.batched_encode_step(bm, data.cpu())
+    steps = [lambda: mesh.batched_encode_step(bm, data),
+             lambda: mesh.make_sharded_encoder(words=False)(data)]
+    if length % 4 == 0:
+        steps.append(lambda: mesh.batched_swar_encode_step(consts, data))
+    for step in steps:
+        rs_cuda.reset_launches()
+        par, crc = step()
+        assert rs_cuda.launches["fused_apply_crc"] == 1
+        assert torch.equal(par.cpu(), want[0])
+        assert torch.equal(crc.cpu().to(torch.int64), want[1])
+    rs_cuda.reset_launches()
+    par = mesh._parity_bits_matmul(bm, data)
+    assert rs_cuda.launches["gf_apply"] == 1
+    assert torch.equal(par.cpu(), want[0])

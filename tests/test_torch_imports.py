@@ -62,6 +62,7 @@ def test_process_loads_no_jax():
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
 
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
@@ -228,3 +229,31 @@ def test_volume_server_ec_routes_fail_without_cuda(no_cuda, tmp_path):
         assert not os.path.exists(str(tmp_path / "3.ec00"))
     finally:
         vs.stop()
+
+
+@pytest.mark.parametrize("mod", [
+    "rpc/prefork.py", "storage/native_engine.py", "storage/tier.py",
+    "storage/backend.py", "storage/needle_map.py",
+    "remote_storage/__init__.py", "wdclient/__init__.py",
+    "wdclient/resource_pool.py", "wdclient/s3_client.py",
+    "wdclient/volume_tcp_client.py", "ops/rs_torch.py", "parallel/mesh.py"])
+def test_multiprocess_and_native_modules_are_covered(mod):
+    """The multi-process and native slice (prefork workers, the native
+    engine, tiers and remote storage, the clients, the portable step
+    forms) is among the sources both no-JAX checks above walk."""
+    rel = {os.path.relpath(p, PKG) for p in _port_sources()[1:]}
+    assert mod in rel
+
+
+def test_portable_step_forms_raise_without_cuda(no_cuda):
+    """The K7 entry points run on the card unless asked for the CPU."""
+    from seaweedfs_tpu_torch.ops.rs_torch import TorchEncoder
+    from seaweedfs_tpu_torch.parallel.mesh import make_mesh
+
+    for method in ("pallas", "swar", "mxu"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TorchEncoder(method=method)
+        assert TorchEncoder(device="cpu", method=method).method == method
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    assert make_mesh("cpu") == [torch.device("cpu")]

@@ -482,3 +482,106 @@ def test_jax_codec_names_give_the_device_codec(backend, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_codec.new_encoder(10, 4, backend=backend)
+
+
+# -- K7: the portable step formulations ------------------------------------------
+
+K7_LENGTHS = [4096, 1, 7, 4099]
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+@pytest.mark.parametrize("length", K7_LENGTHS)
+@pytest.mark.parametrize("method", ["swar", "mxu", "pallas"])
+def test_k7_apply_matrix_methods_equal_jax(method, length, p):
+    """rs_torch.apply_matrix(method=) and its single-formulation entry
+    points against rs_jax's, bit-exact, for a (p, 10) matrix over a
+    (10, L) stack; on the CPU each method runs its own formulation."""
+    m = np.ascontiguousarray(_bytes(100 + p, (p, 10)))
+    data = _bytes(length + p, (10, length))
+    want = np.asarray(j_rs_jax.apply_matrix(m, data, method=method))
+    got = rs_torch.apply_matrix(m, torch.from_numpy(data), method=method)
+    assert np.array_equal(got.numpy(), want)
+    out = torch.empty((p, length), dtype=torch.uint8)
+    assert rs_torch.apply_matrix(m, torch.from_numpy(data), out=out,
+                                 method=method) is out
+    assert np.array_equal(out.numpy(), want)
+    if method != "pallas":
+        single = {"swar": (rs_torch.apply_matrix_swar,
+                           j_rs_jax.apply_matrix_swar),
+                  "mxu": (rs_torch.apply_matrix_mxu,
+                          j_rs_jax.apply_matrix_mxu)}[method]
+        assert np.array_equal(
+            single[0](m, torch.from_numpy(data)).numpy(),
+            np.asarray(single[1](m, jnp.asarray(data))))
+
+
+@pytest.mark.parametrize("method", ["swar", "mxu", "pallas"])
+def test_k7_encoder_method_equal_jax(method):
+    """TorchEncoder(method=) against JaxEncoder(method=): encode, then
+    reconstruct of two data and two parity shards."""
+    shards = [_bytes(200 + i, (1001,)) for i in range(10)] + [None] * 4
+    te = rs_torch.TorchEncoder(device="cpu", method=method)
+    je = j_rs_jax.JaxEncoder(method=method)
+    assert te.method == je.method == method
+    t_full = te.encode(list(shards))
+    j_full = je.encode(list(shards))
+    assert all(np.array_equal(np.asarray(a), np.asarray(b))
+               for a, b in zip(t_full, j_full))
+    lost = list(t_full)
+    for i in (0, 5, 11, 13):
+        lost[i] = None
+    back = te.reconstruct(list(lost))
+    assert all(np.array_equal(np.asarray(a), np.asarray(b))
+               for a, b in zip(back, j_full))
+    with pytest.raises(ValueError):
+        rs_torch.TorchEncoder(device="cpu", method="nope")
+
+
+def _j_mesh1():
+    return j_mesh.make_mesh(jax.devices("cpu")[:1])
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+@pytest.mark.parametrize("length", K7_LENGTHS)
+def test_k7_batched_steps_equal_jax(length, p):
+    """batched_encode_step, batched_swar_encode_step (L % 4 == 0) and
+    _parity_bits_matmul against parallel/mesh.py's, bit-exact: parity
+    and the (B, 10 + p) raw CRC images of a (2, 10, L) batch."""
+    m = np.ascontiguousarray(PARITY[:p])
+    bm = j_gf256.coeff_bit_matrix(m).astype(np.int8)
+    data = _bytes(300 + length, (2, 10, length))
+    x = torch.from_numpy(data)
+    j_par, j_crc = j_mesh.batched_encode_step(jnp.asarray(bm),
+                                              jnp.asarray(data))
+    t_par, t_crc = t_mesh.batched_encode_step(bm, x)
+    assert np.array_equal(t_par.numpy(), np.asarray(j_par))
+    assert np.array_equal(t_crc.numpy(), np.asarray(j_crc).astype(np.int64))
+    assert np.array_equal(t_mesh._parity_bits_matmul(bm, x).numpy(),
+                          np.asarray(j_mesh._parity_bits_matmul(
+                              jnp.asarray(bm), jnp.asarray(data))))
+    if length % 4 == 0:
+        consts = j_rs_jax._bit_constants_cached(*j_rs_jax._matrix_key(m))
+        js_par, js_crc = j_mesh.batched_swar_encode_step(
+            jnp.asarray(consts), jnp.asarray(data))
+        ts_par, ts_crc = t_mesh.batched_swar_encode_step(consts, x)
+        assert np.array_equal(ts_par.numpy(), np.asarray(js_par))
+        assert np.array_equal(ts_crc.numpy(),
+                              np.asarray(js_crc).astype(np.int64))
+
+
+@pytest.mark.parametrize("length", K7_LENGTHS)
+def test_k7_sharded_encoder_forms_equal_jax(length):
+    """make_sharded_encoder(words=False) against the reference's portable
+    step on a one-device CPU mesh, and the words=True form (K2) against
+    both; make_mesh resolves the CPU."""
+    data = _bytes(400 + length, (2, 10, length))
+    want_par, want_crc = j_mesh.make_sharded_encoder(
+        _j_mesh1(), words=False)(jnp.asarray(data))
+    for words in (False, True):
+        par, crc = t_mesh.make_sharded_encoder(words=words)(
+            torch.from_numpy(data))
+        assert np.array_equal(par.numpy(), np.asarray(want_par))
+        assert np.array_equal(crc.numpy(),
+                              np.asarray(want_crc).astype(np.int64))
+    assert t_mesh.make_mesh("cpu") == [torch.device("cpu")]
+    assert t_mesh.make_mesh(["cpu", "cpu"]) == [torch.device("cpu")] * 2

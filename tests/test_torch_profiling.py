@@ -5,6 +5,7 @@ calling the sampler's tick directly on a parked thread, so no case depends
 on a timer firing or asserts a wall-clock time (the JAX package's
 profiler-overhead ceilings are not ported)."""
 
+import contextlib
 import threading
 
 import pytest
@@ -76,6 +77,23 @@ def test_folded_stacks_equal_jax():
                for part in parts)
 
 
+@contextlib.contextmanager
+def _always_on_stopped(prof):
+    """Stop the package's process-wide sampler for the block, and start it
+    again after.  A daemon that an earlier test in this process mounted
+    leaves it running; it samples every thread, the parked ones too, and
+    publishes their routes to the same registry counter a test reads."""
+    running = prof.profiler()
+    if running is not None:
+        assert running.stop()
+    try:
+        yield
+    finally:
+        if running is not None:
+            running._stop.clear()
+            running.start()
+
+
 @BOTH
 def test_sampler_caps_and_publishes_routes(prof, tr, monkeypatch):
     """Past WEED_PROF_MAX_STACKS new stacks fold into "(truncated)"; a
@@ -83,16 +101,17 @@ def test_sampler_caps_and_publishes_routes(prof, tr, monkeypatch):
     metrics = j_metrics if prof is j_prof else t_metrics
     monkeypatch.setenv("WEED_PROF_MAX_STACKS", "1")
     route = f"GET /route-{prof.__name__}"
-    before = metrics.ProfilerRouteSamplesCounter._values.get((route,), 0)
-    with _Parked(tr, "a-thread", route=route), _Parked(tr, "b-thread"):
-        s = prof.StackSampler(hz=1, publish=True)
-        for _ in range(3):
-            s._sample_once(threading.get_ident())
+    with _always_on_stopped(prof):
+        before = metrics.ProfilerRouteSamplesCounter._values.get((route,), 0)
+        with _Parked(tr, "a-thread", route=route), _Parked(tr, "b-thread"):
+            s = prof.StackSampler(hz=1, publish=True)
+            for _ in range(3):
+                s._sample_once(threading.get_ident())
+        published = metrics.ProfilerRouteSamplesCounter._values[(route,)]
     assert len(s.samples) == 2 and s.truncated > 0
     assert s.samples[prof._TRUNCATED] == s.truncated
     assert s.route_samples[route] == 3
-    assert metrics.ProfilerRouteSamplesCounter._values[(route,)] - \
-        before == 3
+    assert published - before == 3
     snap = s.snapshot()
     assert snap["samples"] == s.total and snap["stacks"] == 2
     folded = s.folded()

@@ -9,6 +9,7 @@ a port `RpcServer`.
 """
 
 import random
+import socket
 import threading
 import time
 from types import SimpleNamespace
@@ -488,8 +489,28 @@ def test_cross_wire(client, server, monkeypatch):
         srv.stop()
 
 
+def _free_port() -> int:
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
 def test_port_server_refuses_prefork(monkeypatch):
+    """An ephemeral (port-0) server refuses to prefork whatever
+    WEED_HTTP_WORKERS says, as the JAX package's does: only an explicitly
+    bound port shards into workers (never a test process)."""
     monkeypatch.setenv("WEED_HTTP_WORKERS", "2")
-    for port in (0, 1):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-            t_http.RpcServer("127.0.0.1", port, service_name="x")
+    for mod in (t_http, j_http):
+        s = mod.RpcServer("127.0.0.1", 0, service_name="x")
+        try:
+            assert s._prefork_workers == 1 and s._prefork is None
+        finally:
+            s.httpd.server_close()
+    monkeypatch.setenv("WEED_HTTP_WORKERS", "3")
+    s = t_http.RpcServer("127.0.0.1", _free_port(), service_name="x")
+    try:
+        assert s._prefork_workers == 3 and s._prefork is None
+    finally:
+        s.httpd.server_close()

@@ -12,6 +12,7 @@ import time
 import numpy as np
 import pytest
 
+from seaweedfs_tpu.storage import backend as j_backend
 from seaweedfs_tpu.storage import idx as j_idx
 from seaweedfs_tpu.storage import needle as j_needle
 from seaweedfs_tpu.storage import needle_map as j_nm
@@ -243,7 +244,7 @@ def _map_state(nm):
             [(k, v.offset, v.size) for k, v in nm.items_ascending()])
 
 
-@pytest.mark.parametrize("kind", ["memory", "compact"])
+@pytest.mark.parametrize("kind", ["memory", "compact", "sqlite"])
 def test_needle_map_equals_jax(tmp_path, kind):
     path = str(tmp_path / "m.idx")
     with open(path, "wb") as f:
@@ -261,18 +262,18 @@ def test_needle_map_equals_jax(tmp_path, kind):
                 m.delete(nid, 4096)
             else:
                 m.put(nid, off or 8, size)
-    assert _map_state(tm) == _map_state(jm)
+    state = _map_state(tm)
+    assert state == _map_state(jm)
     tm.close()
     jm.close()
     assert open(a, "rb").read() == open(b, "rb").read()
     reopened = t_nm.new_needle_map(kind, a)
-    assert _map_state(reopened)[:5] == _map_state(tm)[:5]
+    assert _map_state(reopened)[:5] == state[:5]
     reopened.close()
 
 
 def test_needle_map_kinds():
-    with pytest.raises(NotImplementedError):
-        t_nm.new_needle_map("sqlite")
+    assert isinstance(t_nm.new_needle_map("sqlite"), t_nm.SqliteNeedleMap)
     with pytest.raises(ValueError):
         t_nm.new_needle_map("nope")
     nm = t_nm.new_needle_map("memory")
@@ -441,10 +442,15 @@ def test_volume_truncates_a_torn_tail(tmp_path, pinned_clock):
 
 
 def test_tiered_volume_refused(tmp_path):
+    """A .vif naming a tier backend this process has not registered is
+    refused by both packages alike (the volume cannot reach its data)."""
     t_vif.save_volume_info(str(tmp_path / "5.vif"), t_vif.VolumeInfo(
         files=[t_vif.RemoteFile("s3", "d", "k")]))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="not configured") as te:
         t_volume.Volume(str(tmp_path), "", 5)
+    with pytest.raises(ValueError) as je:
+        j_volume.Volume(str(tmp_path), "", 5)
+    assert str(te.value) == str(je.value)
 
 
 # -- compaction, zero-copy slices, backup and offline tools ---------------------
@@ -715,3 +721,137 @@ def test_needle_map_ascending_visit_equal(tmp_path):
         got.append(seen)
         rng = np.random.default_rng(3)
     assert got[0] == got[1] and got[0] == sorted(got[0])
+
+
+# -- the worker's .idx tail, the sqlite kind, MmapFile, disk fault hooks --------
+
+
+@pytest.mark.parametrize("kind", ["memory", "compact", "sqlite"])
+def test_refresh_from_idx_equals_jax(tmp_path, monkeypatch, kind):
+    """A reader map tails what a writer map appends to the same .idx
+    (FLUSH_APPENDS, as a prefork server sets it): the port's and the JAX
+    package's readers reach the writer's state, applying the same counts,
+    and their sqlite DBs reopen to it."""
+    from seaweedfs_tpu_torch.storage import needle_map as nm_mod
+
+    monkeypatch.setattr(nm_mod, "FLUSH_APPENDS", True)
+    monkeypatch.setattr(j_nm, "FLUSH_APPENDS", True)
+    entries = list(t_idx.iter_index(_idx_log(np.random.default_rng(12),
+                                             150)))
+    got = {}
+    for name, mod in (("t", t_nm), ("j", j_nm)):
+        path = str(tmp_path / f"{name}.idx")
+        writer = mod.new_needle_map(kind, path)
+        # a sqlite reader keeps a DB of its own beside the writer's
+        reader = (mod.SqliteNeedleMap(path, db_path=path + ".reader")
+                  if kind == "sqlite" else mod.new_needle_map(kind, path))
+        applied = []
+        for i, (nid, off, size) in enumerate(entries):
+            if size == t_types.TOMBSTONE_FILE_SIZE:
+                writer.delete(nid, 4096)
+            else:
+                writer.put(nid, off or 8, size)
+            if i % 37 == 36:
+                applied.append(reader.refresh_from_idx())
+        applied.append(reader.refresh_from_idx())
+        applied.append(reader.refresh_from_idx())
+        got[name] = (applied, _map_state(reader), _map_state(writer)[-1])
+        writer.close()
+        reader.close()
+    assert got["t"] == got["j"]
+    assert got["t"][1][-1] == got["t"][2] and got["t"][0][-1] == 0
+
+
+def test_sqlite_map_volume_files_equal(tmp_path, pinned_clock):
+    """A volume on the sqlite kind writes the same .dat/.idx and reads the
+    same needles as the JAX package's, and reopens from its DB."""
+    ops = _seeded_ops(21, 40)
+    tdir, jdir = tmp_path / "t", tmp_path / "j"
+    tdir.mkdir()
+    jdir.mkdir()
+    tv = t_volume.Volume(str(tdir), "", 4, needle_map_kind="sqlite")
+    _apply(tv, t_needle, ops)
+    pinned_clock()
+    jv = j_volume.Volume(str(jdir), "", 4, needle_map_kind="sqlite")
+    _apply(jv, j_needle, ops)
+    assert isinstance(tv.nm, t_nm.SqliteNeedleMap)
+    tv.close()
+    jv.close()
+    for ext in (".dat", ".idx"):
+        assert (tdir / f"4{ext}").read_bytes() == \
+            (jdir / f"4{ext}").read_bytes()
+    tv = t_volume.Volume(str(tdir), "", 4, needle_map_kind="sqlite")
+    jv = j_volume.Volume(str(jdir), "", 4, needle_map_kind="sqlite")
+    try:
+        assert _map_state(tv.nm) == _map_state(jv.nm)
+        _read_all(tv, _live(ops), t_volume.DeletedError)
+    finally:
+        tv.close()
+        jv.close()
+
+
+def test_mmap_file_equals_jax(tmp_path):
+    """The same operations on both packages' MmapFile: the same reads
+    (through the mapping, regrown after appends), sizes and file bytes."""
+    files = {}
+    for name, mod in (("t", t_backend), ("j", j_backend)):
+        path = str(tmp_path / f"{name}.bin")
+        f = mod.MmapFile(path, create=True)
+        log = [f.read_at(10, 0), f.size()]
+        r = np.random.default_rng(14)
+        for i in range(30):
+            blob = r.bytes(int(r.integers(1, 9000)))
+            log.append(f.append(blob))
+            off = int(r.integers(0, f.size()))
+            log.append(f.read_at(int(r.integers(1, 5000)), off))
+            if i % 7 == 6:
+                log.append(f.write_at(b"overwritten", off))
+                log.append(f.read_at(20, off))
+        f.truncate(f.size() // 2)
+        log += [f.size(), f.read_at(100, f.size() - 50), f.name == path,
+                f.fileno() is not None]
+        f.sync()
+        f.close()
+        log.append(f.fileno())
+        files[name] = (log, open(path, "rb").read())
+    assert files["t"] == files["j"]
+
+
+@pytest.mark.parametrize("op", ["read", "write", "sync"])
+def test_disk_fault_hooks_equal_jax(tmp_path, op):
+    """A disk_error rule for one file and op makes both packages' DiskFile
+    and MmapFile raise the same EIO on that op alone, and counts alike."""
+    from seaweedfs_tpu.util import faults as j_faults
+    from seaweedfs_tpu_torch.util import faults as t_faults
+
+    got = {}
+    for name, mod, faults in (("t", t_backend, t_faults),
+                              ("j", j_backend, j_faults)):
+        d = tmp_path / name
+        d.mkdir()
+        hit, spared = str(d / "hit.dat"), str(d / "spared.dat")
+        faults.REGISTRY.configure(
+            f"disk_error,side=disk,dst={d}/hit*,route={op}")
+        try:
+            out = []
+            for cls in (mod.DiskFile, mod.MmapFile):
+                for path in (hit, spared):
+                    f = cls(path, create=True)
+                    for call in (lambda: f.append(b"abc"),
+                                 lambda: f.write_at(b"x", 0),
+                                 lambda: f.read_at(3, 0),
+                                 lambda: f.sync()):
+                        try:
+                            res = call()
+                            out.append(("ok", res))
+                        except OSError as e:
+                            out.append(("err", e.errno, str(e)[:40]))
+                    f.close()
+                    os.remove(path)
+            snap = faults.REGISTRY.snapshot()
+            out.append([r.get("fired") for r in snap["rules"]])
+        finally:
+            faults.REGISTRY.clear()
+        got[name] = out
+    assert got["t"] == got["j"]
+    assert any(x[0] == "err" for x in got["t"][:-1])

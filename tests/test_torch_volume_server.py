@@ -473,11 +473,9 @@ def test_mixed_cluster_ec_encode_rebuild_reads(mixed_cluster):
 
 # -- (c) the route tables and what waits -------------------------------------------
 
-# routes of the JAX volume server the port does not serve yet (ROADMAP
-# item 7: tier backends and remote storage); this set only shrinks
-NOT_PORTED_ROUTES = {("POST", "/admin/volume/tier_upload"),
-                     ("POST", "/admin/volume/tier_download"),
-                     ("POST", "/admin/remote/fetch_write")}
+# routes of the JAX volume server the port does not serve yet; this set
+# only shrinks, and the tier and remote routes emptied it
+NOT_PORTED_ROUTES: set = set()
 
 
 @pytest.fixture
@@ -510,17 +508,37 @@ def test_route_tables_differ_by_the_declared_set(two_servers):
     assert not hasattr(ts, "maintenance_worker")
 
 
-@pytest.mark.parametrize("kw,env", [
-    ({"enable_tcp": True}, {}),
-    ({"tier_backends": [{"type": "s3", "name": "x"}]}, {}),
-    ({}, {"WEED_HTTP_WORKERS": "2"}),
-])
-def test_waiting_parts_raise(tmp_path, monkeypatch, kw, env):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        t_server.VolumeServer([str(tmp_path)], "127.0.0.1:1", port=0,
-                              device="cpu", **kw)
+@pytest.mark.parametrize("part", ["enable_tcp", "tier_backends",
+                                  "WEED_HTTP_WORKERS"])
+def test_waiting_parts_raise(tmp_path, monkeypatch, part):
+    """The parts that raised before they were ported (the TCP fast path,
+    tier backends, prefork workers) now construct as the JAX server
+    does: a port-0 server never preforks, a tier backend is registered
+    under its name, and the TCP listener binds."""
+    from seaweedfs_tpu_torch.remote_storage import RemoteConf
+    from seaweedfs_tpu_torch.storage import tier as t_tier
+
+    kw = {}
+    if part == "enable_tcp":
+        kw["enable_tcp"] = True
+    elif part == "tier_backends":
+        kw["tier_backends"] = [RemoteConf(name="x", type="local",
+                                          directory=str(tmp_path / "r"))]
+    else:
+        monkeypatch.setenv("WEED_HTTP_WORKERS", "2")
+    ts = t_server.VolumeServer([str(tmp_path)], "127.0.0.1:1", port=0,
+                               device="cpu", **kw)
+    ts.start()
+    try:
+        assert ts.server._prefork_workers == 1
+        if part == "enable_tcp":
+            assert ts.tcp_port > 0
+        if part == "tier_backends":
+            assert t_tier.tier_backends()["x"].directory == str(
+                tmp_path / "r")
+    finally:
+        ts.stop()
+        t_tier._BACKENDS.pop("x", None)
 
 
 def test_dead_master_error_tier_spares_each_read_a_lookup(tmp_path,
