@@ -7,6 +7,8 @@
     python3 chip_smoke.py --inline   # build, kernel checks, phase 6 only
     python3 chip_smoke.py --cache    # build, kernel checks, phase 7 only
     python3 chip_smoke.py --server   # build, kernel checks, phase 8 only
+    python3 chip_smoke.py --prefork  # build, kernel checks, phase 9 only
+    python3 chip_smoke.py --cluster  # build, kernel checks, phase 10 only
 
 Phases:
   1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a);
@@ -88,7 +90,25 @@ Phases:
      /metrics scraped and parsed strictly: the EcRecover* samples equal
      /admin/ec/recover_stats, the device-pool gauges the pool, the
      request counters the load process's own counts;
-  9. one JSON line of per-kernel numbers, then the card's name and power
+  9. the volume server with WEED_HTTP_WORKERS=4 and the TCP fast path,
+     started in a fresh interpreter (the fork rule: no CUDA context
+     before the group forks), each process decoding through its own K1;
+ 10. a cluster that heals itself: three masters in one raft group and
+     three volume servers on the card (-ec.backend=cuda), each with its
+     maintenance worker, all in this process; ~1 GiB of phase 4's needle
+     mix assigned through the master client's fid leases, each fid's
+     volume looked up, POSTed from the load process; the shell's
+     ec.encode of every volume (K2 on the holder, 14 shards spread over
+     the three); the raft leader stopped, a new one elected, heartbeats
+     and assigns failing over; .ec00 .ec05 .ec11 .ec13 of one volume
+     deleted, the new leader's curator queueing ec.rebuild through raft,
+     every needle of the volume read through /ec/lookup while the job is
+     pending (K1 = decode batches on each server), a worker leasing it
+     and rebuilding through K2, the shards against their .vif CRCs; a
+     forced deep.scrub clean through K5's K1 form, then one flipped byte
+     of .ec12 reported and repaired by the ec.rebuild that follows;
+     every job ok and leased once;
+ 11. one JSON line of per-kernel numbers, then the card's name and power
      limit, then the result line.
 
 Phases 5 to 8 also hold the metrics registry's exposition against the
@@ -177,6 +197,19 @@ PREFORK_RESPAWN_GETS = 400  # phase 9: degraded GETs on the respawned worker
 PREFORK_TCP_READS = 1000    # phase 9: TCP reads, intact and degraded each
 PREFORK_RECONNECT = 16      # requests per load connection before reopening
 PREFORK_LOAD_PROCS = 4      # phase 9's split-client passes: load processes
+CLUSTER_BYTES = 1 << 30     # phase 10: ~1 GiB of needles through assigns
+CLUSTER_SIZE = 3            # phase 10: masters in the raft group, and servers
+CLUSTER_LIMIT_MB = 1024     # the reference master's volume_size_limit_mb
+CLUSTER_PULSE = 1.0         # heartbeat pulse of phase 10's masters and servers
+# phase 10's maintenance knobs: poll and scan every second or less so the
+# phase fits its time, the pacer's rate raised out of the scrub's way, no
+# scrub queued by age (phase 10 forces its scrubs) and no balance moves
+# (the failover's new volumes would skew the counts): the curator's jobs
+# in the phase are the repairs it measures
+CLUSTER_KNOBS = {"WEED_MAINT_POLL": "0.5", "WEED_MAINT_INTERVAL": "1",
+                 "WEED_MAINT_RATE_MB": "65536",
+                 "WEED_MAINT_SCRUB_INTERVAL": "1e12",
+                 "WEED_MAINT_BALANCE_SKEW": "1000000"}
 CHUNK = MIB                 # the pipeline's column chunk for 1 MiB blocks
 SEED = 20261016
 PARITY = np.ascontiguousarray(parity_matrix(10, 14))
@@ -2056,7 +2089,8 @@ LOADER = r"""
 import http.client, itertools, json, sys, threading, time
 import numpy as np
 
-a = json.loads(sys.argv[1])
+with open(sys.argv[1]) as f:  # the spec: too long for an argument
+    a = json.load(f)
 rng = np.random.default_rng(a["seed"])
 lo, hi = np.log(a["min"]), np.log(a["max"])
 sizes = []
@@ -2069,14 +2103,23 @@ for i, size in enumerate(sizes):
     needles[1 + i] = (int(cookies[i]), blob[pos:pos + size])
     pos += size
 ids = a["ids"] or sorted(needles)
-host, port = a["addr"].split(":")
+# per-needle [server, path] (fids a master assigned), else the one server
+targets = a.get("targets") or {}
 counter = itertools.count()
 lat, etags, bad, moved = {}, {}, [], [0]
 lock = threading.Lock()
 
 
 def worker():
-    conn = http.client.HTTPConnection(host, int(port), timeout=300)
+    conns = {}
+
+    def connection(addr):
+        if addr not in conns:
+            host, port = addr.split(":")
+            conns[addr] = http.client.HTTPConnection(host, int(port),
+                                                     timeout=300)
+        return conns[addr]
+
     sent = 0
     try:
         while True:
@@ -2087,12 +2130,14 @@ def worker():
             if a["reconnect"] and sent % a["reconnect"] == 0:
                 # a new connection: SO_REUSEPORT spreads connections, not
                 # requests, over a prefork server's processes
-                conn.close()
-                conn = http.client.HTTPConnection(host, int(port),
-                                                  timeout=300)
+                for c in conns.values():
+                    c.close()
+                conns.clear()
             nid = ids[i]
             cookie, data = needles[nid]
-            path = "/%d,%x%08x" % (a["vid"], nid, cookie)
+            addr, path = targets.get(str(nid)) or (
+                a["addr"], "/%d,%x%08x" % (a["vid"], nid, cookie))
+            conn = connection(addr)
             t0 = time.perf_counter()
             if a["mode"] == "put":
                 conn.request("POST", path, body=data)
@@ -2117,7 +2162,8 @@ def worker():
                     bad.append([nid, resp.status, body[:200].decode(
                         "latin-1")])
     finally:
-        conn.close()
+        for c in conns.values():
+            c.close()
 
 
 assert not [m for m in sys.modules if m.split(".")[0] in (
@@ -2144,7 +2190,8 @@ with open(a["out"], "w") as f:
 
 def http_load(addr: str, vid: int, mode: str, ids, workdir: str,
               nbytes: int = SERVER_BYTES, seed: int = SEED + 12,
-              reconnect: int = 0, procs: int = 1) -> dict:
+              reconnect: int = 0, procs: int = 1,
+              targets: dict = None) -> dict:
     """Run the load process against `addr`: POST ("put") or GET the
     seeded needles `ids` (all of them when None; seeded_needles(nbytes,
     seed)) from SERVER_CONNS connections, each reopened every `reconnect`
@@ -2152,7 +2199,8 @@ def http_load(addr: str, vid: int, mode: str, ids, workdir: str,
     connections and the ids are split over that many load processes
     (contiguous slices), started together once each has made its data;
     the report merges theirs, its wall from the first start to the last
-    end."""
+    end.  `targets` ({id: (server, path)}) sends each needle to its own
+    server and path instead of `addr` and "/<vid>,<id><cookie>"."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     if ids is None and procs > 1:
         ids = sorted(seeded_needles(nbytes, seed))
@@ -2166,9 +2214,13 @@ def http_load(addr: str, vid: int, mode: str, ids, workdir: str,
         spec = {"addr": addr, "vid": vid, "mode": mode, "ids": part or [],
                 "nbytes": nbytes, "seed": seed, "min": NEEDLE_MIN,
                 "max": NEEDLE_MAX, "conns": SERVER_CONNS // procs,
-                "out": out, "reconnect": reconnect, "gate": procs > 1}
+                "out": out, "reconnect": reconnect, "gate": procs > 1,
+                "targets": {str(nid): list(targets[nid]) for nid in
+                            (part or sorted(targets))} if targets else {}}
+        with open(out + ".spec", "w") as f:
+            json.dump(spec, f)
         proc = subprocess.Popen(
-            [sys.executable, "-c", LOADER, json.dumps(spec)],
+            [sys.executable, "-c", LOADER, out + ".spec"],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True, cwd=workdir, env=env)
         runs.append((proc, out))
@@ -2952,6 +3004,488 @@ def prefork_phase(dev, workdir: str, rehearse: bool = False) -> dict:
     return launches
 
 
+# -- phase 10: a cluster that heals itself ------------------------------------
+
+
+def wait_until(pred, timeout: float, what: str, interval: float = 0.02):
+    """Poll `pred` until it returns a truthy value; fail the run with
+    `what` after `timeout` seconds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        check(time.monotonic() < deadline, f"timed out: {what}")
+        time.sleep(interval)
+
+
+def ec_holders(addr: str, vid: int) -> dict:
+    """{shard id: [holder urls]} from the master's /ec/lookup."""
+    ec = http_json(addr, f"/ec/lookup?volumeId={vid}")
+    return {e["shard_id"]: [loc["url"] for loc in e["locations"]]
+            for e in ec["shard_id_locations"]}
+
+
+def shard_files(servers, vid: int) -> dict:
+    """{shard id: (server, path)} of volume `vid`'s shard files on the
+    servers' disks (the first copy of each)."""
+    found = {}
+    for vs in servers:
+        base = os.path.join(vs.store.locations[0].directory, str(vid))
+        for sid in range(14):
+            if sid not in found and os.path.exists(base + to_ext(sid)):
+                found[sid] = (vs, base + to_ext(sid))
+    return found
+
+
+def crc_clean_shards(servers, vid: int) -> list:
+    """The shard ids whose file on disk holds its .vif CRC."""
+    good = []
+    for sid, (vs, path) in sorted(shard_files(servers, vid).items()):
+        stored = encoder.load_volume_info(path[:-len(to_ext(sid))])
+        with open(path, "rb") as f:
+            if crc_host.crc32c(f.read()) == stored["shard_crc32c"][sid]:
+                good.append(sid)
+    return good
+
+
+def cluster_phase(dev, workdir: str) -> dict:
+    """Phase 10: three masters in one raft group and three volume servers
+    on the card, each with its maintenance worker; writes through the
+    master client's fid leases, the shell's ec.encode, a leader failover,
+    four shards lost and healed by the curator's ec.rebuild job, a deep
+    scrub clean and then finding a flipped parity byte that the next
+    rebuild repairs.  Returns the kernels' launches in it."""
+    import threading
+
+    from seaweedfs_tpu_torch.maintenance.jobs import (TYPE_DEEP_SCRUB,
+                                                      TYPE_EC_REBUILD)
+    from seaweedfs_tpu_torch.master.server import MasterServer
+    from seaweedfs_tpu_torch.rpc import policy
+    from seaweedfs_tpu_torch.rpc.http_rpc import call
+    from seaweedfs_tpu_torch.shell import commands as sh
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+    from seaweedfs_tpu_torch.wdclient import FidLeaseCache, MasterClient
+
+    out = {}
+    per_server: dict = {}
+    ran = []  # (server, job, report, t0, t1) of every job a worker ran
+    lock = threading.Lock()
+
+    def note(url: str, name: str, n: int):
+        row = per_server.setdefault(url, dict.fromkeys(KERNELS, 0))
+        row[name] += n
+
+    def recording(vs):
+        real = vs.maintenance_worker._execute
+
+        def execute(job):
+            t0 = time.monotonic()
+            report = real(job)
+            with lock:
+                ran.append((vs.address, job, report, t0, time.monotonic()))
+            return report
+
+        vs.maintenance_worker._execute = execute
+
+    def ran_job(type_: str, vid: int, after: int):
+        with lock:
+            return next((r for r in ran[after:] if r[1]["type"] == type_
+                         and r[1]["volume"] == vid), None)
+
+    def leader_of(group):
+        ls = [m for m in group if m.raft.is_leader]
+        return ls[0] if len(ls) == 1 else None
+
+    masters, servers, mc, stopped = [], [], None, set()
+    # the needles (the load process makes the same ones) and their CRCs,
+    # before any daemon starts: making 1 GiB holds the interpreter lock
+    # for seconds, which would starve the masters' raft heartbeats
+    needles = seeded_needles(CLUSTER_BYTES, SEED + 20)
+    total = sum(len(d) for _, d in needles.values())
+    etag = {nid: "%08x" % crc_host.crc32c(data)
+            for nid, (_, data) in needles.items()}
+    t_phase = time.monotonic()
+    log(f"cluster: knobs {CLUSTER_KNOBS} (WEED_MAINT_RATE_MB raised so "
+        "the pacer does not set the scrub's pace)")
+    # maintenance starts after the bulk load and its encode (the curators
+    # are enabled below): a tick between two holders' mounts of one
+    # encode would see a partial shard set and queue a needless rebuild
+    with knobs(**CLUSTER_KNOBS, WEED_MAINT="0"):
+        policy.reset_state()
+        rs_cuda.reset_launches()
+        ports = set()
+        while len(ports) < CLUSTER_SIZE:
+            ports.add(free_port())
+        addrs = [f"127.0.0.1:{p}" for p in sorted(ports)]
+        try:
+            for i, port in enumerate(sorted(ports)):
+                d = os.path.join(workdir, f"master{i}")
+                os.makedirs(d)
+                m = MasterServer(port=port, peers=list(addrs), raft_dir=d,
+                                 volume_size_limit_mb=CLUSTER_LIMIT_MB,
+                                 default_replication="000",
+                                 pulse_seconds=CLUSTER_PULSE)
+                m.start()
+                masters.append(m)
+            leader = wait_until(lambda: leader_of(masters), 30,
+                                "no raft leader among three masters")
+            for i in range(CLUSTER_SIZE):
+                d = os.path.join(workdir, f"volume{i}")
+                os.makedirs(d)
+                vs = VolumeServer([d], ",".join(addrs), port=0,
+                                  data_center="dc1", rack=f"rack{i + 1}",
+                                  pulse_seconds=CLUSTER_PULSE,
+                                  ec_encoder_backend="cuda")
+                check(vs.store.device is None, "the server's store was "
+                      "given a device: it should resolve the card itself")
+                recording(vs)
+                vs.start()
+                servers.append(vs)
+            wait_until(lambda: len(leader.topo.nodes) == CLUSTER_SIZE, 30,
+                       "the volume servers' heartbeats never reached the "
+                       "leader")
+            log(f"cluster: masters {addrs} (leader {leader.address}), "
+                f"volume servers {[vs.address for vs in servers]}")
+
+            # -- writes: fids from the master client's batched leases
+            mc = MasterClient(list(addrs), name="chip_smoke")
+            mc.start()
+            calls = [0]
+
+            def assign(n, replication="", collection="", ttl=""):
+                calls[0] += 1
+                return mc.assign(count=n, replication=replication,
+                                 collection=collection, ttl=ttl)
+
+            cache = FidLeaseCache(assign, name="chip_smoke")
+            t0 = time.perf_counter()
+            fids = {nid: cache.get() for nid in needles}
+            assign_s = time.perf_counter() - t0
+            out["assign_req_s"] = len(fids) / assign_s
+            out["assign_master_calls"] = calls[0]
+            targets = {}
+            for nid, a in fids.items():
+                urls = mc.lookup_file_id(a["fid"])
+                check(urls == [f"{a['url']}/{a['fid']}"],
+                      f"{a['fid']}: /dir/lookup gave {urls}, the assign "
+                      f"{a['url']}")
+                targets[nid] = (a["url"], "/" + a["fid"])
+            log(f"cluster: {len(fids)} fids through the master client's "
+                f"leases in {assign_s:.3f} s ({out['assign_req_s']:.0f} "
+                f"assigns/s, {calls[0]} master calls); each fid's volume "
+                "looked up through /dir/lookup")
+            put = http_load(addrs[0], 0, "put", None, workdir,
+                            nbytes=CLUSTER_BYTES, seed=SEED + 20,
+                            targets=targets)
+            check(not put["bad"] and put["n"] == len(needles),
+                  f"PUT: {len(put['bad'])} failed, e.g. {put['bad'][:3]}")
+            wrong = [n for n in needles if put["etags"][str(n)] != etag[n]]
+            check(not wrong, f"{len(wrong)} acks' ETags are not the "
+                  "needles' CRC32C")
+            out["put_mib_s"] = total / MIB / put["wall"]
+            out["put_req_s"] = put["n"] / put["wall"]
+            out["put_p50_ms"] = pct_ms(put["lat"], 50)
+            out["put_p99_ms"] = pct_ms(put["lat"], 99)
+            by_vid: dict = {}
+            for nid, a in fids.items():
+                by_vid.setdefault(int(a["fid"].split(",")[0]),
+                                  []).append(nid)
+            log(f"cluster: {put['n']} needles, {total} B POSTed from "
+                f"{SERVER_CONNS} connections to their holders in "
+                f"{put['wall']:.3f} s: {out['put_mib_s']:.1f} MiB/s, "
+                f"{out['put_req_s']:.0f} req/s, p50 "
+                f"{out['put_p50_ms']:.3f} ms, p99 {out['put_p99_ms']:.3f} "
+                "ms; needles by volume "
+                + json.dumps({v: len(n) for v, n in sorted(by_vid.items())}))
+
+            # -- the shell's ec.encode of every volume that holds needles
+            for vs in servers:
+                vs.heartbeat_once()
+            env = sh.CommandEnv(leader.address)
+            t0 = time.perf_counter()
+            for vid in sorted(by_vid):
+                source = mc.lookup(vid)[0]["url"]
+                k2 = rs_cuda.launches["fused_apply_crc"]
+                plan = sh.ec_encode(env, vid)
+                note(source, "fused_apply_crc",
+                     rs_cuda.launches["fused_apply_crc"] - k2)
+                check(len(plan["allocation"]) == CLUSTER_SIZE,
+                      f"ec.encode of {vid} spread over "
+                      f"{len(plan['allocation'])} servers")
+            out["encode_s"] = time.perf_counter() - t0
+            check(per_server and all(r["fused_apply_crc"] > 0
+                                     for r in per_server.values()),
+                  "K2 did not launch on an encoding holder")
+            for vs in servers:
+                vs.heartbeat_once()
+
+            def settled(master, v):
+                """14 shards of `v`, each on one holder (a rebuild's
+                copied survivors gone from the master's view too)."""
+                held = ec_holders(master.address, v)
+                return len(held) == 14 and all(
+                    len(urls) == 1 for urls in held.values())
+
+            def all_encoded(master):
+                return all(settled(master, v) for v in by_vid)
+
+            wait_until(lambda: all_encoded(leader), 30,
+                       "the encoded volumes' 14 shards never all showed")
+            log(f"cluster: ec.encode of {len(by_vid)} volumes in "
+                f"{out['encode_s']:.3f} s, K2 on each source "
+                + json.dumps({u: r["fused_apply_crc"]
+                              for u, r in sorted(per_server.items())})
+                + "; 14 shards of each spread over the three servers")
+            for m in masters:  # maintenance on, the bulk load is in
+                m.curator.enabled = True
+                m.curator.start()
+
+            # -- failover: the raft leader stops
+            old = leader
+            t0 = time.monotonic()
+            old.stop()
+            stopped.add(old.address)
+            rest = [m for m in masters if m is not old]
+            leader = wait_until(lambda: leader_of(rest), 30,
+                                "no new raft leader")
+            out["elect_s"] = time.monotonic() - t0
+            wait_until(lambda: len(leader.topo.nodes) == CLUSTER_SIZE
+                       and all_encoded(leader), 30,
+                       "the heartbeats never failed over to the new leader")
+            out["heartbeats_s"] = time.monotonic() - t0
+
+            def assigned():
+                try:
+                    return mc.assign()
+                except Exception:
+                    return None
+
+            first = wait_until(assigned, 30, "assigns did not go on")
+            out["failover_s"] = time.monotonic() - t0
+            writes = [first] + [mc.assign() for _ in range(31)]
+            rng = np.random.default_rng(SEED + 21)
+            bodies = [rng.bytes(4096 + i) for i in range(len(writes))]
+            for a, body in zip(writes, bodies):
+                call(a["url"], "/" + a["fid"], raw=body, method="POST")
+            for a, body in zip(writes, bodies):
+                check(call(a["url"], "/" + a["fid"], parse=False) == body,
+                      "a write after the failover did not read back")
+            log(f"cluster: leader {old.address} stopped; {leader.address} "
+                f"elected in {out['elect_s']:.3f} s, every heartbeat on it "
+                f"after {out['heartbeats_s']:.3f} s, the first assign after "
+                f"{out['failover_s']:.3f} s; 32 writes through new assigns "
+                "read back")
+
+            # -- the loss, with leasing paused while every needle is read
+            env = sh.CommandEnv(leader.address)
+            vid = max(sorted(by_vid), key=lambda v: len(by_vid[v]))
+            holders = ec_holders(leader.address, vid)
+            base_any = shard_files(servers, vid)[1][1][:-len(to_ext(1))]
+            stored = encoder.load_volume_info(base_any)["shard_crc32c"]
+            shard_bytes = os.path.getsize(shard_files(servers, vid)[1][1])
+            http_json(leader.address, "/maintenance/pause", {"paused": True})
+            n_ran = len(ran)
+            t_loss = time.monotonic()
+            for sid in LOST:
+                for url in holders[sid]:
+                    http_json(url, "/admin/ec/delete_shards",
+                              {"volume": vid, "shard_ids": [sid]})
+
+            def rebuild_queued():
+                return next((j for j in leader.curator.queue.jobs()
+                             if j["type"] == TYPE_EC_REBUILD
+                             and j["volume"] == vid), None)
+
+            job = wait_until(rebuild_queued, 30,
+                             "the curator never queued ec.rebuild")
+            out["loss_to_queued_s"] = time.monotonic() - t_loss
+            check(set(job["params"]["missing"]) <= set(LOST)
+                  and job["params"]["missing"], f"queued {job}")
+            check(all(sid not in ec_holders(leader.address, vid)
+                      for sid in LOST), "a lost shard is still listed")
+            log(f"cluster: volume {vid} ({len(by_vid[vid])} needles, "
+                f"{shard_bytes} B shards) lost .ec00 .ec05 .ec11 .ec13; "
+                f"the new leader's curator queued {job['id']} "
+                f"(ec.rebuild, missing {job['params']['missing']}) through "
+                f"raft after {out['loss_to_queued_s']:.3f} s")
+
+            # every needle of the volume while the job is pending, by GET
+            # through /ec/lookup, a third from each holder in turn
+            ec = http_json(leader.address, f"/ec/lookup?volumeId={vid}")
+            readers = sorted({loc["url"] for e in ec["shard_id_locations"]
+                              for loc in e["locations"]})
+            check(len(readers) == CLUSTER_SIZE, f"holders {readers}")
+            ids = sorted(by_vid[vid])
+            lat, got_bytes, wall = [], 0, 0.0
+            for i, url in enumerate(readers):
+                part = ids[i::len(readers)]
+                recover.STATS.reset()
+                k1 = rs_cuda.launches["gf_apply"]
+                rep = http_load(url, vid, "get", part, workdir,
+                                nbytes=CLUSTER_BYTES, seed=SEED + 20,
+                                targets={n: (url, targets[n][1])
+                                         for n in part})
+                k1 = rs_cuda.launches["gf_apply"] - k1
+                batches = recover.STATS.snapshot()["batches"]
+                check(not rep["bad"] and rep["n"] == len(part),
+                      f"degraded GET from {url}: {rep['bad'][:3]}")
+                wrong = [n for n in part if rep["etags"][str(n)] != etag[n]]
+                check(not wrong, f"{len(wrong)} degraded GETs' ETags are "
+                      "not the needles' CRC32C")
+                check(batches > 0 and k1 == batches,
+                      f"{url}: {k1} K1 launches, {batches} decode batches")
+                note(url, "gf_apply", k1)
+                lat += rep["lat"]
+                got_bytes += rep["bytes"]
+                wall += rep["wall"]
+                out.setdefault("degraded_k1_by_server", {})[url] = k1
+            check(rebuild_queued() is not None and len(ran) == n_ran,
+                  "the rebuild ran while leasing was paused")
+            out["get_degraded_p50_ms"] = pct_ms(lat, 50)
+            out["get_degraded_p99_ms"] = pct_ms(lat, 99)
+            out["degraded_mib_s"] = got_bytes / MIB / wall
+            log(f"cluster: every needle of volume {vid} read by GET while "
+                f"the job was pending ({len(ids)} needles from "
+                f"{len(readers)} holders in turn, {SERVER_CONNS} "
+                f"connections): {out['degraded_mib_s']:.1f} MiB/s, p50 "
+                f"{out['get_degraded_p50_ms']:.3f} ms, p99 "
+                f"{out['get_degraded_p99_ms']:.3f} ms; K1 launches = decode "
+                "batches on each server "
+                + json.dumps(out["degraded_k1_by_server"]))
+
+            # leasing on: a worker leases the job and rebuilds through K2
+            k2 = rs_cuda.launches["fused_apply_crc"]
+            t_unpause = time.monotonic()
+            http_json(leader.address, "/maintenance/pause",
+                      {"paused": False})
+            done = wait_until(lambda: ran_job(TYPE_EC_REBUILD, vid, n_ran),
+                              120, "no worker ran the ec.rebuild job")
+            out["unpause_to_leased_s"] = done[3] - t_unpause
+            wait_until(lambda: settled(leader, vid), 30,
+                       f"volume {vid} never showed 14 shards again")
+            t_healthy = time.monotonic()
+            k2 = rs_cuda.launches["fused_apply_crc"] - k2
+            check(k2 > 0, "K2 did not launch in the rebuild job")
+            rebuilder = shard_files(servers, vid)[LOST[0]][0].address
+            note(rebuilder, "fused_apply_crc", k2)
+            check(crc_clean_shards(servers, vid) == list(range(14)),
+                  "a shard of the rebuilt volume does not hold its .vif "
+                  "CRC")
+            hist = wait_until(lambda: [h for h in leader.curator.queue
+                                       .history if h["id"] == job["id"]],
+                              30, "the rebuild job never completed")
+            check(hist[0]["outcome"] == "ok", f"rebuild job: {hist[0]}")
+            out["rebuild_job_s"] = done[4] - done[3]
+            out["rebuild_gib_s"] = (10 * shard_bytes / (1 << 30)
+                                    / out["rebuild_job_s"])
+            out["leased_to_healthy_s"] = t_healthy - done[3]
+            out["time_to_recover_s"] = (out["loss_to_queued_s"]
+                                        + t_healthy - t_unpause)
+            log(f"cluster: {job['id']} leased by {done[0]} "
+                f"{out['unpause_to_leased_s']:.3f} s after leasing resumed, "
+                f"ran {out['rebuild_job_s']:.3f} s "
+                f"({out['rebuild_gib_s']:.3f} GiB/s of data shards, {k2} K2 "
+                f"launches on the rebuilder {rebuilder}), 14 healthy shards "
+                f"{out['leased_to_healthy_s']:.3f} s after the lease, each "
+                "equal to its .vif CRC; time to recover (loss to queued, "
+                "then leasing resumed to 14 healthy shards) "
+                f"{out['time_to_recover_s']:.3f} s")
+
+            # -- deep scrub through K5's K1 form: clean, then a flipped byte
+            scrubs = []
+            for flip in (False, True):
+                if flip:
+                    _, path = shard_files(servers, vid)[12]
+                    flip_byte(path, shard_bytes // 2)
+                n_before = len(ran)
+                k1 = rs_cuda.launches["gf_apply"]
+                http_json(leader.address, "/maintenance/run",
+                          {"type": TYPE_DEEP_SCRUB, "volume": vid})
+                r = wait_until(lambda: ran_job(TYPE_DEEP_SCRUB, vid,
+                                               n_before), 120,
+                               "no worker ran the deep.scrub job")
+                k1 = rs_cuda.launches["gf_apply"] - k1
+                check(k1 > 0, "K1 did not launch in the deep scrub")
+                note(r[0], "gf_apply", k1)
+                report = r[2]
+                scrubs.append({"server": r[0], "k1": k1,
+                               "seconds": r[4] - r[3],
+                               "bytes": report["bytes"],
+                               "corrupt": report["corrupt"],
+                               "parity_mismatch": report["parity_mismatch"],
+                               "ok": report["ok"]})
+                if not flip:
+                    check(report["ok"], f"deep scrub not clean: {report}")
+                    continue
+                check(sorted(set(report["corrupt"])
+                             | set(report["parity_mismatch"])) == [12],
+                      f"the flipped byte of .ec12 reported as {report}")
+                n_before = len(ran)
+                k2 = rs_cuda.launches["fused_apply_crc"]
+                r = wait_until(lambda: ran_job(TYPE_EC_REBUILD, vid,
+                                               n_before), 120,
+                               "no ec.rebuild followed the scrub's finding")
+                check(r[1]["params"].get("from") == "deep.scrub",
+                      f"the repair job was {r[1]}")
+                wait_until(lambda: crc_clean_shards(servers, vid)
+                           == list(range(14)) and settled(leader, vid), 30,
+                           ".ec12 was not repaired")
+                k2 = rs_cuda.launches["fused_apply_crc"] - k2
+                check(k2 > 0, "K2 did not launch in the repair")
+                note(shard_files(servers, vid)[12][0].address,
+                     "fused_apply_crc", k2)
+                out["repair_job_s"] = r[4] - r[3]
+            out["scrub"] = scrubs
+            out["deep_scrub_gib_s"] = (scrubs[0]["bytes"] / (1 << 30)
+                                       / scrubs[0]["seconds"])
+            log(f"cluster: deep.scrub of volume {vid} on {scrubs[0]['server']}"
+                f" clean in {scrubs[0]['seconds']:.3f} s "
+                f"({out['deep_scrub_gib_s']:.3f} GiB/s of "
+                f"{scrubs[0]['bytes']} B, {scrubs[0]['k1']} K1 launches); "
+                "one byte of .ec12 flipped: the next scrub reported "
+                f"corrupt {scrubs[1]['corrupt']} parity_mismatch "
+                f"{scrubs[1]['parity_mismatch']}, and the ec.rebuild it "
+                f"queued repaired it in {out['repair_job_s']:.3f} s")
+
+            # -- strictness: every job ok, none leased twice
+            status = http_json(leader.address, "/maintenance/status")
+            queue = http_json(leader.address, "/maintenance/queue")
+            check(not queue["jobs"], f"jobs left: {queue['jobs']}")
+            bad = [h for h in queue["history"]
+                   if h["outcome"] != "ok" or h["attempts"] != 1]
+            check(not bad, f"jobs failed or leased twice: {bad}")
+            check(all(vs.maintenance_worker.failed == 0 for vs in servers),
+                  "a maintenance worker failed a job")
+            out["launches_by_server"] = per_server
+            log("cluster: K1 and K2 launches by server "
+                + json.dumps(per_server, sort_keys=True))
+            log("cluster: /maintenance/status " + json.dumps(
+                {k: status[k] for k in ("leader", "scans", "enqueued",
+                                        "queue")}, sort_keys=True))
+            log("cluster: queue history " + json.dumps(
+                [{k: h[k] for k in ("id", "type", "volume", "worker",
+                                    "outcome", "attempts")}
+                 for h in queue["history"]]))
+        finally:
+            if mc is not None:
+                mc.stop()
+            for vs in servers:
+                vs.stop()
+            for m in masters:
+                if m.address not in stopped:
+                    m.stop()
+            policy.reset_state()
+    launches = dict(rs_cuda.launches)
+    out["wall_s"] = time.monotonic() - t_phase
+    PHASE_NUMBERS["cluster"] = out
+    log("cluster numbers: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("scrub",)},
+        sort_keys=True))
+    log(f"launches on the cluster path: {launches}")
+    return launches
+
+
 def http_get_text(addr: str, path: str) -> str:
     from seaweedfs_tpu_torch.rpc.http_rpc import call
 
@@ -2980,11 +3514,16 @@ def main() -> int:
                     help="build and check the kernels, then phase 9 (the "
                          "volume server with prefork workers and the TCP "
                          "fast path) alone")
+    ap.add_argument("--cluster", action="store_true",
+                    help="build and check the kernels, then phase 10 (a "
+                         "cluster of masters and volume servers that heals "
+                         "an EC volume) alone")
     args = ap.parse_args()
     mode = ("quick" if args.quick else "kernels" if args.kernels
             else "routes" if args.routes else "inline" if args.inline
             else "cache" if args.cache else "server" if args.server
-            else "prefork" if args.prefork else "all")
+            else "prefork" if args.prefork
+            else "cluster" if args.cluster else "all")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3001,18 +3540,18 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     stats = kernel_phase(dev, "quick" if mode in ("routes", "inline",
                                                   "cache", "server",
-                                                  "prefork")
+                                                  "prefork", "cluster")
                          else mode)
     if mode in ("kernels", "routes", "all"):
         route_phase(dev)
     if mode == "routes":
         route_profile(dev)
-    if mode in ("inline", "cache", "server", "prefork"):
+    if mode in ("inline", "cache", "server", "prefork", "cluster"):
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             {"inline": inline_phase, "cache": cache_phase,
-             "server": server_phase,
-             "prefork": prefork_phase}[mode](dev, workdir)
+             "server": server_phase, "prefork": prefork_phase,
+             "cluster": cluster_phase}[mode](dev, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     launches = {}
@@ -3021,14 +3560,16 @@ def main() -> int:
         # them after; the kernels each one must have launched
         needs = {"raw": KERNELS, "needle": KERNELS, "store": KERNELS,
                  "inline": ("gf_apply",), "cache": KERNELS,
-                 "server": KERNELS, "prefork": KERNELS}
+                 "server": KERNELS, "prefork": KERNELS,
+                 "cluster": KERNELS}
         paths = {}
         for label, phase in (("raw", main_path), ("needle", needle_phase),
                              ("store", store_phase),
                              ("inline", inline_phase),
                              ("cache", cache_phase),
                              ("server", server_phase),
-                             ("prefork", prefork_phase)):
+                             ("prefork", prefork_phase),
+                             ("cluster", cluster_phase)):
             workdir = tempfile.mkdtemp(prefix="chip_smoke_")
             try:
                 paths[label] = phase(dev, workdir)
@@ -3059,6 +3600,14 @@ def main() -> int:
                 "launches_by_path": {label: counts[name]
                                      for label, counts in paths.items()},
             })
+        # an estimate of the kernels' share of phase 10's wall: each
+        # launch counted at its phase 2 time, taken at phase 2's shapes
+        busy_ms = sum(paths["cluster"][name] * stats[name]["ms"]
+                      for name in KERNELS)
+        wall_s = PHASE_NUMBERS["cluster"]["wall_s"]
+        log(f"cluster: its K1 and K2 launches at phase 2's times (an "
+            f"estimate at phase 2's shapes): {busy_ms:.3f} ms of the "
+            f"phase's {wall_s:.3f} s ({busy_ms / 10 / wall_s:.4f}%)")
         print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

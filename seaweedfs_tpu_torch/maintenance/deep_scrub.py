@@ -126,7 +126,7 @@ def _read_span(t: ScrubTarget, sid: int, off: int, chunk: int,
         return b""
     try:
         raw = t.reader(sid, off, want)
-    except OSError:
+    except Exception:
         t.unreadable.add(sid)
         if sid < DATA_SHARDS_COUNT:
             t.recompute = False

@@ -1,0 +1,894 @@
+"""Master server: assign/lookup HTTP API + heartbeat ingest + vacuum drive.
+
+Parity with weed/server/master_server.go + master_server_handlers*.go:
+  /dir/assign, /dir/lookup, /dir/status, /vol/grow, /vol/vacuum,
+  /cluster/status, plus the heartbeat endpoint volume servers post to
+  (the reference's bidirectional gRPC stream becomes periodic POSTs) and
+  the EC shard lookup (LookupEcVolume).
+Single-master; the reference's Raft FSM replicates only MaxVolumeId
+(raft_server.go:78) so a single-node deployment is semantically complete.
+
+The port's own copy of seaweedfs_tpu/master/server.py, on the same
+routes, JSON shapes and status codes, so either package's volume
+servers, shell and clients drive it; its raft log, snapshots and queue
+journal are the JAX master's files.  The master runs no device work
+itself: the curator's jobs run on the volume servers, whose EC work is
+K1 and K2 on their card.  The leader-resident health plane (scrape
+loop, TSDB, SLO alerts, the merged event journal) is not ported yet:
+its routes are listed in NOT_PORTED_ROUTES and the curator runs without
+an alert feed.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import threading
+import time
+import urllib.parse
+from typing import Optional
+
+from .. import profiling, qos, tracing
+from ..rpc.http_rpc import RpcError, RpcServer, call
+from ..security import Guard, gen_write_jwt
+from ..stats import events as events_mod
+from ..stats import healthz
+from ..stats import metrics as stats
+from ..storage import types as t
+from ..storage.super_block import ReplicaPlacement
+from ..storage.ttl import TTL
+from ..util import faults, glog
+from . import volume_growth
+from .raft import RaftNode
+from .topology import Topology
+from .volume_growth import VolumeGrowOption
+
+
+# the health plane's routes (seaweedfs_tpu/master/health.py `mount`),
+# which the port's master does not serve yet (ROADMAP item 8)
+NOT_PORTED_ROUTES = frozenset({
+    ("GET", "/cluster/health"), ("GET", "/cluster/alerts"),
+    ("GET", "/cluster/usage"), ("GET", "/cluster/events")})
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+class MasterServer:
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 volume_size_limit_mb: int = 1024,
+                 default_replication: str = "000",
+                 pulse_seconds: float = 5.0,
+                 garbage_threshold: float = 0.3,
+                 guard: Optional[Guard] = None,
+                 peers: Optional[list[str]] = None,
+                 raft_dir: str = "",
+                 raft_election_timeout: Optional[float] = None,
+                 auto_vacuum_interval: float = 15 * 60.0,
+                 enable_native_assign: bool = False,
+                 maintenance_interval: Optional[float] = None,
+                 join: bool = False):
+        self.topo = Topology(
+            volume_size_limit=volume_size_limit_mb * 1024 * 1024,
+            pulse_seconds=pulse_seconds)
+        self.default_replication = default_replication
+        self.garbage_threshold = garbage_threshold
+        self.guard = guard or Guard()
+        self.server = RpcServer(host, port, service_name="master")
+        if raft_election_timeout is None:
+            raft_election_timeout = _env_float("WEED_RAFT_ELECTION", 0.8)
+        # `join`: this master is NOT part of the configured cluster yet —
+        # it boots as a non-voting learner and registers with the leader
+        # via /raft/join; the leader commits the membership change and
+        # auto-promotes it to voter once its log has caught up
+        self.join_mode = bool(join)
+        self._join_targets = list(peers or [])
+        self.raft = RaftNode(
+            self.server.address,
+            (peers or []) if join else
+            (peers or []) + [self.server.address],
+            state_dir=raft_dir,
+            election_timeout=raft_election_timeout,
+            heartbeat_interval=_env_float("WEED_RAFT_HEARTBEAT", 0.25),
+            learner=join)
+        self.topo.vid_allocator = self.raft.next_volume_id
+        self.topo.max_volume_id = self.raft.max_volume_id
+        # location-change feed for /dir/watch long-polls (KeepConnected).
+        # feed_id identifies THIS master's sequence space: watch clients
+        # must reset their cursor when it changes (failover to a peer)
+        self._changes: list[tuple[int, dict]] = []
+        self._change_seq = 0
+        self._change_cond = threading.Condition()
+        self._feed_id = f"{self.server.address}/{random.getrandbits(32):08x}"
+        self.topo.on_change = self._record_change
+        # cluster membership registry (cluster/cluster.go) + admin locks
+        self._members: dict[tuple[str, str], dict] = {}
+        self._admin_locks: dict[str, dict] = {}
+        self._admin_locks_mutex = threading.Lock()
+        self.auto_vacuum_interval = auto_vacuum_interval
+        # leader-resident maintenance curator: detectors + the
+        # persistent job queue the volume-server workers pull from
+        # (the journal lives next to the raft state so a failed-over
+        # leader replays the same pending set)
+        from ..maintenance.curator import Curator
+
+        self.curator = Curator(self, journal_dir=raft_dir,
+                               interval=maintenance_interval)
+        # no health plane yet (NOT_PORTED_ROUTES): the curator's alert
+        # seam stays None and its heat scan sees no usage view
+        self.health = None
+        self.raft.on_become_leader = self._on_leader
+        self.raft.on_step_down = self._on_step_down
+        self.raft.on_membership = self._on_membership
+        self._register_routes()
+        self._reaper: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._grow_lock = threading.Lock()
+        self.enable_native_assign = enable_native_assign
+        self._native_assign = False
+        self._native_assign_owner = False
+
+    @property
+    def address(self) -> str:
+        return self.server.address
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self):
+        self.server.start()
+        self.raft.start()
+        if self.join_mode:
+            threading.Thread(target=self._join_loop, daemon=True).start()
+        self._reaper = threading.Thread(target=self._reap_loop, daemon=True)
+        self._reaper.start()
+        self.curator.start()
+        if self.enable_native_assign:
+            self._start_native_assign()
+
+    def stop(self):
+        self._stop.set()
+        self.curator.stop()
+        self.raft.stop()
+        with self._change_cond:
+            self._change_cond.notify_all()
+        if self._native_assign:
+            from ..storage import native_engine
+
+            # join the refiller BEFORE clearing: a tick mid-refill could
+            # otherwise plant a lease that outlives this master in the
+            # process-global registry
+            t = getattr(self, "_lease_thread", None)
+            if t is not None:
+                t.join(timeout=5)
+            native_engine.assign_clear()
+            if getattr(self, "_native_jwt_owner", False):
+                # owner-aware: the master only ever set the WRITE key,
+                # so it must only clear the write key — None leaves the
+                # read key alone for an in-process volume server whose
+                # secured reads would otherwise fail open
+                native_engine.server_set_jwt("", None, 10)
+                self._native_jwt_owner = False
+            if self._native_assign_owner:
+                native_engine.server_stop()
+            self._native_assign = False
+        self.server.stop()
+
+    # -- native assign leases -------------------------------------------------
+    def _start_native_assign(self):
+        """Serve per-file assigns off the GIL: lease contiguous fid key
+        ranges for default-parameter (replication 000, no TTL) assigns
+        to the native engine's 'A' handler.  Placement, growth and
+        sequencing stay here; the engine only hands out pre-planned
+        ranges.  Opt-in (-tcp), like the volume fast path."""
+        from ..storage import native_engine
+
+        if not native_engine.available():
+            return
+        if self.guard.signing:
+            # the 'A' handler mints fid-scoped write tokens itself; the
+            # keys are engine-global, so set/clear ONLY the write key
+            # (None = leave the read key to its owner, the in-process
+            # volume server) and clear it on stop
+            native_engine.server_set_jwt(
+                self.guard.signing.key, None,
+                self.guard.signing.expires_after_seconds)
+            self._native_jwt_owner = True
+        host, port = self.server.address.rsplit(":", 1)
+        wanted = int(port) + 20000
+        if native_engine.server_port() <= 0:
+            try:
+                native_engine.server_start(
+                    host, wanted if wanted <= 65535 else 0)
+                self._native_assign_owner = True
+            except OSError:
+                pass  # combined process: another daemon's listener
+                # serves 'A' (the lease registry is process-global)
+        if native_engine.server_port() <= 0:
+            return
+        self._native_assign = True
+        self._lease_thread = threading.Thread(
+            target=self._assign_lease_loop, daemon=True)
+        self._lease_thread.start()
+
+    def _assign_lease_loop(self):
+        """Keep several leases' worth of keys outstanding; leases expire
+        individually after REFRESH seconds so placement staleness (a
+        leased volume going readonly/oversized/away) is bounded without
+        a global clear stalling every assigner at once."""
+        from ..storage import native_engine
+        from ..storage.ttl import TTL
+
+        # LOW keeps several leases outstanding so a burst cannot drain
+        # the pool between 0.2 s refill ticks (a drought answers 503)
+        LEASE, LOW, REFRESH_MS = 8192, 32768, 10_000
+        # leases follow the master's default placement: replicated
+        # volumes are fine — the volume server's native engine fans the
+        # leased writes out (or 307s them to its Python handler)
+        rp = ReplicaPlacement.parse(self.default_replication)
+        rp_byte = rp.to_byte()
+        while not self._stop.wait(0.2):
+            if not self.raft.is_leader:
+                native_engine.assign_clear()
+                continue
+            try:
+                # refill up to a few leases per tick: a single lease per
+                # 0.2 s would cap sustained assigns at LEASE/0.2 ≈ 40k/s
+                for _ in range(8):
+                    if native_engine.assign_remaining(REFRESH_MS) >= LOW:
+                        break
+                    if self.topo.writable_count("", rp_byte, 0) == 0:
+                        self._grow("", rp, TTL.parse(""),
+                                   only_if_needed=True)
+                    picked = self.topo.pick_for_write("", rp_byte, 0)
+                    if picked is None:
+                        break
+                    vid, locations = picked
+                    key, _ = self.topo.assign_file_id(LEASE)
+                    native_engine.assign_add_lease(
+                        vid, locations[0]["url"],
+                        locations[0].get("publicUrl", ""), key,
+                        key + LEASE - 1)
+            except Exception:
+                continue  # lease refill must never die; retry next tick
+
+    def _handle_dir_status(self, req):
+        d = self.topo.to_dict()
+        if self._native_assign:
+            from ..storage import native_engine
+
+            d["native_assign_port"] = native_engine.server_port()
+        return d
+
+    def _reap_loop(self):
+        # Nothing but liveness reaping runs here.  The periodic garbage
+        # vacuum used to ride this loop, synchronously calling every
+        # volume server's check/compact/commit — blocking the leader's
+        # dead-node reaping (and heartbeat-driven liveness) for the
+        # duration.  The curator's garbage-ratio detector now reads the
+        # heartbeat state the nodes already report and routes vacuums
+        # through the maintenance queue, where a volume-server worker
+        # burns its own thread on the holder RPCs.
+        while not self._stop.wait(self.topo.pulse_seconds):
+            self.topo.reap_dead_nodes()
+            try:
+                self._drive_shard_resize()
+            except Exception as e:  # driver must not kill the reaper
+                glog.v(1).infof("shard-resize driver: %s", e)
+
+    def _join_loop(self):
+        """Learner registration: keep asking the existing cluster to
+        admit us until a leader commits the add_learner entry (the
+        leader then replicates/snapshots us up and auto-promotes)."""
+        payload = {"address": self.address}
+        while not self._stop.wait(1.0):
+            with self.raft.lock:
+                if self.address in self.raft.voters:
+                    return  # promoted: registration complete
+            for target in self._join_targets:
+                try:
+                    call(target, "/raft/join", payload=payload,
+                         method="POST", timeout=5)
+                    break
+                except RpcError as e:
+                    hint = (e.headers or {}).get("X-Raft-Leader", "")
+                    if hint and hint != target:
+                        try:
+                            call(hint, "/raft/join", payload=payload,
+                                 method="POST", timeout=5)
+                            break
+                        except RpcError:
+                            continue
+
+    def _drive_shard_resize(self):
+        """Leader-side two-phase coordinator for filer shard split/merge:
+        once every active holder acked its local re-shard, commit the
+        slot-map flip; a prepare that cannot complete within
+        WEED_SHARD_RESIZE_TIMEOUT is aborted (holders discard staging
+        on the next lease)."""
+        if not self.raft.is_leader:
+            return
+        now = time.time()
+        with self.raft.lock:
+            m = self.raft.fsm.shard_map
+            if m.resize is None:
+                return
+            rz = dict(m.resize)
+            frm = m.slots
+            pending = m.resize_pending(now)
+        kind = (events_mod.SHARD_SPLIT if int(rz["to"]) > frm
+                else events_mod.SHARD_MERGE)
+        if not pending:
+            r = self.raft.propose({"type": "filer.resize",
+                                   "op": "commit", "now": now})
+            if isinstance(r, dict) and not r.get("error"):
+                events_mod.emit(kind, service="master",
+                                node=self.address,
+                                detail={"from": frm, "to": rz["to"],
+                                        "phase": "commit",
+                                        "epoch": r.get("epoch")})
+        elif now - float(rz.get("started", now)) > \
+                _env_float("WEED_SHARD_RESIZE_TIMEOUT", 60.0):
+            r = self.raft.propose({"type": "filer.resize",
+                                   "op": "abort", "now": now})
+            if isinstance(r, dict) and not r.get("error"):
+                events_mod.emit(kind, service="master",
+                                node=self.address,
+                                detail={"from": frm, "to": rz["to"],
+                                        "phase": "abort",
+                                        "waiting_on": pending})
+
+    # -- routes --------------------------------------------------------------
+    def _guarded(self, fn):
+        """IP allow-list on admin/UI routes (guard.go WhiteList wrapper)."""
+        def wrapped(req):
+            peer = req.handler.client_address[0]
+            if not self.guard.check_white_list(peer):
+                raise RpcError(f"ip {peer} not allowed", 403)
+            return fn(req)
+        return wrapped
+
+    def _register_routes(self):
+        s = self.server
+        g = self._guarded
+        # every data/control read serves raft + heartbeat-fed topology
+        # state that exists ONLY in worker 0 — prefork read replicas
+        # forked before any election or heartbeat and must proxy these
+        # (only /metrics, /debug/* and the curator worker protocol stay
+        # shardable on the master port)
+        s.parent_prefixes.update((
+            "/dir/", "/cluster/", "/vol/", "/ec/", "/raft/", "/filer/",
+            "/col/", "/maintenance/", "/ui", "/readyz"))
+        s.add("POST", "/api/heartbeat", self._handle_heartbeat)
+        s.add("GET", "/dir/assign", self._handle_assign)
+        s.add("POST", "/dir/assign", self._handle_assign)
+        s.add("GET", "/dir/lookup", self._handle_lookup)
+        s.add("GET", "/dir/status", g(self._handle_dir_status))
+        s.add("GET", "/cluster/status", self._handle_cluster_status)
+        s.add("POST", "/vol/grow", g(self._handle_grow))
+        s.add("POST", "/vol/vacuum", g(self._handle_vacuum))
+        s.add("GET", "/vol/status", g(lambda r: self.topo.to_dict()))
+        s.add("GET", "/ec/lookup", self._handle_ec_lookup)
+        s.add("GET", "/metrics", stats.metrics_handler)
+        s.add("GET", "/debug/traces", tracing.traces_handler)
+        faults.mount(s)
+        profiling.mount(s)
+        qos.mount(s)  # quota/lane state; assigns are metered, not queued
+        s.add("POST", "/raft/request_vote",
+              lambda r: self.raft.handle_request_vote(r.json()))
+        s.add("POST", "/raft/append_entries",
+              lambda r: self.raft.handle_append_entries(r.json()))
+        s.add("GET", "/raft/status", self._handle_raft_status)
+        s.add("POST", "/raft/add_peer", g(self._handle_raft_add_peer))
+        s.add("POST", "/raft/remove_peer", g(self._handle_raft_remove_peer))
+        s.add("POST", "/raft/join", self._handle_raft_join)
+        s.add("POST", "/raft/update_peers",
+              lambda req: (self.raft.set_peers(req.json()["peers"]),
+                           {"peers": self.raft.peers})[1])
+        s.add("POST", "/filer/shard_lease", self._handle_filer_shard_lease)
+        s.add("POST", "/filer/shard_resize",
+              self._handle_filer_shard_resize)
+        s.add("GET", "/filer/shards", self._handle_filer_shards)
+        s.add("POST", "/dir/leave", self._handle_leave)
+        s.add("GET", "/col/list", self._handle_collection_list)
+        s.add("POST", "/col/delete", g(self._handle_collection_delete))
+        s.add("GET", "/dir/watch", self._handle_watch)
+        s.add("POST", "/cluster/register", self._handle_cluster_register)
+        s.add("GET", "/cluster/nodes", self._handle_cluster_nodes)
+        s.add("POST", "/admin/lock", g(self._handle_admin_lock))
+        s.add("POST", "/admin/unlock", g(self._handle_admin_unlock))
+        s.add("GET", "/ui", self._handle_ui)
+        # maintenance curator: status/queue views, worker lease
+        # protocol, pause/run controls
+        self.curator.mount(s, g)
+        # liveness/readiness probes
+        healthz.mount_health(s, ready=self._ready_checks)
+
+    def _ready_checks(self):
+        leader = self.raft.leader or ""
+        return [("raft", bool(leader), f"leader={leader or 'unknown'}"),
+                ("fsm", self.raft.fsm is not None, "raft fsm attached")]
+
+    def _on_leader(self):
+        events_mod.emit(events_mod.LEADER_ELECTED, service="master",
+                        node=self.address,
+                        detail={"term": self.raft.term})
+
+    def _on_membership(self, change: dict):
+        """Committed raft.config entry (leader-side): journal it so the
+        cluster history shows who joined/left and why."""
+        events_mod.emit(events_mod.MEMBERSHIP, service="master",
+                        node=change.get("address", ""),
+                        detail={"op": change.get("op", ""),
+                                "voters": change.get("voters") or [],
+                                "learners": change.get("learners") or [],
+                                "index": change.get("index", 0)})
+
+    def _on_step_down(self):
+        events_mod.emit(events_mod.LEADER_STEPDOWN, service="master",
+                        node=self.address,
+                        detail={"term": self.raft.term})
+
+    def _handle_ui(self, req):
+        """Status page (server/master_ui/master.html)."""
+        from ..rpc.http_rpc import Response
+        from ..util import ui
+
+        topo = self.topo.to_dict()
+        nodes = [(n["id"], dc["id"], rack["id"], n["volumes"],
+                  n["ecShards"], n["max"], n["free"])
+                 for dc in topo["datacenters"]
+                 for rack in dc["racks"] for n in rack["nodes"]]
+        layouts = [(l["collection"] or "(default)", l["replication"],
+                    l["ttl"], len(l["writables"]))
+                   for l in topo["layouts"]]
+        body = ui.page(
+            f"SeaweedFS-TPU Master {self.address}",
+            ui.section("Cluster", ui.kv_table({
+                "leader": self.raft.leader or self.address,
+                "raft state": self.raft.state,
+                "raft peers": ", ".join(self.raft.peers),
+                "max volume id": topo["max_volume_id"],
+                "volume size limit": self.topo.volume_size_limit,
+            })),
+            ui.section("Topology", ui.table(
+                ("node", "data center", "rack", "volumes", "ec shards",
+                 "max", "free"), nodes)),
+            ui.section("Volume layouts", ui.table(
+                ("collection", "replication", "ttl", "writables"),
+                layouts)),
+        )
+        return Response(body, content_type="text/html; charset=utf-8")
+
+    # -- heartbeat (master_grpc_server.go:60-170) ----------------------------
+    def _handle_heartbeat(self, req):
+        hb = req.json()
+        stats.MasterReceivedHeartbeatCounter.labels("total").inc()
+        self.topo.process_heartbeat(hb)
+        # keep the raft FSM aware of ids observed on disk (SetMax analogue)
+        self.raft.observe_volume_id(self.topo.max_volume_id)
+        return {
+            "volume_size_limit": self.topo.volume_size_limit,
+            "leader": self.raft.is_leader,
+            "leader_address": self.raft.leader or self.address,
+        }
+
+    def _record_change(self, delta: dict):
+        with self._change_cond:
+            self._change_seq += 1
+            self._changes.append((self._change_seq, delta))
+            if len(self._changes) > 10000:
+                del self._changes[:5000]
+            self._change_cond.notify_all()
+
+    def _handle_watch(self, req):
+        """KeepConnected analogue: long-poll volume-location deltas
+        (master_grpc_server.go broadcasts VolumeLocation to subscribers)."""
+        since = int(req.param("since", "0"))
+        timeout = min(float(req.param("timeout", "30")), 60.0)
+        deadline = time.time() + timeout
+        with self._change_cond:
+            while (not self._stop.is_set()
+                   and self._change_seq <= since
+                   and time.time() < deadline):
+                self._change_cond.wait(min(1.0, deadline - time.time()))
+            # snapshot seq INSIDE the lock: reporting a seq newer than the
+            # delta list would make the client skip that delta forever
+            deltas = [{"seq": s, **d} for s, d in self._changes if s > since]
+            seq = self._change_seq
+            oldest = self._changes[0][0] if self._changes else 0
+        return {"seq": seq, "deltas": deltas,
+                "feed_id": self._feed_id,
+                "leader": self.raft.leader or self.address,
+                # a client whose `since` predates the retained window must
+                # do a full resync via /dir/lookup
+                "resync": bool(since and oldest and since + 1 < oldest)}
+
+    def _proxy_to_leader(self, req, path: str):
+        """Non-leader masters forward to the raft leader
+        (master_server.go proxyToLeader)."""
+        leader = self.raft.leader
+        if not leader or leader == self.address:
+            raise RpcError("no raft leader elected yet", 503)
+        query = urllib.parse.urlencode(req.query)
+        return call(leader, path + ("?" + query if query else ""),
+                    method="POST" if req.body else "GET",
+                    raw=req.body or None, timeout=30)
+
+    # -- assign (master_server_handlers.go:102-165) --------------------------
+    def _handle_assign(self, req):
+        if not self.raft.is_leader:
+            return self._proxy_to_leader(req, "/dir/assign")
+        count = int(req.param("count", "1"))
+        collection = req.param("collection", "") or ""
+        replication = req.param("replication") or self.default_replication
+        ttl_s = req.param("ttl", "") or ""
+        rp = ReplicaPlacement.parse(replication)
+        ttl = TTL.parse(ttl_s)
+
+        # per-collection ops quota: meter assigns before topology work
+        # so a runaway writer can't starve other collections' growth
+        if qos.enabled() and not qos.QUOTAS.allow(collection,
+                                                  ops=float(count)):
+            raise RpcError(
+                f"collection {collection!r} over its assign quota", 503,
+                headers={"Retry-After": qos.retry_after(1, 3)})
+        rp_byte, ttl_u32 = rp.to_byte(), ttl.to_uint32()
+        if self.topo.writable_count(collection, rp_byte, ttl_u32) == 0:
+            self._grow(collection, rp, ttl, only_if_needed=True)
+        picked = self.topo.pick_for_write(collection, rp_byte, ttl_u32)
+        if picked is None:
+            # assign drought is a transient overload (growth may still
+            # be racing ahead), not a missing resource: shed with 503 +
+            # a jittered Retry-After so policy-aware writers back off
+            # without re-arriving in one synchronized wave
+            raise RpcError(
+                "no writable volumes", 503,
+                headers={"Retry-After": qos.retry_after(
+                    1, max(1, int(self.topo.pulse_seconds)))})
+        vid, locations = picked
+        key, _ = self.topo.assign_file_id(count)
+        cookie = random.getrandbits(32)
+        fid = t.format_file_id(vid, key, cookie)
+        result = {
+            "fid": fid,
+            "url": locations[0]["url"],
+            "publicUrl": locations[0]["publicUrl"],
+            "count": count,
+        }
+        if self.guard.signing:
+            # JWT scoped to the assigned fid (master_server_handlers.go:150)
+            result["auth"] = gen_write_jwt(self.guard.signing, fid)
+            # let fid-lease caches cap their lease lifetime to the
+            # token's, so a leased fid never outlives its write JWT
+            if self.guard.signing.expires_after_seconds > 0:
+                result["authExpiresSeconds"] = \
+                    self.guard.signing.expires_after_seconds
+        return result
+
+    def _grow(self, collection: str, rp: ReplicaPlacement, ttl: TTL,
+              target_count: Optional[int] = None,
+              only_if_needed: bool = False):
+        with self._grow_lock:
+            if only_if_needed and self.topo.writable_count(
+                    collection, rp.to_byte(), ttl.to_uint32()) > 0:
+                return 0  # another request already grew the layout
+            option = VolumeGrowOption(collection=collection,
+                                      replica_placement=rp, ttl=ttl)
+            count = target_count or volume_growth.find_volume_count(
+                rp.copy_count())
+            grown = 0
+            for _ in range(count):
+                try:
+                    vid, servers = volume_growth.grow_one_volume(
+                        self.topo, option,
+                        lambda server, vid: call(
+                            server.url, "/admin/assign_volume",
+                            {"volume": vid, "collection": collection,
+                             "replication": str(rp), "ttl": str(ttl)}))
+                    grown += 1
+                except (ValueError, RpcError):
+                    break
+            if grown:
+                # placement generation bump rides the replicated log, so
+                # a failed-over leader knows growth happened here
+                try:
+                    self.raft.propose({"type": "topology.epoch",
+                                       "now": time.time()})
+                except RpcError:
+                    pass  # lost leadership mid-grow; epoch stays behind
+            return grown
+
+    def _handle_grow(self, req):
+        if not self.raft.is_leader:
+            return self._proxy_to_leader(req, "/vol/grow")
+        collection = req.param("collection", "") or ""
+        replication = req.param("replication") or self.default_replication
+        count = req.param("count")
+        rp = ReplicaPlacement.parse(replication)
+        ttl = TTL.parse(req.param("ttl", "") or "")
+        grown = self._grow(collection, rp, ttl,
+                           target_count=int(count) if count else None)
+        if grown == 0:
+            raise RpcError("cannot grow any volume", 500)
+        return {"count": grown}
+
+    # -- lookup (master_server_handlers.go:34-80) ----------------------------
+    def _handle_lookup(self, req):
+        vid_s = req.param("volumeId")
+        if vid_s is None:
+            file_id = req.param("fileId")
+            if not file_id:
+                raise RpcError("volumeId or fileId required", 400)
+            vid_s = file_id.split(",")[0]
+        vid = int(vid_s.split(",")[0])
+        collection = req.param("collection", "") or ""
+        locations = self.topo.lookup(vid, collection)
+        if not locations and not self.raft.is_leader:
+            # volume locations are heartbeat soft state and heartbeats
+            # only reach the leader — forward a miss one hop so lookups
+            # against any master stay correct (hop guard: no ping-pong
+            # while leaderless)
+            leader = self.raft.leader
+            if leader and leader != self.address \
+                    and not req.headers.get("X-Lookup-Hop"):
+                q = f"volumeId={vid}"
+                if collection:
+                    q += "&collection=" + urllib.parse.quote(collection)
+                return call(leader, "/dir/lookup?" + q, timeout=5,
+                            headers={"X-Lookup-Hop": "1"})
+        if not locations:
+            raise RpcError(f"volume id {vid} not found", 404)
+        return {"volumeId": str(vid), "locations": locations}
+
+    def _handle_ec_lookup(self, req):
+        vid = int(req.param("volumeId", "0"))
+        result = self.topo.lookup_ec_shards(vid)
+        if result is None:
+            raise RpcError(f"ec volume {vid} not found", 404)
+        return result
+
+    def _handle_cluster_status(self, req):
+        return {
+            "IsLeader": self.raft.is_leader,
+            "Leader": self.raft.leader or "",
+            "Peers": self.raft.peers,
+            "MaxVolumeId": self.topo.max_volume_id,
+            "TopologyEpoch": self.raft.fsm.topology_epoch,
+        }
+
+    def _handle_raft_status(self, req):
+        """cluster.raft.ps / cluster.check surface: term, commit/applied
+        index, per-follower replication lag."""
+        return self.raft.status()
+
+    # -- filer shard map (replicated through the master FSM) -----------------
+    def _handle_filer_shard_lease(self, req):
+        """Store servers acquire/renew/release directory-shard leases;
+        every grant commits through the raft log, so a failed-over
+        master serves the identical assignment."""
+        d = req.json()
+        return self.raft.propose({
+            "type": "filer.lease", "now": time.time(),
+            "holder": d.get("holder", ""),
+            "ttl": float(d.get("ttl", 10.0)),
+            "release": bool(d.get("release"))})
+
+    def _handle_filer_shards(self, req):
+        """Read-only shard-map view for routing clients (served from the
+        local FSM replica — any master answers)."""
+        m = self.raft.fsm.shard_map
+        with self.raft.lock:
+            return {"slots": m.slots, "epoch": m.epoch,
+                    "map": m.assignments(),
+                    "resize": dict(m.resize) if m.resize else None,
+                    "leader": self.raft.leader or ""}
+
+    def _handle_filer_shard_resize(self, req):
+        """Online shard split/merge (filer.shards.split/merge): `start`
+        opens the prepare window, holders `ack` their local re-shard,
+        and the leader's driver commits the flip once all acks land
+        (or aborts on WEED_SHARD_RESIZE_TIMEOUT)."""
+        if not self.raft.is_leader:
+            return self._proxy_to_leader(req, "/filer/shard_resize")
+        d = req.json()
+        op = d.get("op", "")
+        if op not in ("start", "ack", "abort"):
+            raise RpcError(f"unknown resize op {op!r}", 400)
+        cmd = {"type": "filer.resize", "op": op, "now": time.time()}
+        if op == "start":
+            cmd["to"] = int(d.get("to", 0))
+            with self.raft.lock:
+                frm = self.raft.fsm.shard_map.slots
+        if op == "ack":
+            cmd["holder"] = d.get("holder", "")
+        r = self.raft.propose(cmd)
+        if isinstance(r, dict) and r.get("error"):
+            raise RpcError(r["error"], 400)
+        if op == "start":
+            events_mod.emit(
+                events_mod.SHARD_SPLIT if cmd["to"] > frm
+                else events_mod.SHARD_MERGE,
+                service="master", node=self.address,
+                detail={"from": frm, "to": cmd["to"],
+                        "phase": "prepare"})
+        return r
+
+    def _handle_leave(self, req):
+        """A volume server announces departure (VolumeServerLeave);
+        unregister immediately instead of waiting for the reaper."""
+        p = req.json()
+        self.topo.unregister_node(f"{p['ip']}:{p['port']}")
+        return {}
+
+    def _handle_raft_add_peer(self, req):
+        """cluster.raft.add (shell/command_cluster_raft_add.go): commit
+        an add-learner config entry through the log; the leader promotes
+        the learner to voter once it has caught up."""
+        if not self.raft.is_leader and self.raft.leader:
+            return self._proxy_to_leader(req, "/raft/add_peer")
+        change = self.raft.add_server(req.json()["address"])
+        return {"peers": self.raft.peers, "change": change}
+
+    def _handle_raft_remove_peer(self, req):
+        """cluster.raft.remove (shell/command_cluster_raft_remove.go):
+        commit a remove config entry; the removed server self-demotes to
+        a single-node observer once it sees the committed entry."""
+        if not self.raft.is_leader and self.raft.leader:
+            return self._proxy_to_leader(req, "/raft/remove_peer")
+        try:
+            change = self.raft.remove_server(req.json()["address"])
+        except ValueError as e:
+            raise RpcError(str(e), 400)
+        return {"peers": self.raft.peers, "change": change}
+
+    def _handle_raft_join(self, req):
+        """A booting learner announces itself (see _join_loop); only the
+        leader can commit the config entry, so followers forward."""
+        address = req.json().get("address", "")
+        if not address:
+            raise RpcError("address required", 400)
+        if not self.raft.is_leader:
+            return self._proxy_to_leader(req, "/raft/join")
+        return self.raft.add_server(address)
+
+    # -- collections (master_server_handlers_admin.go /col/*) ----------------
+    def _handle_collection_list(self, req):
+        names: set[str] = set()
+        with self.topo.lock:
+            for dc in self.topo.dcs.values():
+                for rack in dc.racks.values():
+                    for node in rack.nodes.values():
+                        for v in node.volumes.values():
+                            names.add(v.collection)
+                        for vid in node.ec_shards:
+                            names.add(
+                                self.topo.ec_collections.get(vid, ""))
+        return {"collections": sorted(n for n in names if n)}
+
+    def _handle_collection_delete(self, req):
+        """Delete every volume of a collection on every server
+        (topology.DeleteCollection + DeleteVolume RPC fan-out)."""
+        name = req.json().get("collection", "")
+        if not name:
+            raise RpcError("collection name required", 400)
+        deleted = []
+        with self.topo.lock:
+            targets = [
+                (node.url, v.id)
+                for dc in self.topo.dcs.values()
+                for rack in dc.racks.values()
+                for node in rack.nodes.values()
+                for v in node.volumes.values() if v.collection == name
+            ]
+            # EC shards of the collection go too (topology
+            # DeleteCollection covers both normal and EC volumes)
+            ec_targets = [
+                (node.url, vid, sorted(node.ec_shards[vid].shard_ids()))
+                for dc in self.topo.dcs.values()
+                for rack in dc.racks.values()
+                for node in rack.nodes.values()
+                for vid in node.ec_shards
+                if self.topo.ec_collections.get(vid, "") == name
+            ]
+        for url, vid in targets:
+            try:
+                call(url, "/admin/delete_volume",
+                     {"volume": vid, "collection": name}, timeout=60)
+                deleted.append({"url": url, "volume": vid})
+            except RpcError as e:
+                deleted.append({"url": url, "volume": vid,
+                                "error": str(e)})
+        for url, vid, shard_ids in ec_targets:
+            try:
+                call(url, "/admin/ec/delete_shards",
+                     {"volume": vid, "collection": name,
+                      "shard_ids": shard_ids}, timeout=60)
+                deleted.append({"url": url, "volume": vid,
+                                "ec_shards": shard_ids})
+            except RpcError as e:
+                deleted.append({"url": url, "volume": vid,
+                                "ec_shards": shard_ids, "error": str(e)})
+        return {"deleted": deleted}
+
+    # -- cluster membership (cluster/cluster.go, KeepConnected registry) -----
+    def _handle_cluster_register(self, req):
+        p = req.json()
+        key = (p.get("type", "filer"), p["address"])
+        self._members[key] = {
+            "type": key[0], "address": key[1],
+            "group": p.get("group", ""),
+            "last_seen": time.time(),
+        }
+        return {"leader": self.raft.leader or self.address,
+                "pulse_seconds": self.topo.pulse_seconds}
+
+    def _handle_cluster_nodes(self, req):
+        kind = req.param("type", "filer")
+        cutoff = time.time() - self.topo.pulse_seconds * 3
+        alive = [dict(m) for (k, _), m in self._members.items()
+                 if k == kind and m["last_seen"] >= cutoff]
+        for m in alive:
+            m.pop("last_seen", None)
+        return {"cluster_nodes": alive}
+
+    # -- admin locks (LeaseAdminToken, master_grpc_server_admin.go) ----------
+    ADMIN_LOCK_TTL = 10.0
+
+    def _handle_admin_lock(self, req):
+        p = req.json()
+        name = p.get("name", "admin")
+        client = p.get("client", "")
+        prev_token = int(p.get("token", 0))
+        now = time.time()
+        with self._admin_locks_mutex:
+            lock = self._admin_locks.get(name)
+            if (lock is not None and lock["expires"] > now
+                    and lock["token"] != prev_token):
+                raise RpcError(
+                    f"lock {name} held by {lock['client']}", 423)
+            token = prev_token if (lock is not None
+                                   and lock.get("token") == prev_token
+                                   ) else random.getrandbits(63)
+            self._admin_locks[name] = {
+                "token": token, "client": client,
+                "expires": now + self.ADMIN_LOCK_TTL,
+            }
+        return {"token": token, "expires_at": now + self.ADMIN_LOCK_TTL}
+
+    def _handle_admin_unlock(self, req):
+        p = req.json()
+        name = p.get("name", "admin")
+        with self._admin_locks_mutex:
+            lock = self._admin_locks.get(name)
+            if lock is not None and lock["token"] == int(p.get("token", 0)):
+                del self._admin_locks[name]
+        return {}
+
+    # -- vacuum orchestration (topology_vacuum.go) ---------------------------
+    def _handle_vacuum(self, req):
+        threshold = float(req.param("garbageThreshold",
+                                    str(self.garbage_threshold)))
+        return {"vacuumed": self._vacuum_pass(threshold)}
+
+    def _vacuum_pass(self, threshold: float) -> list[dict]:
+        vacuumed = []
+        with self.topo.lock:
+            nodes = list(self.topo.nodes.values())
+        for node in nodes:
+            for vid, info in list(node.volumes.items()):
+                try:
+                    check = call(node.url, f"/admin/vacuum/check",
+                                 {"volume": vid})
+                    if check.get("garbage_ratio", 0) <= threshold:
+                        continue
+                    call(node.url, "/admin/vacuum/compact", {"volume": vid},
+                         timeout=600)
+                    call(node.url, "/admin/vacuum/commit", {"volume": vid},
+                         timeout=600)
+                    vacuumed.append({"node": node.url, "volume": vid})
+                except RpcError:
+                    continue
+        return vacuumed

@@ -1,0 +1,441 @@
+"""Cluster topology: DataCenter -> Rack -> DataNode tree + volume layouts.
+
+Parity with weed/topology/: heartbeat-driven registration
+(topology.go:24-71, data_node.go), per-(collection, replication, ttl)
+VolumeLayout tracking writable volumes (volume_layout.go), EC shard
+locations (topology_ec.go:16-161), and lookup with EC fallback
+(topology.go:128-133).
+
+The port's own copy of seaweedfs_tpu/master/topology.py.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+from ..storage.erasure_coding.ec_volume import ShardBits
+from ..storage.super_block import ReplicaPlacement
+from ..storage.ttl import TTL
+from .sequence import MemorySequencer
+
+
+@dataclass
+class VolumeInfo:
+    id: int
+    collection: str = ""
+    size: int = 0
+    file_count: int = 0
+    delete_count: int = 0
+    deleted_byte_count: int = 0
+    read_only: bool = False
+    replica_placement: int = 0
+    ttl: int = 0
+    compact_revision: int = 0
+    modified_at_second: int = 0
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "VolumeInfo":
+        return cls(**{k: d[k] for k in cls.__dataclass_fields__ if k in d})
+
+
+class DataNode:
+    def __init__(self, node_id: str, ip: str, port: int, public_url: str,
+                 max_volume_count: int, dc: "DataCenter", rack: "Rack"):
+        self.id = node_id
+        self.ip = ip
+        self.port = port
+        self.public_url = public_url
+        self.max_volume_count = max_volume_count
+        self.dc = dc
+        self.rack = rack
+        self.volumes: dict[int, VolumeInfo] = {}
+        self.ec_shards: dict[int, ShardBits] = {}
+        self.last_seen = time.time()
+        # load telemetry from the latest heartbeat (rps / occupancy /
+        # draining), consumed by the curator's autoscale detectors
+        self.telemetry: dict = {}
+        # access-sketch summary from the latest heartbeat, folded into
+        # the leader's UsageAggregator (stats/access.py)
+        self.access: dict = {}
+
+    @property
+    def url(self) -> str:
+        return f"{self.ip}:{self.port}"
+
+    def available_slots(self) -> int:
+        from ..storage.erasure_coding import TOTAL_SHARDS_COUNT
+
+        ec_used = sum(b.count() for b in self.ec_shards.values()) / float(
+            TOTAL_SHARDS_COUNT)
+        return max(0, int(self.max_volume_count - len(self.volumes) - ec_used))
+
+    def to_dict(self) -> dict:
+        return {
+            "id": self.id, "url": self.url, "publicUrl": self.public_url,
+            "volumes": len(self.volumes),
+            "ecShards": sum(b.count() for b in self.ec_shards.values()),
+            "max": self.max_volume_count, "free": self.available_slots(),
+            "dc": self.dc.id, "rack": self.rack.id,
+            "occupancy": round(
+                float(self.telemetry.get("occupancy", 0.0)), 4),
+            "rps": round(float(self.telemetry.get("rps", 0.0)), 1),
+            "draining": bool(self.telemetry.get("draining", False)),
+            "volume_list": [
+                {"id": v.id, "collection": v.collection, "size": v.size,
+                 "file_count": v.file_count,
+                 "delete_count": v.delete_count,
+                 "deleted_bytes": v.deleted_byte_count,
+                 "read_only": v.read_only,
+                 "replication": v.replica_placement, "ttl": v.ttl,
+                 "modified_at": v.modified_at_second}
+                for v in self.volumes.values()
+            ],
+        }
+
+
+class Rack:
+    def __init__(self, rack_id: str, dc: "DataCenter"):
+        self.id = rack_id
+        self.dc = dc
+        self.nodes: dict[str, DataNode] = {}
+
+    def available_slots(self) -> int:
+        return sum(n.available_slots() for n in self.nodes.values())
+
+
+class DataCenter:
+    def __init__(self, dc_id: str):
+        self.id = dc_id
+        self.racks: dict[str, Rack] = {}
+
+    def available_slots(self) -> int:
+        return sum(r.available_slots() for r in self.racks.values())
+
+
+def _layout_key(collection: str, rp_byte: int, ttl: int) -> tuple:
+    return (collection, rp_byte, ttl)
+
+
+class VolumeLayout:
+    """Writable-volume tracking per (collection, replication, ttl)
+    (weed/topology/volume_layout.go)."""
+
+    def __init__(self, rp: ReplicaPlacement, ttl: TTL,
+                 volume_size_limit: int):
+        self.rp = rp
+        self.ttl = ttl
+        self.volume_size_limit = volume_size_limit
+        self.vid_to_nodes: dict[int, list[DataNode]] = {}
+        self.writables: set[int] = set()
+        self.readonly: set[int] = set()
+        self.oversized: set[int] = set()
+
+    def register(self, v: VolumeInfo, node: DataNode):
+        nodes = self.vid_to_nodes.setdefault(v.id, [])
+        if node not in nodes:
+            nodes.append(node)
+        # both conditions clear again after vacuum / readonly=false
+        if v.size >= self.volume_size_limit:
+            self.oversized.add(v.id)
+        else:
+            self.oversized.discard(v.id)
+        if v.read_only:
+            self.readonly.add(v.id)
+        else:
+            self.readonly.discard(v.id)
+        if (v.id not in self.oversized and v.id not in self.readonly
+                and len(nodes) >= self.rp.copy_count()):
+            self.writables.add(v.id)
+        else:
+            self.writables.discard(v.id)
+
+    def unregister(self, vid: int, node: DataNode):
+        nodes = self.vid_to_nodes.get(vid, [])
+        if node in nodes:
+            nodes.remove(node)
+        if len(nodes) < self.rp.copy_count():
+            self.writables.discard(vid)
+        if not nodes:
+            self.vid_to_nodes.pop(vid, None)
+            self.writables.discard(vid)
+            self.readonly.discard(vid)
+            self.oversized.discard(vid)
+
+    def pick_for_write(self) -> Optional[tuple[int, list[DataNode]]]:
+        import random
+
+        if not self.writables:
+            return None
+        vid = random.choice(sorted(self.writables))
+        return vid, self.vid_to_nodes[vid]
+
+    def active_writable_count(self) -> int:
+        return len(self.writables)
+
+
+class Topology:
+    def __init__(self, volume_size_limit: int = 30 * 1000 * 1000 * 1000,
+                 pulse_seconds: float = 5.0):
+        self.lock = threading.RLock()
+        self.dcs: dict[str, DataCenter] = {}
+        self.nodes: dict[str, DataNode] = {}
+        self.layouts: dict[tuple, VolumeLayout] = {}
+        self.ec_shard_map: dict[int, dict[int, list[DataNode]]] = {}
+        self.ec_collections: dict[int, str] = {}
+        self.sequencer = MemorySequencer()
+        self.max_volume_id = 0
+        self.volume_size_limit = volume_size_limit
+        self.pulse_seconds = pulse_seconds
+        # optional hooks: raft-backed id allocation and location-change
+        # notifications (KeepConnected push, master_grpc_server.go:63-93)
+        self.vid_allocator: Optional[Callable[[], int]] = None
+        self.on_change: Optional[Callable[[dict], None]] = None
+
+    # -- registration (master_grpc_server.go heartbeat ingest) ---------------
+    def process_heartbeat(self, hb: dict) -> DataNode:
+        with self.lock:
+            dc_name = hb.get("data_center") or "DefaultDataCenter"
+            rack_name = hb.get("rack") or "DefaultRack"
+            node_id = f"{hb['ip']}:{hb['port']}"
+            dc = self.dcs.setdefault(dc_name, DataCenter(dc_name))
+            rack = dc.racks.setdefault(rack_name, Rack(rack_name, dc))
+            node = self.nodes.get(node_id)
+            if node is None:
+                node = DataNode(node_id, hb["ip"], hb["port"],
+                                hb.get("public_url") or node_id,
+                                hb.get("max_volume_count", 8), dc, rack)
+                self.nodes[node_id] = node
+                rack.nodes[node_id] = node
+                from ..stats import events as events_mod
+
+                events_mod.emit(events_mod.NODE_UP, service="volume",
+                                node=node_id,
+                                detail={"dc": dc_name, "rack": rack_name})
+            node.last_seen = time.time()
+            node.max_volume_count = hb.get("max_volume_count",
+                                           node.max_volume_count)
+            node.telemetry = hb.get("telemetry") or {}
+            node.access = hb.get("access") or {}
+            self.sequencer.set_max(hb.get("max_file_key", 0))
+            from ..stats import metrics as stats
+
+            stats.ScaleNodeOccupancyGauge.labels(node_id).set(
+                float(node.telemetry.get("occupancy", 0.0)))
+            stats.ScaleNodeRpsGauge.labels(node_id).set(
+                float(node.telemetry.get("rps", 0.0)))
+            stats.ScaleClusterSizeGauge.set(len(self.nodes))
+
+            # full volume list replaces node state (simple full-sync model;
+            # the reference also supports incremental deltas)
+            old_vids = set(node.volumes)
+            new_volumes = {v["id"]: VolumeInfo.from_dict(v)
+                           for v in hb.get("volumes", [])}
+            for vid in old_vids - set(new_volumes):
+                self._unregister_volume(node.volumes[vid], node)
+            for vid, info in new_volumes.items():
+                self._register_volume(info, node)
+                self.max_volume_id = max(self.max_volume_id, vid)
+
+            old_ec = set(node.ec_shards)
+            new_ec = {e["id"]: ShardBits(e["ec_index_bits"])
+                      for e in hb.get("ec_shards", [])}
+            for vid in old_ec - set(new_ec):
+                self._unregister_ec(vid, node)
+            for vid, bits in new_ec.items():
+                collection = next(
+                    (e.get("collection", "") for e in hb.get("ec_shards", [])
+                     if e["id"] == vid), "")
+                self._register_ec(vid, collection, bits, node)
+                self.max_volume_id = max(self.max_volume_id, vid)
+            return node
+
+    def _register_volume(self, v: VolumeInfo, node: DataNode):
+        is_new = v.id not in node.volumes
+        node.volumes[v.id] = v
+        layout = self._layout_for(v.collection, v.replica_placement, v.ttl)
+        layout.register(v, node)
+        if is_new and self.on_change:
+            self.on_change({"op": "add", "volume": v.id,
+                            "url": node.url, "publicUrl": node.public_url})
+
+    def _unregister_volume(self, v: VolumeInfo, node: DataNode):
+        node.volumes.pop(v.id, None)
+        layout = self._layout_for(v.collection, v.replica_placement, v.ttl)
+        layout.unregister(v.id, node)
+        if self.on_change:
+            self.on_change({"op": "remove", "volume": v.id,
+                            "url": node.url, "publicUrl": node.public_url})
+
+    def _register_ec(self, vid: int, collection: str, bits: ShardBits,
+                     node: DataNode):
+        node.ec_shards[vid] = bits
+        self.ec_collections[vid] = collection
+        shard_map = self.ec_shard_map.setdefault(vid, {})
+        for sid in range(32):
+            nodes = shard_map.setdefault(sid, [])
+            if bits.has(sid):
+                if node not in nodes:
+                    nodes.append(node)
+            elif node in nodes:
+                nodes.remove(node)
+
+    def _unregister_ec(self, vid: int, node: DataNode):
+        node.ec_shards.pop(vid, None)
+        shard_map = self.ec_shard_map.get(vid, {})
+        for nodes in shard_map.values():
+            if node in nodes:
+                nodes.remove(node)
+        if all(not nodes for nodes in shard_map.values()):
+            self.ec_shard_map.pop(vid, None)
+            self.ec_collections.pop(vid, None)
+
+    def unregister_node(self, node_id: str):
+        """Node stream dropped / dead (master_grpc_server.go:63-93)."""
+        with self.lock:
+            node = self.nodes.pop(node_id, None)
+            if node is None:
+                return
+            for v in list(node.volumes.values()):
+                self._unregister_volume(v, node)
+            for vid in list(node.ec_shards):
+                self._unregister_ec(vid, node)
+            node.rack.nodes.pop(node_id, None)
+            from ..stats import metrics as stats
+
+            stats.ScaleClusterSizeGauge.set(len(self.nodes))
+
+    def reap_dead_nodes(self, timeout: Optional[float] = None):
+        timeout = timeout or self.pulse_seconds * 3
+        now = time.time()
+        with self.lock:
+            dead = [nid for nid, n in self.nodes.items()
+                    if now - n.last_seen > timeout]
+        for nid in dead:
+            self.unregister_node(nid)
+        if dead:
+            from ..stats import events as events_mod
+            from ..stats import metrics as stats
+
+            stats.TopologyDeadNodesCounter.inc(len(dead))
+            for nid in dead:
+                events_mod.emit(events_mod.NODE_DOWN, service="volume",
+                                node=nid,
+                                detail={"reason": "heartbeat timeout"})
+        return dead
+
+    # -- layouts / lookup ----------------------------------------------------
+    def _layout_for(self, collection: str, rp_byte: int,
+                    ttl: int) -> VolumeLayout:
+        key = _layout_key(collection, rp_byte, ttl)
+        layout = self.layouts.get(key)
+        if layout is None:
+            layout = VolumeLayout(ReplicaPlacement.from_byte(rp_byte),
+                                  TTL.from_uint32(ttl),
+                                  self.volume_size_limit)
+            self.layouts[key] = layout
+        return layout
+
+    def lookup(self, vid: int, collection: str = "") -> list[dict]:
+        """vid -> locations, EC fallback included (topology.go:118-135)."""
+        with self.lock:
+            for key, layout in self.layouts.items():
+                if collection and key[0] != collection:
+                    continue
+                nodes = layout.vid_to_nodes.get(vid)
+                if nodes:
+                    return [{"url": n.url, "publicUrl": n.public_url}
+                            for n in nodes]
+            shard_map = self.ec_shard_map.get(vid)
+            if shard_map:
+                seen, out = set(), []
+                for nodes in shard_map.values():
+                    for n in nodes:
+                        if n.id not in seen:
+                            seen.add(n.id)
+                            out.append({"url": n.url,
+                                        "publicUrl": n.public_url})
+                return out
+            return []
+
+    def lookup_ec_shards(self, vid: int) -> Optional[dict]:
+        """LookupEcVolume (topology_ec.go): shard id -> locations."""
+        with self.lock:
+            shard_map = self.ec_shard_map.get(vid)
+            if not shard_map:
+                return None
+            return {
+                "volume_id": vid,
+                "collection": self.ec_collections.get(vid, ""),
+                "shard_id_locations": [
+                    {"shard_id": sid,
+                     "locations": [{"url": n.url, "publicUrl": n.public_url}
+                                   for n in nodes]}
+                    for sid, nodes in sorted(shard_map.items()) if nodes
+                ],
+            }
+
+    # -- id allocation -------------------------------------------------------
+    def pick_for_write(self, collection: str, rp_byte: int,
+                       ttl: int) -> Optional[tuple[int, list[dict]]]:
+        """Thread-safe write target pick: returns (vid, location dicts)
+        snapshotted under the topology lock."""
+        with self.lock:
+            layout = self._layout_for(collection, rp_byte, ttl)
+            picked = layout.pick_for_write()
+            if picked is None:
+                return None
+            vid, nodes = picked
+            return vid, [{"url": n.url, "publicUrl": n.public_url}
+                         for n in nodes]
+
+    def writable_count(self, collection: str, rp_byte: int,
+                       ttl: int) -> int:
+        with self.lock:
+            return self._layout_for(collection, rp_byte,
+                                    ttl).active_writable_count()
+
+    def next_volume_id(self) -> int:
+        if self.vid_allocator is not None:
+            vid = self.vid_allocator()  # raft boundary (topology.go:138)
+            with self.lock:
+                self.max_volume_id = max(self.max_volume_id, vid)
+            return vid
+        with self.lock:
+            self.max_volume_id += 1
+            return self.max_volume_id
+
+    def assign_file_id(self, count: int = 1) -> tuple[int, int]:
+        """-> (first_key, count)"""
+        return self.sequencer.next_batch(count), count
+
+    # -- views ---------------------------------------------------------------
+    def to_dict(self) -> dict:
+        with self.lock:
+            return {
+                "max_volume_id": self.max_volume_id,
+                "volume_size_limit": self.volume_size_limit,
+                "datacenters": [
+                    {
+                        "id": dc.id,
+                        "racks": [
+                            {
+                                "id": rack.id,
+                                "nodes": [n.to_dict()
+                                          for n in rack.nodes.values()],
+                            } for rack in dc.racks.values()
+                        ],
+                    } for dc in self.dcs.values()
+                ],
+                "layouts": [
+                    {
+                        "collection": key[0],
+                        "replication": str(layout.rp),
+                        "ttl": str(layout.ttl),
+                        "writables": sorted(layout.writables),
+                    } for key, layout in self.layouts.items()
+                ],
+                "ec_volumes": sorted(self.ec_shard_map),
+            }

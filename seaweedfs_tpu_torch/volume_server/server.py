@@ -31,9 +31,13 @@ context at its first K1; it pins torch to one CPU thread.  `enable_tcp`
 starts the native engine's TCP fast path (the Python loop where the
 engine is missing), and `tier_backends` registers remote tiers for
 `/admin/volume/tier_upload`, `tier_download` and
-`/admin/remote/fetch_write`.  The maintenance worker that pulls curator
-jobs from the master waits for the control plane (ROADMAP item 8);
-`start` starts none.
+`/admin/remote/fetch_write`.  `start` starts the maintenance worker
+(maintenance/worker.py, off with WEED_MAINT_WORKER=0) that leases the
+curator's jobs from the master: an ec.rebuild job rebuilds through K2
+and a deep.scrub job recomputes parity through K1 on the server's
+device.  With prefork workers it runs in the parent alone, started after
+the group's template has forked.  The scale.up and scale.drain jobs wait
+for the port's CLI (ROADMAP item 8) and fail with an error naming them.
 """
 
 from __future__ import annotations
@@ -338,6 +342,11 @@ class VolumeServer:
         for loc in self.store.locations:
             for vid, ev in loc.ec_volumes.items():
                 ev.remote_reader = self._make_remote_reader(vid)
+        # maintenance worker: pulls curator jobs from the master and
+        # executes them under the foreground-load-aware byte pacer
+        from ..maintenance.worker import MaintenanceWorker
+
+        self.maintenance_worker = MaintenanceWorker(self)
 
     @property
     def address(self) -> str:
@@ -351,9 +360,13 @@ class VolumeServer:
         self._heartbeat_thread = threading.Thread(
             target=self._heartbeat_loop, daemon=True)
         self._heartbeat_thread.start()
+        # after server.start(): a prefork group's template has forked by
+        # then, so the worker thread lives in this (the parent) process
+        self.maintenance_worker.start()
 
     def stop(self):
         self._stop.set()
+        self.maintenance_worker.stop()
         if getattr(self, "_native_owner", False) or \
                 getattr(self, "_native_jwt_owner", False) or \
                 getattr(self, "_native_listener_owner", False):

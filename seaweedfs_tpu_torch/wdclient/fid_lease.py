@@ -1,0 +1,259 @@
+"""Amortized fid leasing: batch `/dir/assign` calls into per-key leases.
+
+The filer's write path historically paid one synchronous master round
+trip per chunk (`/dir/assign?count=1`).  The master already supports
+`count=N` — it returns a base fid plus N-1 derived fids
+(``<base>_<delta>``, needle id = base + delta), all on the same volume
+and all covered by the same write JWT.  This module caches one such
+batch per (collection, replication, ttl) key and hands out fids locally,
+so steady-state writes hit the master ~1/N as often.
+
+Correctness hinges on three invalidation paths:
+
+- **TTL expiry**: leased fids go stale when the master-side assign TTL
+  (or the write JWT riding with the batch) expires; every lease carries
+  a deadline and expired leases are dropped on the next take.
+- **Leader change**: a new master has a new sequence space and may have
+  re-planned volume placement; ``MasterClient`` calls
+  :func:`invalidate_all` whenever the watch feed identity changes.
+- **Stale-fid upload failure**: the volume backing a lease can fill up
+  or move between refills; callers that see a 4xx/5xx on a leased fid
+  call :meth:`FidLeaseCache.invalidate` and retry once with a direct
+  assign (see ``filer/server.py:_upload_blob``).
+
+Refills are single-flight per key: one thread performs the master call
+while concurrent missers wait on the key's condition variable, and a
+low-water mark triggers an asynchronous refill so steady-state writers
+rarely block on the master at all.
+
+The port's own copy of seaweedfs_tpu/wdclient/fid_lease.py.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+import weakref
+from collections import deque
+from typing import Callable, Optional
+
+from ..stats import metrics as _stats
+from ..util import glog
+
+_DEFAULT_LEASE = 16
+_DEFAULT_TTL = 8.0
+# safety margin subtracted from the master-reported auth expiry so a fid
+# taken just under the wire still has time to reach the volume server
+_AUTH_SLACK = 2.0
+
+
+def lease_count() -> int:
+    """Batch size N per master assign; <= 1 disables leasing."""
+    raw = os.environ.get("WEED_FILER_ASSIGN_LEASE", "")
+    if not raw:
+        return _DEFAULT_LEASE
+    try:
+        return int(raw)
+    except ValueError:
+        return _DEFAULT_LEASE
+
+
+def lease_ttl() -> float:
+    raw = os.environ.get("WEED_FILER_ASSIGN_LEASE_TTL", "")
+    if not raw:
+        return _DEFAULT_TTL
+    try:
+        return float(raw)
+    except ValueError:
+        return _DEFAULT_TTL
+
+
+# every live cache registers here so master failover (detected by any
+# MasterClient watch loop in the process) can drop all leased fids
+_registry_lock = threading.Lock()
+_caches: "weakref.WeakSet[FidLeaseCache]" = weakref.WeakSet()
+
+
+def invalidate_all(reason: str = "leader_change"):
+    with _registry_lock:
+        caches = list(_caches)
+    for cache in caches:
+        cache.invalidate(reason=reason)
+
+
+class _Lease:
+    __slots__ = ("base_fid", "url", "public_url", "auth", "count",
+                 "next_index", "expires_at")
+
+    def __init__(self, reply: dict, count: int, expires_at: float):
+        self.base_fid = reply["fid"]
+        self.url = reply.get("url", "")
+        self.public_url = reply.get("publicUrl", self.url)
+        self.auth = reply.get("auth", "")
+        self.count = min(count, int(reply.get("count", count)) or count)
+        self.next_index = 0
+        self.expires_at = expires_at
+
+    def remaining(self) -> int:
+        return self.count - self.next_index
+
+    def take(self) -> dict:
+        i = self.next_index
+        self.next_index += 1
+        fid = self.base_fid if i == 0 else f"{self.base_fid}_{i}"
+        out = {"fid": fid, "url": self.url, "publicUrl": self.public_url,
+               "count": 1, "leased": True}
+        if self.auth:
+            out["auth"] = self.auth
+        return out
+
+
+class _KeyState:
+    __slots__ = ("cond", "leases", "refilling")
+
+    def __init__(self):
+        self.cond = threading.Condition()
+        self.leases: deque[_Lease] = deque()
+        self.refilling = False
+
+
+class FidLeaseCache:
+    """Per-(replication, collection, ttl) cache of batched assigns.
+
+    ``assign_fn(count, replication, collection, ttl) -> dict`` performs
+    the actual master call and must raise on failure.
+    """
+
+    def __init__(self, assign_fn: Callable[..., dict], name: str = "filer"):
+        self._assign_fn = assign_fn
+        self.name = name
+        self._lock = threading.Lock()  # guards _states map itself
+        self._states: dict[tuple, _KeyState] = {}
+        with _registry_lock:
+            _caches.add(self)
+
+    def _state(self, key: tuple) -> _KeyState:
+        with self._lock:
+            st = self._states.get(key)
+            if st is None:
+                st = self._states[key] = _KeyState()
+            return st
+
+    # -- take ---------------------------------------------------------------
+    def get(self, replication: str = "", collection: str = "",
+            ttl: str = "", wait_timeout: float = 30.0) -> dict:
+        n = lease_count()
+        if n <= 1:
+            return self._assign_fn(1, replication, collection, ttl)
+        key = (replication, collection, ttl)
+        st = self._state(key)
+        deadline = time.monotonic() + wait_timeout
+        with st.cond:
+            while True:
+                got = self._take_locked(st)
+                if got is not None:
+                    _stats.FilerFidLeaseCounter.labels("hit").inc()
+                    if self._remaining_locked(st) < max(1, n // 4) \
+                            and not st.refilling:
+                        self._spawn_refill_locked(st, key, n)
+                    return got
+                if not st.refilling:
+                    st.refilling = True
+                    break  # this thread performs the refill
+                # single-flight: another thread is already at the master
+                remaining = deadline - time.monotonic()
+                if remaining <= 0 or not st.cond.wait(remaining):
+                    # refill wedged — don't pile up behind it
+                    _stats.FilerFidLeaseCounter.labels("miss").inc()
+                    return self._assign_fn(1, replication, collection, ttl)
+        _stats.FilerFidLeaseCounter.labels("miss").inc()
+        try:
+            lease = self._fetch_lease(key, n)
+        except Exception:
+            with st.cond:
+                st.refilling = False
+                st.cond.notify_all()
+            raise
+        with st.cond:
+            st.refilling = False
+            st.leases.append(lease)
+            got = self._take_locked(st)
+            st.cond.notify_all()
+        _stats.FilerFidLeaseCounter.labels("refill").inc()
+        return got if got is not None else self._assign_fn(
+            1, replication, collection, ttl)
+
+    def _take_locked(self, st: _KeyState) -> Optional[dict]:
+        now = time.monotonic()
+        while st.leases:
+            lease = st.leases[0]
+            if lease.expires_at <= now:
+                st.leases.popleft()
+                _stats.FilerFidLeaseCounter.labels("expired").inc()
+                continue
+            if lease.remaining() <= 0:
+                st.leases.popleft()
+                continue
+            return lease.take()
+        return None
+
+    @staticmethod
+    def _remaining_locked(st: _KeyState) -> int:
+        now = time.monotonic()
+        return sum(l.remaining() for l in st.leases if l.expires_at > now)
+
+    # -- refill -------------------------------------------------------------
+    def _fetch_lease(self, key: tuple, n: int) -> _Lease:
+        replication, collection, ttl = key
+        reply = self._assign_fn(n, replication, collection, ttl)
+        expires = time.monotonic() + lease_ttl()
+        auth_ttl = reply.get("authExpiresSeconds")
+        if reply.get("auth") and auth_ttl:
+            expires = min(expires,
+                          time.monotonic() + float(auth_ttl) - _AUTH_SLACK)
+        return _Lease(reply, n, expires)
+
+    def _spawn_refill_locked(self, st: _KeyState, key: tuple, n: int):
+        st.refilling = True
+        threading.Thread(target=self._refill_async, args=(st, key, n),
+                         daemon=True, name=f"fid-lease-{self.name}").start()
+
+    def _refill_async(self, st: _KeyState, key: tuple, n: int):
+        try:
+            lease = self._fetch_lease(key, n)
+        except Exception as e:
+            glog.v(1).infof("fid lease refill for %s failed: %s", key, e)
+            with st.cond:
+                st.refilling = False
+                st.cond.notify_all()
+            return
+        with st.cond:
+            st.refilling = False
+            st.leases.append(lease)
+            st.cond.notify_all()
+        _stats.FilerFidLeaseCounter.labels("refill").inc()
+
+    # -- invalidation -------------------------------------------------------
+    def invalidate(self, reason: str = "stale"):
+        """Drop every leased fid (leader change, stale-fid failure)."""
+        with self._lock:
+            states = list(self._states.values())
+        dropped = 0
+        for st in states:
+            with st.cond:
+                dropped += sum(1 for l in st.leases if l.remaining() > 0)
+                st.leases.clear()
+        if dropped:
+            _stats.FilerFidLeaseCounter.labels("invalidated").inc()
+            glog.v(1).infof("fid lease cache %s invalidated (%s), "
+                            "%d leases dropped", self.name, reason, dropped)
+
+    def stats(self) -> dict:
+        with self._lock:
+            states = dict(self._states)
+        out = {}
+        for key, st in states.items():
+            with st.cond:
+                out[key] = self._remaining_locked(st)
+        return out

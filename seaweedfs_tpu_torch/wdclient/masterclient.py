@@ -1,0 +1,199 @@
+"""Master client with a vid→locations cache kept fresh by the watch feed.
+
+Parity with weed/wdclient: MasterClient holds a vidMap refreshed by the
+KeepConnected stream's VolumeLocation deltas (masterclient.go:20-120); here
+the stream is the master's /dir/watch long-poll.  Lookup misses fall back
+to /dir/lookup and populate the cache (vid_map.go:38-120).
+
+The port's own copy of seaweedfs_tpu/wdclient/masterclient.py.
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+from typing import Optional
+
+from . import fid_lease
+from ..rpc import policy
+from ..rpc.http_rpc import RpcError
+from ..util import glog
+
+
+class VidMap:
+    """vid -> [location dicts]; thread-safe."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._map: dict[int, list[dict]] = {}
+
+    def get(self, vid: int) -> list[dict]:
+        with self._lock:
+            return list(self._map.get(vid, []))
+
+    def set(self, vid: int, locations: list[dict]):
+        with self._lock:
+            self._map[vid] = list(locations)
+
+    def add(self, vid: int, url: str, public_url: str):
+        with self._lock:
+            locs = self._map.setdefault(vid, [])
+            if not any(l["url"] == url for l in locs):
+                locs.append({"url": url, "publicUrl": public_url})
+
+    def remove(self, vid: int, url: str):
+        with self._lock:
+            locs = self._map.get(vid)
+            if locs is None:
+                return
+            self._map[vid] = [l for l in locs if l["url"] != url]
+            if not self._map[vid]:
+                del self._map[vid]
+
+    def clear(self):
+        with self._lock:
+            self._map.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._map)
+
+
+class MasterClient:
+    def __init__(self, masters: list[str] | str, name: str = "client"):
+        self.masters = ([masters] if isinstance(masters, str)
+                        else list(masters))
+        self.name = name
+        self.vid_map = VidMap()
+        self.current_master = self.masters[0]
+        self._seq = 0
+        self._feed_id = ""  # sequence-space identity of the watched master
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- lookup (vid_map.go LookupVolumeServerUrl) ---------------------------
+    def lookup(self, vid: int) -> list[dict]:
+        cached = self.vid_map.get(vid)
+        if cached:
+            return cached
+        found = self._call_any(f"/dir/lookup?volumeId={vid}")
+        locations = found.get("locations", [])
+        if locations:
+            self.vid_map.set(vid, locations)
+        return locations
+
+    def lookup_file_id(self, fid: str) -> list[str]:
+        vid = int(fid.split(",")[0])
+        locations = self.lookup(vid)
+        if not locations:
+            raise RpcError(f"volume {vid} not found", 404)
+        return [f"{l['url']}/{fid}" for l in locations]
+
+    def assign(self, count: int = 1, replication: str = "",
+               collection: str = "", ttl: str = "") -> dict:
+        query = f"count={count}"
+        if replication:
+            query += f"&replication={replication}"
+        if collection:
+            query += f"&collection={collection}"
+        if ttl:
+            query += f"&ttl={ttl}"
+        return self._call_any(f"/dir/assign?{query}")
+
+    def call(self, path: str, payload: Optional[dict] = None,
+             timeout: float = 30):
+        """Public failover call: any master-side route, leader hints
+        honored (for callers like the filer that speak routes beyond
+        assign/lookup)."""
+        return self._call_any(path, payload=payload, timeout=timeout)
+
+    def _call_any(self, path: str, payload: Optional[dict] = None,
+                  timeout: float = 30):
+        """Try current master first, fail over through the list
+        (masterclient.go tryAllMasters) — via the shared policy layer:
+        per-master circuit breakers skip known-dead peers, full-jitter
+        backoff separates failover rounds, and the propagated deadline
+        caps the whole sweep."""
+        masters = [self.current_master] + [
+            m for m in self.masters if m != self.current_master]
+        try:
+            result, winner = policy.failover_call(
+                masters, path, payload=payload, timeout=timeout)
+        except RpcError as e:
+            # a non-leader master names the leader in its rejection:
+            # honor the hint directly instead of burning another
+            # failover round guessing through the list
+            hint = (e.headers or {}).get("X-Raft-Leader", "")
+            if not hint or hint == getattr(e, "addr", ""):
+                raise
+            result = policy.call_policy(hint, path, payload=payload,
+                                        timeout=timeout, retries=0)
+            self.current_master = hint
+            return result
+        self.current_master = winner
+        return result
+
+    # -- keep-connected watch loop (masterclient.go KeepConnected) -----------
+    def start(self):
+        self._thread = threading.Thread(target=self._watch_loop, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+
+    def _watch_loop(self):
+        while not self._stop.is_set():
+            try:
+                r = policy.call_policy(
+                    self.current_master,
+                    f"/dir/watch?since={self._seq}&timeout=15",
+                    timeout=20, retries=0)
+            except RpcError:
+                # re-aim at a master whose breaker isn't open (the
+                # failed poll just fed that breaker via call_policy)
+                healthy = [m for m in self.masters
+                           if policy.BREAKERS.get(m).state
+                           != policy.OPEN] or self.masters
+                self.current_master = random.choice(healthy)
+                self._stop.wait(1.0)
+                continue
+            self._apply_watch_reply(r)
+
+    def _apply_watch_reply(self, r: dict):
+        """Fold one /dir/watch reply into the cache (factored out of the
+        loop so failover handling is testable without a live master)."""
+        feed_id = r.get("feed_id", "")
+        if feed_id != self._feed_id:
+            # different master (failover) = different sequence space:
+            # restart the cursor and drop everything cached — including
+            # any batched fid leases minted against the old leader
+            if self._feed_id:
+                self.vid_map.clear()
+                self._seq = 0
+                self._feed_id = feed_id
+                fid_lease.invalidate_all(reason="leader_change")
+                return  # re-poll from 0 on the new feed
+            self._feed_id = feed_id
+        if r.get("resync"):
+            # fell off the retained delta window: drop the cache and
+            # let lookups repopulate it
+            self.vid_map.clear()
+        for d in r.get("deltas", []):
+            if d["op"] == "add":
+                self.vid_map.add(d["volume"], d["url"],
+                                 d.get("publicUrl", d["url"]))
+            else:
+                self.vid_map.remove(d["volume"], d["url"])
+        self._seq = max(self._seq, r.get("seq", self._seq))
+        leader = r.get("leader")
+        if leader and leader not in self.masters:
+            # the cluster grew under us (raft membership change):
+            # adopt the new master so failover can reach it, then
+            # follow it like any other leader announcement
+            glog.infof("adopting new master %s announced as leader",
+                       leader)
+            self.masters.append(leader)
+        if leader and leader != self.current_master:
+            # follow the announced leader so the next assign goes
+            # straight there instead of bouncing off a 409
+            self.current_master = leader

@@ -432,6 +432,58 @@ def test_volume_server_over_http_on_card(cuda, tmp_path, monkeypatch):
         vs.stop()
 
 
+
+def test_curator_rebuild_job_launches_k2_on_card(cuda, tmp_path,
+                                                 monkeypatch):
+    """A port master and one port VolumeServer on the card: the shell's
+    ec.encode (K2), four shards lost, the curator queues ec.rebuild, the
+    server's worker leases it and rebuilds through K2; the rebuilt
+    shards equal the encoded ones."""
+    from seaweedfs_tpu_torch.master.server import MasterServer
+    from seaweedfs_tpu_torch.rpc.http_rpc import call
+    from seaweedfs_tpu_torch.shell import commands as sh
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+
+    monkeypatch.setenv("WEED_MAINT_WORKER", "0")
+    monkeypatch.setenv("WEED_MAINT_INTERVAL", "3600")
+    (tmp_path / "m").mkdir()
+    (tmp_path / "v").mkdir()
+    master = MasterServer(port=0, pulse_seconds=0.2,
+                          raft_dir=str(tmp_path / "m"))
+    master.start()
+    vs = VolumeServer([str(tmp_path / "v")], master.address, port=0,
+                      ec_encoder_backend="cuda", pulse_seconds=0.2)
+    vs.start()
+    try:
+        call(vs.address, "/admin/assign_volume", {"volume": 6})
+        vs.heartbeat_once()
+        rng = np.random.default_rng(26)
+        for i in range(1, 17):
+            call(vs.address, f"/6,{i:x}{0x2000 + i:08x}",
+                 raw=rng.bytes(int(rng.integers(100, 300000))),
+                 method="POST")
+        rs_cuda.reset_launches()
+        sh.ec_encode(sh.CommandEnv(master.address), 6)
+        assert rs_cuda.launches["fused_apply_crc"] > 0
+        d = tmp_path / "v"
+        encoded = {s: (d / f"6.ec{s:02d}").read_bytes() for s in range(14)}
+        call(vs.address, "/admin/ec/delete_shards",
+             {"volume": 6, "shard_ids": [0, 5, 11, 13]})
+        vs.heartbeat_once()
+        master.curator.tick()
+        assert [j["type"] for j in master.curator.queue.jobs()] == \
+            ["ec.rebuild"]
+        rs_cuda.reset_launches()
+        assert vs.maintenance_worker.poll_once() == 1
+        assert rs_cuda.launches["fused_apply_crc"] > 0
+        (done,) = master.curator.queue.history
+        assert done["outcome"] == "ok"
+        assert {s: (d / f"6.ec{s:02d}").read_bytes()
+                for s in range(14)} == encoded
+    finally:
+        vs.stop()
+        master.stop()
+
 FORK_CHILD = r"""
 import json, os, sys
 

@@ -171,6 +171,35 @@ class TestCrossVolumeBatching:
         assert not v["recomputed"] and 3 not in v["corrupt"]
         assert not v["ok"]
 
+    @pytest.mark.parametrize("sid", [3, 12])
+    def test_unreachable_remote_shard_degrades_to_verdict(self, tmp_path,
+                                                         sid):
+        """F6: the maintenance worker's reader raises the RPC layer's
+        error for a shard no peer serves; both packages report the shard
+        unreadable (the port raised out of the scrub before)."""
+        from seaweedfs_tpu.rpc.http_rpc import RpcError as JRpcError
+        from seaweedfs_tpu_torch.rpc.http_rpc import RpcError as TRpcError
+
+        base = _make_volume(tmp_path, 1, 1 << 20, seed=22)
+
+        def unreachable(mod):
+            good = mod.local_target(base, 1)
+            err = TRpcError if mod is t_ds else JRpcError
+
+            def reader(shard, off, size):
+                if shard == sid:
+                    raise err(f"shard 1.{shard} unreachable", 502)
+                return good.reader(shard, off, size)
+
+            return [mod.ScrubTarget(volume=1, collection="",
+                                    stored=list(good.stored),
+                                    sizes=list(good.sizes), reader=reader)]
+
+        out, _, _, _ = _both(unreachable)
+        v = out["volumes"][0]
+        assert v["unreadable"] == [sid] and not v["ok"]
+        assert v["recomputed"] is (sid >= 10)
+
 
 def test_host_scrub_needle_walk_and_verify_shard_files(tmp_path):
     """The needle walk reads every live needle of a needle volume in both

@@ -257,3 +257,52 @@ def test_portable_step_forms_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh()
     assert make_mesh("cpu") == [torch.device("cpu")]
+
+
+@pytest.mark.parametrize("mod", [
+    "master/__init__.py", "master/sequence.py", "master/topology.py",
+    "master/volume_growth.py", "master/fsm.py", "master/raft.py",
+    "master/server.py", "master/follower.py", "maintenance/jobs.py",
+    "maintenance/queue.py", "maintenance/detectors.py",
+    "maintenance/curator.py", "maintenance/pacer.py",
+    "maintenance/worker.py", "filer/__init__.py", "filer/shard_map.py",
+    "wdclient/fid_lease.py", "wdclient/masterclient.py",
+    "shell/__init__.py", "shell/commands.py", "shell/commands_volume.py",
+    "shell/commands_maintenance.py", "util/glog.py"])
+def test_control_plane_modules_are_covered(mod):
+    """The control plane's slice (master, raft, curator and queue, the
+    worker and pacer, the master client, the shell) is among the sources
+    both no-JAX checks above walk."""
+    rel = {os.path.relpath(p, PKG) for p in _port_sources()[1:]}
+    assert mod in rel
+
+
+def test_shell_encode_fails_without_cuda(no_cuda, tmp_path, monkeypatch):
+    """The port shell's ec.encode against a volume server left on its
+    default device stops at the generate call with the missing card's
+    500, and no shard is written."""
+    from seaweedfs_tpu_torch.master.server import MasterServer
+    from seaweedfs_tpu_torch.rpc.http_rpc import RpcError, call
+    from seaweedfs_tpu_torch.shell import commands as sh
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+
+    monkeypatch.setenv("WEED_MAINT_WORKER", "0")
+    (tmp_path / "m").mkdir()
+    (tmp_path / "v").mkdir()
+    master = MasterServer(port=0, pulse_seconds=0.2,
+                          raft_dir=str(tmp_path / "m"))
+    master.start()
+    vs = VolumeServer([str(tmp_path / "v")], master.address, port=0,
+                      ec_encoder_backend="cuda", pulse_seconds=0.2)
+    vs.start()
+    try:
+        call(vs.address, "/admin/assign_volume", {"volume": 4})
+        vs.heartbeat_once()
+        call(vs.address, "/4,01000000aa", raw=b"hello", method="POST")
+        with pytest.raises(RpcError) as e:
+            sh.ec_encode(sh.CommandEnv(master.address), 4)
+        assert e.value.status == 500 and "no CUDA device" in str(e.value)
+        assert not os.path.exists(str(tmp_path / "v" / "4.ec00"))
+    finally:
+        vs.stop()
+        master.stop()

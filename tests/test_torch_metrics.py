@@ -505,6 +505,13 @@ def test_inline_writer_families_move_equally(tmp_path, monkeypatch):
     writers = (j_inline.InlineEcWriter(str(tmp_path / "j"), create=True),
                t_inline.InlineEcWriter(str(tmp_path / "t"), create=True,
                                        device="cpu"))
+    # the write-amp gauge holds whichever writer of the process committed
+    # last, so its delta matches across packages only from equal starts:
+    # earlier tests of the same process (test_torch_inline_ec.py drives
+    # the packages through different sequences) leave the two registries'
+    # gauges apart.  Both start from 0 here, so the deltas are the values.
+    for mod in (j_metrics, t_metrics):
+        mod.EcInlineWriteAmp.set(0.0)
     with _Delta(("SeaweedFS_ec_inline_",)) as delta:
         for w in writers:
             for nid, size, blob in blobs:

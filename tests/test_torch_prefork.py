@@ -164,6 +164,8 @@ vs = VolumeServer([a["dir"]], a["master"], port=a["port"], device="cpu",
 def whoami(req):
     return {"wid": prefork.worker_id(), "pid": os.getpid(),
             "role": prefork.role(), "reads": vs._req_counts["read"],
+            "maint": any(t.name == "maint-worker" and t.is_alive()
+                         for t in threading.enumerate()),
             "draining": vs.draining, "recover": recover.STATS.snapshot(),
             "template": (vs.server._prefork.template_pid
                          if vs.server._prefork is not None else 0)}
@@ -199,14 +201,15 @@ class _Fleet:
     """A port VolumeServer with `workers` processes in a fresh
     interpreter; the registry under `reg`."""
 
-    def __init__(self, tmp_path, data_dir, workers=3):
+    def __init__(self, tmp_path, data_dir, workers=3, maint_worker=False):
         self.reg = tmp_path / "registry"
         self.reg.mkdir()
         self.port = _free_port()
         self.addr = f"127.0.0.1:{self.port}"
         env = dict(os.environ, WEED_HTTP_WORKERS=str(workers),
                    WEED_PREFORK_DIR=str(self.reg), WEED_MAINT="0",
-                   WEED_MAINT_WORKER="0")
+                   WEED_MAINT_WORKER="1" if maint_worker else "0",
+                   WEED_MAINT_POLL="0.2")
         env.pop("PYTHONPATH", None)
         self.log = open(tmp_path / "server.log", "w")
         spec = {"repo": REPO_ROOT, "dir": str(data_dir),

@@ -19,6 +19,9 @@
     JAX client, some of it across servers through `/admin/ec/shard_read`.
 (c) The route tables differ by exactly the routes still to port, and the
     parts that wait raise at construction.
+(d) The maintenance worker: `start` starts its thread and `stop` joins
+    it, `WEED_MAINT_WORKER=0` keeps it off, and with prefork workers it
+    runs in the parent alone.
 """
 
 import gzip
@@ -503,9 +506,11 @@ def test_route_tables_differ_by_the_declared_set(two_servers):
     assert jr - tr == NOT_PORTED_ROUTES
     assert ts.server.default_route is not None
     assert ts.server.fanout_prefixes == js.server.fanout_prefixes
-    # the maintenance worker waits for the control plane (ROADMAP item 8)
-    assert hasattr(js, "maintenance_worker")
-    assert not hasattr(ts, "maintenance_worker")
+    # both servers carry the maintenance worker (WEED_MAINT_WORKER=0
+    # here keeps its thread off)
+    assert type(ts.maintenance_worker).__name__ == \
+        type(js.maintenance_worker).__name__ == "MaintenanceWorker"
+    assert ts.maintenance_worker.server is ts
 
 
 @pytest.mark.parametrize("part", ["enable_tcp", "tier_backends",
@@ -565,3 +570,56 @@ def test_dead_master_error_tier_spares_each_read_a_lookup(tmp_path,
         vs.server.httpd.server_close()
         vs.read_cache.close()
         vs.store.close()
+
+
+# -- (d) the maintenance worker ----------------------------------------------------
+
+
+@pytest.mark.parametrize("enabled", ["1", "0"])
+def test_maintenance_worker_follows_its_knob(tmp_path, monkeypatch, enabled):
+    """The worker thread starts with the server unless WEED_MAINT_WORKER=0
+    keeps it off, as in the JAX server; stop joins it."""
+    monkeypatch.setenv("WEED_MAINT_WORKER", enabled)
+    monkeypatch.setenv("WEED_MAINT_POLL", "0.05")
+    servers = []
+    for mod, kw in ((j_server, {}), (t_server, {"device": "cpu"})):
+        d = tmp_path / mod.__name__.split(".")[0]
+        d.mkdir()
+        vs = mod.VolumeServer([str(d)], "127.0.0.1:1", port=0,
+                              pulse_seconds=3600, **kw)
+        vs.start()
+        servers.append(vs)
+    try:
+        threads = [vs.maintenance_worker._thread for vs in servers]
+        if enabled == "1":
+            assert all(t is not None and t.is_alive() for t in threads)
+            assert threads[1].name == threads[0].name == "maint-worker"
+            # the dead master: each poll finds nothing and goes on
+            assert servers[1].maintenance_worker.poll_once() == 0
+        else:
+            assert threads == [None, None]
+    finally:
+        for vs in servers:
+            vs.stop()
+    assert all(vs.maintenance_worker._thread is None for vs in servers)
+    if enabled == "1":
+        assert not threads[1].is_alive()
+
+
+@pytest.mark.multiproc
+def test_prefork_runs_the_maintenance_worker_in_the_parent_only(tmp_path):
+    """WEED_HTTP_WORKERS=3: the parent starts the worker thread after the
+    group's template has forked, so no worker process runs one."""
+    from test_torch_prefork import _Fleet
+
+    data = tmp_path / "data"
+    data.mkdir()
+    fleet = _Fleet(tmp_path, data, workers=3, maint_worker=True)
+    try:
+        info = fleet.whoami_all()
+        assert sorted(info) == [0, 1, 2]
+        assert {wid: w["maint"] for wid, w in info.items()} == \
+            {0: True, 1: False, 2: False}
+        assert info[0]["pid"] == fleet.proc.pid
+    finally:
+        fleet.stop()
