@@ -9,6 +9,7 @@
     python3 chip_smoke.py --server   # build, kernel checks, phase 8 only
     python3 chip_smoke.py --prefork  # build, kernel checks, phase 9 only
     python3 chip_smoke.py --cluster  # build, kernel checks, phase 10 only
+    python3 chip_smoke.py --elastic  # build, kernel checks, phase 11 only
 
 Phases:
   1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a);
@@ -108,7 +109,24 @@ Phases:
      forced deep.scrub clean through K5's K1 form, then one flipped byte
      of .ec12 reported and repaired by the ec.rebuild that follows;
      every job ok and leased once;
- 11. one JSON line of per-kernel numbers, then the card's name and power
+ 11. a cluster of separate processes through a node death: three masters
+     and five volume servers (-ec.backend=cuda), each started through the
+     port's command line (python -m seaweedfs_tpu_torch); 512 MiB of the
+     load generator's objects POSTed from load processes, the shell's
+     ec.encode of every volume through the command line (K2; at most 4
+     shards of a volume per server); open-loop traffic replayed by
+     forked load processes that import no torch; the volume server
+     holding the most shards SIGKILLed: the health plane's NODE_DOWN and
+     availability ALERT_FIRE (within 10 s), the curator's repairs and
+     scale.up, a sixth server through the command line, every volume at
+     14 shards (K2), degraded GETs meanwhile (K1); the dead node
+     restarted over its directory, ALERT_CLEAR and /cluster/health ok;
+     no wrong byte, every acked write read back; in every server process
+     K1 launches = decode batches + deep-scrub parity steps; forced deep
+     scrubs clean (K1); degraded GETs from each server process; every
+     shard file equal to its .vif CRC; top, lint-dashboards, cluster.scale
+     and qos.status through the command line; nothing left after SIGTERM;
+ 12. one JSON line of per-kernel numbers, then the card's name and power
      limit, then the result line.
 
 Phases 5 to 8 also hold the metrics registry's exposition against the
@@ -209,7 +227,30 @@ CLUSTER_PULSE = 1.0         # heartbeat pulse of phase 10's masters and servers
 CLUSTER_KNOBS = {"WEED_MAINT_POLL": "0.5", "WEED_MAINT_INTERVAL": "1",
                  "WEED_MAINT_RATE_MB": "65536",
                  "WEED_MAINT_SCRUB_INTERVAL": "1e12",
-                 "WEED_MAINT_BALANCE_SKEW": "1000000"}
+                 "WEED_MAINT_BALANCE_SKEW": "1000000",
+                 "WEED_HEALTH_SCRAPE_MS": "500"}
+ELASTIC_BYTES = 512 * MIB   # phase 11: the load generator's objects (cut
+                            # from ~1 GiB for the phase's wall)
+ELASTIC_SERVERS = 5         # phase 11: volume servers, one process each
+ELASTIC_PULSE = 1.0         # heartbeat pulse of phase 11's processes
+ELASTIC_LOADERS = 4         # phase 11's preload processes
+ELASTIC_CONNS = 4           # connections of each preload process
+ELASTIC_REPLAY_PROCS = 4    # loadgen.replay(processes=) of the traffic
+ELASTIC_REPLAY_THREADS = 8  # threads of each replay process
+ELASTIC_DURATION = 36       # seconds of open-loop traffic (WEED_LOAD_DURATION)
+ELASTIC_KILL_AFTER = 8      # seconds into the traffic the node dies
+ELASTIC_READBACK = 2000     # preloaded objects read back after the heal
+# phase 11's knobs: phase 10's maintenance knobs; the autoscaler on, with
+# the health plane's alert as its trigger (the occupancy trigger and the
+# drain off: the phase measures the scale-up the alert asks for); the
+# health plane's scrape and burn windows compressed to the reference
+# chaos test's (tests/test_health_plane.py), cuts for the run's time
+ELASTIC_KNOBS = {**CLUSTER_KNOBS, "WEED_SCALE": "1",
+                 "WEED_SCALE_ON_ALERT": "1", "WEED_SCALE_MIN_NODES": "5",
+                 "WEED_SCALE_UP_OCC": "2", "WEED_SCALE_DRAIN_OCC": "0",
+                 "WEED_HEALTH_SCRAPE_MS": "500", "WEED_SLO_FAST_S": "2",
+                 "WEED_SLO_SLOW_S": "6", "WEED_LOAD_RATE": "200",
+                 "WEED_MAINT_COOLDOWN": "5"}
 CHUNK = MIB                 # the pipeline's column chunk for 1 MiB blocks
 SEED = 20261016
 PARITY = np.ascontiguousarray(parity_matrix(10, 14))
@@ -3276,6 +3317,21 @@ def cluster_phase(dev, workdir: str) -> dict:
                 f"after {out['heartbeats_s']:.3f} s, the first assign after "
                 f"{out['failover_s']:.3f} s; 32 writes through new assigns "
                 "read back")
+            # the new leader's health plane sees the stopped master down:
+            # its availability alert queues a deep.scrub of every EC
+            # volume, which must run before the loss the phase measures
+            # (as many as the new leader's topology held when it fired)
+            wait_until(lambda: "availability" in leader.health.firing(),
+                       30, "the stopped master fired no availability alert")
+            out["stop_to_alert_s"] = time.monotonic() - t0
+            rounds = leader.health.rounds
+            wait_until(lambda: leader.health.rounds >= rounds + 1
+                       and not leader.curator.queue.jobs(), 120,
+                       "the alert's maintenance jobs never drained")
+            log(f"cluster: the health plane fired availability "
+                f"{out['stop_to_alert_s']:.3f} s after the stop; the "
+                f"{sum(1 for r in ran if r[1]['type'] == TYPE_DEEP_SCRUB)} "
+                "deep scrubs it queued ran")
 
             # -- the loss, with leasing paused while every needle is read
             env = sh.CommandEnv(leader.address)
@@ -3392,9 +3448,15 @@ def cluster_phase(dev, workdir: str) -> dict:
                 "then leasing resumed to 14 healthy shards) "
                 f"{out['time_to_recover_s']:.3f} s")
 
-            # -- deep scrub through K5's K1 form: clean, then a flipped byte
+            # -- deep scrub through K5's K1 form: clean, then a flipped byte.
+            # The failover's stopped master fired the health plane's
+            # availability alert, which queued a deep.scrub of every EC
+            # volume: let those finish first, so the forced job is the
+            # one measured
             scrubs = []
             for flip in (False, True):
+                wait_until(lambda: not leader.curator.queue.jobs(), 120,
+                           "the alert's maintenance jobs never drained")
                 if flip:
                     _, path = shard_files(servers, vid)[12]
                     flip_byte(path, shard_bytes // 2)
@@ -3486,6 +3548,924 @@ def cluster_phase(dev, workdir: str) -> dict:
     return launches
 
 
+# -- phase 11: a cluster of separate processes through a node death ----------
+
+# Phase 11's load process, in a fresh interpreter that imports no torch:
+# the port's load generator (stdlib only) and numpy.  "preload" POSTs
+# each object to the fid the phase assigned; "replay" builds the
+# schedule from the WEED_LOAD_* knobs and replays it open-loop from
+# forked processes, each request under its tenant's and class's headers,
+# writing one record per request.  An object's bytes are a pure function
+# of (seed, index), so every process makes the same ones.
+ELASTIC_LOADER = r"""
+import http.client, json, os, sys, threading, time, zlib
+import numpy as np
+
+with open(sys.argv[1]) as f:
+    a = json.load(f)
+sys.path.insert(0, a["repo"])
+from seaweedfs_tpu_torch import loadgen
+
+
+def payload(key, size):
+    return np.random.default_rng([a["seed"], key]).bytes(size)
+
+
+class Conns(threading.local):
+    def get(self, addr):
+        if not hasattr(self, "c"):
+            self.c = {}
+        if addr not in self.c:
+            host, port = addr.split(":")
+            self.c[addr] = http.client.HTTPConnection(host, int(port),
+                                                      timeout=30)
+        return self.c[addr]
+
+    def drop(self, addr):
+        c = getattr(self, "c", {}).pop(addr, None)
+        if c is not None:
+            c.close()
+
+
+conns = Conns()
+
+
+def request(addr, method, path, body=None):
+    for attempt in (0, 1):  # a kept-alive connection the server closed
+        conn = conns.get(addr)
+        try:
+            conn.request(method, path, body=body)
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        except (http.client.RemoteDisconnected, BrokenPipeError,
+                ConnectionResetError):
+            conns.drop(addr)
+            if attempt:
+                raise
+        except OSError:
+            conns.drop(addr)
+            raise
+
+
+def transfer():  # POST ("preload") or GET and check ("get") each target
+    targets, sizes = a["targets"], a["sizes"]
+    counter, lock = iter(range(len(targets))), threading.Lock()
+    lat, bad, moved = [], [], [0]
+
+    def worker():
+        while True:
+            with lock:
+                i = next(counter, None)
+            if i is None:
+                return
+            obj, url, fid = targets[i]
+            data = payload(obj, sizes[obj])
+            t0 = time.perf_counter()
+            if a["mode"] == "preload":
+                status, body = request(url, "POST", "/" + fid, data)
+                ok = status in (200, 201)
+            else:
+                status, body = request(url, "GET", "/" + fid)
+                ok = status == 200 and body == data
+            dt = time.perf_counter() - t0
+            with lock:
+                lat.append(dt)
+                moved[0] += len(data)
+                if not ok:
+                    bad.append([obj, status, body[:200].decode("latin-1")])
+
+    threads = [threading.Thread(target=worker) for _ in range(a["conns"])]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return {"n": len(lat), "wall": time.perf_counter() - t0, "lat": lat,
+            "bytes": moved[0], "bad": bad}
+
+
+def replay():
+    fids, sizes, masters = a["fids"], a["sizes"], a["masters"]
+    locs, lock = {}, threading.Lock()
+
+    def lookup(vid, fresh=False):
+        with lock:
+            if not fresh and vid in locs:
+                return locs[vid]
+        for m in masters:
+            try:
+                status, body = request(m, "GET",
+                                       "/dir/lookup?volumeId=%d" % vid)
+            except OSError:
+                continue
+            if status == 200:
+                urls = [loc["url"] for loc in json.loads(body)["locations"]]
+                with lock:
+                    locs[vid] = urls
+                return urls
+        return []
+
+    files = {}
+
+    def record(rec):
+        pid = os.getpid()  # one file per forked replay process
+        if pid not in files:
+            files[pid] = open(os.path.join(a["dir"], "req_%d.log" % pid),
+                              "a", buffering=1)
+        files[pid].write(json.dumps(rec) + "\n")
+
+    def get(req):
+        fid = fids[req.obj]
+        vid = int(fid.split(",")[0])
+        for fresh in (False, True):
+            for url in lookup(vid, fresh):
+                try:
+                    status, body = request(url, "GET", "/" + fid)
+                except OSError:
+                    continue  # a dead holder: the next location
+                if status == 200:
+                    return body == payload(req.obj, sizes[req.obj]), True
+        return False, False
+
+    def put(req, n):
+        key = (1 << 40) + n
+        data = payload(key, req.size)
+        for m in masters:
+            try:
+                status, body = request(m, "GET", "/dir/assign")
+            except OSError:
+                continue
+            if status != 200:
+                continue
+            asg = json.loads(body)
+            try:
+                status, _ = request(asg["url"], "POST", "/" + asg["fid"],
+                                    data)
+            except OSError:
+                return None
+            if status in (200, 201):
+                return asg["fid"], key, zlib.crc32(data)
+            return None
+        return None
+
+    seq = iter(range(1 << 62))
+
+    def send(req):
+        t0 = time.time()
+        if req.op == "GET":
+            right, ok = get(req)
+            rec = {"t": t0, "op": "GET", "cls": req.qos_class, "ok": ok,
+                   "wrong": ok and not right, "obj": req.obj}
+        else:
+            with lock:
+                n = next(seq)
+            acked = put(req, n + 1000000 * os.getpid())
+            rec = {"t": t0, "op": "PUT", "cls": req.qos_class,
+                   "ok": acked is not None, "wrong": False,
+                   "ack": list(acked) if acked else None,
+                   "size": req.size}
+        rec["lat"] = time.time() - t0
+        record(rec)
+        return rec["ok"] and not rec["wrong"]
+
+    schedule = loadgen.build_schedule()
+    print("schedule %d %.3f" % (len(schedule), time.time()), flush=True)
+    summary = loadgen.replay(schedule, send, workers=a["workers"],
+                             processes=a["processes"])
+    return {"summary": summary, "requests": len(schedule)}
+
+
+bad_mods = [m for m in sys.modules
+            if m.split(".")[0] in ("torch", "jax", "seaweedfs_tpu")]
+assert not bad_mods, bad_mods
+result = replay() if a["mode"] == "replay" else transfer()
+with open(a["out"], "w") as f:
+    json.dump(result, f)
+"""
+
+
+def cli(args, env, log_path):
+    """Start `python -m seaweedfs_tpu_torch <args>`, a process of its
+    own, its errors appended to `log_path`."""
+    with open(log_path, "a") as log_f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch"] + list(args),
+            env=env, cwd=os.path.dirname(log_path), stdout=subprocess.PIPE,
+            stderr=log_f, text=True)
+
+
+def listening(proc, name: str, log_path: str):
+    """Wait for a daemon's "listening on" line; fail the run with its
+    log if it does not come."""
+    ready, _, _ = select.select([proc.stdout], [], [], 120)
+    line = proc.stdout.readline() if ready else ""
+    if "listening on" not in line:
+        proc.kill()
+        proc.wait(timeout=30)
+        with open(log_path) as f:
+            check(False, f"{name} did not start: {line!r} "
+                  f"{f.read()[-3000:]}")
+
+
+def cli_run(args, env, timeout: float = 300) -> str:
+    """Run one command of the port's CLI to its end; returns its output."""
+    res = subprocess.run(
+        [sys.executable, "-m", "seaweedfs_tpu_torch"] + list(args),
+        env=env, capture_output=True, text=True, timeout=timeout)
+    check(res.returncode == 0, f"{args[:2]} exited {res.returncode}: "
+          f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    return res.stdout
+
+
+def loader_run(spec: dict, workdir: str, env: dict, tag: str,
+               background: bool = False):
+    """ELASTIC_LOADER with `spec` in a fresh interpreter; waits for its
+    report unless `background` (then returns the process)."""
+    out = os.path.join(workdir, f"elastic_{tag}.json")
+    spec = dict(spec, out=out, repo=os.path.dirname(
+        os.path.abspath(__file__)))
+    with open(out + ".spec", "w") as f:
+        json.dump(spec, f)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", ELASTIC_LOADER, out + ".spec"], env=env,
+        cwd=workdir, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    if background:
+        return proc, out
+    _, err = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"the {tag} load process failed: {err}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def elastic_payload(seed: int, key: int, size: int) -> bytes:
+    return np.random.default_rng([seed, key]).bytes(size)
+
+
+def process_counts(url: str) -> dict:
+    """One server process's kernel launches, deep-scrub parity steps and
+    decode batches, from its own routes."""
+    dev = http_json(url, "/debug/pprof/device")
+    rec = http_json(url, "/admin/ec/recover_stats")
+    return {"gf_apply": dev["launches"]["gf_apply"],
+            "fused_apply_crc": dev["launches"]["fused_apply_crc"],
+            "scrub_steps": dev["scrub_steps"], "batches": rec["batches"]}
+
+
+def proc_tree_pids(root: str) -> list:
+    """Pids of live processes whose command line names `root`."""
+    pids = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode("latin-1")
+        except OSError:
+            continue
+        if root in cmd and proc_alive(int(name)):
+            pids.append(int(name))
+    return pids
+
+
+def elastic_phase(dev, workdir: str, rehearse: bool = False) -> dict:
+    """Phase 11: three masters and five volume servers, each a process of
+    its own started through the port's CLI; 512 MiB of the load
+    generator's objects, every volume EC-encoded by the shell's CLI (K2),
+    open-loop traffic from forked load processes, the volume server
+    holding the most shards SIGKILLed: the health plane sees it and
+    alerts, the curator heals every volume (K2) and scales the cluster
+    (a sixth server through the CLI) while degraded GETs decode through
+    K1; the dead node restarted over its directory, the alert cleared, a
+    forced deep scrub of every volume clean (K1).  Returns the kernels'
+    launches in it, summed over the server processes.  `rehearse` runs
+    the servers on the CPU and skips the launch counts (CPU tensors run
+    the plain versions and count nothing)."""
+    from seaweedfs_tpu_torch.loadgen import SizeMixture
+    from seaweedfs_tpu_torch.maintenance.jobs import (TYPE_DEEP_SCRUB,
+                                                      TYPE_EC_REBUILD,
+                                                      TYPE_SCALE_UP)
+    from seaweedfs_tpu_torch.rpc.http_rpc import RpcError, call
+    from seaweedfs_tpu_torch.wdclient import FidLeaseCache, MasterClient
+
+    out: dict = {}
+    t_phase = time.monotonic()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(ELASTIC_KNOBS, PYTHONPATH=repo,
+               WEED_SCALE_DIR=os.path.join(workdir, "scale"))
+    os.makedirs(env["WEED_SCALE_DIR"])
+    device_flag = ["-device", "cpu"] if rehearse else []
+    log(f"elastic: knobs {ELASTIC_KNOBS}")
+
+    # the objects: the load generator's size mixture, bytes from (seed, i)
+    sizes_gen = SizeMixture(seed=SEED + 30)
+    sizes, total = [], 0
+    while total < ELASTIC_BYTES:
+        sizes.append(sizes_gen.sample(len(sizes)))
+        total += sizes[-1]
+    n_obj = len(sizes)
+    env["WEED_LOAD_OBJECTS"] = str(n_obj)
+    seed = SEED + 31
+
+    procs: dict = {}  # name -> Popen
+    mports = []
+    while len(mports) < 3:
+        p = free_port()
+        if p not in mports:
+            mports.append(p)
+    maddrs = [f"127.0.0.1:{p}" for p in mports]
+    vports = []
+    while len(vports) < ELASTIC_SERVERS:
+        p = free_port()
+        if p not in vports and p not in mports:
+            vports.append(p)
+    vaddrs = [f"127.0.0.1:{p}" for p in vports]
+
+    def volume_args(i):
+        d = os.path.join(workdir, f"volume{i}")
+        return (["volume", "-dir", d, "-port", str(vports[i]),
+                 "-mserver", ",".join(maddrs), "-rack", f"rack{i + 1}",
+                 "-dataCenter", "dc1", "-pulseSeconds",
+                 str(ELASTIC_PULSE), "-ecBackend", "cuda"] + device_flag)
+
+    def leader() -> str:
+        for m in maddrs:
+            if procs.get(m) is None or procs[m].poll() is not None:
+                continue
+            try:
+                st = http_json(m, "/cluster/status")
+            except (AssertionError, OSError):
+                continue
+            if st.get("IsLeader"):
+                return m
+        return ""
+
+    def nodes(m: str) -> list:
+        st = http_json(m, "/dir/status")
+        return sorted(n["url"] for dc in st["datacenters"]
+                      for r in dc["racks"] for n in r["nodes"])
+
+    def events_since(m: str, seq: int) -> list:
+        return http_json(m, f"/cluster/events?since={seq}")["events"]
+
+    mc = None
+    try:
+        # -- 1. the cluster: every process through the port's CLI
+        t0 = time.monotonic()
+        starting = []
+        for i, m in enumerate(maddrs):
+            d = os.path.join(workdir, f"master{i}")
+            os.makedirs(d)
+            starting.append((m, ["master", "-port", str(mports[i]),
+                                 "-mdir", d, "-peers", ",".join(maddrs),
+                                 "-volumeSizeLimitMB",
+                                 str(CLUSTER_LIMIT_MB),
+                                 "-defaultReplication", "000",
+                                 "-pulseSeconds", str(ELASTIC_PULSE)]))
+        for i, v in enumerate(vaddrs):
+            os.makedirs(os.path.join(workdir, f"volume{i}"))
+            starting.append((v, volume_args(i)))
+        def log_of(name):
+            return os.path.join(workdir, name.replace(":", "_") + ".log")
+
+        for name, args in starting:  # started together, awaited after
+            procs[name] = cli(args, env, log_of(name))
+        for name, proc in procs.items():
+            listening(proc, name, log_of(name))
+        lead = wait_until(leader, 60, "no raft leader among the masters")
+        wait_until(lambda: nodes(lead) == sorted(vaddrs), 60,
+                   "the volume servers never all registered")
+        out["start_s"] = time.monotonic() - t0
+        log(f"elastic: masters {maddrs} (leader {lead}), volume servers "
+            f"{vaddrs}, each a process of the port's CLI, up in "
+            f"{out['start_s']:.3f} s")
+        check(http_json(lead, "/maintenance/pause", {"paused": True})
+              ["paused"], "maintenance did not pause")
+
+        # -- 2. preload through the master client's fid leases
+        mc = MasterClient(list(maddrs), name="chip_smoke")
+        mc.start()
+        cache = FidLeaseCache(
+            lambda n, replication="", collection="", ttl="": mc.assign(
+                count=n, replication=replication, collection=collection,
+                ttl=ttl), name="chip_smoke")
+        t0 = time.perf_counter()
+        leased = [cache.get() for _ in range(n_obj)]
+        out["assign_req_s"] = n_obj / (time.perf_counter() - t0)
+        fids = [a["fid"] for a in leased]
+        targets = [[i, a["url"], a["fid"]] for i, a in enumerate(leased)]
+        parts = [targets[i::ELASTIC_LOADERS]
+                 for i in range(ELASTIC_LOADERS)]
+        t0 = time.perf_counter()
+        runs = [loader_run({"mode": "preload", "seed": seed,
+                            "sizes": sizes, "targets": part,
+                            "conns": ELASTIC_CONNS}, workdir, env,
+                           f"preload{i}", background=True)
+                for i, part in enumerate(parts)]
+        reps = []
+        for (proc, path), i in zip(runs, range(len(runs))):
+            _, err = proc.communicate(timeout=900)
+            check(proc.returncode == 0, f"preload process failed: {err}")
+            with open(path) as f:
+                reps.append(json.load(f))
+        put_wall = time.perf_counter() - t0
+        bad = [b for r in reps for b in r["bad"]]
+        check(not bad and sum(r["n"] for r in reps) == n_obj,
+              f"preload: {len(bad)} failed, e.g. {bad[:3]}")
+        lat = [x for r in reps for x in r["lat"]]
+        out.update(preload_objects=n_obj, preload_bytes=total,
+                   preload_s=put_wall,
+                   preload_mib_s=total / MIB / put_wall,
+                   preload_req_s=n_obj / put_wall,
+                   preload_p50_ms=pct_ms(lat, 50),
+                   preload_p99_ms=pct_ms(lat, 99))
+        by_vid: dict = {}
+        for i, fid in enumerate(fids):
+            by_vid.setdefault(int(fid.split(",")[0]), []).append(i)
+        log(f"elastic: {n_obj} objects ({total} B, the load generator's "
+            f"size mixture) POSTed to their fids' holders by "
+            f"{ELASTIC_LOADERS} load processes of {ELASTIC_CONNS} "
+            f"connections in {put_wall:.3f} s: "
+            f"{out['preload_mib_s']:.1f} MiB/s, "
+            f"{out['preload_req_s']:.0f} req/s, p50 "
+            f"{out['preload_p50_ms']:.3f} ms, p99 "
+            f"{out['preload_p99_ms']:.3f} ms; fids leased at "
+            f"{out['assign_req_s']:.0f}/s; objects by volume "
+            + json.dumps({v: len(o) for v, o in sorted(by_vid.items())}))
+
+        # -- the shell's ec.encode of every volume, through the CLI (K2)
+        before = {v: process_counts(v) for v in vaddrs}
+        t0 = time.perf_counter()
+        text = cli_run(["shell", "-master", lead, "-c",
+                        "; ".join(f"ec.encode {v}" for v in sorted(by_vid))],
+                       env)
+        out["encode_s"] = time.perf_counter() - t0
+        check(not [ln for ln in text.splitlines()
+                    if ln.startswith("error")], f"ec.encode: {text[-3000:]}")
+
+        def spread(v):
+            held = ec_holders(lead, v)
+            if len(held) != 14 or any(len(u) != 1 for u in held.values()):
+                return None
+            per: dict = {}
+            for urls in held.values():
+                per[urls[0]] = per.get(urls[0], 0) + 1
+            return per
+
+        wait_until(lambda: all(spread(v) for v in by_vid), 60,
+                   "the encoded volumes' 14 shards never all showed")
+        spreads = {v: spread(v) for v in sorted(by_vid)}
+        most = max(max(p.values()) for p in spreads.values())
+        check(most <= 4, f"a server holds {most} shards of one volume: "
+              "RS(10,4) would lose data with it")
+        k2_src = {v: process_counts(v)["fused_apply_crc"]
+                  - before[v]["fused_apply_crc"] for v in vaddrs}
+        if not rehearse:
+            check(sum(k2_src.values()) > 0, "K2 did not launch in encode")
+        out["max_shards_per_server"] = most
+        log(f"elastic: ec.encode of {len(by_vid)} volumes through the "
+            f"shell's CLI in {out['encode_s']:.3f} s, K2 by server "
+            f"{json.dumps(k2_src)}; at most {most} shards of a volume on "
+            "one server (/ec/lookup)")
+
+        # -- maintenance on; the plane must see every target up
+        http_json(lead, "/maintenance/pause", {"paused": False})
+        wait_until(lambda: not http_json(lead, "/maintenance/queue")[
+            "jobs"], 120, "maintenance jobs of the encode never drained")
+        rounds0 = http_json(lead, "/cluster/health")["scrape"]["rounds"]
+
+        def healthy():
+            h = http_json(lead, "/cluster/health")
+            return (h["scrape"]["rounds"] >= rounds0 + 3
+                    and h["status"] == "ok"
+                    and len(h["nodes"]) == 3 + ELASTIC_SERVERS
+                    and all(n["up"] for n in h["nodes"].values())
+                    and not http_json(lead, "/cluster/alerts")["alerts"])
+
+        wait_until(healthy, 60, "the health plane never read ok")
+        seq0 = http_json(lead, "/cluster/events?since=0")["seq"]
+        hist0 = len(http_json(lead, "/maintenance/queue")["history"])
+
+        # -- 3. traffic: open-loop replay from forked load processes
+        traffic, traffic_out = loader_run(
+            {"mode": "replay", "seed": seed, "sizes": sizes, "fids": fids,
+             "masters": [lead] + [m for m in maddrs if m != lead],
+             "dir": workdir, "workers": ELASTIC_REPLAY_THREADS,
+             "processes": ELASTIC_REPLAY_PROCS}, workdir,
+            dict(env, WEED_LOAD_SEED=str(seed + 1),
+                 WEED_LOAD_DURATION=str(ELASTIC_DURATION)), "replay",
+            background=True)
+        ready, _, _ = select.select([traffic.stdout], [], [], 120)
+        line = traffic.stdout.readline() if ready else ""
+        check(line.startswith("schedule "), f"the replay did not start: "
+              f"{line!r}")
+        t_traffic = float(line.split()[2])
+        time.sleep(max(0.0, t_traffic + ELASTIC_KILL_AFTER - time.time()))
+
+        # -- 4. the kill: the server holding the most shards
+        counts_by: dict = {}
+        for v, per in spreads.items():
+            for url, n in per.items():
+                counts_by[url] = counts_by.get(url, 0) + n
+        victim = max(sorted(counts_by), key=lambda u: counts_by[u])
+        victim_i = vaddrs.index(victim)
+        pre_kill = {v: process_counts(v) for v in vaddrs}
+        hit = sorted(v for v, per in spreads.items() if victim in per)
+        t_kill = time.time()
+        procs[victim].send_signal(signal.SIGKILL)
+        procs[victim].wait(timeout=30)
+        log(f"elastic: SIGKILL {victim} ({counts_by[victim]} shards, of "
+            f"volumes {hit}) {t_kill - t_traffic:.3f} s into the traffic")
+        originals = set(vaddrs)
+
+        def newcomer():
+            lead_now = leader()
+            if not lead_now:
+                return None
+            extra = [u for u in nodes(lead_now) if u not in originals]
+            return extra[0] if extra else None
+
+        new_url = wait_until(newcomer, 120, "scale.up never added a "
+                             "server")
+        out["kill_to_newcomer_s"] = time.time() - t_kill
+
+        def whole(v):
+            held = ec_holders(leader() or lead, v)
+            return len(held) == 14 and all(
+                any(u != victim for u in urls) for urls in held.values())
+
+        wait_until(lambda: all(whole(v) for v in by_vid), 120,
+                   "the lost shards were never rebuilt")
+        t_whole = time.time()
+        out["kill_to_whole_s"] = t_whole - t_kill
+        lead = leader() or lead
+        evs = events_since(lead, seq0)
+        q = http_json(lead, "/maintenance/queue")
+        log("elastic: jobs from the encode to the heal, s from the kill "
+            + json.dumps([{
+                "type": j["type"], "volume": j["volume"],
+                "worker": j.get("worker"), "outcome": j.get("outcome"),
+                "attempts": j.get("attempts"),
+                "from": (j.get("params") or {}).get("from")
+                or (j.get("params") or {}).get("alert"),
+                "created": round(j.get("created_at", 0) - t_kill, 3),
+                "finished": round(j.get("finished_at", 0) - t_kill, 3)
+                if j.get("finished_at") else None,
+                "error": j.get("last_error") or None}
+                for j in q["history"] + q["jobs"]]))
+
+        def first(kind, node=None, after=0.0):
+            return next((e for e in evs if e["kind"] == kind
+                         and (node is None or e["node"] == node)
+                         and e["ts"] >= after), None)
+
+        down = first("node.down", victim)
+        fire = first("alert.fire", "availability")
+        check(down is not None and fire is not None,
+              f"journal: down {down}, fire {fire}")
+        check(down["seq"] < fire["seq"], "ALERT_FIRE before NODE_DOWN")
+        jobs = [e for e in evs if e["kind"] in ("job.enqueued", "scale.up")
+                and e["ts"] >= t_kill]
+        check(jobs, "no job was queued after the kill")
+        out["kill_to_node_down_s"] = down["ts"] - t_kill
+        out["kill_to_alert_fire_s"] = fire["ts"] - t_kill
+        out["down_to_fire_s"] = fire["ts"] - down["ts"]
+        out["kill_to_first_job_s"] = min(e["ts"] for e in jobs) - t_kill
+        check(out["down_to_fire_s"] <= 10.0,
+              f"availability fired {out['down_to_fire_s']:.3f} s after "
+              "NODE_DOWN (bound 10 s)")
+        log(f"elastic: from the kill, by the journal: NODE_DOWN "
+            f"{out['kill_to_node_down_s']:.3f} s, ALERT_FIRE availability "
+            f"{out['kill_to_alert_fire_s']:.3f} s, first job queued "
+            f"{out['kill_to_first_job_s']:.3f} s; newcomer {new_url} in "
+            f"/dir/status after {out['kill_to_newcomer_s']:.3f} s; every "
+            f"volume at 14 shards after {out['kill_to_whole_s']:.3f} s")
+
+        # -- 5. the dead node restarted over its directory
+        t_restart = time.time()
+        procs[victim] = cli(volume_args(victim_i), env, log_of(victim))
+        listening(procs[victim], victim, log_of(victim))
+        wait_until(lambda: victim in nodes(leader() or lead), 60,
+                   "the restarted server never registered")
+
+        def cleared():
+            lead_now = leader() or lead
+            clear = next((e for e in events_since(lead_now, seq0)
+                          if e["kind"] == "alert.clear"
+                          and e["node"] == "availability"
+                          and e["seq"] > fire["seq"]), None)
+            h = http_json(lead_now, "/cluster/health")
+            return clear if clear and h["status"] == "ok" else None
+
+        clear = wait_until(cleared, 90, "the availability alert never "
+                           "cleared, or /cluster/health never read ok")
+        t_ok = time.time()
+        out["kill_to_alert_clear_s"] = clear["ts"] - t_kill
+        out["restart_to_ok_s"] = t_ok - t_restart
+        log(f"elastic: {victim} restarted through the CLI; ALERT_CLEAR "
+            f"{out['kill_to_alert_clear_s']:.3f} s after the kill, "
+            f"/cluster/health ok {out['restart_to_ok_s']:.3f} s after the "
+            "restart")
+
+        # -- 6. the traffic's verdict, per class and window
+        _, err = traffic.communicate(timeout=ELASTIC_DURATION + 300)
+        check(traffic.returncode == 0, f"the replay failed: {err}")
+        with open(traffic_out) as f:
+            rep = json.load(f)
+        recs = []
+        for name in os.listdir(workdir):
+            if name.startswith("req_") and name.endswith(".log"):
+                with open(os.path.join(workdir, name)) as f:
+                    recs += [json.loads(ln) for ln in f if ln.strip()]
+        check(len(recs) == rep["requests"], f"{len(recs)} records for "
+              f"{rep['requests']} scheduled requests")
+        wrong = [r for r in recs if r["wrong"]]
+        check(not wrong, f"{len(wrong)} GETs read wrong bytes: {wrong[:3]}")
+        windows = {"before": (0, t_kill), "outage": (t_kill, t_whole),
+                   "healed": (t_whole, 1e18)}
+        table = {}
+        for wname, (lo, hi) in windows.items():
+            for cls in ("interactive", "standard", "background", "all"):
+                sel = [r for r in recs if lo <= r["t"] < hi
+                       and (cls == "all" or r["cls"] == cls)]
+                span = (min(hi, max((r["t"] for r in sel), default=lo))
+                        - max(lo, t_traffic)) if sel else 0.0
+                ok = [r["lat"] for r in sel if r["ok"]]
+                table[f"{wname}/{cls}"] = {
+                    "requests": len(sel),
+                    "failures": sum(not r["ok"] for r in sel),
+                    "get_failures": sum(not r["ok"] for r in sel
+                                        if r["op"] == "GET"),
+                    "p50_ms": pct_ms(ok, 50), "p99_ms": pct_ms(ok, 99),
+                    "rps": len(sel) / span if span > 0 else 0.0}
+        out["traffic"] = table
+        out["traffic_summary"] = rep["summary"]
+        for k, row in sorted(table.items()):
+            log(f"elastic: traffic {k}: " + json.dumps(row, sort_keys=True))
+
+        # every acknowledged object reads back right: the preload and the
+        # replay's acked PUTs
+        acked = [r["ack"] for r in recs if r["op"] == "PUT" and r["ok"]]
+        lead = leader() or lead
+
+        def read_back(fid):
+            vid = int(fid.split(",")[0])
+            try:
+                found = call(lead, f"/dir/lookup?volumeId={vid}")
+            except RpcError as e:
+                views = {}
+                for m in maddrs + sorted(set(vaddrs) | {new_url}):
+                    try:
+                        st = call(m, "/dir/status" if m in maddrs
+                                  else "/admin/status")
+                    except (RpcError, OSError) as e2:
+                        views[m] = str(e2)
+                        continue
+                    views[m] = json.dumps(st)[:3000]
+                check(False, f"acked {fid}: lookup {e}; views {views}")
+            urls = [loc["url"] for loc in found["locations"]]
+            for url in urls:
+                try:
+                    return call(url, "/" + fid, parse=False)
+                except (RpcError, OSError):
+                    continue
+            raise AssertionError(f"{fid}: no holder served it")
+
+        import zlib
+
+        for fid, key, crc in acked:
+            check(zlib.crc32(read_back(fid)) == crc,
+                  f"acked PUT {fid} read back wrong")
+        rng = np.random.default_rng(SEED + 32)
+        picks = sorted(set(int(i) for i in rng.integers(
+            0, n_obj, ELASTIC_READBACK)))
+        for i in picks:
+            check(read_back(fids[i]) == elastic_payload(seed, i, sizes[i]),
+                  f"object {i} ({fids[i]}) read back wrong")
+        out["acked_puts"] = len(acked)
+        log(f"elastic: {len(acked)} acked PUTs of the replay and "
+            f"{len(picks)} preloaded objects read back right after the "
+            "heal; no GET of the replay read wrong bytes")
+
+        # -- the kernels in every server process: K1 = decode batches
+        # plus the deep scrubs' parity steps (before the forced scrubs)
+        live = sorted(set(vaddrs) | {new_url})
+        mid = {v: process_counts(v) for v in live}
+        if not rehearse:
+            for v, c in mid.items():
+                check(c["gf_apply"] == c["batches"] + c["scrub_steps"],
+                      f"{v}: {c['gf_apply']} K1 launches for "
+                      f"{c['batches']} decode batches and "
+                      f"{c['scrub_steps']} scrub parity steps")
+        out["decode_batches"] = {v: c["batches"] for v, c in mid.items()}
+        log("elastic: per server process, after the heal "
+            + json.dumps(mid, sort_keys=True))
+
+        # -- a forced deep.scrub of every volume: clean, through K1
+        n_hist = len(http_json(lead, "/maintenance/queue")["history"])
+        t0 = time.perf_counter()
+        for v in sorted(by_vid):
+            http_json(lead, "/maintenance/run",
+                      {"type": TYPE_DEEP_SCRUB, "volume": v})
+
+        def scrubs_done():
+            q = http_json(leader() or lead, "/maintenance/queue")
+            done = [h for h in q["history"][n_hist:]
+                    if h["type"] == TYPE_DEEP_SCRUB]
+            pend = [j for j in q["jobs"] if j["type"] == TYPE_DEEP_SCRUB]
+            return (done, q) if not pend and len(done) >= len(by_vid) \
+                else None
+
+        done, q = wait_until(scrubs_done, 300, "the forced deep scrubs "
+                             "never finished")
+        out["scrub_all_s"] = time.perf_counter() - t0
+        check(all(h["outcome"] == "ok" for h in done),
+              f"a deep scrub failed: {done}")
+        repairs = [j for j in q["jobs"] + q["history"][n_hist:]
+                   if j["type"] == TYPE_EC_REBUILD
+                   and j["params"].get("from") == "deep.scrub"]
+        check(not repairs, f"the forced scrubs found damage: {repairs}")
+        end = {v: process_counts(v) for v in live}
+        scrub_k1 = {v: end[v]["gf_apply"] - mid[v]["gf_apply"]
+                    for v in live}
+        if not rehearse:
+            check(sum(scrub_k1.values()) > 0, "K1 did not launch in the "
+                  "deep scrubs")
+            for v, c in end.items():
+                check(c["gf_apply"] == c["batches"] + c["scrub_steps"],
+                      f"{v}: K1 {c['gf_apply']} after the scrubs")
+        log(f"elastic: forced deep.scrub of {len(by_vid)} volumes clean in "
+            f"{out['scrub_all_s']:.3f} s, K1 by server "
+            + json.dumps(scrub_k1, sort_keys=True))
+
+        # -- degraded GETs per server process, as phase 10 reads them in
+        # one interpreter: leasing paused, .ec00 .ec05 .ec11 .ec13 of the
+        # biggest volume dropped, every object of it GET, a share from
+        # each holder process in turn; then the curator heals it
+        vid = max(sorted(by_vid), key=lambda v: len(by_vid[v]))
+        http_json(lead, "/maintenance/pause", {"paused": True})
+        held = ec_holders(lead, vid)
+        for sid in LOST:
+            for url in held[sid]:
+                http_json(url, "/admin/ec/delete_shards",
+                          {"volume": vid, "shard_ids": [sid]})
+        wait_until(lambda: all(sid not in ec_holders(lead, vid)
+                               for sid in LOST), 30,
+                   "the dropped shards stayed listed")
+        readers = sorted({u for urls in ec_holders(lead, vid).values()
+                          for u in urls})
+        objs = sorted(by_vid[vid])
+        burst = {}
+        for i, url in enumerate(readers):
+            part = objs[i::len(readers)]
+            c0 = process_counts(url)
+            rep = loader_run({"mode": "get", "seed": seed, "sizes": sizes,
+                              "targets": [[o, url, fids[o]] for o in part],
+                              "conns": SERVER_CONNS}, workdir, env,
+                             f"degraded{i}")
+            c1 = process_counts(url)
+            check(not rep["bad"] and rep["n"] == len(part),
+                  f"degraded GET from {url}: {rep['bad'][:3]}")
+            k1 = c1["gf_apply"] - c0["gf_apply"]
+            batches = c1["batches"] - c0["batches"]
+            if not rehearse:
+                check(batches > 0 and k1 == batches
+                      and c1["scrub_steps"] == c0["scrub_steps"],
+                      f"{url}: {k1} K1 launches for {batches} decode "
+                      "batches")
+            burst[url] = {"objects": rep["n"], "k1": k1,
+                          "batches": batches,
+                          "mib_s": rep["bytes"] / MIB / rep["wall"],
+                          "req_s": rep["n"] / rep["wall"],
+                          "p50_ms": pct_ms(rep["lat"], 50),
+                          "p99_ms": pct_ms(rep["lat"], 99)}
+        out["degraded_by_process"] = burst
+        log(f"elastic: volume {vid} lost .ec00 .ec05 .ec11 .ec13 with "
+            f"leasing paused; every object of it ({len(objs)}) GET, a share "
+            f"from each holder process in turn ({SERVER_CONNS} "
+            "connections): " + json.dumps(burst, sort_keys=True))
+        t0 = time.monotonic()
+        http_json(lead, "/maintenance/pause", {"paused": False})
+        def settled(v):  # 14 shards listed, whoever holds them now
+            return len(ec_holders(lead, v)) == 14
+
+        wait_until(lambda: settled(vid), 120, f"volume {vid} never healed")
+        out["burst_heal_s"] = time.monotonic() - t0
+        log(f"elastic: volume {vid} back at 14 shards "
+            f"{out['burst_heal_s']:.3f} s after leasing resumed")
+
+        # every shard file on every disk holds its .vif CRC
+        dirs = [os.path.join(workdir, f"volume{i}")
+                for i in range(ELASTIC_SERVERS)]
+        for root, _, files in os.walk(env["WEED_SCALE_DIR"]):
+            if any(f.endswith(".ecx") for f in files):
+                dirs.append(root)
+        shards_checked = 0
+        for d in dirs:
+            for v in by_vid:
+                base = os.path.join(d, str(v))
+                if not os.path.exists(base + ".vif"):
+                    continue
+                stored = encoder.load_volume_info(base)["shard_crc32c"]
+                for sid in range(14):
+                    path = base + to_ext(sid)
+                    if os.path.exists(path):
+                        with open(path, "rb") as f:
+                            data = f.read()
+                        if crc_host.crc32c(data) != stored[sid]:
+                            held = ec_holders(lead, v).get(sid)
+                            sizes_of = sorted({os.path.getsize(
+                                base + to_ext(j)) for j in range(14)
+                                if os.path.exists(base + to_ext(j))})
+                            check(False, f"{path} ({len(data)} B, shard "
+                                  f"sizes there {sizes_of}, holders "
+                                  f"{held}, mtime "
+                                  f"{os.path.getmtime(path) - t_kill:.3f}"
+                                  " s after the kill) does not hold its "
+                                  ".vif CRC")
+                        shards_checked += 1
+        out["shard_files_checked"] = shards_checked
+        log(f"elastic: {shards_checked} shard files on the servers' "
+            "disks, each equal to its .vif CRC")
+
+        # -- the health plane's own numbers, the CLI and the shell
+        h = http_json(lead, "/cluster/health")
+        expo = exposition(http_get_text(lead, "/metrics"))
+        out["plane"] = {
+            "rounds": h["scrape"]["rounds"], "duty": h["scrape"]["duty"],
+            "tsdb": h["tsdb"],
+            "scrape_errors_dead_target": sample(
+                expo, "SeaweedFS_cluster_scrape_errors_total",
+                target=victim)}
+        check(out["plane"]["scrape_errors_dead_target"] > 0,
+              "no scrape error counted for the dead target")
+        log("elastic: health plane on the leader "
+            + json.dumps(out["plane"], sort_keys=True))
+        top = cli_run(["top", "-master", lead, "-once"], env)
+        check(top.startswith("cluster OK"), f"top: {top[:500]}")
+        lint = cli_run(["lint-dashboards"], env)
+        scale = json.loads(cli_run(["shell", "-master", lead, "-c",
+                                    "cluster.scale"], env))
+        qos_view = json.loads(cli_run(["shell", "-master", lead, "-c",
+                                       "qos.status"], env))
+        scale_jobs = [h for h in http_json(lead, "/maintenance/queue")
+                      ["history"][hist0:] if h["type"] == TYPE_SCALE_UP]
+        check(scale_jobs and scale_jobs[0]["outcome"] == "ok",
+              f"scale.up jobs {scale_jobs}")
+        check(new_url in [n["url"] for n in scale["nodes"]],
+              "cluster.scale does not list the newcomer")
+        check(f"volume {new_url}" in qos_view["daemons"],
+              "qos.status does not reach the newcomer")
+        log(f"elastic: top -once ({len(top.splitlines())} lines), "
+            f"lint-dashboards ({lint.strip()}), cluster.scale "
+            f"({len(scale['nodes'])} nodes, autoscale "
+            f"{json.dumps(scale['autoscale'], sort_keys=True)}), "
+            f"qos.status ({len(qos_view['daemons'])} daemons) through the "
+            "CLI")
+        queue = http_json(lead, "/maintenance/queue")
+        log("elastic: jobs after the kill " + json.dumps(
+            [{k: j.get(k) for k in ("type", "volume", "worker", "outcome",
+                                    "attempts")}
+             for j in queue["history"][hist0:]]))
+        final = {v: process_counts(v) for v in live}
+        if not rehearse:
+            for v, c in final.items():
+                check(c["gf_apply"] == c["batches"] + c["scrub_steps"],
+                      f"{v}: K1 {c['gf_apply']} at the end")
+        launches = {name: sum(final[v][name] for v in live)
+                    + pre_kill[victim][name] for name in KERNELS}
+        out["launches_by_process"] = final
+    finally:
+        if mc is not None:
+            mc.stop()
+        # -- shutdown: SIGTERM every process, the scale child through
+        # its spawner
+        for name, proc in procs.items():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for name, proc in procs.items():
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        left = proc_tree_pids(workdir)
+        for pid in left:
+            os.kill(pid, signal.SIGKILL)
+    check(not left, f"processes left after SIGTERM: {left}")
+    check(all(p.returncode == 0 for n, p in procs.items()),
+          "a process did not exit 0 on SIGTERM: " + json.dumps(
+              {n: p.returncode for n, p in procs.items()}))
+    out["wall_s"] = time.monotonic() - t_phase
+    PHASE_NUMBERS["elastic"] = out
+    log("elastic numbers: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("traffic",)},
+        sort_keys=True, default=str))
+    log(f"launches on the elastic path: {launches}")
+    return launches
+
+
 def http_get_text(addr: str, path: str) -> str:
     from seaweedfs_tpu_torch.rpc.http_rpc import call
 
@@ -3518,12 +4498,17 @@ def main() -> int:
                     help="build and check the kernels, then phase 10 (a "
                          "cluster of masters and volume servers that heals "
                          "an EC volume) alone")
+    ap.add_argument("--elastic", action="store_true",
+                    help="build and check the kernels, then phase 11 (a "
+                         "cluster of separate processes through a node "
+                         "death) alone")
     args = ap.parse_args()
     mode = ("quick" if args.quick else "kernels" if args.kernels
             else "routes" if args.routes else "inline" if args.inline
             else "cache" if args.cache else "server" if args.server
             else "prefork" if args.prefork
-            else "cluster" if args.cluster else "all")
+            else "cluster" if args.cluster
+            else "elastic" if args.elastic else "all")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3540,18 +4525,21 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     stats = kernel_phase(dev, "quick" if mode in ("routes", "inline",
                                                   "cache", "server",
-                                                  "prefork", "cluster")
+                                                  "prefork", "cluster",
+                                                  "elastic")
                          else mode)
     if mode in ("kernels", "routes", "all"):
         route_phase(dev)
     if mode == "routes":
         route_profile(dev)
-    if mode in ("inline", "cache", "server", "prefork", "cluster"):
+    if mode in ("inline", "cache", "server", "prefork", "cluster",
+                "elastic"):
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             {"inline": inline_phase, "cache": cache_phase,
              "server": server_phase, "prefork": prefork_phase,
-             "cluster": cluster_phase}[mode](dev, workdir)
+             "cluster": cluster_phase,
+             "elastic": elastic_phase}[mode](dev, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     launches = {}
@@ -3561,7 +4549,7 @@ def main() -> int:
         needs = {"raw": KERNELS, "needle": KERNELS, "store": KERNELS,
                  "inline": ("gf_apply",), "cache": KERNELS,
                  "server": KERNELS, "prefork": KERNELS,
-                 "cluster": KERNELS}
+                 "cluster": KERNELS, "elastic": KERNELS}
         paths = {}
         for label, phase in (("raw", main_path), ("needle", needle_phase),
                              ("store", store_phase),
@@ -3569,7 +4557,8 @@ def main() -> int:
                              ("cache", cache_phase),
                              ("server", server_phase),
                              ("prefork", prefork_phase),
-                             ("cluster", cluster_phase)):
+                             ("cluster", cluster_phase),
+                             ("elastic", elastic_phase)):
             workdir = tempfile.mkdtemp(prefix="chip_smoke_")
             try:
                 paths[label] = phase(dev, workdir)

@@ -1,0 +1,240 @@
+"""Deterministic workload generators: seed -> request schedule.
+
+Every draw is ``blake2b(f"{seed}:{stream}:{n}")`` mapped to [0, 1) —
+the same keyed-hash replay contract as util/faults.py — so schedules
+are reproducible byte-for-byte from ``WEED_LOAD_SEED`` alone.  No
+process RNG state is consulted anywhere; two processes building the
+same schedule concurrently produce identical bytes.
+
+The port's own copy of seaweedfs_tpu/loadgen/generators.py.
+"""
+
+from __future__ import annotations
+
+import bisect
+import hashlib
+import json
+import math
+import os
+from dataclasses import dataclass
+from typing import Optional
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def load_seed() -> int:
+    """The workload seed (WEED_LOAD_SEED, default 42)."""
+    return int(_env_float("WEED_LOAD_SEED", 42))
+
+
+def _unit(seed: int, stream: str, n: int) -> float:
+    """The n-th uniform draw of a named stream, in [0, 1)."""
+    h = hashlib.blake2b(f"{seed}:{stream}:{n}".encode(),
+                        digest_size=8).digest()
+    return int.from_bytes(h, "big") / float(1 << 64)
+
+
+class ZipfPopularity:
+    """Zipfian object popularity: P(object i) ∝ 1/(i+1)^s.
+
+    The reference's whole design serves this shape — a small hot set
+    absorbing most reads off many cheap volume servers.  Sampling is
+    inverse-CDF over the precomputed cumulative weights, so draw n is
+    a pure function of (seed, stream, n)."""
+
+    def __init__(self, n_objects: int, s: float = 1.1, seed: int = 0,
+                 stream: str = "zipf"):
+        if n_objects <= 0:
+            raise ValueError("n_objects must be positive")
+        self.n_objects = n_objects
+        self.s = s
+        self.seed = seed
+        self.stream = stream
+        self._cum: list[float] = []
+        total = 0.0
+        for i in range(n_objects):
+            total += 1.0 / float(i + 1) ** s
+            self._cum.append(total)
+        self._total = total
+
+    def sample(self, n: int) -> int:
+        u = _unit(self.seed, self.stream, n) * self._total
+        return min(self.n_objects - 1, bisect.bisect_left(self._cum, u))
+
+
+class SizeMixture:
+    """Object-size mixture: weighted size classes, log-uniform within
+    each class (the small-file-dominated photo-serving shape)."""
+
+    DEFAULT = ((0.65, 1 << 10, 8 << 10),     # thumbnails
+               (0.30, 8 << 10, 64 << 10),    # photos
+               (0.05, 64 << 10, 256 << 10))  # originals
+
+    def __init__(self, classes=DEFAULT, seed: int = 0,
+                 stream: str = "size"):
+        self.classes = tuple(classes)
+        self.seed = seed
+        self.stream = stream
+        self._cum: list[float] = []
+        total = 0.0
+        for w, _, _ in self.classes:
+            total += w
+            self._cum.append(total)
+        self._total = total
+
+    def sample(self, n: int) -> int:
+        u = _unit(self.seed, f"{self.stream}.class", n) * self._total
+        idx = min(len(self.classes) - 1,
+                  bisect.bisect_left(self._cum, u))
+        _, lo, hi = self.classes[idx]
+        v = _unit(self.seed, f"{self.stream}.val", n)
+        return int(round(lo * (hi / float(lo)) ** v))
+
+
+def tenant_class(seed: int, tenant: int) -> str:
+    """Stable tenant -> QoS class assignment: ~15% interactive
+    dashboards, ~75% standard apps, ~10% background crawlers."""
+    u = _unit(seed, "tenant.class", tenant)
+    if u < 0.15:
+        return "interactive"
+    if u < 0.90:
+        return "standard"
+    return "background"
+
+
+class DiurnalTenantMix:
+    """Hundreds of tenants whose request shares swing on a diurnal
+    cycle: tenant i's weight is base_i * (1 + amp*sin(2π(t/period +
+    phase_i))), phases and bases hashed from the seed.  Weights are
+    quantized to time buckets so sampling a long schedule stays
+    O(log n_tenants) per draw."""
+
+    def __init__(self, n_tenants: int, seed: int = 0,
+                 stream: str = "tenant", amplitude: float = 0.8,
+                 period: float = 86400.0, buckets: int = 96):
+        if n_tenants <= 0:
+            raise ValueError("n_tenants must be positive")
+        self.n_tenants = n_tenants
+        self.seed = seed
+        self.stream = stream
+        self.amplitude = min(0.999, max(0.0, amplitude))
+        self.period = period
+        self.bucket_seconds = period / float(buckets)
+        self._phase = [_unit(seed, f"{stream}.phase", i)
+                       for i in range(n_tenants)]
+        # heterogeneous tenant sizes: a few big tenants, a long tail
+        self._base = [0.25 + 2.0 * _unit(seed, f"{stream}.base", i) ** 3
+                      for i in range(n_tenants)]
+        self._cache: dict[int, tuple[list[float], float]] = {}
+
+    def _cum_at(self, t: float) -> tuple[list[float], float]:
+        bucket = int(t / self.bucket_seconds)
+        hit = self._cache.get(bucket)
+        if hit is not None:
+            return hit
+        tb = bucket * self.bucket_seconds
+        cum: list[float] = []
+        total = 0.0
+        for i in range(self.n_tenants):
+            w = self._base[i] * (1.0 + self.amplitude * math.sin(
+                2.0 * math.pi * (tb / self.period + self._phase[i])))
+            total += max(1e-9, w)
+            cum.append(total)
+        if len(self._cache) > 256:
+            self._cache.clear()
+        self._cache[bucket] = (cum, total)
+        return cum, total
+
+    def weight(self, tenant: int, t: float) -> float:
+        return self._base[tenant] * (1.0 + self.amplitude * math.sin(
+            2.0 * math.pi * (t / self.period + self._phase[tenant])))
+
+    def sample(self, t: float, n: int) -> int:
+        cum, total = self._cum_at(t)
+        u = _unit(self.seed, f"{self.stream}.pick", n) * total
+        return min(self.n_tenants - 1, bisect.bisect_left(cum, u))
+
+
+def poisson_arrivals(rate_rps: float, duration_s: float, seed: int,
+                     stream: str = "arrivals") -> list[float]:
+    """Open-loop Poisson arrival times in [0, duration): exponential
+    inter-arrivals via inverse transform of the keyed-hash uniforms."""
+    if rate_rps <= 0 or duration_s <= 0:
+        return []
+    out: list[float] = []
+    t = 0.0
+    n = 0
+    while True:
+        u = _unit(seed, stream, n)
+        n += 1
+        t += -math.log(1.0 - u) / rate_rps
+        if t >= duration_s:
+            return out
+        out.append(t)
+
+
+@dataclass
+class Request:
+    """One scheduled request of the replay."""
+    t: float            # arrival offset from schedule start, seconds
+    op: str             # "GET" | "PUT"
+    obj: int            # object index (zipf-ranked: 0 is hottest)
+    size: int           # object bytes (PUT payload / expected GET size)
+    tenant: str         # QoS tenant key, e.g. "t0042"
+    qos_class: str      # interactive | standard | background
+
+    def to_dict(self) -> dict:
+        return {"t": round(self.t, 9), "op": self.op, "obj": self.obj,
+                "size": self.size, "tenant": self.tenant,
+                "qos_class": self.qos_class}
+
+
+def build_schedule(seed: Optional[int] = None,
+                   duration_s: Optional[float] = None,
+                   rate_rps: Optional[float] = None,
+                   n_objects: Optional[int] = None,
+                   n_tenants: Optional[int] = None,
+                   zipf_s: Optional[float] = None,
+                   write_ratio: float = 0.05) -> list[Request]:
+    """Full schedule: Poisson arrivals x zipf popularity x size
+    mixture x diurnal tenant mix.  All knobs default from the
+    WEED_LOAD_* environment so `bench.py` phases and operators share
+    one configuration surface."""
+    if seed is None:
+        seed = load_seed()
+    if duration_s is None:
+        duration_s = _env_float("WEED_LOAD_DURATION", 10.0)
+    if rate_rps is None:
+        rate_rps = _env_float("WEED_LOAD_RATE", 200.0)
+    if n_objects is None:
+        n_objects = int(_env_float("WEED_LOAD_OBJECTS", 1000))
+    if n_tenants is None:
+        n_tenants = int(_env_float("WEED_LOAD_TENANTS", 200))
+    if zipf_s is None:
+        zipf_s = _env_float("WEED_LOAD_ZIPF_S", 1.1)
+    zipf = ZipfPopularity(n_objects, s=zipf_s, seed=seed)
+    sizes = SizeMixture(seed=seed)
+    mix = DiurnalTenantMix(n_tenants, seed=seed)
+    sched: list[Request] = []
+    for n, t in enumerate(poisson_arrivals(rate_rps, duration_s, seed)):
+        op = "PUT" if _unit(seed, "op", n) < write_ratio else "GET"
+        tenant = mix.sample(t, n)
+        sched.append(Request(
+            t=t, op=op, obj=zipf.sample(n), size=sizes.sample(n),
+            tenant=f"t{tenant:04d}",
+            qos_class=tenant_class(seed, tenant)))
+    return sched
+
+
+def schedule_bytes(schedule: list[Request]) -> bytes:
+    """Canonical serialization (sorted-key JSON lines) — the byte
+    string two same-seed runs must reproduce identically."""
+    return b"\n".join(
+        json.dumps(r.to_dict(), sort_keys=True,
+                   separators=(",", ":")).encode()
+        for r in schedule)

@@ -21,6 +21,7 @@ whether the parity still matches the data.  Deep scrub goes further:
 from __future__ import annotations
 
 import os
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -160,6 +161,13 @@ def _verdict(t: ScrubTarget) -> dict:
             "bytes": t.bytes_read,
             "ok": not (corrupt or missing or t.unreadable
                        or parity_mismatch)}
+
+
+# parity-step calls of this process's deep scrubs (one K1 launch per
+# call for RS(10,4)'s four parity rows on the card), reported beside the
+# kernel launches by profiling.device_timeline
+STEP_CALLS = {"calls": 0}
+_step_calls_lock = threading.Lock()
 
 
 def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
@@ -312,6 +320,8 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
                 timers["dispatch"] += time.perf_counter() - t2
                 pending.append((entry, metas, events))
                 batches += 1
+                with _step_calls_lock:
+                    STEP_CALLS["calls"] += 1
                 if len(pending) >= depth:
                     _complete()
             while pending:

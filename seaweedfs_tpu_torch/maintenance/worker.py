@@ -10,7 +10,8 @@ request shedder, so foreground traffic automatically squeezes
 background repairs down to the pacer floor.  An ec.rebuild job
 rebuilds through K2 on the rebuilding server; a deep.scrub job
 recomputes parity through the pooled step's K1 form on this server's
-device.
+device.  A scale.up job spawns `python -m seaweedfs_tpu_torch volume`
+on the spawning server's device, codec backend and heartbeat pulse.
 
 The port's own copy of seaweedfs_tpu/maintenance/worker.py.
 """
@@ -30,12 +31,6 @@ from .jobs import (TYPE_BALANCE, TYPE_DEEP_SCRUB, TYPE_EC_REBUILD,
                    TYPE_FIX_REPLICATION, TYPE_SCALE_DRAIN,
                    TYPE_SCALE_UP, TYPE_TIER_MOVE, TYPE_VACUUM)
 from .pacer import BytePacer
-
-
-# scale.up spawns a `weed.py volume` server and scale.drain retires one:
-# both wait for the port's command line (ROADMAP item 8)
-_SCALE_NOT_PORTED = ("{} is not ported: scale jobs wait for the port's "
-                     "command line (ROADMAP item 8)")
 
 
 def _env_float(name: str, default: float) -> float:
@@ -316,10 +311,99 @@ class MaintenanceWorker:
 
     # -- elasticity executors ------------------------------------------------
     def _exec_scale_up(self, job: dict) -> dict:
-        raise NotImplementedError(_SCALE_NOT_PORTED.format(job["type"]))
+        """Grow the cluster by one volume server.  In-process when the
+        host installed a spawn seam (tests); otherwise start a
+        `python -m seaweedfs_tpu_torch volume` subprocess like this
+        server (`_volume_command`), and wait until the master's topology
+        shows the newcomer."""
+        spawn = getattr(self.server, "spawn_volume_server", None)
+        if callable(spawn):
+            url = spawn(job)
+            return {"spawned": url, "mode": "in-process"}
+        import subprocess
+        import sys
+        import tempfile
+
+        base = os.environ.get("WEED_SCALE_DIR") or tempfile.gettempdir()
+        workdir = tempfile.mkdtemp(prefix="weed-scale-", dir=base)
+        before = self._cluster_node_count()
+        proc = subprocess.Popen(
+            self._volume_command(workdir), env=self._child_env(),
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        self.server.scale_children.append(proc)
+        deadline = time.monotonic() + _env_float(
+            "WEED_SCALE_SPAWN_TIMEOUT", 90.0)
+        while time.monotonic() < deadline:
+            if proc.poll() is not None:
+                raise RuntimeError(
+                    f"spawned volume server exited rc={proc.returncode}")
+            if self._cluster_node_count() > before:
+                return {"spawned": workdir, "mode": "subprocess",
+                        "nodes": before + 1}
+            time.sleep(0.5)
+        proc.terminate()
+        raise RuntimeError("spawned volume server never registered")
+
+    def _volume_command(self, workdir: str) -> list:
+        """The port's CLI for a volume server like this one: the same
+        master, heartbeat pulse, device (`-device cpu` from a CPU server,
+        else the card) and `-ecBackend`.  The pulse matters: a master
+        reaps a node silent for three of its own pulses, so a newcomer on
+        the CLI's default 5 s pulse under a faster master would be reaped
+        between heartbeats, and the volumes it was given with it (the
+        JAX worker spawns it so: ROADMAP §3, R6)."""
+        import sys
+
+        cmd = [sys.executable, "-m", "seaweedfs_tpu_torch", "volume",
+               "-dir", workdir, "-mserver", self.server.master_address,
+               "-port", "0", "-pulseSeconds", str(self.server.pulse_seconds)]
+        store = self.server.store
+        if store.device is not None:
+            import torch
+
+            cmd += ["-device", torch.device(store.device).type]
+        if store.ec_encoder_backend:
+            cmd += ["-ecBackend", store.ec_encoder_backend]
+        return cmd
+
+    @staticmethod
+    def _child_env() -> dict:
+        """This environment, with the port's package importable from
+        any working directory."""
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        path = os.environ.get("PYTHONPATH", "")
+        return dict(os.environ,
+                    PYTHONPATH=root + (os.pathsep + path if path else ""))
+
+    def _cluster_node_count(self) -> int:
+        try:
+            status = call(self.server.master_address, "/dir/status",
+                          timeout=10)
+        except (RpcError, OSError):
+            return -1
+        return sum(len(r.get("nodes", []))
+                   for dc in status.get("datacenters", [])
+                   for r in dc.get("racks", []))
 
     def _exec_scale_drain(self, job: dict) -> dict:
-        raise NotImplementedError(_SCALE_NOT_PORTED.format(job["type"]))
+        """Graceful drain: read-only demotion, curator-paced volume and
+        EC-shard evacuation, then deregistration — all as background
+        QoS traffic, so interactive reads stay inside their isolation
+        bounds while the node empties."""
+        from ..shell import commands as sh
+        from ..shell import commands_volume as vol
+
+        server = job.get("params", {}).get("server")
+        if not server:
+            raise ValueError("scale.drain needs params.server")
+        env = self._shell_env()
+        call(server, "/admin/drain", {"draining": True}, timeout=30)
+        moves = vol.volume_server_evacuate(env, server)
+        shard_moves = sh.ec_evacuate(env, server)
+        call(server, "/admin/leave", {}, timeout=30)
+        return {"server": server, "volume_moves": moves,
+                "ec_shard_moves": shard_moves}
 
     def _exec_tier_move(self, job: dict) -> dict:
         """Advisory for now: the temperature detector flagged this

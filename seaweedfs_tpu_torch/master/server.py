@@ -13,10 +13,9 @@ routes, JSON shapes and status codes, so either package's volume
 servers, shell and clients drive it; its raft log, snapshots and queue
 journal are the JAX master's files.  The master runs no device work
 itself: the curator's jobs run on the volume servers, whose EC work is
-K1 and K2 on their card.  The leader-resident health plane (scrape
-loop, TSDB, SLO alerts, the merged event journal) is not ported yet:
-its routes are listed in NOT_PORTED_ROUTES and the curator runs without
-an alert feed.
+K1 and K2 on their card.  The leader-resident health plane
+(master/health.py: scrape loop, TSDB, SLO alerts, the merged event
+journal) feeds the curator's alert seam.
 """
 
 from __future__ import annotations
@@ -44,11 +43,8 @@ from .topology import Topology
 from .volume_growth import VolumeGrowOption
 
 
-# the health plane's routes (seaweedfs_tpu/master/health.py `mount`),
-# which the port's master does not serve yet (ROADMAP item 8)
-NOT_PORTED_ROUTES = frozenset({
-    ("GET", "/cluster/health"), ("GET", "/cluster/alerts"),
-    ("GET", "/cluster/usage"), ("GET", "/cluster/events")})
+# routes of the JAX master that the port's master does not serve
+NOT_PORTED_ROUTES: frozenset = frozenset()
 
 
 def _env_float(name: str, default: float) -> float:
@@ -118,9 +114,13 @@ class MasterServer:
 
         self.curator = Curator(self, journal_dir=raft_dir,
                                interval=maintenance_interval)
-        # no health plane yet (NOT_PORTED_ROUTES): the curator's alert
-        # seam stays None and its heat scan sees no usage view
-        self.health = None
+        # leader-resident health plane: /metrics scrape loop -> ring
+        # TSDB -> SLO burn-rate alerts + the merged cluster event
+        # journal (GET /cluster/health|alerts|events)
+        from .health import HealthPlane
+
+        self.health = HealthPlane(self)
+        self.curator.alerts_fn = self.health.firing
         self.raft.on_become_leader = self._on_leader
         self.raft.on_step_down = self._on_step_down
         self.raft.on_membership = self._on_membership
@@ -145,11 +145,13 @@ class MasterServer:
         self._reaper = threading.Thread(target=self._reap_loop, daemon=True)
         self._reaper.start()
         self.curator.start()
+        self.health.start()
         if self.enable_native_assign:
             self._start_native_assign()
 
     def stop(self):
         self._stop.set()
+        self.health.stop()
         self.curator.stop()
         self.raft.stop()
         with self._change_cond:
@@ -403,7 +405,8 @@ class MasterServer:
         # maintenance curator: status/queue views, worker lease
         # protocol, pause/run controls
         self.curator.mount(s, g)
-        # liveness/readiness probes
+        # cluster health plane + liveness/readiness probes
+        self.health.mount(s)
         healthz.mount_health(s, ready=self._ready_checks)
 
     def _ready_checks(self):

@@ -319,16 +319,20 @@ def record_kernel_cost(geometry: str, flops: float, bytes_accessed: float,
 
 
 def device_timeline() -> dict:
-    """Recent batch latencies, per-geometry step cost, and the device
-    pool's occupancy snapshot (when a pool exists)."""
-    from .ops import device_pool
+    """Recent batch latencies, per-geometry step cost, the device pool's
+    occupancy snapshot (when a pool exists), and this process's kernel
+    launches with the deep scrubs' parity-step calls among them."""
+    from .maintenance import deep_scrub
+    from .ops import device_pool, rs_cuda
 
     pool = device_pool._pool  # do not materialize a pool just to report
     with _tl_lock:
         timeline = list(_DEVICE_TIMELINE)
         cost = {k: dict(v) for k, v in _KERNEL_COST.items()}
     return {"timeline": timeline, "kernel_cost": cost,
-            "pool": pool.snapshot() if pool is not None else {}}
+            "pool": pool.snapshot() if pool is not None else {},
+            "launches": dict(rs_cuda.launches),
+            "scrub_steps": deep_scrub.STEP_CALLS["calls"]}
 
 
 def reset_device_telemetry():

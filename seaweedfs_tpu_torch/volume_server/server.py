@@ -329,6 +329,12 @@ class VolumeServer:
         self._req_counts = {"read": 0, "write": 0, "bytes": 0}
         self._tele_prev = (time.monotonic(), 0, 0, 0)
         self._occ_peak = 0.0
+        # children spawned by scale.up jobs are reaped in stop()
+        self.scale_children: list = []
+        # in-process spawn seam: tests install a callable(job) -> url
+        # here so scale.up never starts a process; None means a
+        # `python -m seaweedfs_tpu_torch volume` subprocess
+        self.spawn_volume_server = None
         # per-volume-id copy locks: concurrent copies of the SAME vid must
         # not race each other's temp files / exists-checks, but a slow copy
         # of one volume must not serialize copies of unrelated volumes
@@ -367,6 +373,13 @@ class VolumeServer:
     def stop(self):
         self._stop.set()
         self.maintenance_worker.stop()
+        for child in self.scale_children:
+            try:  # subprocess volume servers spawned by scale.up jobs
+                child.terminate()
+                child.wait(timeout=10)
+            except Exception:
+                pass
+        self.scale_children = []
         if getattr(self, "_native_owner", False) or \
                 getattr(self, "_native_jwt_owner", False) or \
                 getattr(self, "_native_listener_owner", False):

@@ -138,6 +138,29 @@ class TestCrossVolumeBatching:
             assert 0.0 <= st[k] <= 1.0
         assert st["pool"]["allocs"] >= 0
 
+    def test_parity_steps_are_counted_for_the_device_report(self,
+                                                           tmp_path):
+        """Every parity-step call of a scrub adds one to the process's
+        count, which the device report (/debug/pprof/device) carries
+        beside the kernel launches; on the CPU the plain version runs
+        and no launch is counted."""
+        from seaweedfs_tpu_torch import profiling
+        from seaweedfs_tpu_torch.ops import rs_cuda
+
+        bases = [_make_volume(tmp_path, i + 1, (1 << 20) + i * 77,
+                              seed=30 + i) for i in range(3)]
+        before = profiling.device_timeline()
+        launches = dict(rs_cuda.launches)
+        st = {}
+        t_ds.deep_scrub([t_ds.local_target(b, i + 1)
+                         for i, b in enumerate(bases)], device="cpu",
+                        stage_stats=st, batch_units=2)
+        after = profiling.device_timeline()
+        assert st["batches"] > 1
+        assert after["scrub_steps"] - before["scrub_steps"] == \
+            st["batches"]
+        assert after["launches"] == launches == dict(rs_cuda.launches)
+
     def test_throttle_sees_every_span_byte(self, tmp_path):
         base = _make_volume(tmp_path, 1, 1 << 20, seed=20)
         seen_t, seen_j = [], []

@@ -306,3 +306,29 @@ def test_shell_encode_fails_without_cuda(no_cuda, tmp_path, monkeypatch):
     finally:
         vs.stop()
         master.stop()
+
+
+@pytest.mark.parametrize("mod", [
+    "stats/tsdb.py", "stats/slo.py", "stats/lint.py", "master/health.py",
+    "loadgen/__init__.py", "loadgen/generators.py", "loadgen/replay.py",
+    "shell/commands_scale.py", "shell/commands_qos.py", "util/grace.py",
+    "util/config.py", "weed.py", "__main__.py"])
+def test_health_plane_loadgen_and_cli_modules_are_covered(mod):
+    """The health plane, the load generator, the scale and QoS shell
+    commands and the command line are among the sources both no-JAX
+    checks above walk."""
+    rel = {os.path.relpath(p, PKG) for p in _port_sources()[1:]}
+    assert mod in rel
+
+
+def test_load_generator_imports_no_torch():
+    """The load generator runs in load processes that fork: importing it
+    loads no torch (and so creates no CUDA context to fork)."""
+    code = ("import sys\n"
+            "import seaweedfs_tpu_torch.loadgen\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'seaweedfs_tpu')]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

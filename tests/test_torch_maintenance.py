@@ -11,8 +11,8 @@
 - `Curator.tick` over each package's topology gives equal queues, and
   `on_complete` turns the same scrub findings into the same rebuild.
 - `BytePacer` debits and sleeps alike on a fake clock.
-- The port's worker fails scale.up and scale.drain with an error naming
-  them as not ported.
+- The port's worker fails a scale.up or scale.drain it cannot run with
+  the JAX worker's error.
 Tolerance: equality throughout.
 """
 
@@ -305,15 +305,35 @@ def test_pacer_knobs_read_alike(monkeypatch):
 # -- the worker's scale executors ------------------------------------------------
 
 
+class _NoRoomServer:
+    """A volume server whose spawn seam refuses to grow the cluster."""
+    master_address = "127.0.0.1:1"
+    address = "127.0.0.1:2"
+
+    @staticmethod
+    def spawn_volume_server(job):
+        raise RuntimeError(f"no room for {job['type']}")
+
+
 @pytest.mark.parametrize("job_type", ["scale.up", "scale.drain"])
 def test_scale_jobs_fail_with_the_named_error(job_type):
-    w = t_worker.MaintenanceWorker(server=None)
-    with pytest.raises(NotImplementedError,
-                       match=f"{job_type} is not ported"):
-        w._execute({"id": "j1", "type": job_type, "volume": 0,
-                    "params": {"server": "127.0.0.1:1"}})
-    with pytest.raises(ValueError, match="unknown job type"):
-        w._execute({"id": "j2", "type": "nope", "volume": 0})
+    """A scale job that cannot run fails with the JAX worker's error: a
+    refusing spawn seam for scale.up, a drain without its server."""
+    from seaweedfs_tpu.maintenance import worker as j_worker
+
+    job = {"id": "j1", "type": job_type, "volume": 0, "params": {}}
+    errors = []
+    for mod in (j_worker, t_worker):
+        w = mod.MaintenanceWorker(server=_NoRoomServer())
+        with pytest.raises((RuntimeError, ValueError)) as e:
+            w._execute(job)
+        errors.append((type(e.value), str(e.value)))
+        with pytest.raises(ValueError, match="unknown job type"):
+            w._execute({"id": "j2", "type": "nope", "volume": 0})
+    assert errors[1] == errors[0]
+    assert errors[0] == ((RuntimeError, "no room for scale.up")
+                         if job_type == "scale.up" else
+                         (ValueError, "scale.drain needs params.server"))
 
 
 def test_worker_knobs_read_alike(monkeypatch):

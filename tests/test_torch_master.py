@@ -10,7 +10,7 @@ call).  Then the same HTTP requests go to a JAX and a port
 counts), lookup, EC lookup, `/col/list`, `/dir/status`,
 `/cluster/status` and the maintenance routes reply alike.  The port's
 route table is the JAX master's less `NOT_PORTED_ROUTES`, which this
-file pins.  Tolerance: equality throughout.
+file pins empty.  Tolerance: equality throughout.
 """
 
 import random
@@ -291,14 +291,13 @@ def test_route_tables_differ_by_not_ported_routes(master_pair):
     j, t = master_pair["jax"], master_pair["port"]
     jr, tr = set(j.server.routes), set(t.server.routes)
     assert tr <= jr
-    assert jr - tr == t_server.NOT_PORTED_ROUTES == {
-        ("GET", "/cluster/health"), ("GET", "/cluster/alerts"),
-        ("GET", "/cluster/usage"), ("GET", "/cluster/events")}
+    assert jr - tr == t_server.NOT_PORTED_ROUTES == set()
     assert t.server.parent_prefixes == j.server.parent_prefixes
-    assert t.health is None and t.curator.alerts_fn is None
-    with pytest.raises(RpcError) as e:
-        t_call(t.address, "/cluster/health")
-    assert e.value.status == 404
+    # the health plane feeds the curator's alert seam, as in the JAX master
+    assert t.curator.alerts_fn == t.health.firing
+    assert j.curator.alerts_fn == j.health.firing
+    for path in ("/cluster/health", "/cluster/alerts", "/cluster/usage"):
+        assert set(t_call(t.address, path)) == set(j_call(j.address, path))
 
 
 def test_native_assign_through_the_ports_engine(tmp_path, monkeypatch):

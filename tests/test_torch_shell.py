@@ -13,8 +13,9 @@ through `/maintenance/run` (clean), one flipped byte of `.ec12`, the
 scrub finding it and the `ec.rebuild` that follows repairing it.  The
 shard files, `.ecx` and `.vif` after encode, rebuild and repair are
 byte-identical across the three, as are the job histories and scrub
-verdicts.  Scale jobs fail on the port's worker with the named error,
-and the shell's filer-backed paths raise until the filer comes.
+verdicts.  A scale job the port's worker cannot run fails with the JAX
+worker's error, and the shell's filer-backed paths raise until the
+filer comes.
 Tolerance: equality throughout.  The clusters wait on deadlines.
 """
 
@@ -240,7 +241,7 @@ def test_heal_jobs_and_verdicts_equal(heals, cluster):
         ("deep.scrub", VID, "ok"), ("ec.rebuild", VID, "ok")]
 
 
-# -- what the port's worker and shell do not do yet --------------------------------
+# -- scale jobs that cannot run, and what the shell does not do yet ---------------
 
 
 @pytest.fixture
@@ -265,17 +266,25 @@ def port_cluster(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("job_type", ["scale.up", "scale.drain"])
 def test_scale_jobs_fail_with_the_named_error(port_cluster, job_type):
+    """A scale job queued through the shell that the worker cannot run
+    (a refusing spawn seam, a drain naming no server) fails on the
+    master's queue with the JAX worker's error."""
     master, vs = port_cluster
+
+    def refuse(job):
+        raise RuntimeError("no room for another volume server")
+
+    vs.spawn_volume_server = refuse
     env = t_sh.CommandEnv(master.address)
-    t_maint_sh.maintenance_run(env, job_type, params={
-        "server": vs.address})
+    t_maint_sh.maintenance_run(env, job_type, params={})
     assert vs.maintenance_worker.poll_once() == 1
     assert vs.maintenance_worker.failed == 1
     (done,) = master.curator.queue.history
     assert done["type"] == job_type and done["outcome"] == "failed"
     assert done["last_error"] == (
-        f"NotImplementedError: {job_type} is not ported: scale jobs wait "
-        "for the port's command line (ROADMAP item 8)")
+        "RuntimeError: no room for another volume server"
+        if job_type == "scale.up" else
+        "ValueError: scale.drain needs params.server")
     status = t_maint_sh.maintenance_status(env)
     assert status["queue"]["finished"] == 1
 
