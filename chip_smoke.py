@@ -10,6 +10,7 @@
     python3 chip_smoke.py --prefork  # build, kernel checks, phase 9 only
     python3 chip_smoke.py --cluster  # build, kernel checks, phase 10 only
     python3 chip_smoke.py --elastic  # build, kernel checks, phase 11 only
+    python3 chip_smoke.py --filer    # build, kernel checks, phase 12 only
 
 Phases:
   1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a);
@@ -126,7 +127,21 @@ Phases:
      scrubs clean (K1); degraded GETs from each server process; every
      shard file equal to its .vif CRC; top, lint-dashboards, cluster.scale
      and qos.status through the command line; nothing left after SIGTERM;
- 12. one JSON line of per-kernel numbers, then the card's name and power
+ 12. a filer over warm EC storage, as separate processes of the port's
+     command line: one master, three volume servers (-ec.backend=cuda)
+     and one filer (-maxMB 4, a 1 GiB HBM tier for its chunk cache);
+     fs.configure gives /warm/ the collection `warm` and the Cauchy code;
+     ~1.1 GiB of seeded files POSTed through the filer from 8
+     connections; volume.fsck clean; the shell's ec.encode of the
+     collection (K2 with the Cauchy rows, every .vif naming cauchy);
+     every file read whole, then .ec00 .ec05 .ec11 .ec13 of the largest
+     volume dropped and every file read whole and by a Range (K1 = decode
+     batches in every server process); Zipf(1.1) GETs and a sweep past
+     the HBM tier (hits and evictions), single-chunk probes for HBM-hit
+     and miss latencies, an overwrite read back new; fs.ls, fs.du, fs.cat
+     and filer.cat through the command line; /metadata/subscribe holding
+     every create; nothing left after SIGTERM;
+ 13. one JSON line of per-kernel numbers, then the card's name and power
      limit, then the result line.
 
 Phases 5 to 8 also hold the metrics registry's exposition against the
@@ -251,6 +266,23 @@ ELASTIC_KNOBS = {**CLUSTER_KNOBS, "WEED_SCALE": "1",
                  "WEED_HEALTH_SCRAPE_MS": "500", "WEED_SLO_FAST_S": "2",
                  "WEED_SLO_SLOW_S": "6", "WEED_LOAD_RATE": "200",
                  "WEED_MAINT_COOLDOWN": "5"}
+FILER_BYTES = 1152 * MIB    # phase 12: files through the filer (> its 1 GiB
+                            # HBM tier, so the sweep must evict)
+FILER_MIN_FILE = 4 << 10    # phase 12's file sizes: log-uniform, 1 to 16
+FILER_MAX_FILE = 64 * MIB   # chunks of the filer's 4 MiB (-maxMB 4)
+FILER_SERVERS = 3           # phase 12's volume servers, one process each
+FILER_CONNS = 8             # connections of phase 12's load processes
+FILER_ZIPF_GETS = 400       # phase 12: GETs over a seeded Zipf(1.1) of files
+FILER_PROBES = 48           # phase 12: single-chunk files probed one by one
+FILER_ENCODE_PERCENT = 0.001  # ec.encode -fullPercent: every volume of the
+                            # collection holding more than ~10 KiB
+FILER_HBM_MB = 1024         # the filer's WEED_READ_CACHE_HBM_MB
+FILER_RAM_MB = 64           # the filer's WEED_READ_CACHE_MB (its default)
+# phase 12's knobs: no scrub by age and no balance moves (phase 10's), and
+# the curator paused by the phase (the lost shards stay lost while the
+# reads measure them)
+FILER_KNOBS = {"WEED_MAINT_SCRUB_INTERVAL": "1e12",
+               "WEED_MAINT_BALANCE_SKEW": "1000000"}
 CHUNK = MIB                 # the pipeline's column chunk for 1 MiB blocks
 SEED = 20261016
 PARITY = np.ascontiguousarray(parity_matrix(10, 14))
@@ -3590,11 +3622,11 @@ class Conns(threading.local):
 conns = Conns()
 
 
-def request(addr, method, path, body=None):
+def request(addr, method, path, body=None, headers=None):
     for attempt in (0, 1):  # a kept-alive connection the server closed
         conn = conns.get(addr)
         try:
-            conn.request(method, path, body=body)
+            conn.request(method, path, body=body, headers=headers or {})
             resp = conn.getresponse()
             return resp.status, resp.read()
         except (http.client.RemoteDisconnected, BrokenPipeError,
@@ -3618,12 +3650,18 @@ def transfer():  # POST ("preload") or GET and check ("get") each target
                 i = next(counter, None)
             if i is None:
                 return
-            obj, url, fid = targets[i]
+            obj, url, fid = targets[i][:3]
+            span = targets[i][3:]  # [lo, hi]: a Range GET of those bytes
             data = payload(obj, sizes[obj])
             t0 = time.perf_counter()
             if a["mode"] == "preload":
                 status, body = request(url, "POST", "/" + fid, data)
                 ok = status in (200, 201)
+            elif span:
+                data = data[span[0]:span[1] + 1]
+                status, body = request(url, "GET", "/" + fid, headers={
+                    "Range": "bytes=%d-%d" % tuple(span)})
+                ok = status == 206 and body == data
             else:
                 status, body = request(url, "GET", "/" + fid)
                 ok = status == 200 and body == data
@@ -3767,13 +3805,14 @@ def listening(proc, name: str, log_path: str):
                   f"{f.read()[-3000:]}")
 
 
-def cli_run(args, env, timeout: float = 300) -> str:
-    """Run one command of the port's CLI to its end; returns its output."""
+def cli_run(args, env, timeout: float = 300, raw: bool = False):
+    """Run one command of the port's CLI to its end; returns its output
+    (bytes with `raw`)."""
     res = subprocess.run(
         [sys.executable, "-m", "seaweedfs_tpu_torch"] + list(args),
-        env=env, capture_output=True, text=True, timeout=timeout)
+        env=env, capture_output=True, text=not raw, timeout=timeout)
     check(res.returncode == 0, f"{args[:2]} exited {res.returncode}: "
-          f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+          f"{res.stdout[-2000:]!r} {res.stderr[-2000:]!r}")
     return res.stdout
 
 
@@ -4466,6 +4505,366 @@ def elastic_phase(dev, workdir: str, rehearse: bool = False) -> dict:
     return launches
 
 
+def filer_phase(dev, workdir: str, rehearse: bool = False) -> dict:
+    """Phase 12: a filer over warm EC storage, SeaweedFS's documented
+    setup (one master at the default 1 GiB volume limit, three volume
+    servers with -ec.backend=cuda, one filer at -maxMB 4 with a 1 GiB HBM
+    tier for its chunk cache), each a process of the port's CLI.  The
+    shell's fs.configure gives /warm/ the collection `warm` and the
+    Cauchy code; ~1.1 GiB of seeded files (log-uniform 4 KiB-64 MiB)
+    POSTed through the filer from 8 connections; the shell's ec.encode of
+    the collection (K2 with the Cauchy parity rows, the `.vif`s naming
+    `cauchy`); every file read whole; .ec00 .ec05 .ec11 .ec13 of the
+    largest volume dropped and every file read whole and by one Range
+    (K1 = decode batches in every server process); Zipf(1.1) GETs, then a
+    sweep reading every file three times, past the HBM tier; single-chunk
+    files probed one by one for HBM-hit and miss latencies; an overwrite
+    of the hottest path read back new; fs.ls, fs.du, fs.cat, volume.fsck
+    and filer.cat through the CLI; /metadata/subscribe holding every
+    create; nothing left after SIGTERM.  Returns the kernels' launches,
+    summed over the volume server processes.  `rehearse` runs everything
+    on the CPU and skips the launch counts."""
+    from seaweedfs_tpu_torch.rpc.http_rpc import call
+
+    out: dict = {}
+    t_phase = time.monotonic()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(FILER_KNOBS, PYTHONPATH=repo)
+    filer_env = dict(env, WEED_READ_CACHE_HBM_MB=str(FILER_HBM_MB),
+                     WEED_READ_CACHE_MB=str(FILER_RAM_MB))
+    device_flag = ["-device", "cpu"] if rehearse else []
+
+    # the files: log-uniform sizes, bytes from (seed, index)
+    rng = np.random.default_rng(SEED + 40)
+    sizes, total = [], 0
+    while total < FILER_BYTES:
+        sizes.append(int(np.exp(rng.uniform(np.log(FILER_MIN_FILE),
+                                            np.log(FILER_MAX_FILE)))))
+        total += sizes[-1]
+    n = len(sizes)
+    seed = SEED + 41
+    paths = [f"warm/d{i % 8}/f{i:04d}.bin" for i in range(n)]
+
+    ports = []
+    while len(ports) < FILER_SERVERS + 2:
+        p = free_port()
+        if p not in ports:
+            ports.append(p)
+    maddr = f"127.0.0.1:{ports[0]}"
+    faddr = f"127.0.0.1:{ports[1]}"
+    vaddrs = [f"127.0.0.1:{p}" for p in ports[2:]]
+    procs: dict = {}
+
+    def log_of(name):
+        return os.path.join(workdir, name.replace(":", "_") + ".log")
+
+    def cache_counts() -> dict:
+        expo = exposition(http_get_text(faddr, "/metrics"))
+        got = {t: sample(expo, "SeaweedFS_read_cache_requests_total",
+                         tier=t) for t in ("hbm", "ram", "disk", "miss")}
+        got["hbm_resident"] = sample(
+            expo, "SeaweedFS_read_cache_resident_bytes", tier="hbm")
+        got["h2d"] = sample_sum(
+            expo, "SeaweedFS_volumeServer_ec_device_h2d_bytes_total")
+        return got
+
+    def run_load(mode, targets, tag, conns=FILER_CONNS):
+        rep = loader_run({"mode": mode, "seed": seed, "sizes": sizes,
+                          "targets": targets, "conns": conns}, workdir,
+                         env, tag)
+        check(not rep["bad"] and rep["n"] == len(targets),
+              f"filer {tag}: {len(rep['bad'])} bad, e.g. {rep['bad'][:3]}")
+        return {"n": rep["n"], "bytes": rep["bytes"], "s": rep["wall"],
+                "mib_s": rep["bytes"] / MIB / rep["wall"],
+                "req_s": rep["n"] / rep["wall"],
+                "p50_ms": pct_ms(rep["lat"], 50),
+                "p99_ms": pct_ms(rep["lat"], 99)}
+
+    try:
+        # -- the deployment: every daemon through the port's CLI
+        t0 = time.monotonic()
+        mdir = os.path.join(workdir, "master")
+        os.makedirs(mdir)
+        starting = [(maddr, ["master", "-port", str(ports[0]), "-mdir", mdir,
+                             "-volumeSizeLimitMB", str(CLUSTER_LIMIT_MB),
+                             "-defaultReplication", "000",
+                             "-pulseSeconds", "1"], env)]
+        for i, v in enumerate(vaddrs):
+            d = os.path.join(workdir, f"volume{i}")
+            os.makedirs(d)
+            starting.append((v, ["volume", "-dir", d, "-port", v.split(":")[1],
+                                 "-mserver", maddr, "-rack", f"rack{i + 1}",
+                                 "-dataCenter", "dc1", "-pulseSeconds", "1",
+                                 "-ecBackend", "cuda"] + device_flag, env))
+        starting.append((faddr, ["filer", "-port", str(ports[1]), "-master",
+                                 maddr, "-db", os.path.join(workdir,
+                                                            "filer.db"),
+                                 "-maxMB", "4"] + device_flag, filer_env))
+        for name, args, penv in starting:
+            procs[name] = cli(args, penv, log_of(name))
+        for name, proc in procs.items():
+            listening(proc, name, log_of(name))
+
+        def registered():
+            st = http_json(maddr, "/dir/status")
+            nodes = sorted(n["url"] for dc in st["datacenters"]
+                           for r in dc["racks"] for n in r["nodes"])
+            filers = http_json(maddr, "/cluster/nodes?type=filer")
+            return nodes == sorted(vaddrs) and filers["cluster_nodes"]
+
+        wait_until(registered, 60, "the volume servers and the filer never "
+                   "registered")
+        out["start_s"] = time.monotonic() - t0
+        http_json(maddr, "/maintenance/pause", {"paused": True})
+        log(f"filer: master {maddr}, volume servers {vaddrs}, filer {faddr} "
+            f"(HBM tier {FILER_HBM_MB} MiB, RAM {FILER_RAM_MB} MiB), each a "
+            f"process of the port's CLI, up in {out['start_s']:.3f} s")
+
+        # -- 1. the path rule through the shell's CLI
+        text = cli_run(["shell", "-master", maddr, "-c",
+                        "fs.configure -locationPrefix=/warm/ "
+                        "-collection=warm -ecCode=cauchy"], env)
+        rule = json.loads(text)["locations"]
+        check({"location_prefix": "/warm/", "collection": "warm",
+               "ec_code": "cauchy"}.items() <= rule[0].items(),
+              f"fs.configure: {rule}")
+        time.sleep(1.2)  # the filer re-reads its path rules each second
+
+        # -- 2. the upload from 8 connections
+        put = run_load("preload", [[i, faddr, paths[i]] for i in range(n)],
+                       "upload")
+        out["files"], out["bytes"] = n, total
+        out["upload"] = put
+        log(f"filer: {n} files ({total} B, log-uniform "
+            f"{FILER_MIN_FILE}-{FILER_MAX_FILE} B) POSTed through the "
+            f"filer from {FILER_CONNS} connections: {put['mib_s']:.1f} "
+            f"MiB/s, {put['req_s']:.1f} req/s, p50 {put['p50_ms']:.3f} ms, "
+            f"p99 {put['p99_ms']:.3f} ms")
+
+        def warm_volumes():
+            st = http_json(maddr, "/dir/status")
+            return {v["id"]: v["size"] for dc in st["datacenters"]
+                    for r in dc["racks"] for nd in r["nodes"]
+                    for v in nd["volume_list"]
+                    if v.get("collection") == "warm"}
+
+        wait_until(lambda: sum(warm_volumes().values()) >= total, 30,
+                   "the heartbeats never reported the uploaded bytes")
+        vol_sizes = warm_volumes()
+        t0 = time.perf_counter()
+        fsck = json.loads(cli_run(["shell", "-master", maddr, "-c",
+                                   f"volume.fsck -filer={faddr}"], env))
+        out["fsck_s"] = time.perf_counter() - t0
+        check(fsck["missing_chunks"] == [] and
+              fsck["referenced_needles"] >= n and
+              not any(fsck["orphaned"].values()),
+              f"volume.fsck: {json.dumps(fsck)[:2000]}")
+        out["fsck"] = {k: fsck[k] for k in ("volumes", "stored_needles",
+                                            "referenced_needles")}
+
+        # -- 3. the shell's ec.encode of the collection (K2)
+        before = {v: process_counts(v) for v in vaddrs}
+        t0 = time.perf_counter()
+        text = cli_run(["shell", "-master", maddr, "-c",
+                        "ec.encode -collection=warm -fullPercent="
+                        f"{FILER_ENCODE_PERCENT} -quietFor=0"], env)
+        out["encode_s"] = time.perf_counter() - t0
+        check(not text.startswith("error"), f"ec.encode: {text[-3000:]}")
+        vids = sorted(p["volume"] for p in json.loads(text))
+        floor = CLUSTER_LIMIT_MB * MIB * FILER_ENCODE_PERCENT / 100
+        check(vids == sorted(v for v, size in vol_sizes.items()
+                             if size >= floor), f"ec.encode encoded {vids} "
+              f"of {vol_sizes}")
+        wait_until(lambda: all(len(ec_holders(maddr, v)) == 14
+                               for v in vids), 60,
+                   "the encoded volumes' 14 shards never all showed")
+        k2 = {v: process_counts(v)["fused_apply_crc"]
+              - before[v]["fused_apply_crc"] for v in vaddrs}
+        if not rehearse:
+            check(sum(k2.values()) > 0, "K2 did not launch in ec.encode")
+        families = {}
+        for i in range(FILER_SERVERS):
+            for v in vids:
+                base = os.path.join(workdir, f"volume{i}", f"warm_{v}")
+                if os.path.exists(base + ".vif"):
+                    families.setdefault(v, set()).add(
+                        encoder.load_volume_info(base).get("code_family"))
+        check(sorted(families) == vids and all(
+            f == {"cauchy"} for f in families.values()),
+            f"the .vif families: {families}")
+        log(f"filer: ec.encode of collection warm ({len(vids)} volumes "
+            f"{json.dumps(vol_sizes, sort_keys=True)} B) through the "
+            f"shell's CLI in {out['encode_s']:.3f} s; K2 by server "
+            f"{json.dumps(k2)}; every .vif names cauchy, the filer's rule")
+
+        # -- 4. every file read whole, intact; then 4 shards of the
+        # largest volume lost and every file read whole and by a Range
+        order = [[i, faddr, paths[i]] for i in range(n)]
+        out["intact"] = run_load("get", order, "intact")
+        vid = max(vids, key=lambda v: vol_sizes[v])
+        held = ec_holders(maddr, vid)
+        for sid in LOST:
+            for url in held[sid]:
+                http_json(url, "/admin/ec/delete_shards",
+                          {"volume": vid, "shard_ids": [sid]})
+        wait_until(lambda: all(sid not in ec_holders(maddr, vid)
+                               for sid in LOST), 30,
+                   "the dropped shards stayed listed")
+        mid = {v: process_counts(v) for v in vaddrs}
+        out["degraded"] = run_load("get", order, "degraded")
+        spans = []
+        for i in range(n):
+            lo = int(rng.integers(0, sizes[i]))
+            hi = int(rng.integers(lo, min(sizes[i], lo + 8 * MIB)))
+            spans.append([i, faddr, paths[i], lo, hi])
+        out["ranges"] = run_load("get", spans, "ranges")
+        after = {v: process_counts(v) for v in vaddrs}
+        decode = {v: {"k1": after[v]["gf_apply"] - mid[v]["gf_apply"],
+                      "batches": after[v]["batches"] - mid[v]["batches"]}
+                  for v in vaddrs}
+        if not rehearse:
+            check(sum(d["k1"] for d in decode.values()) > 0,
+                  "K1 did not launch behind the lost shards")
+            for v, c in after.items():
+                check(c["gf_apply"] == c["batches"] + c["scrub_steps"],
+                      f"{v}: {c['gf_apply']} K1 launches for "
+                      f"{c['batches']} decode batches")
+        out["decode_by_process"] = decode
+        for tag in ("intact", "degraded", "ranges"):
+            r = out[tag]
+            log(f"filer: {tag} reads of {r['n']} files ({r['bytes']} B, "
+                f"{FILER_CONNS} connections): {r['mib_s']:.1f} MiB/s, "
+                f"{r['req_s']:.1f} req/s, p50 {r['p50_ms']:.3f} ms, p99 "
+                f"{r['p99_ms']:.3f} ms")
+        log(f"filer: volume {vid} lost .ec00 .ec05 .ec11 .ec13; every file "
+            "byte-identical whole and by Range; K1 and decode batches by "
+            "server " + json.dumps(decode, sort_keys=True))
+
+        # -- 5. Zipf(1.1) GETs, then a sweep past the HBM tier
+        c0 = cache_counts()
+        ranks = rng.permutation(n)
+        draws = [int(ranks[(z - 1) % n]) for z in rng.zipf(CACHE_ZIPF,
+                                                           FILER_ZIPF_GETS)]
+        out["zipf"] = run_load("get", [[i, faddr, paths[i]] for i in draws],
+                               "zipf")
+        c1 = cache_counts()
+        sweep = [[i, faddr, paths[i]] for i in range(n) for _ in range(3)]
+        out["sweep"] = run_load("get", sweep, "sweep", conns=1)
+        c2 = cache_counts()
+        # single-chunk files one by one, in sweep order: the early ones
+        # left the HBM tier, the later ones are in it
+        singles = [i for i in range(n) if sizes[i] <= 4 * MIB]
+        picks = [singles[j * len(singles) // FILER_PROBES]
+                 for j in range(min(FILER_PROBES, len(singles)))]
+        lat = {"hbm": [], "ram": [], "miss": [], "disk": []}
+        for i in picks:
+            pre = cache_counts()
+            t0 = time.perf_counter()
+            body = call(faddr, "/" + paths[i], parse=False, timeout=120)
+            dt = time.perf_counter() - t0
+            check(body == elastic_payload(seed, i, sizes[i]),
+                  f"probe {paths[i]} read wrong")
+            post = cache_counts()
+            tier = [t for t in lat if post[t] > pre[t]]
+            check(len(tier) == 1, f"probe {paths[i]}: tiers {tier}")
+            lat[tier[0]].append(dt)
+        c3 = cache_counts()
+        tiers = {t: c3[t] - c0[t] for t in ("hbm", "ram", "disk", "miss")}
+        evicted = c3["h2d"] - c3["hbm_resident"]
+        check(tiers["hbm"] > 0, f"no HBM-tier hit: {tiers}")
+        check(c3["hbm_resident"] <= FILER_HBM_MB * MIB,
+              f"the HBM tier holds {c3['hbm_resident']} B")
+        check(lat["hbm"] and lat["miss"],
+              f"probes found no HBM hit or no miss: "
+              f"{ {t: len(v) for t, v in lat.items()} }")
+        if not rehearse:
+            check(evicted > 0, f"the sweep evicted nothing: {c3}")
+        out["cache"] = {"tiers": tiers, "zipf_hbm_hits": c1["hbm"] - c0["hbm"],
+                        "sweep_hbm_hits": c2["hbm"] - c1["hbm"],
+                        "hbm_resident": c3["hbm_resident"],
+                        "h2d": c3["h2d"], "evicted_bytes": evicted,
+                        "probes": {t: len(v) for t, v in lat.items()},
+                        "hbm_hit_p50_ms": pct_ms(lat["hbm"], 50),
+                        "miss_p50_ms": pct_ms(lat["miss"], 50),
+                        "ram_hit_p50_ms": pct_ms(lat["ram"], 50)}
+        for tag in ("zipf", "sweep"):
+            r = out[tag]
+            log(f"filer: {tag} GETs ({r['n']}, {r['bytes']} B): "
+                f"{r['mib_s']:.1f} MiB/s, p50 {r['p50_ms']:.3f} ms, p99 "
+                f"{r['p99_ms']:.3f} ms")
+        log("filer: chunk cache over the Zipf GETs, the sweep and the "
+            "probes " + json.dumps(out["cache"], sort_keys=True))
+
+        # -- 6. an overwrite of the hottest path reads back new
+        hot = int(ranks[0])
+        new = elastic_payload(seed, (1 << 40) + hot, sizes[hot])
+        call(faddr, "/" + paths[hot], raw=new, method="POST", timeout=300)
+        for _ in range(3):
+            check(call(faddr, "/" + paths[hot], parse=False,
+                       timeout=300) == new,
+                  f"{paths[hot]} served old bytes after its overwrite")
+        log(f"filer: {paths[hot]} ({sizes[hot]} B, the Zipf head) "
+            "overwritten, read back new three times")
+
+        # -- 7. the shell's fs.* and filer.cat through the CLI
+        small = min(range(n), key=lambda i: sizes[i])
+        ls = cli_run(["shell", "-master", maddr, "-c",
+                      "fs.ls -l /warm/d0"], env)
+        du = json.loads(cli_run(["shell", "-master", maddr, "-c",
+                                 "fs.du /warm"], env))
+        check(du["files"] == n and du["bytes"] == total,
+              f"fs.du: {du} for {n} files of {total} B")
+        check(len(json.loads(ls)) == len(range(0, n, 8)), f"fs.ls: {ls}")
+        cat = cli_run(["shell", "-master", maddr, "-c",
+                       f"fs.cat /{paths[small]}"], env, raw=True)
+        check(cat == elastic_payload(seed, small, sizes[small]),
+              "fs.cat read wrong bytes")
+        got = cli_run(["filer.cat", "/" + paths[hot], "-filer", faddr], env,
+                      raw=True)
+        check(got == new, "filer.cat read wrong bytes")
+        log(f"filer: fs.ls -l /warm/d0, fs.du /warm ({du}), fs.cat of "
+            f"{paths[small]}, volume.fsck before the encode "
+            f"({json.dumps(out['fsck'])}) and filer.cat of {paths[hot]} "
+            "through the CLI")
+
+        # -- 8. the change feed saw every create
+        events = http_json(faddr, "/metadata/subscribe?since=0"
+                           "&pathPrefix=/warm/")["events"]
+        created = {e["new_entry"]["full_path"] for e in events
+                   if e["new_entry"] and not e["old_entry"]}
+        check({"/" + p for p in paths} <= created,
+              f"/metadata/subscribe missed "
+              f"{sorted({'/' + p for p in paths} - created)[:5]}")
+        out["events"] = len(events)
+        final = {v: process_counts(v) for v in vaddrs}
+        launches = {name: sum(c[name] for c in final.values())
+                    for name in KERNELS}
+        out["launches_by_process"] = final
+    finally:
+        for name, proc in procs.items():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for name, proc in procs.items():
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        left = proc_tree_pids(workdir)
+        for pid in left:
+            os.kill(pid, signal.SIGKILL)
+    check(not left, f"processes left after SIGTERM: {left}")
+    check(all(p.returncode == 0 for p in procs.values()),
+          "a process did not exit 0 on SIGTERM: " + json.dumps(
+              {n: p.returncode for n, p in procs.items()}))
+    out["wall_s"] = time.monotonic() - t_phase
+    PHASE_NUMBERS["filer"] = out
+    log("filer numbers: " + json.dumps(out, sort_keys=True, default=str))
+    log(f"launches on the filer path: {launches}")
+    return launches
+
+
 def http_get_text(addr: str, path: str) -> str:
     from seaweedfs_tpu_torch.rpc.http_rpc import call
 
@@ -4502,13 +4901,17 @@ def main() -> int:
                     help="build and check the kernels, then phase 11 (a "
                          "cluster of separate processes through a node "
                          "death) alone")
+    ap.add_argument("--filer", action="store_true",
+                    help="build and check the kernels, then phase 12 (a "
+                         "filer over warm EC storage) alone")
     args = ap.parse_args()
     mode = ("quick" if args.quick else "kernels" if args.kernels
             else "routes" if args.routes else "inline" if args.inline
             else "cache" if args.cache else "server" if args.server
             else "prefork" if args.prefork
             else "cluster" if args.cluster
-            else "elastic" if args.elastic else "all")
+            else "elastic" if args.elastic
+            else "filer" if args.filer else "all")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4526,20 +4929,20 @@ def main() -> int:
     stats = kernel_phase(dev, "quick" if mode in ("routes", "inline",
                                                   "cache", "server",
                                                   "prefork", "cluster",
-                                                  "elastic")
+                                                  "elastic", "filer")
                          else mode)
     if mode in ("kernels", "routes", "all"):
         route_phase(dev)
     if mode == "routes":
         route_profile(dev)
     if mode in ("inline", "cache", "server", "prefork", "cluster",
-                "elastic"):
+                "elastic", "filer"):
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             {"inline": inline_phase, "cache": cache_phase,
              "server": server_phase, "prefork": prefork_phase,
-             "cluster": cluster_phase,
-             "elastic": elastic_phase}[mode](dev, workdir)
+             "cluster": cluster_phase, "elastic": elastic_phase,
+             "filer": filer_phase}[mode](dev, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     launches = {}
@@ -4549,7 +4952,7 @@ def main() -> int:
         needs = {"raw": KERNELS, "needle": KERNELS, "store": KERNELS,
                  "inline": ("gf_apply",), "cache": KERNELS,
                  "server": KERNELS, "prefork": KERNELS,
-                 "cluster": KERNELS, "elastic": KERNELS}
+                 "cluster": KERNELS, "elastic": KERNELS, "filer": KERNELS}
         paths = {}
         for label, phase in (("raw", main_path), ("needle", needle_phase),
                              ("store", store_phase),
@@ -4558,7 +4961,8 @@ def main() -> int:
                              ("server", server_phase),
                              ("prefork", prefork_phase),
                              ("cluster", cluster_phase),
-                             ("elastic", elastic_phase)):
+                             ("elastic", elastic_phase),
+                             ("filer", filer_phase)):
             workdir = tempfile.mkdtemp(prefix="chip_smoke_")
             try:
                 paths[label] = phase(dev, workdir)

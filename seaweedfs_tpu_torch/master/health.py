@@ -151,7 +151,7 @@ class HealthPlane:
                 _stats.ClusterScrapeErrorsCounter.labels(addr).inc()
             self.tsdb.put(slo_mod.LIVENESS_FAMILY,
                           {"target": addr, "kind": kind}, float(up),
-                          tsdb_mod.GAUGE, ts=ts)
+                          tsdb_mod.GAUGE, ts=ts, priority=True)
             _stats.ClusterTargetUpGauge.labels(addr, kind).set(float(up))
             prev = self._up.get(addr)
             if prev is not None and prev != up:

@@ -42,6 +42,11 @@ same pipeline runs the kernels' plain versions without copies.
 `encode_volumes(host_codec=...)` runs the host pipeline instead
 (`_encode_units_host`): a reader thread, codec workers on the native fused
 parity+CRC call, and a writer pool.
+
+`encode_volumes(parity=...)` encodes with another (4, 10) parity matrix
+over the same stripe layout: a code family of RS's geometry (the Cauchy
+MDS code) runs on both routes, the card's through K2 or K1, where the
+reference encodes it in its family host loop; the files are the same.
 """
 
 from __future__ import annotations
@@ -336,7 +341,8 @@ def encode_volumes(bases: list[str], large_block: Optional[int] = None,
                    batch_units: Optional[int] = None,
                    stage_stats: Optional[dict] = None,
                    device=None, mesh=None,
-                   host_codec=None) -> dict[str, list[int]]:
+                   host_codec=None,
+                   parity=None) -> dict[str, list[int]]:
     """Encode every `base` (.dat) into 14 shard files.  Returns {base:
     [crc32c of each shard file] * 14}.  Chunks of all volumes share the
     device dispatches.
@@ -344,7 +350,9 @@ def encode_volumes(bases: list[str], large_block: Optional[int] = None,
     device / mesh: the device (or list of devices) the batches run on;
     neither given means every CUDA card (make_ec_mesh), raising without
     one.  host_codec: an encoder object, or True for the best host codec,
-    runs the host pipeline instead (no device).
+    runs the host pipeline instead (no device).  parity: a (4, 10)
+    parity matrix replacing the RS Vandermonde rows (a code family of
+    RS's geometry); None for RS.
 
     stage_stats: filled with per-stage busy seconds (read, dispatch,
     encode_crc, write), their fractions of wall time, the route and the
@@ -364,7 +372,7 @@ def encode_volumes(bases: list[str], large_block: Optional[int] = None,
             _ShardFileSet(p.base, to_ext).close()
         return {p.base: [0] * TOTAL_SHARDS for p in plans}
     if host_codec:
-        return _encode_units_host(plans, host_codec, stage_stats)
+        return _encode_units_host(plans, host_codec, stage_stats, parity)
     _, _, flush_bytes, drop_cache = _write_knobs()
     pacer = _WritebackPacer(flush_bytes, drop_cache)
     writers = {vi: _ShardFileSet(
@@ -372,7 +380,7 @@ def encode_volumes(bases: list[str], large_block: Optional[int] = None,
                    (p.rows[-1][1] + p.rows[-1][2]) if p.rows else 0, pacer)
                for vi, p in enumerate(plans)}
     return _encode_units_device(plans, units, chunk, writers, devices,
-                                batch_units, stage_stats)
+                                batch_units, stage_stats, parity)
 
 
 class _PipelineIO:
@@ -539,7 +547,7 @@ class _Batch:
 
 
 def _encode_units_device(plans, units, chunk, writers, devices, batch_units,
-                         stage_stats: Optional[dict] = None
+                         stage_stats: Optional[dict] = None, parity=None
                          ) -> dict[str, list[int]]:
     wall0 = time.perf_counter()
     n_dev = len(devices)
@@ -562,10 +570,10 @@ def _encode_units_device(plans, units, chunk, writers, devices, batch_units,
     zero_copy = not cuda and n_dev == 1
     layout = "kb" if pooled else "bk"
     if pooled:
-        pstep = make_parity_step(devices, fused_crc=fused)
+        pstep = make_parity_step(devices, matrix=parity, fused_crc=fused)
         backend = "device-pooled-fused-crc" if fused else "device-pooled"
     else:
-        wstep = make_sharded_encoder(words=True)
+        wstep = make_sharded_encoder(words=True, matrix=parity)
         backend = "device-words"
 
     n_slots = max(_SLOTS, depth + 1)
@@ -952,8 +960,8 @@ def _preadv_full(fd: int, buf: np.ndarray, offset: int, want: int) -> int:
     return got
 
 
-def _encode_units_host(plans, host_codec,
-                       stage_stats=None) -> dict[str, list[int]]:
+def _encode_units_host(plans, host_codec, stage_stats=None,
+                       parity=None) -> dict[str, list[int]]:
     """The host encode route as a three-stage pipeline over work items
     (multi-row spans or column chunks):
 
@@ -979,8 +987,9 @@ def _encode_units_host(plans, host_codec,
 
     enc = host_codec if hasattr(host_codec, "_apply") \
         else codec_mod.new_host_encoder(DATA_SHARDS, PARITY_SHARDS)
-    parity_matrix = np.ascontiguousarray(
-        np.asarray(enc.matrix[DATA_SHARDS:], dtype=np.uint8))
+    parity_matrix = np.ascontiguousarray(np.asarray(
+        enc.matrix[DATA_SHARDS:] if parity is None else parity,
+        dtype=np.uint8))
     fused = hasattr(enc, "encode_rows")
 
     nworkers = int(os.environ.get("WEED_EC_HOST_WORKERS", "0") or 0)

@@ -169,7 +169,7 @@ def batched_encode_step(bit_matrix, data: torch.Tensor):
 
 
 def make_sharded_encoder(data_shards: int = 10, parity_shards: int = 4,
-                         words: bool = False):
+                         words: bool = False, matrix=None):
     """The encode step on data's device: (B, d, L) uint8 tensor ->
     (parity (B, p, L) uint8, crc_raw (B, d + p) int64).
 
@@ -179,9 +179,12 @@ def make_sharded_encoder(data_shards: int = 10, parity_shards: int = 4,
     words=False  the portable step: batched_encode_step on a CUDA tensor
                  (K2) and on the CPU for odd L, batched_swar_encode_step
                  on the CPU when L % 4 == 0, as the reference picks on a
-                 CPU mesh."""
+                 CPU mesh.
+    matrix: another (p, d) parity matrix (a code family of RS's
+    geometry); None for the RS Vandermonde rows."""
     matrix = np.ascontiguousarray(
-        gf256.parity_matrix(data_shards, data_shards + parity_shards))
+        gf256.parity_matrix(data_shards, data_shards + parity_shards)
+        if matrix is None else matrix, dtype=np.uint8)
     if words:
         def step(data: torch.Tensor, out=None, crc=None, partial=None):
             return fused_apply_crc(matrix, data, out, crc, partial)

@@ -197,27 +197,21 @@ def ec_encode_auto(env: CommandEnv, collection: str = "",
             for vid in vids]
 
 
-def needs_filer(what: str):
-    """The filer (its path config, its listings) is not ported yet."""
-    raise NotImplementedError(
-        f"{what} needs the filer, which the port does not have yet "
-        "(ROADMAP item 9)")
-
-
 def _collection_ec_code(env: CommandEnv, collection: str) -> str:
     """The ``ec_code`` of the filer path-config rule that targets this
     collection (fs.configure -ecCode), "" when no filer / no rule.  The
     env-var overrides still win — the volume server's policy resolution
-    (codes.family_for_collection) checks them first.  With a filer
-    registered this raises until the filer is ported."""
+    (codes.family_for_collection) checks them first."""
     try:
-        filers = env.filer_address or env.master(
-            "/cluster/nodes?type=filer").get("cluster_nodes", [])
-    except Exception:  # the master cannot say: no filer to ask
+        from ..filer.filer_conf import FILER_CONF_PATH
+        from .commands_fs import _get_json_config, find_filer
+        conf = _get_json_config(find_filer(env), FILER_CONF_PATH)
+    except Exception:  # no filer in this deployment, or conf unreadable
         return ""
-    if not filers:  # no filer in this deployment
-        return ""
-    needs_filer("reading the filer's path config (fs.configure)")
+    for loc in conf.get("locations", []):
+        if loc.get("collection", "") == collection and loc.get("ec_code"):
+            return loc["ec_code"]
+    return ""
 
 
 def ec_encode(env: CommandEnv, vid: int, collection: str = "",

@@ -17,7 +17,7 @@ from typing import Optional
 
 from ..rpc.http_rpc import RpcError, call, call_stream
 from ..storage.super_block import ReplicaPlacement
-from .commands import CommandEnv, needs_filer
+from .commands import CommandEnv
 
 
 @dataclass
@@ -404,8 +404,7 @@ def volume_fsck(env: CommandEnv, filer_address: str = "",
     """Cross-check filer chunk references against volume contents:
     chunks pointing at missing needles are broken reads; needles no
     filer entry references are orphaned space (reference -findMissingChunksInFiler
-    / default orphan mode).  Without a filer address it reports the
-    stored needles; the cross-check raises until the filer is ported."""
+    / default orphan mode)."""
     nodes = collect_volume_servers(env)
     stored: dict[int, set[int]] = {}
     for n in nodes:
@@ -418,7 +417,55 @@ def volume_fsck(env: CommandEnv, filer_address: str = "",
                     "stored_needles": sum(len(s) for s in stored.values())}
     if not filer_address:
         return report
-    needs_filer("volume.fsck's filer cross-check")
+    from ..storage import types as t
+    from .commands_fs import _list
+
+    referenced: dict[int, set[int]] = {}
+    missing: list[dict] = []
+
+    def note_chunk(full: str, chunk: dict):
+        vid, nid, _ = t.parse_file_id(chunk["fid"])
+        referenced.setdefault(vid, set()).add(nid)
+        if vid not in stored or nid not in stored[vid]:
+            missing.append({"path": full, "fid": chunk["fid"]})
+
+    def expand(full: str, chunk: dict):
+        """Chunk-manifest chunks reference further data chunks — those
+        needles are live too (filechunk_manifest.go)."""
+        note_chunk(full, chunk)
+        if not chunk.get("is_chunk_manifest"):
+            return
+        vid_s = chunk["fid"].split(",")[0]
+        try:
+            found = env.master(f"/dir/lookup?volumeId={vid_s}")
+            url = found["locations"][0]["url"]
+            blob = call(url, f"/{chunk['fid']}", timeout=60, parse=False)
+            for sub in json.loads(blob):  # a JSON list of chunk dicts
+                expand(full, sub)
+        except (RpcError, ValueError, KeyError, IndexError):
+            pass  # unreadable manifest: its data chunks will show as
+            # orphans, which is the honest report
+
+    def walk(path: str):
+        for entry in _list(filer_address, path, metadata=True):
+            full = entry["full_path"]
+            if entry.get("attr", {}).get("mode", 0) & 0o40000:
+                walk(full + "/")
+                continue
+            for chunk in entry.get("chunks", []):
+                expand(full, chunk)
+
+    walk("/")
+    orphaned = {vid: sorted(ids - referenced.get(vid, set()))
+                for vid, ids in stored.items()
+                if ids - referenced.get(vid, set())}
+    report.update({
+        "referenced_needles": sum(len(s) for s in referenced.values()),
+        "missing_chunks": missing,
+        "orphaned": ({vid: len(ids) for vid, ids in orphaned.items()}
+                     if not verbose else orphaned),
+    })
+    return report
 
 
 # -- volume.configure.replication (command_volume_configure_replication.go) --

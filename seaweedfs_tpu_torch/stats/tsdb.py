@@ -16,7 +16,10 @@ Knobs (read live, like every WEED_* knob in this tree):
 * ``WEED_TSDB_MAX_SERIES`` — cardinality cap; series past the cap are
   dropped and counted in ``SeaweedFS_cluster_tsdb_dropped_total``
 
-The port's own copy of seaweedfs_tpu/stats/tsdb.py.
+The port's own copy of seaweedfs_tpu/stats/tsdb.py.  Unlike the
+reference, a priority series (the plane's liveness family and the SLO
+rules' families) always gets a slot: at the cap it evicts the oldest
+ordinary series, across targets and rounds, not only within one scrape.
 """
 
 from __future__ import annotations
@@ -191,27 +194,36 @@ class Tsdb:
         self.now = now  # fake-clock seam
         self.lock = threading.Lock()
         self.series: Dict[tuple, _Ring] = {}
+        # keys of the series a priority series may evict, oldest first
+        self._ordinary: Dict[tuple, None] = {}
         self.dropped = 0
 
     def _slots(self) -> int:
         return max(4, int(retention_seconds() / self.interval) + 1)
 
-    def _ring(self, name: str, labels: Dict[str, str], kind: str):
+    def _ring(self, name: str, labels: Dict[str, str], kind: str,
+              priority: bool = False):
         key = (name, tuple(sorted(labels.items())))
         ring = self.series.get(key)
         if ring is None:
             if len(self.series) >= max_series():
                 self.dropped += 1
                 _stats.ClusterTsdbDroppedCounter.inc()
-                return None
+                if not priority or not self._ordinary:
+                    return None
+                victim = next(iter(self._ordinary))
+                del self._ordinary[victim], self.series[victim]
             ring = self.series[key] = _Ring(self.interval, self._slots(),
                                             kind)
+            if not priority:
+                self._ordinary[key] = None
         return ring
 
     def put(self, name: str, labels: Dict[str, str], value: float,
-            kind: str = GAUGE, ts: Optional[float] = None):
+            kind: str = GAUGE, ts: Optional[float] = None,
+            priority: bool = False):
         with self.lock:
-            ring = self._ring(name, labels, kind)
+            ring = self._ring(name, labels, kind, priority)
             if ring is not None:
                 ring.put(self.now() if ts is None else ts, value)
 
@@ -237,14 +249,16 @@ class Tsdb:
         if skip_prefix:
             samples = [s for s in samples
                        if not s[0].startswith(skip_prefix)]
+        first = (lambda n: n in priority or n.rsplit("_", 1)[0] in priority
+                 ) if priority else (lambda n: False)
         if priority:
-            samples.sort(key=lambda s: 0 if s[0] in priority
-                         or s[0].rsplit("_", 1)[0] in priority else 1)
+            samples.sort(key=lambda s: 0 if first(s[0]) else 1)
         with self.lock:
             for name, labels, value in samples:
                 labels = dict(labels)
                 labels["target"] = target
-                ring = self._ring(name, labels, kind_for(name, types))
+                ring = self._ring(name, labels, kind_for(name, types),
+                                  first(name))
                 if ring is not None:
                     ring.put(stamp, value)
         _stats.ClusterTsdbSeriesGauge.set(float(len(self.series)))

@@ -18,7 +18,10 @@ into device dispatches (parallel/batched_encode.py).  Three routes:
 A code family other than RS (`family=`, storage/erasure_coding/codes)
 stripes over its own data-shard count and encodes through its generator on
 the native host kernel, as in the JAX package; its rebuild runs the
-family's repair plan (k survivors, or pm_msr's d helper projections).
+family's repair plan (k survivors, or pm_msr's d helper projections).  A
+family of RS's geometry (the Cauchy MDS code) instead takes the two
+pipelines with its parity rows, so `-ec.backend=cuda` encodes it through
+K2 on the card; its shard files and CRCs equal the host loop's.
 """
 
 from __future__ import annotations
@@ -79,18 +82,29 @@ def write_ec_files(base_file_name: str,
     first, so without a card and without device="cpu" this raises.
     stage_stats: see batched_encode.encode_volumes.
 
-    family: a code-family name or CodeFamily; any but the RS default
-    takes the family host loop (`_write_ec_files_family`), which returns
-    the 14 shard CRC32Cs."""
+    family: a code-family name or CodeFamily.  A family of RS's geometry
+    (10 + 4 shards, one lane: the Cauchy MDS code) takes the same routes
+    with its parity rows, the card's through K2 or K1; the reference
+    encodes it in its family host loop, and the files are the same.  Any
+    other family, an explicit `encoder` without batched=True, or
+    batched=False takes the family host loop (`_write_ec_files_family`).
+    Both return the 14 shard CRC32Cs."""
     from ...parallel.batched_encode import encode_volumes
 
+    parity = None
     if family is not None:
         fam = _resolve_family(family)
         if fam.name != "rs_vandermonde":
             device_mod.resolve(device)
-            return _write_ec_files_family(base_file_name, fam,
-                                          large_block_size,
-                                          small_block_size, chunk_bytes)
+            rs_geometry = (fam.data_shards, fam.parity_shards,
+                           fam.sub_shards) == (DATA_SHARDS_COUNT,
+                                               PARITY_SHARDS_COUNT, 1)
+            if not rs_geometry or batched is False or (
+                    encoder is not None and not batched):
+                return _write_ec_files_family(base_file_name, fam,
+                                              large_block_size,
+                                              small_block_size, chunk_bytes)
+            parity = fam.parity_matrix()
     auto_host = False
     if batched is None:
         from ...util.platform import prefer_batched_encode
@@ -101,7 +115,8 @@ def write_ec_files(base_file_name: str,
         crcs = encode_volumes([base_file_name], large_block=large_block_size,
                               small_block=small_block_size,
                               stage_stats=stage_stats, device=device,
-                              host_codec=True if auto_host else None)
+                              host_codec=True if auto_host else None,
+                              parity=parity)
         return crcs[base_file_name]
     if encoder is None:
         # explicit batched=False: the synchronous host loop with a host

@@ -229,7 +229,8 @@ class Store:
         batched and host pipelines) and the code family in its .vif.
 
         code_family: None resolves the per-collection policy
-        (codes.family_for_collection); a family other than RS encodes
+        (codes.family_for_collection); a family of RS's geometry (cauchy)
+        takes the same pipelines with its parity rows, any other encodes
         through its host loop (encoder._write_ec_files_family)."""
         from .erasure_coding import codes as ec_codes
 

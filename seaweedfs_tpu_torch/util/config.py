@@ -1,13 +1,12 @@
-"""TOML configuration with WEED_* environment overrides.
+"""TOML configuration with WEED_* environment overrides + scaffold.
 
 The reference loads {security,filer,master,replication,notification}.toml
 via viper from ., ~/.seaweedfs/, /etc/seaweedfs/ with env-var overrides of
 the form WEED_SECTION_KEY (weed/command/scaffold.go:15-60,
 weed/util/config.go).  Python 3.11+ ships tomllib, so parsing is stdlib.
+``scaffold(name)`` emits a commented template like `weed scaffold`.
 
-The port's own copy of the configuration half of
-seaweedfs_tpu/util/config.py; ``scaffold`` (the config templates of
-`weed scaffold`) waits for the filer (ROADMAP item 9).
+The port's own copy of seaweedfs_tpu/util/config.py.
 """
 
 from __future__ import annotations
@@ -78,3 +77,103 @@ def load_configuration(name: str, required: bool = False,
         raise FileNotFoundError(
             "%s.toml not found in %s" % (name, search_dirs or _SEARCH_DIRS))
     return Configuration({})
+
+
+_SCAFFOLDS = {
+    "security": '''\
+# Put this file to one of:
+# ./security.toml, $HOME/.seaweedfs/security.toml, /etc/seaweedfs/security.toml
+# this file is read by master, volume server, and filer
+
+[jwt.signing]
+# generate a 32-byte random key and set it on master + volume servers to
+# require a signed token for every write
+key = ""
+expires_after_seconds = 10
+
+[jwt.signing.read]
+key = ""
+expires_after_seconds = 60
+
+[access]
+# comma-separated IPs/CIDRs allowed to use the admin UI and APIs
+ui = ""
+''',
+    "master": '''\
+[master.maintenance]
+# periodically run these scripts like a cron job
+scripts = """
+  ec.encode -fullPercent=95 -quietFor=1h
+  ec.rebuild -force
+  ec.balance -force
+  volume.balance -force
+"""
+sleep_minutes = 17
+
+[master.sequencer]
+type = "raft"  # raft | snowflake
+sequencer_snowflake_id = 0
+
+[master.volume_growth]
+copy_1 = 7
+copy_2 = 6
+copy_3 = 3
+copy_other = 1
+''',
+    "filer": '''\
+# Filer store configuration. Exactly one store should be enabled.
+
+[leveldb]
+# embedded sorted-key store (sqlite-backed in this implementation)
+enabled = true
+dir = "./filerldb"
+
+[memory]
+# in-RAM store for tests
+enabled = false
+
+[redis]
+enabled = false
+address = "localhost:6379"
+''',
+    "replication": '''\
+[source.filer]
+enabled = true
+grpcAddress = "localhost:18888"
+directory = "/buckets"
+
+[sink.filer]
+enabled = false
+grpcAddress = "localhost:18888"
+directory = "/backup"
+replication = ""
+collection = ""
+ttlSec = 0
+
+[sink.local]
+enabled = false
+directory = "/data"
+''',
+    "notification": '''\
+[notification.log]
+# this is only for debugging purpose and does not work with "weed filer.replicate"
+enabled = false
+
+[notification.file]
+# append every filer change event as a JSON line to a local file
+enabled = false
+path = "filer_events.jsonl"
+
+[notification.kafka]
+enabled = false
+hosts = "kafka1:9092"
+topic = "seaweedfs_filer"
+''',
+}
+
+
+def scaffold(name: str) -> str:
+    if name not in _SCAFFOLDS:
+        raise KeyError("unknown config %r (choose from %s)" % (
+            name, ", ".join(sorted(_SCAFFOLDS))))
+    return _SCAFFOLDS[name]

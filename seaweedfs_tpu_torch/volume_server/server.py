@@ -36,8 +36,10 @@ engine is missing), and `tier_backends` registers remote tiers for
 curator's jobs from the master: an ec.rebuild job rebuilds through K2
 and a deep.scrub job recomputes parity through K1 on the server's
 device.  With prefork workers it runs in the parent alone, started after
-the group's template has forked.  The scale.up and scale.drain jobs wait
-for the port's CLI (ROADMAP item 8) and fail with an error naming them.
+the group's template has forked.  A scale.up job spawns a volume server
+through the port's CLI (`python -m seaweedfs_tpu_torch volume`) on this
+server's device, backend and pulse; a scale.drain job moves the named
+server's volumes and EC shards off it, then has it leave.
 """
 
 from __future__ import annotations

@@ -2,15 +2,18 @@
 
 The port's own counterpart of the repo's `weed.py`, with the same
 subcommands, flags and meanings for every daemon and tool whose modules
-are ported: master, master.follower, volume, server (master + volume),
-shell, maintenance, top, lint-dashboards, profile, the offline volume
-tools (backup, compact, fix, scrub, export), version and autocomplete.
-The commands that need the filer or the gateways are listed in
-`NOT_PORTED_COMMANDS` and exit non-zero naming ROADMAP item 9.
+are ported: master, master.follower, volume, filer, filer.store, server
+(master + volume, with -filer a filer), shell, maintenance, top,
+lint-dashboards, profile, the offline volume tools (backup, compact,
+fix, scrub, export), filer.copy, filer.cat, scaffold, version and
+autocomplete.  The commands that need the gateways, replication or the
+client tools are listed in `NOT_PORTED_COMMANDS` and exit non-zero
+naming ROADMAP item 9.
 
-One flag is the port's own: `-device` on the commands that do EC work
-(volume, server, scrub).  Empty (the default) means the CUDA card;
-`-device cpu` runs the kernels' plain PyTorch versions on the host.
+One flag is the port's own: `-device` on the commands that do device
+work (volume, filer, server, scrub).  Empty (the default) means the CUDA
+card; `-device cpu` runs the kernels' plain PyTorch versions (and keeps
+the filer's HBM cache tier) on the host.
 """
 
 from __future__ import annotations
@@ -25,15 +28,15 @@ from .rpc.http_rpc import RpcError, call
 
 VERSION = "seaweedfs_tpu_torch 0.1 (RS(10,4) EC on CUDA via PyTorch)"
 
-# subcommands of the JAX package's weed.py that wait for the filer and
-# the gateways (ROADMAP item 9)
+# subcommands of the JAX package's weed.py that wait for the gateways,
+# replication and the client tools (ROADMAP items 9b-9d)
 NOT_PORTED_COMMANDS = frozenset({
-    "filer", "filer.store", "s3", "iam", "benchmark", "upload",
-    "download", "filer.copy", "filer.cat", "filer.sync", "filer.backup",
-    "filer.replicate", "filer.meta.backup", "filer.remote.sync",
-    "filer.remote.gateway", "filer.meta.tail", "scaffold"})
+    "s3", "iam", "benchmark", "upload", "download", "filer.sync",
+    "filer.backup", "filer.replicate", "filer.meta.backup",
+    "filer.remote.sync", "filer.remote.gateway", "filer.meta.tail"})
 
-_ITEM_9 = "the filer and the gateways are not ported yet (ROADMAP item 9)"
+_ITEM_9 = ("the gateways, replication and the client tools are not "
+           "ported yet (ROADMAP item 9)")
 
 
 def _completion_script(subcommands) -> str:
@@ -164,14 +167,115 @@ def cmd_volume(args):
     _wait_forever([vs])
 
 
+def _make_filer_store(kind: str, path: str, store_address: str = "",
+                      masters: str = ""):
+    from .filer.filer_store import (PerBucketStoreRouter,
+                                                 ShardedSqliteStore,
+                                                 SqliteStore)
+
+    if kind == "remote":
+        # stateless filer against a shared `weed filer.store` service
+        # (the redis-family HA mode, universal_redis_store.go)
+        from .filer.store_server import RemoteStore
+
+        if not store_address:
+            raise SystemExit("-store remote needs -storeAddress host:port")
+        return RemoteStore(store_address)
+    if kind == "cluster":
+        # stateless filer routing by the master-replicated shard map to
+        # a fleet of `weed filer.store -master ...` slot holders
+        from .filer.cluster_store import ClusterStore
+
+        if not masters:
+            raise SystemExit("-store cluster needs -master host:port")
+        return ClusterStore(masters.split(","))
+    if kind not in ("sqlite", "sharded", "perbucket"):
+        raise SystemExit(f"unknown filer store kind {kind!r} "
+                         "(sqlite | sharded | perbucket | remote | "
+                         "cluster)")
+    if not path:
+        if kind != "sqlite":
+            raise SystemExit(
+                f"-store {kind} is persistent and needs -db <path>")
+        return None  # in-memory store
+    if kind == "sqlite":
+        return SqliteStore(path)
+    if kind == "sharded":
+        return ShardedSqliteStore(path)
+    return PerBucketStoreRouter(path)
+
+
+def cmd_filer_store(args):
+    """`weed filer.store`: host one shared metadata store for many
+    stateless filers (-store remote)."""
+    from .filer.store_server import (FilerStoreServer,
+                                                  make_store)
+
+    store = make_store(args.db_kind, args.dir)
+    masters = [m for m in (args.master or "").split(",") if m]
+    s = FilerStoreServer(host=args.ip, port=args.port, store=store,
+                         masters=masters)
+    s.start()
+    print(f"filer.store ({args.db_kind}) listening on {s.address}" +
+          (f", leasing shards from {masters}" if masters else ""),
+          flush=True)
+    _wait_forever([s])
+
+
+def cmd_filer(args):
+    from .filer.server import FilerServer
+
+    store = _make_filer_store(args.store, args.db,
+                              getattr(args, "storeAddress", ""),
+                              masters=args.master)
+    f = FilerServer(args.master, host=args.ip, port=args.port, store=store,
+                    chunk_size=args.maxMB * 1024 * 1024,
+                    replication=args.replication,
+                    collection=args.collection, guard=_load_guard(),
+                    peers=args.peers.split(",") if args.peers else None,
+                    persist_meta_log=args.metaLog,
+                    cipher=args.encryptVolumeData,
+                    cache_dir=args.cacheDir,
+                    cache_disk_bytes=args.cacheCapacityMB << 20,
+                    device=args.device or None)
+    _wire_notification(f)
+    f.start()
+    stoppables = [f]
+    if args.metricsPort:
+        from .stats.metrics import start_metrics_server
+
+        m = start_metrics_server(args.ip, args.metricsPort)
+        stoppables.append(m)
+        print(f"metrics on {m.address}/metrics", flush=True)
+    print(f"filer listening on {f.address}", flush=True)
+    _wait_forever(stoppables)
+
+
+def _wire_notification(filer_server):
+    """Attach the notification.toml sink, if configured."""
+    from .notification import load_notification_queue
+    from .util.config import load_configuration
+
+    try:
+        queue = load_notification_queue(load_configuration("notification"))
+    except RuntimeError as e:
+        print(f"notification sink disabled: {e}", flush=True)
+        return
+    if queue is not None:
+        filer_server.filer.notification_queue = queue
+        print(f"notification sink: {queue.name}", flush=True)
+
+
 def cmd_server(args):
-    """Combined master + volume in one process (weed/command/server.go).
-    The filer, S3 and IAM parts wait for ROADMAP item 9."""
+    """Combined master + volume (+ filer) in one process
+    (weed/command/server.go).  The S3 and IAM parts wait for ROADMAP
+    item 9b."""
+    from .filer.server import FilerServer
     from .master.server import MasterServer
     from .volume_server.server import VolumeServer
 
-    if args.filer or args.s3 or args.iam:
-        print(f"error: -filer/-s3/-iam: {_ITEM_9}", file=sys.stderr)
+    if args.s3 or args.iam:
+        print(f"error: -s3/-iam: {_ITEM_9}", file=sys.stderr)
         sys.exit(2)
     stoppables = []
     guard = _load_guard()
@@ -192,16 +296,29 @@ def cmd_server(args):
     vs.heartbeat_once()
     stoppables.append(vs)
     print(f"volume server on {vs.address}", flush=True)
+
+    if args.filer:
+        store = _make_filer_store(args.store, args.db,
+                                  getattr(args, "storeAddress", ""),
+                                  masters=master.address)
+        filer = FilerServer(master.address, host=args.ip,
+                            port=args.filerPort, store=store, guard=guard,
+                            cipher=args.encryptVolumeData,
+                            device=args.device or None)
+        _wire_notification(filer)
+        filer.start()
+        stoppables.append(filer)
+        print(f"filer on {filer.address}", flush=True)
     _wait_forever(stoppables)
 
 
 def _shell_handlers(env):
-    """The admin command registry (weed/shell/commands.go) over the
-    ported commands; the fs.*, remote.* and s3.* families need the
-    filer and raise NotImplementedError naming ROADMAP item 9."""
+    """The full admin command registry (weed/shell/commands.go)."""
     from .shell import commands as sh
+    from .shell import commands_fs as fs
     from .shell import commands_maintenance as mnt
     from .shell import commands_qos as qos_cmds
+    from .shell import commands_remote as rem
     from .shell import commands_scale as scale
     from .shell import commands_volume as vol
 
@@ -214,11 +331,9 @@ def _shell_handlers(env):
                 return item.split("=", 1)[1]
         return default
 
-    def filer_waits(name):
-        return lambda a: sh.needs_filer(name)
-
     plan = lambda a: "-plan" in a or "-n" in a
-    handlers = {
+    ap = lambda p: fs.resolve_path(env, p)  # fs.* paths obey fs.cd
+    return {
         # volume family
         "volume.list": lambda a: show(sh.volume_list(env)),
         "volume.vacuum": lambda a: show(sh.volume_vacuum(
@@ -336,23 +451,82 @@ def _shell_handlers(env):
             env, int(a[0]))),
         "lock": lambda a: show(vol.shell_lock(env)),
         "unlock": lambda a: show(vol.shell_unlock(env)),
+        # fs family
+        "fs.ls": lambda a: show(fs.fs_ls(
+            env, ap(a[-1] if a and not a[-1].startswith("-") else ""),
+            long_format="-l" in a)),
+        "fs.cat": lambda a: sys.stdout.buffer.write(
+            fs.fs_cat(env, ap(a[0]))),
+        "fs.mkdir": lambda a: show(fs.fs_mkdir(env, ap(a[0]))),
+        "fs.rm": lambda a: fs.fs_rm(
+            env, ap(a[-1]), recursive="-r" in a),
+        "fs.mv": lambda a: show(fs.fs_mv(env, ap(a[0]), ap(a[1]))),
+        "fs.du": lambda a: show(fs.fs_du(env, ap(a[0] if a else ""))),
+        "fs.tree": lambda a: print("\n".join(fs.fs_tree(
+            env, ap(a[0] if a else "")))),
+        "fs.cd": lambda a: show(fs.fs_cd(env, a[0] if a else "/")),
+        "fs.pwd": lambda a: show(fs.fs_pwd(env)),
+        "fs.meta.cat": lambda a: show(fs.fs_meta_cat(env, ap(a[0]))),
+        "fs.meta.save": lambda a: show({"saved": len(fs.fs_meta_save(
+            env, ap(a[-1] if a and not a[-1].startswith("-") else ""),
+            output=flag(a, "o", "")))}),
+        "fs.meta.load": lambda a: show(
+            {"loaded": fs.fs_meta_load(env, a[0])}),
+        "fs.meta.notify": lambda a: show(fs.fs_meta_notify(
+            env, ap(a[0] if a else ""))),
+        "fs.configure": lambda a: show(fs.fs_configure(
+            env, flag(a, "locationPrefix", a[0] if a else "/"),
+            collection=flag(a, "collection", ""),
+            replication=flag(a, "replication", ""),
+            ttl=flag(a, "ttl", ""),
+            read_only=True if "-readOnly" in a else None,
+            ec_code=flag(a, "ecCode", ""),
+            delete="-delete" in a)),
+        # remote storage family
+        "remote.configure": lambda a: show(rem.remote_configure(
+            env, name=flag(a, "name", ""), type=flag(a, "type", "s3"),
+            endpoint=flag(a, "endpoint", ""),
+            access_key=flag(a, "access_key", ""),
+            secret_key=flag(a, "secret_key", ""),
+            directory=flag(a, "dir", ""), delete="-delete" in a)),
+        "remote.mount": lambda a: show(rem.remote_mount(
+            env, directory=flag(a, "dir", ""),
+            remote=flag(a, "remote", ""))),
+        "remote.unmount": lambda a: show(rem.remote_unmount(
+            env, flag(a, "dir", ""))),
+        "remote.meta.sync": lambda a: show(rem.remote_meta_sync(
+            env, flag(a, "dir", ""))),
+        "remote.cache": lambda a: show(rem.remote_cache(
+            env, flag(a, "dir", ""))),
+        "remote.uncache": lambda a: show(rem.remote_uncache(
+            env, flag(a, "dir", ""))),
+        "remote.mount.buckets": lambda a: show(rem.remote_mount_buckets(
+            env, flag(a, "remote", ""))),
+        # s3 family
+        "s3.bucket.list": lambda a: show(fs.s3_bucket_list(env)),
+        "s3.bucket.create": lambda a: show(fs.s3_bucket_create(
+            env, flag(a, "name", a[0] if a else ""))),
+        "s3.bucket.delete": lambda a: fs.s3_bucket_delete(
+            env, flag(a, "name", a[0] if a else "")),
+        "s3.clean.uploads": lambda a: show(fs.s3_clean_uploads(
+            env, float(flag(a, "timeAgo", 24 * 3600)))),
+        "s3.configure": lambda a: show(fs.s3_configure(
+            env, flag(a, "user", "admin"),
+            flag(a, "access_key", ""), flag(a, "secret_key", ""),
+            actions=(flag(a, "actions", "Admin") or "").split(","))),
+        "s3.bucket.quota": lambda a: show(fs.s3_bucket_quota(
+            env, flag(a, "name", ""), op=flag(a, "op", "set"),
+            size_mb=int(flag(a, "sizeMB", "0")))),
+        "s3.bucket.quota.enforce": lambda a: show(
+            fs.s3_bucket_quota_enforce(env, apply="-apply" in a)),
+        "s3.circuitbreaker": lambda a: show(fs.s3_circuitbreaker(
+            env, actions=flag(a, "actions", ""),
+            values=flag(a, "values", ""),
+            buckets=flag(a, "buckets", ""),
+            enable=(True if "-enable" in a
+                    else False if "-disable" in a else None),
+            delete="-delete" in a)),
     }
-    for name in FILER_SHELL_COMMANDS:
-        handlers[name] = filer_waits(name)
-    return handlers
-
-
-# the shell commands of the JAX package's fs, remote and s3 families:
-# each needs the filer (ROADMAP item 9)
-FILER_SHELL_COMMANDS = (
-    "fs.ls", "fs.cat", "fs.mkdir", "fs.rm", "fs.mv", "fs.du", "fs.tree",
-    "fs.cd", "fs.pwd", "fs.meta.cat", "fs.meta.save", "fs.meta.load",
-    "fs.meta.notify", "fs.configure", "remote.configure", "remote.mount",
-    "remote.unmount", "remote.meta.sync", "remote.cache",
-    "remote.uncache", "remote.mount.buckets", "s3.bucket.list",
-    "s3.bucket.create", "s3.bucket.delete", "s3.clean.uploads",
-    "s3.configure", "s3.bucket.quota", "s3.bucket.quota.enforce",
-    "s3.circuitbreaker")
 
 
 def cmd_shell(args):
@@ -374,8 +548,7 @@ def cmd_shell(args):
             return True
         try:
             fn(rest)
-        except (RpcError, ValueError, IndexError,
-                NotImplementedError) as e:
+        except (RpcError, ValueError, IndexError) as e:
             print(f"error: {e}", flush=True)
         return True
 
@@ -392,6 +565,68 @@ def cmd_shell(args):
             return
         if line and not run_line(line):
             return
+
+
+def cmd_filer_copy(args):
+    """Copy local files/directories into the filer
+    (weed/command/filer_copy.go)."""
+    dest = args.path.rstrip("/")  # "" for root: targets join as /name
+    copied = 0
+    for src in args.files:
+        src = src.rstrip("/")
+        if os.path.isdir(src):
+            base = os.path.basename(src)
+            for dirpath, _, files in os.walk(src):
+                rel_dir = os.path.relpath(dirpath, src)
+                for name in sorted(files):
+                    rel = name if rel_dir == "." \
+                        else f"{rel_dir}/{name}"
+                    target = f"{dest}/{base}/{rel}"
+                    _copy_one(args.filer, os.path.join(dirpath, name),
+                              target)
+                    copied += 1
+        else:
+            _copy_one(args.filer, src,
+                      f"{dest}/{os.path.basename(src)}")
+            copied += 1
+    print(f"copied {copied} files to {args.filer}{dest}")
+
+
+def _copy_one(filer: str, local_path: str, target: str):
+    import mimetypes
+    import urllib.parse
+
+    with open(local_path, "rb") as f:
+        body = f.read()
+    mime = mimetypes.guess_type(local_path)[0] or \
+        "application/octet-stream"
+    call(filer, urllib.parse.quote(target), raw=body, method="POST",
+         headers={"Content-Type": mime}, timeout=600)
+
+
+def cmd_filer_cat(args):
+    """Stream one filer file to stdout (weed/command/filer_cat.go)."""
+    import urllib.parse
+
+    # the raw GET can't distinguish a stored .json file from a
+    # directory listing, so check the entry type via the parent listing
+    path = "/" + args.path.strip("/")
+    parent, _, name = path.rpartition("/")
+    listing = call(args.filer,
+                   urllib.parse.quote(parent or "/") + "/?limit=10000",
+                   timeout=60)
+    entry = next((e for e in listing.get("Entries", [])
+                  if e.get("FullPath", "").rsplit("/", 1)[-1] == name),
+                 None)
+    if entry is None:
+        print(f"error: {path} not found", file=sys.stderr)
+        sys.exit(1)
+    if entry.get("IsDirectory"):
+        print(f"error: {path} is a directory", file=sys.stderr)
+        sys.exit(1)
+    data = call(args.filer, urllib.parse.quote(path), parse=False,
+                timeout=600)
+    sys.stdout.buffer.write(data)
 
 
 def cmd_backup(args):
@@ -693,6 +928,19 @@ def cmd_lint_dashboards(args):
     print("dashboards + SLO rules reference only registered families")
 
 
+def cmd_scaffold(args):
+    from .util.config import scaffold
+
+    text = scaffold(args.config)
+    if args.output:
+        path = os.path.join(args.output, args.config + ".toml")
+        with open(path, "w") as f:
+            f.write(text)
+        print(f"wrote {path}")
+    else:
+        print(text, end="")
+
+
 def cmd_not_ported(args):
     print(f"error: {args.command}: {_ITEM_9}", file=sys.stderr)
     sys.exit(2)
@@ -707,7 +955,8 @@ def _workers_flag(p):
 
 def _device_flag(p):
     p.add_argument("-device", default="",
-                   help="where EC work runs: empty for the CUDA card "
+                   help="where device work runs (EC kernels, the "
+                        "filer's HBM cache tier): empty for the CUDA card "
                         "(default), 'cpu' for the plain PyTorch versions "
                         "of the kernels on the host")
 
@@ -786,8 +1035,53 @@ def build_parser() -> argparse.ArgumentParser:
     _device_flag(p)
     p.set_defaults(fn=cmd_volume)
 
+    p = sub.add_parser("filer", help="start a filer server")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-metricsPort", type=int, default=0,
+                   help="serve /metrics on a dedicated port")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8888)
+    p.add_argument("-maxMB", type=int, default=4)
+    p.add_argument("-db", default="", help="sqlite path (default: memory)")
+    p.add_argument("-store", default="sqlite",
+                   help="store kind: sqlite | sharded | perbucket | "
+                        "remote | cluster")
+    p.add_argument("-storeAddress", default="",
+                   help="shared `weed filer.store` address (-store remote)")
+    p.add_argument("-replication", default="")
+    p.add_argument("-collection", default="")
+    p.add_argument("-peers", default="",
+                   help="comma-separated peer filers to aggregate")
+    p.add_argument("-metaLog", action="store_true",
+                   help="persist the metadata change log")
+    p.add_argument("-encryptVolumeData", action="store_true",
+                   help="encrypt chunk data at rest (per-chunk AES keys "
+                        "in filer metadata)")
+    p.add_argument("-cacheDir", default="",
+                   help="directory for the tiered on-disk chunk cache")
+    p.add_argument("-cacheCapacityMB", type=int, default=1024,
+                   help="on-disk chunk cache budget (with -cacheDir)")
+    _workers_flag(p)
+    _device_flag(p)
+    p.set_defaults(fn=cmd_filer)
+
+    p = sub.add_parser("filer.store",
+                       help="host one shared metadata store for many "
+                            "stateless filers (-store remote)")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8889)
+    p.add_argument("-dir", default="",
+                   help="persistence directory (default: memory)")
+    p.add_argument("-db_kind", default="memory",
+                   help="embedded kind: memory | sqlite | sharded | "
+                        "perbucket")
+    p.add_argument("-master", default="",
+                   help="comma-separated masters: lease directory shards "
+                        "from the replicated map (cluster mode)")
+    p.set_defaults(fn=cmd_filer_store)
+
     p = sub.add_parser("server", help="combined master+volume "
-                                      "(the filer and s3 wait)")
+                                      "(+filer; s3 and iam wait)")
     p.add_argument("-ip", default="127.0.0.1")
     p.add_argument("-dir", default="./data")
     p.add_argument("-masterPort", type=int, default=9333)
@@ -797,7 +1091,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-volumeSizeLimitMB", type=int, default=1024)
     p.add_argument("-pulseSeconds", type=float, default=5.0)
     p.add_argument("-filer", action="store_true",
-                   help="not ported yet (ROADMAP item 9)")
+                   help="also start a filer on -filerPort")
     p.add_argument("-s3", action="store_true",
                    help="not ported yet (ROADMAP item 9)")
     p.add_argument("-iam", action="store_true",
@@ -872,6 +1166,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dashboard json (default: bundled dashboard)")
     p.set_defaults(fn=cmd_lint_dashboards)
 
+    p = sub.add_parser("filer.copy",
+                       help="copy local files/dirs into the filer")
+    p.add_argument("files", nargs="+")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-path", default="/", help="destination directory")
+    p.set_defaults(fn=cmd_filer_copy)
+
+    p = sub.add_parser("filer.cat", help="stream a filer file to stdout")
+    p.add_argument("path")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.set_defaults(fn=cmd_filer_cat)
+
     p = sub.add_parser("backup",
                        help="local incremental copy of one volume")
     p.add_argument("-master", default="127.0.0.1:9333")
@@ -914,6 +1220,12 @@ def build_parser() -> argparse.ArgumentParser:
     for name in sorted(NOT_PORTED_COMMANDS):
         p = sub.add_parser(name, help="not ported yet (ROADMAP item 9)")
         p.set_defaults(fn=cmd_not_ported)
+
+    p = sub.add_parser("scaffold", help="print a config template")
+    p.add_argument("-config", default="security",
+                   help="security|master|filer|replication|notification")
+    p.add_argument("-output", default="", help="write <name>.toml to dir")
+    p.set_defaults(fn=cmd_scaffold)
 
     p = sub.add_parser("version", help="print version")
     p.set_defaults(fn=lambda a: print(VERSION))

@@ -4,12 +4,16 @@ repo's `weed.py`.
 - Every ported subcommand's parser accepts the reference parser's flags,
   with the same defaults; the port adds only `-device`.
 - `NOT_PORTED_COMMANDS` is the reference's subcommands less the ported
-  ones, and each of them exits 2 naming ROADMAP item 9.
+  ones (the gateways, replication and the client tools), and each of
+  them exits 2 naming ROADMAP item 9.
 - `master` and `volume -device cpu` as subprocesses answer `/dir/status`
   and `/cluster/health`; `shell -c "ec.encode ..."` over them writes shard
   files and an `.ecx` byte-identical to the JAX package's encode of the
   same volume; `top -once` and `maintenance status` read them; SIGTERM
   ends every process.
+- `filer.store`, `filer -store remote`, `filer.copy`, `filer.cat` and the
+  shell's fs.* commands over them; `server -filer` serves a filer;
+  `scaffold` prints the JAX tool's templates.
 - `lint-dashboards` exits 0; `scrub` on a damaged EC directory prints
   the JAX tool's report; `fix`, `compact` and `export` print what the JAX
   tools print and leave the same files.
@@ -36,7 +40,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORTED = ("master", "master.follower", "volume", "server", "shell",
           "profile", "maintenance", "top", "lint-dashboards", "backup",
-          "compact", "fix", "scrub", "export", "version", "autocomplete")
+          "compact", "fix", "scrub", "export", "version", "autocomplete",
+          "filer", "filer.store", "filer.copy", "filer.cat", "scaffold")
 
 
 class _Parsed(Exception):
@@ -104,7 +109,9 @@ def test_not_ported_command_exits_naming_item_9(cmd, capsys):
 
 
 def test_server_with_a_filer_exits_naming_item_9(capsys):
-    for flag in ("-filer", "-s3", "-iam"):
+    """`server -s3` and `-iam` wait for ROADMAP item 9b; `-filer` starts
+    a filer (test_server_starts_a_filer below)."""
+    for flag in ("-s3", "-iam"):
         with pytest.raises(SystemExit) as e:
             t_weed.main(["server", flag, "-dir", "/nonexistent"])
         assert e.value.code == 2
@@ -295,7 +302,7 @@ def test_daemons_through_the_cli_encode_like_jax(tmp_path):
         text = _cli(["shell", "-master", maddr, "-c",
                      f"ec.encode {vid}; volume.list; fs.ls /"], env)
         assert f'"volume": {vid}' in text
-        assert "error: fs.ls needs the filer" in text
+        assert "error: no filer registered with the master" in text
 
         JStore([str(copy)]).ec_generate(vid)
         for ext in [f".ec{i:02d}" for i in range(14)] + [".ecx"]:
@@ -325,3 +332,137 @@ def test_daemons_through_the_cli_encode_like_jax(tmp_path):
                 p.kill()
                 p.wait()
     assert [p.returncode for p in procs] == [0, 0]
+
+
+# -- the filer through the command line ---------------------------------------------
+
+
+@pytest.mark.parametrize("config", ["security", "master", "filer",
+                                    "replication", "notification"])
+def test_scaffold_prints_what_jax_prints(tmp_path, capsys, config):
+    import weed as j_weed
+
+    out = {}
+    for name, main in (("jax", j_weed.main), ("port", t_weed.main)):
+        d = tmp_path / name
+        d.mkdir()
+        printed = _run_main(main, ["scaffold", "-config", config], capsys)
+        written = _run_main(main, ["scaffold", "-config", config, "-output",
+                                   str(d)], capsys)
+        out[name] = (printed, written[0], written[1].replace(str(d), "<d>"),
+                     (d / f"{config}.toml").read_text())
+    assert out["port"] == out["jax"]
+    assert out["port"][0][0] == 0 and out["port"][3] == out["port"][0][1]
+
+
+def _files(root, seed=9):
+    rng = np.random.default_rng(seed)
+    out = {}
+    for rel in ("a.txt", "b/c.bin", "b/d/e.json", "big.bin"):
+        size = 9000 if rel == "big.bin" else int(rng.integers(10, 3000))
+        body = (b"plain text %d\n" % size) * 40 if rel == "a.txt" \
+            else rng.bytes(size)
+        p = root / rel
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(body)
+        out[rel] = body
+    return out
+
+
+def test_filer_commands_through_the_cli(tmp_path):
+    """master, volume, filer.store and a stateless `filer -store remote`
+    as processes of the port's CLI; `filer.copy` of a directory,
+    `filer.cat` of each file, the shell's fs.* over them."""
+    env = dict(os.environ, WEED_MAINT_WORKER="0",
+               WEED_MAINT_INTERVAL="3600")
+    for d in ("m", "v", "src"):
+        (tmp_path / d).mkdir()
+    files = _files(tmp_path / "src")
+    procs = []
+    try:
+        master, maddr = _start(
+            ["master", "-port", "0", "-mdir", str(tmp_path / "m"),
+             "-pulseSeconds", "0.3"], env, tmp_path / "m.log")
+        procs.append(master)
+        vol, vaddr = _start(
+            ["volume", "-port", "0", "-dir", str(tmp_path / "v"),
+             "-mserver", maddr, "-pulseSeconds", "0.3", "-device", "cpu"],
+            env, tmp_path / "v.log")
+        procs.append(vol)
+        store, saddr = _start(["filer.store", "-port", "0"], env,
+                              tmp_path / "s.log")
+        procs.append(store)
+        filer, faddr = _start(
+            ["filer", "-port", "0", "-master", maddr, "-store", "remote",
+             "-storeAddress", saddr, "-maxMB", "1", "-device", "cpu"],
+            env, tmp_path / "f.log")
+        procs.append(filer)
+        assert _wait(lambda: call(maddr, "/cluster/nodes?type=filer")[
+            "cluster_nodes"]) and _wait(lambda: call(maddr, "/dir/status")[
+                "datacenters"])
+        copied = _cli(["filer.copy", str(tmp_path / "src"), "-filer", faddr,
+                       "-path", "/in"], env)
+        assert copied.strip() == f"copied 4 files to {faddr}/in"
+        for rel, body in files.items():
+            res = subprocess.run(
+                [sys.executable, "-m", "seaweedfs_tpu_torch", "filer.cat",
+                 f"/in/src/{rel}", "-filer", faddr], cwd=REPO, env=env,
+                capture_output=True, timeout=120)
+            assert res.returncode == 0 and res.stdout == body, rel
+        res = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "filer.cat",
+             "/in/src/b", "-filer", faddr], cwd=REPO, env=env,
+            capture_output=True, text=True, timeout=120)
+        assert res.returncode == 1 and "is a directory" in res.stderr
+        text = _cli(["shell", "-master", maddr, "-c",
+                     "fs.du /in; fs.ls -l /in/src/b; "
+                     "fs.configure -locationPrefix=/warm/ -collection=warm "
+                     "-ecCode=cauchy; fs.cat /in/src/a.txt"], env)
+        du = json.loads(text[:text.index("}") + 1])
+        assert du["files"] == 4 and du["bytes"] == sum(map(len,
+                                                           files.values()))
+        assert '"ec_code": "cauchy"' in text
+        assert text.endswith(files["a.txt"].decode())
+        assert call(faddr, "/in/src/big.bin", parse=False) == \
+            files["big.bin"]
+    finally:
+        for p in reversed(procs):
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs:
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0, 0, 0]
+
+
+def test_server_starts_a_filer(tmp_path):
+    """`server -filer` serves master, volume server and filer from one
+    process; a file written through its filer reads back."""
+    env = dict(os.environ, WEED_MAINT_WORKER="0",
+               WEED_MAINT_INTERVAL="3600")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "server", "-filer",
+         "-dir", str(tmp_path), "-masterPort", "0", "-volumePort", "0",
+         "-filerPort", "0", "-device", "cpu", "-pulseSeconds", "0.3"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=open(tmp_path / "server.log", "w"), text=True)
+    try:
+        lines = [proc.stdout.readline() for _ in range(3)]
+        assert [ln.split(" on ")[0] for ln in lines] == [
+            "master", "volume server", "filer"], lines
+        faddr = lines[2].split(" on ")[1].strip()
+        body = bytes(range(256)) * 40
+        call(faddr, "/s/f.bin", raw=body, method="POST")
+        assert call(faddr, "/s/f.bin", parse=False) == body
+        assert call(faddr, "/s/")["Entries"][0]["FileSize"] == len(body)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0

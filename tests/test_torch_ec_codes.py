@@ -218,6 +218,35 @@ def test_write_ec_files_family_byte_identical(tmp_path, name, large, small):
         assert got[:len(dat)] == dat and not got[len(dat):].strip(b"\0")
 
 
+@pytest.mark.parametrize("route", ["device-pooled", "device-words",
+                                   "host-pipeline"])
+def test_cauchy_takes_the_pipelines_byte_identical(tmp_path, monkeypatch,
+                                                   route):
+    """A family of RS's geometry runs the RS pipelines with its parity
+    rows (on a card, K2 or K1): files and CRCs equal the JAX family host
+    loop's, and the route reported is the pipeline's."""
+    from seaweedfs_tpu_torch.parallel import batched_encode as t_be
+
+    monkeypatch.setattr(t_be, "words_capable",
+                        lambda devices, chunk: route == "device-words")
+    jb, tb = str(tmp_path / "j"), str(tmp_path / "t")
+    for b in (jb, tb):
+        _dat(b + ".dat", 700_003, seed=5)
+    jc = j_enc.write_ec_files(jb, family="cauchy", large_block_size=16 << 10,
+                              small_block_size=4 << 10)
+    stats = {}
+    kw = {"batched": True} if route.startswith("device") else {}
+    if route == "host-pipeline":
+        monkeypatch.setattr("seaweedfs_tpu_torch.util.platform."
+                            "prefer_batched_encode", lambda device: False)
+    tc = t_enc.write_ec_files(tb, family="cauchy", large_block_size=16 << 10,
+                              small_block_size=4 << 10, device="cpu",
+                              stage_stats=stats, **kw)
+    assert [int(c) for c in tc] == [int(c) for c in jc]
+    assert _shards(tb) == _shards(jb)
+    assert stats["backend"] == route
+
+
 REBUILDS = [("pm_msr", (3,), "projection"), ("pm_msr", (12,), "projection"),
             ("pm_msr", (0, 7), "decode"), ("cauchy", (2,), "decode"),
             ("cauchy", (0, 13), "decode"),

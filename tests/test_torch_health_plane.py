@@ -415,6 +415,12 @@ def _node_death(pkg, tmp_path, monkeypatch):
     monkeypatch.setenv("WEED_HEALTH_SCRAPE_MS", "1000")
     monkeypatch.setenv("WEED_SLO_FAST_S", "2")
     monkeypatch.setenv("WEED_SLO_SLOW_S", "6")
+    # each target's /metrics is its process-wide registry, which grows
+    # with every earlier test in the worker; past the default cap of
+    # 4,096 series one plane dropped series the other kept, and the two
+    # no longer saw the same input.  A cap no registry reaches holds
+    # both on it (the dropped count is asserted 0 below).
+    monkeypatch.setenv("WEED_TSDB_MAX_SERIES", "1000000")
     root = tmp_path / pkg
     dirs = [root / n for n in ("m", "v0", "v1")]
     for d in dirs:
@@ -462,7 +468,7 @@ def _node_death(pkg, tmp_path, monkeypatch):
         scrape("back", 5)
         journal = [e for e in events.JOURNAL.since(seq0)]
         stats = (plane.rounds, plane.tsdb.stats()["series"] > 0,
-                 plane.busy_seconds > 0)
+                 plane.busy_seconds > 0, plane.tsdb.dropped)
     finally:
         for vs in vss:
             vs.stop()
@@ -476,7 +482,7 @@ def test_node_death_journal_and_routes_like_jax(tmp_path, monkeypatch):
     assert [label for label, _ in port] == [label for label, _ in jax]
     for (label, t), (_, j) in zip(port, jax):
         assert t == j, label
-    assert tstats == jstats == (12, True, True)
+    assert tstats == jstats == (12, True, True, 0)
     # the journal's order: the victim's death, the alert, its clearing
     seqs = {}
     for e in tj:
@@ -495,6 +501,57 @@ def test_node_death_journal_and_routes_like_jax(tmp_path, monkeypatch):
     kinds = [k for k, *_ in last["events"]]
     assert kinds.index("node.down") < kinds.index("alert.fire") < \
         kinds.index("alert.clear")
+
+
+def test_liveness_claims_a_slot_in_a_full_tsdb(tmp_path, monkeypatch):
+    """R7: with the TSDB filled to its cap by ordinary series, a stopped
+    target still fires `availability` (the reference's plane drops its
+    liveness series at the cap and never sees the death)."""
+    monkeypatch.setenv("WEED_MAINT_WORKER", "0")
+    monkeypatch.setenv("WEED_MAINT_INTERVAL", "3600")
+    monkeypatch.setenv("WEED_HEALTH_SCRAPE_MS", "1000")
+    monkeypatch.setenv("WEED_SLO_FAST_S", "2")
+    monkeypatch.setenv("WEED_SLO_SLOW_S", "6")
+    monkeypatch.setenv("WEED_TSDB_MAX_SERIES", "64")
+    dirs = [tmp_path / n for n in ("m", "v0", "v1")]
+    for d in dirs:
+        d.mkdir()
+    master = t_server.MasterServer(port=0, pulse_seconds=60.0,
+                                   raft_dir=str(dirs[0]))
+    vss = []
+    try:
+        master.start()
+        plane = master.health
+        plane.stop()
+        clock = [1.0e6]
+        plane.now = plane.tsdb.now = plane.slo.now = plane.usage.now = \
+            lambda: clock[0]
+        for d in dirs[1:]:
+            vs = t_vs.VolumeServer([str(d)], master.address, port=0,
+                                   pulse_seconds=60.0, device="cpu")
+            vs.start()
+            vs.heartbeat_once()
+            vss.append(vs)
+        for i in range(64):
+            plane.tsdb.put("SeaweedFS_filler", {"i": str(i)}, 1.0)
+        assert len(plane.tsdb.series) == 64
+        firing = []
+        for step in range(7):
+            if step == 2:
+                vss[1].stop()
+            out = plane.scrape_round()
+            clock[0] += 1.0
+            firing.append(out["availability"]["firing"])
+            assert len(plane.tsdb.series) <= 64
+        assert firing[:2] == [False, False] and any(firing[2:])
+        live = plane.tsdb.latest(t_slo.LIVENESS_FAMILY)
+        assert {dict(k)["target"]: v for k, v in live.items()}[
+            vss[1].address] == 0.0
+        assert plane.tsdb.dropped > 0
+    finally:
+        for vs in vss:
+            vs.stop()
+        master.stop()
 
 
 @pytest.mark.parametrize("mix", ["jax-master-port-servers",

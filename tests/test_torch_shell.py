@@ -14,25 +14,40 @@ scrub finding it and the `ec.rebuild` that follows repairing it.  The
 shard files, `.ecx` and `.vif` after encode, rebuild and repair are
 byte-identical across the three, as are the job histories and scrub
 verdicts.  A scale job the port's worker cannot run fails with the JAX
-worker's error, and the shell's filer-backed paths raise until the
-filer comes.
+worker's error.
+
+The filer-backed commands (fs.*, remote.*, s3.*, `volume.fsck`'s
+cross-check, `ec.encode` reading a collection's `ec_code` rule) run the
+same script against a JAX and a port cluster with a filer, each through
+its own package's shell, and answer alike (fids renamed, filer clocks
+pinned); without a reachable filer the rule reads as "".
 Tolerance: equality throughout.  The clusters wait on deadlines.
 """
 
+import json
 import os
+import time
 
 import numpy as np
 import pytest
 
+from test_torch_filer import canon, cluster, pin_clocks
 from test_torch_volume_server import _PinnedTime, _reset_process_state
 
+from seaweedfs_tpu import notification as j_notify
 from seaweedfs_tpu.master import server as j_master
 from seaweedfs_tpu.shell import commands as j_sh
+from seaweedfs_tpu.shell import commands_fs as j_fs
+from seaweedfs_tpu.shell import commands_remote as j_rem
+from seaweedfs_tpu.shell import commands_volume as j_vol_sh
 from seaweedfs_tpu.storage import volume as j_volume
 from seaweedfs_tpu.volume_server import server as j_server
+from seaweedfs_tpu_torch import notification as t_notify
 from seaweedfs_tpu_torch.master import server as t_master
-from seaweedfs_tpu_torch.rpc.http_rpc import call
+from seaweedfs_tpu_torch.rpc.http_rpc import RpcError, call
 from seaweedfs_tpu_torch.shell import commands as t_sh
+from seaweedfs_tpu_torch.shell import commands_fs as t_fs
+from seaweedfs_tpu_torch.shell import commands_remote as t_rem
 from seaweedfs_tpu_torch.shell import commands_maintenance as t_maint_sh
 from seaweedfs_tpu_torch.shell import commands_volume as t_vol_sh
 from seaweedfs_tpu_torch.storage import volume as t_volume
@@ -155,8 +170,8 @@ def _heal(root, name, mp) -> dict:
         # every needle reads while the rebuild is pending (degraded)
         for nid, _, body in needles:
             ec = call(master.address, f"/ec/lookup?volumeId={VID}")
-            url = ec["shard_id_locations"][0]["locations"][0]["url"]
-            assert call(url, f"/{fids[nid]}", parse=False) == body
+            reader = ec["shard_id_locations"][0]["locations"][0]["url"]
+            assert call(reader, f"/{fids[nid]}", parse=False) == body
         _drain(master, servers)
         for vs in servers:
             vs.heartbeat_once()
@@ -176,7 +191,13 @@ def _heal(root, name, mp) -> dict:
             call(master.address, "/maintenance/run",
                  {"type": "deep.scrub", "volume": VID})
             scrubs = len(_jobs_done(master))
-            for vs in servers:  # until a holder has run the scrub
+            # until a holder has run the scrub; the server that served
+            # the outage's degraded reads polls last: its cached shard
+            # map of the outage sends a JAX worker's scrub through R5,
+            # which test_scrub_after_degraded_reads_and_a_rebuild pins
+            # (the shell places shards at random, so who that server
+            # is varies from run to run)
+            for vs in sorted(servers, key=lambda v: v.address == reader):
                 if len(_jobs_done(master)) == scrubs:
                     vs.maintenance_worker.poll_once()
             scrub.append([(j["type"], j["params"])
@@ -290,16 +311,19 @@ def test_scale_jobs_fail_with_the_named_error(port_cluster, job_type):
 
 
 def test_filer_paths_raise_until_the_filer_comes(port_cluster):
+    """Without a filer, or with a registered one that is gone, the
+    collection's `ec_code` rule reads as "" (as in the reference), and
+    `volume.fsck`'s cross-check against a dead filer raises the RPC
+    error; without a filer address fsck reports the stored needles."""
     master, vs = port_cluster
     env = t_sh.CommandEnv(master.address)
     assert t_sh._collection_ec_code(env, "pics") == ""  # no filer
     call(master.address, "/cluster/register",
          {"type": "filer", "address": "127.0.0.1:1"})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        t_sh._collection_ec_code(env, "pics")
+    assert t_sh._collection_ec_code(env, "pics") == ""  # filer gone
     report = t_vol_sh.volume_fsck(env)
     assert report == {"volumes": 0, "stored_needles": 0}
-    with pytest.raises(NotImplementedError, match="needs the filer"):
+    with pytest.raises(RpcError):
         t_vol_sh.volume_fsck(env, filer_address="127.0.0.1:1")
     assert t_sh.volume_list(env) == call(master.address, "/dir/status")
     assert t_vol_sh.collection_list(env) == []
@@ -378,3 +402,233 @@ def test_scrub_after_degraded_reads_and_a_rebuild(tmp_path, monkeypatch,
         for vs in servers:
             vs.stop()
         master.stop()
+
+
+# -- the filer-backed commands -----------------------------------------------------
+
+SHELLS = {"jax": (j_sh, j_fs, j_rem, j_vol_sh, j_notify),
+          "port": (t_sh, t_fs, t_rem, t_vol_sh, t_notify)}
+
+
+def _seed(addr):
+    for path, body in [("/docs/a.txt", b"aaa"), ("/docs/sub/b.txt", b"bbbb"),
+                       ("/top.bin", b"t" * 3000)]:
+        call(addr, path, raw=body, method="POST")
+
+
+def _fs_script(pkg, env, filer, tmp, mp):
+    sh, fs, _, _, notify = SHELLS[pkg]
+    out = {}
+    _seed(filer.address)
+    out["ls"] = fs.fs_ls(env, "/")
+    out["ls_l"] = fs.fs_ls(env, "/docs", long_format=True)
+    out["du"] = fs.fs_du(env, "/")
+    out["tree"] = fs.fs_tree(env, "/")
+    out["cat"] = fs.fs_cat(env, "/docs/a.txt")
+    out["meta_cat"] = fs.fs_meta_cat(env, "/top.bin")
+    dump = str(tmp / f"{pkg}.jsonl")
+    out["saved"] = fs.fs_meta_save(env, "/", output=dump)
+    with open(dump) as f:
+        out["dump"] = [json.loads(line) for line in f]
+    call(filer.address, "/top.bin?skipChunkDelete=true", method="DELETE")
+    with pytest.raises(Exception):
+        fs.fs_cat(env, "/top.bin")
+    out["loaded"] = fs.fs_meta_load(env, dump)
+    out["restored"] = fs.fs_cat(env, "/top.bin")
+    out["mkdir"] = fs.fs_mkdir(env, "/newdir")
+    out["mv"] = fs.fs_mv(env, "/docs/a.txt", "/newdir/a.txt")
+    out["moved"] = fs.fs_cat(env, "/newdir/a.txt")
+    fs.fs_rm(env, "/newdir", recursive=True)
+    out["after_rm"] = fs.fs_ls(env, "/")
+    out["pwd"] = [fs.fs_pwd(env), fs.fs_cd(env, "/docs"), fs.fs_pwd(env),
+                  fs.resolve_path(env, "sub/b.txt"),
+                  fs.resolve_path(env, "../docs/./sub"),
+                  fs.fs_cd(env, "sub")]
+    with pytest.raises(Exception) as e:
+        fs.fs_cd(env, "/nope")
+    out["cd_nope"] = e.value.status
+    fs.fs_cd(env, "/")
+    sent = []
+
+    class FakeQueue:
+        name = "fake"
+
+        def send(self, key, event):
+            sent.append((key, event))
+
+        def close(self):
+            pass
+
+    mp.setattr(notify, "load_notification_queue", lambda conf: FakeQueue())
+    mp.setattr(fs, "time", _PinnedTime(pin_time=True))
+    out["notify"] = (fs.fs_meta_notify(env, "/docs"), sent)
+    mp.setattr(fs, "time", time)  # s3.clean.uploads ages by the clock
+    out["configure"] = [
+        fs.fs_configure(env, "/protected/", read_only=True),
+        fs.fs_configure(env, "/warm/", collection="warm", ec_code="cauchy"),
+    ]
+    filer._conf_cache = (0.0, filer._conf_cache[1])  # the 1 s refresh
+    with pytest.raises(RpcError) as e:
+        call(filer.address, "/protected/x", raw=b"no", method="POST")
+    out["read_only"] = e.value.status
+    with pytest.raises(Exception) as e:
+        fs.fs_configure(env, "/bad/", ec_code="no-such-family")
+    out["bad_family"] = type(e.value).__name__
+    out["ec_code"] = [sh._collection_ec_code(env, c)
+                      for c in ("warm", "other")]
+    fs.fs_configure(env, "/protected/", delete=True)
+    # s3.* over the same filer
+    out["buckets"] = [fs.s3_bucket_list(env), fs.s3_bucket_create(env, "media"),
+                      fs.s3_bucket_create(env, "qb"), fs.s3_bucket_list(env)]
+    call(filer.address, "/buckets/media/.uploads/u1/", raw=b"",
+         method="POST")
+    out["clean"] = fs.s3_clean_uploads(env, timeout_seconds=0.0)
+    fs.s3_bucket_delete(env, "media")
+    out["quota"] = [fs.s3_bucket_quota(env, "qb", "set", 50),
+                    fs.fs_configure(env, "/buckets/qb/", ttl="3d"),
+                    fs.s3_bucket_quota(env, "qb", "get"),
+                    fs.s3_bucket_quota_enforce(env)]
+    out["identity"] = [fs.s3_configure(env, "alice", "AKID", "SECRET",
+                                       actions=["Read", "Write"]),
+                       call(filer.address, "/etc/iam/identity.json")]
+    out["breaker"] = [fs.s3_circuitbreaker(env, actions="Read:Count",
+                                           values="100", buckets="qb"),
+                      fs.s3_circuitbreaker(env)]
+    out["final"] = fs.fs_meta_save(env, "/")
+    return out
+
+
+def test_fs_and_s3_commands_like_jax(tmp_path, monkeypatch):
+    monkeypatch.setenv("WEED_MAINT_WORKER", "0")
+    out = {}
+    for pkg in SHELLS:
+        pin_clocks(monkeypatch, pkg)
+        with cluster(pkg, tmp_path / pkg, chunk_size=512) as (m, _, filer):
+            env = SHELLS[pkg][0].CommandEnv(m.address,
+                                            filer_address=filer.address)
+            out[pkg] = canon(_fs_script(pkg, env, filer, tmp_path,
+                                        monkeypatch))
+    for key in out["jax"]:
+        assert out["port"][key] == out["jax"][key], key
+    got = out["port"]
+    assert {e["name"] for e in got["ls"]} >= {"docs", "top.bin"}
+    assert got["du"]["files"] == 3 and got["du"]["bytes"] == 3007
+    assert got["restored"] == b"t" * 3000 and got["loaded"] == len(
+        got["saved"])
+    assert got["notify"][0]["notified"] == 2  # /docs/sub and its file
+    assert got["read_only"] == 403 and got["ec_code"] == ["cauchy", ""]
+    assert got["clean"] == ["/buckets/media/.uploads/u1"]
+    assert got["quota"][2]["quota_mb"] == 50
+
+
+def _remote_script(pkg, env, filer, remote_tree):
+    _, _, rem, _, _ = SHELLS[pkg]
+    out = {"configure": rem.remote_configure(env, name="prod", type="local",
+                                             directory=remote_tree)}
+    out["list"] = rem.remote_configure(env)
+    out["mount"] = rem.remote_mount(env, "/mnt/prod", "prod/bkt")
+    out["mappings"] = rem.remote_mount(env)
+    meta = lambda: call(filer.address,  # noqa: E731
+                        "/mnt/prod/photos/?metadata=true")
+    read = lambda p: call(filer.address, p, parse=False)  # noqa: E731
+    out["meta"] = meta()
+    out["read"] = [read("/mnt/prod/photos/cat.jpg"),
+                   read("/mnt/prod/readme.md")]
+    out["cache"] = [rem.remote_cache(env, "/mnt/prod"), meta(),
+                    read("/mnt/prod/photos/cat.jpg")]
+    out["uncache"] = [rem.remote_uncache(env, "/mnt/prod"), meta(),
+                      read("/mnt/prod/photos/cat.jpg")]
+    with open(os.path.join(remote_tree, "bkt", "new.txt"), "wb") as f:
+        f.write(b"fresh")
+    os.utime(os.path.join(remote_tree, "bkt", "new.txt"),
+             (1_600_000_000, 1_600_000_000))
+    out["sync"] = [rem.remote_meta_sync(env, "/mnt/prod"),
+                   read("/mnt/prod/new.txt")]
+    out["buckets"] = rem.remote_mount_buckets(env, "prod/bkt2")
+    out["unmount"] = [rem.remote_unmount(env, "/mnt/prod"),
+                      rem.remote_mount(env)]
+    with pytest.raises(RpcError) as e:
+        read("/mnt/prod/readme.md")
+    out["gone"] = e.value.status
+    out["delete"] = [rem.remote_configure(env, name="prod", delete=True),
+                     rem.remote_configure(env)]
+    return out
+
+
+def test_remote_commands_like_jax(tmp_path, monkeypatch):
+    monkeypatch.setenv("WEED_MAINT_WORKER", "0")
+    out = {}
+    for pkg in SHELLS:
+        pin_clocks(monkeypatch, pkg)
+        root = tmp_path / f"remote-{pkg}"
+        (root / "bkt" / "photos").mkdir(parents=True)
+        (root / "bkt2").mkdir()
+        (root / "bkt" / "photos" / "cat.jpg").write_bytes(b"meow" * 700)
+        (root / "bkt" / "readme.md").write_bytes(b"# docs")
+        (root / "bkt2" / "x.bin").write_bytes(b"x" * 10)
+        for path in root.rglob("*"):
+            os.utime(path, (1_600_000_000, 1_600_000_000))
+        with cluster(pkg, tmp_path / pkg, chunk_size=512) as (m, _, filer):
+            env = SHELLS[pkg][0].CommandEnv(m.address,
+                                            filer_address=filer.address)
+            got = _remote_script(pkg, env, filer, str(root))
+            out[pkg] = canon(json.loads(json.dumps(
+                got, default=lambda b: b.hex()).replace(str(root),
+                                                        "<remote>")))
+    for key in out["jax"]:
+        assert out["port"][key] == out["jax"][key], key
+    got = out["port"]
+    assert got["mount"]["synced"] == 2 and got["cache"][0]["cached"] == 2
+    assert got["read"] == [(b"meow" * 700).hex(), b"# docs".hex()]
+    assert got["gone"] == 404
+
+
+def test_ec_encode_reads_the_filers_rule_and_fsck_cross_checks(
+        tmp_path, monkeypatch):
+    """`fs.configure -ecCode cauchy` on a collection's prefix, files
+    written through the filer, then the shell's `ec.encode` of the
+    collection's volume: its `.vif` names `cauchy` in both packages (the
+    filer found through the master's registry), and `volume.fsck`
+    cross-checks the filer's chunks against the stored needles alike."""
+    monkeypatch.setenv("WEED_MAINT_WORKER", "0")
+    monkeypatch.setenv("WEED_MAINT_INTERVAL", "3600")
+    bodies = [bytes([i]) * (3000 + 977 * i) for i in range(6)]
+    out = {}
+    for pkg in SHELLS:
+        sh, fs, _, vol_sh, _ = SHELLS[pkg]
+        with cluster(pkg, tmp_path / pkg, n_volumes=3,
+                     chunk_size=2048) as (m, vss, filer):
+            env = sh.CommandEnv(m.address)
+            deadline = time.monotonic() + 20
+            while time.monotonic() < deadline and not call(
+                    m.address, "/cluster/nodes?type=filer")["cluster_nodes"]:
+                time.sleep(0.05)
+            fs.fs_configure(env, "/warm/", collection="warm",
+                            ec_code="cauchy")
+            filer._conf_cache = (0.0, filer._conf_cache[1])
+            for i, body in enumerate(bodies):
+                call(filer.address, f"/warm/f{i}.bin", raw=body,
+                     method="POST")
+            call(filer.address, "/warm/f0.bin", method="DELETE")
+            for vs in vss:
+                vs.heartbeat_once()
+            fsck = vol_sh.volume_fsck(env, filer_address=filer.address)
+            vids = sorted({int(c["fid"].split(",")[0])
+                           for e in fs.fs_meta_save(env, "/warm/")
+                           for c in e.get("chunks", [])})
+            sh.ec_encode(env, vids[0], collection="warm")
+            vif = next(json.loads((p / f"warm_{vids[0]}.vif").read_text())
+                       for p in (tmp_path / pkg).iterdir()
+                       if (p / f"warm_{vids[0]}.vif").exists())
+            reads = [call(filer.address, f"/warm/f{i}.bin", parse=False)
+                     == bodies[i] for i in range(1, len(bodies))]
+            out[pkg] = (sh._collection_ec_code(env, "warm"),
+                        vif.get("code_family"), reads,
+                        {k: v for k, v in fsck.items() if k != "orphaned"},
+                        sum(fsck["orphaned"].values()))
+    assert out["port"] == out["jax"]
+    code, family, reads, fsck, orphaned = out["port"]
+    assert code == family == "cauchy" and all(reads)
+    assert fsck["missing_chunks"] == [] and fsck["referenced_needles"] > 0
+    # the deleted file's two chunks stay in the volume until a vacuum
+    assert orphaned == 2
