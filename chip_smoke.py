@@ -11,6 +11,7 @@
     python3 chip_smoke.py --cluster  # build, kernel checks, phase 10 only
     python3 chip_smoke.py --elastic  # build, kernel checks, phase 11 only
     python3 chip_smoke.py --filer    # build, kernel checks, phase 12 only
+    python3 chip_smoke.py --s3       # build, kernel checks, phase 13 only
 
 Phases:
   1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a);
@@ -112,7 +113,7 @@ Phases:
      every job ok and leased once;
  11. a cluster of separate processes through a node death: three masters
      and five volume servers (-ec.backend=cuda), each started through the
-     port's command line (python -m seaweedfs_tpu_torch); 512 MiB of the
+     port's command line (python -m seaweedfs_tpu_torch); 256 MiB of the
      load generator's objects POSTed from load processes, the shell's
      ec.encode of every volume through the command line (K2; at most 4
      shards of a volume per server); open-loop traffic replayed by
@@ -141,7 +142,28 @@ Phases:
      and miss latencies, an overwrite read back new; fs.ls, fs.du, fs.cat
      and filer.cat through the command line; /metadata/subscribe holding
      every create; nothing left after SIGTERM;
- 13. one JSON line of per-kernel numbers, then the card's name and power
+ 13. the S3 gateway and the IAM API over warm EC storage, as separate
+     processes of the port's command line: one master, three volume
+     servers (-ec.backend=cuda) and one `iam` process serving the IAM
+     API, the S3 API and their embedded filer (a 1 GiB HBM tier for its
+     chunk cache, found through the master's registry); keys made through
+     the IAM API and taken by the gateway without a restart; bucket `warm`
+     given its collection by fs.configure (RS(10,4)); 100 seeded 10 MiB
+     objects PUT by SigV4-signing load processes that import no torch,
+     every ETag the body's MD5; a 64 MiB multipart upload of 8 MiB parts
+     and a streaming aws-chunked PUT; the shell's ec.encode (K2); every
+     object read whole, then .ec00 .ec05 .ec11 .ec13 of the largest
+     volume dropped and every object read whole and by a Range (K1);
+     30 s of MinIO warp's mixed traffic (45% GET, 30% STAT, 15% PUT, 10%
+     DELETE, 20 connections) on the degraded volumes, every acknowledged
+     PUT read back and every deleted key 404; ListObjectsV2 by prefix and
+     delimiter; a read-only key, an unknown key and a deleted key
+     refused; s3.circuitbreaker's per-bucket limit answering 503
+     SlowDown; single-chunk objects served from the HBM tier;
+     filer.backup, filer.meta.backup and filer.sync through the command
+     line, byte-identical; benchmark, upload and download; K1 = decode
+     batches in every volume server process; nothing left after SIGTERM;
+ 14. one JSON line of per-kernel numbers, then the card's name and power
      limit, then the result line.
 
 Phases 5 to 8 also hold the metrics registry's exposition against the
@@ -157,6 +179,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import hashlib
 import json
 import os
 import re
@@ -166,6 +189,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -238,23 +262,30 @@ CLUSTER_PULSE = 1.0         # heartbeat pulse of phase 10's masters and servers
 # phase fits its time, the pacer's rate raised out of the scrub's way, no
 # scrub queued by age (phase 10 forces its scrubs) and no balance moves
 # (the failover's new volumes would skew the counts): the curator's jobs
-# in the phase are the repairs it measures
+# in the phase are the repairs it measures; a 5 s cooldown, since the
+# availability alert's scrubs queue rebuilds that find nothing, and the
+# default 60 s after them holds the real rebuild back (ROADMAP, open
+# item 2)
 CLUSTER_KNOBS = {"WEED_MAINT_POLL": "0.5", "WEED_MAINT_INTERVAL": "1",
                  "WEED_MAINT_RATE_MB": "65536",
                  "WEED_MAINT_SCRUB_INTERVAL": "1e12",
                  "WEED_MAINT_BALANCE_SKEW": "1000000",
-                 "WEED_HEALTH_SCRAPE_MS": "500"}
-ELASTIC_BYTES = 512 * MIB   # phase 11: the load generator's objects (cut
-                            # from ~1 GiB for the phase's wall)
+                 "WEED_HEALTH_SCRAPE_MS": "500",
+                 "WEED_MAINT_COOLDOWN": "5"}
+ELASTIC_BYTES = 128 * MIB   # phase 11: the load generator's objects (cut
+                            # from ~1 GiB, then 512 and 256 MiB, for the
+                            # run's wall)
 ELASTIC_SERVERS = 5         # phase 11: volume servers, one process each
 ELASTIC_PULSE = 1.0         # heartbeat pulse of phase 11's processes
 ELASTIC_LOADERS = 4         # phase 11's preload processes
 ELASTIC_CONNS = 4           # connections of each preload process
 ELASTIC_REPLAY_PROCS = 4    # loadgen.replay(processes=) of the traffic
 ELASTIC_REPLAY_THREADS = 8  # threads of each replay process
-ELASTIC_DURATION = 36       # seconds of open-loop traffic (WEED_LOAD_DURATION)
+ELASTIC_DURATION = 24       # seconds of open-loop traffic (WEED_LOAD_DURATION;
+                            # cut from 36 for the run's wall: the kill comes
+                            # at 8 s, the heal ~10-12 s after it)
 ELASTIC_KILL_AFTER = 8      # seconds into the traffic the node dies
-ELASTIC_READBACK = 2000     # preloaded objects read back after the heal
+ELASTIC_READBACK = 1000     # preloaded objects read back after the heal
 # phase 11's knobs: phase 10's maintenance knobs; the autoscaler on, with
 # the health plane's alert as its trigger (the occupancy trigger and the
 # drain off: the phase measures the scale-up the alert asks for); the
@@ -264,8 +295,7 @@ ELASTIC_KNOBS = {**CLUSTER_KNOBS, "WEED_SCALE": "1",
                  "WEED_SCALE_ON_ALERT": "1", "WEED_SCALE_MIN_NODES": "5",
                  "WEED_SCALE_UP_OCC": "2", "WEED_SCALE_DRAIN_OCC": "0",
                  "WEED_HEALTH_SCRAPE_MS": "500", "WEED_SLO_FAST_S": "2",
-                 "WEED_SLO_SLOW_S": "6", "WEED_LOAD_RATE": "200",
-                 "WEED_MAINT_COOLDOWN": "5"}
+                 "WEED_SLO_SLOW_S": "6", "WEED_LOAD_RATE": "200"}
 FILER_BYTES = 1152 * MIB    # phase 12: files through the filer (> its 1 GiB
                             # HBM tier, so the sweep must evict)
 FILER_MIN_FILE = 4 << 10    # phase 12's file sizes: log-uniform, 1 to 16
@@ -283,6 +313,24 @@ FILER_RAM_MB = 64           # the filer's WEED_READ_CACHE_MB (its default)
 # reads measure them)
 FILER_KNOBS = {"WEED_MAINT_SCRUB_INTERVAL": "1e12",
                "WEED_MAINT_BALANCE_SKEW": "1000000"}
+S3_SERVERS = 3              # phase 13's volume servers, one process each
+S3_MAX_VOLUMES = 64         # their -max: the bucket, its re-grown volumes
+                            # after the encode, and the second filer's
+S3_OBJECTS = 100            # phase 13's preload: 100 objects of warp's
+S3_OBJECT = 10 * MIB        # default 10 MiB (3 chunks of the filer's 4 MiB)
+S3_LOADERS = 4              # load processes of phase 13 ...
+S3_CONNS = 5                # ... of 5 connections each: warp's 20 clients
+S3_MIX = {"GET": 45, "STAT": 30, "PUT": 15, "DELETE": 10}  # warp mixed
+S3_MIX_S = 30               # seconds of the mix
+S3_MULTIPART = 64 * MIB     # one multipart upload ...
+S3_PART = 8 * MIB           # ... in the AWS CLI's default 8 MiB parts
+S3_BURST = 12               # concurrent PUTs against the breaker's limit
+S3_PROBE = 4 * MIB          # single-chunk objects for the HBM-tier probes
+S3_PROBES = 8
+S3_SYNC_LANES = 8           # filer.sync -concurrency: lanes by path hash
+S3_BENCH_N = 2000           # `benchmark -n 2000 -size 1024 -c 8`
+S3_HBM_MB = 1024            # the gateway's WEED_READ_CACHE_HBM_MB
+S3_RAM_MB = 64              # the gateway's WEED_READ_CACHE_MB (its default)
 CHUNK = MIB                 # the pipeline's column chunk for 1 MiB blocks
 SEED = 20261016
 PARITY = np.ascontiguousarray(parity_matrix(10, 14))
@@ -3363,7 +3411,9 @@ def cluster_phase(dev, workdir: str) -> dict:
             log(f"cluster: the health plane fired availability "
                 f"{out['stop_to_alert_s']:.3f} s after the stop; the "
                 f"{sum(1 for r in ran if r[1]['type'] == TYPE_DEEP_SCRUB)} "
-                "deep scrubs it queued ran")
+                "deep scrubs it queued ran, with "
+                f"{sum(1 for r in ran if r[1]['type'] == TYPE_EC_REBUILD)} "
+                "ec.rebuild jobs")
 
             # -- the loss, with leasing paused while every needle is read
             env = sh.CommandEnv(leader.address)
@@ -3869,7 +3919,7 @@ def proc_tree_pids(root: str) -> list:
 
 def elastic_phase(dev, workdir: str, rehearse: bool = False) -> dict:
     """Phase 11: three masters and five volume servers, each a process of
-    its own started through the port's CLI; 512 MiB of the load
+    its own started through the port's CLI; 256 MiB of the load
     generator's objects, every volume EC-encoded by the shell's CLI (K2),
     open-loop traffic from forked load processes, the volume server
     holding the most shards SIGKILLed: the health plane sees it and
@@ -4441,13 +4491,15 @@ def elastic_phase(dev, workdir: str, rehearse: bool = False) -> dict:
               "no scrape error counted for the dead target")
         log("elastic: health plane on the leader "
             + json.dumps(out["plane"], sort_keys=True))
-        top = cli_run(["top", "-master", lead, "-once"], env)
+        # four CLI processes at once: each one's time is its interpreter
+        with concurrent.futures.ThreadPoolExecutor(4) as pool_:
+            top, lint, scale, qos_view = pool_.map(
+                lambda args: cli_run(args, env),
+                (["top", "-master", lead, "-once"], ["lint-dashboards"],
+                 ["shell", "-master", lead, "-c", "cluster.scale"],
+                 ["shell", "-master", lead, "-c", "qos.status"]))
         check(top.startswith("cluster OK"), f"top: {top[:500]}")
-        lint = cli_run(["lint-dashboards"], env)
-        scale = json.loads(cli_run(["shell", "-master", lead, "-c",
-                                    "cluster.scale"], env))
-        qos_view = json.loads(cli_run(["shell", "-master", lead, "-c",
-                                       "qos.status"], env))
+        scale, qos_view = json.loads(scale), json.loads(qos_view)
         scale_jobs = [h for h in http_json(lead, "/maintenance/queue")
                       ["history"][hist0:] if h["type"] == TYPE_SCALE_UP]
         check(scale_jobs and scale_jobs[0]["outcome"] == "ok",
@@ -4758,8 +4810,8 @@ def filer_phase(dev, workdir: str, rehearse: bool = False) -> dict:
         picks = [singles[j * len(singles) // FILER_PROBES]
                  for j in range(min(FILER_PROBES, len(singles)))]
         lat = {"hbm": [], "ram": [], "miss": [], "disk": []}
+        pre = cache_counts()  # nothing else reads between the probes
         for i in picks:
-            pre = cache_counts()
             t0 = time.perf_counter()
             body = call(faddr, "/" + paths[i], parse=False, timeout=120)
             dt = time.perf_counter() - t0
@@ -4769,7 +4821,8 @@ def filer_phase(dev, workdir: str, rehearse: bool = False) -> dict:
             tier = [t for t in lat if post[t] > pre[t]]
             check(len(tier) == 1, f"probe {paths[i]}: tiers {tier}")
             lat[tier[0]].append(dt)
-        c3 = cache_counts()
+            pre = post
+        c3 = pre
         tiers = {t: c3[t] - c0[t] for t in ("hbm", "ram", "disk", "miss")}
         evicted = c3["h2d"] - c3["hbm_resident"]
         check(tiers["hbm"] > 0, f"no HBM-tier hit: {tiers}")
@@ -4865,6 +4918,915 @@ def filer_phase(dev, workdir: str, rehearse: bool = False) -> dict:
     return launches
 
 
+S3_LOADER = r"""
+import hashlib, hmac, http.client, json, random, sys, threading, time
+import urllib.parse
+import numpy as np
+
+with open(sys.argv[1]) as f:
+    a = json.load(f)
+_keys = {}
+
+
+def payload(key, size):
+    return np.random.default_rng([a["seed"]] + list(key)).bytes(size)
+
+
+def quote(s, safe="/~"):
+    return urllib.parse.quote(s, safe=safe)
+
+
+def signing_key(datestamp):
+    if datestamp not in _keys:
+        k = ("AWS4" + a["secret_key"]).encode()
+        for part in (datestamp, "us-east-1", "s3", "aws4_request"):
+            k = hmac.new(k, part.encode(), hashlib.sha256).digest()
+        _keys[datestamp] = k
+    return _keys[datestamp]
+
+
+def sign(method, path, query, payload_hash):
+    # SigV4 header auth, as the AWS SDKs send it
+    now = time.gmtime()
+    amz_date = time.strftime("%Y%m%dT%H%M%SZ", now)
+    datestamp = time.strftime("%Y%m%d", now)
+    headers = {"Host": a["endpoint"], "X-Amz-Date": amz_date,
+               "X-Amz-Content-Sha256": payload_hash}
+    signed = sorted(k.lower() for k in headers)
+    lower = {k.lower(): v for k, v in headers.items()}
+    cq = "&".join(sorted("%s=%s" % (quote(k, "~"), quote(v, "~"))
+                         for k, v in query.items()))
+    canonical = "\n".join([
+        method, quote(path), cq,
+        "".join("%s:%s\n" % (h, " ".join(lower[h].split()))
+                for h in signed), ";".join(signed), payload_hash])
+    scope = "%s/us-east-1/s3/aws4_request" % datestamp
+    sts = "\n".join(["AWS4-HMAC-SHA256", amz_date, scope,
+                     hashlib.sha256(canonical.encode()).hexdigest()])
+    sig = hmac.new(signing_key(datestamp), sts.encode(),
+                   hashlib.sha256).hexdigest()
+    headers["Authorization"] = (
+        "AWS4-HMAC-SHA256 Credential=%s/%s, SignedHeaders=%s, Signature=%s"
+        % (a["access_key"], scope, ";".join(signed), sig))
+    return headers
+
+
+EMPTY = hashlib.sha256(b"").hexdigest()
+local = threading.local()
+
+
+def request(method, name, body=b"", rng=None):
+    path = a["prefix"] + name
+    headers = sign(method, path, {}, hashlib.sha256(body).hexdigest()
+                   if body else EMPTY) if a["sign"] else {}
+    if body:
+        headers["Content-Type"] = "application/octet-stream"
+    if rng:
+        headers["Range"] = "bytes=%d-%d" % tuple(rng)
+    for attempt in (0, 1):  # a kept-alive connection the server closed
+        if getattr(local, "conn", None) is None:
+            host, port = a["endpoint"].split(":")
+            local.conn = http.client.HTTPConnection(host, int(port),
+                                                    timeout=300)
+        try:
+            local.conn.request(method, quote(path), body=body or None,
+                               headers=headers)
+            resp = local.conn.getresponse()
+            return resp.status, dict(resp.getheaders()), resp.read()
+        except (http.client.RemoteDisconnected, BrokenPipeError,
+                ConnectionResetError):
+            local.conn.close()
+            local.conn = None
+            if attempt:
+                raise
+
+
+def etag_of(headers):
+    return {k.lower(): v for k, v in headers.items()}.get("etag",
+                                                          "").strip('"')
+
+
+def one(t, stats):
+    # one target: PUT it ("put"), GET it whole or by Range and check bytes
+    # and ETag ("get"), or check that it is gone ("gone")
+    mode = a["mode"]
+    t0 = time.perf_counter()
+    if mode == "put":
+        body = payload(t["key"], t["size"])
+        status, headers, reply = request("PUT", t["name"], body)
+        md5 = hashlib.md5(body).hexdigest()
+        ok = status == 200 and etag_of(headers) == md5
+        moved, extra = len(body), md5
+    elif mode == "gone":
+        status, headers, reply = request("GET", t["name"])
+        ok = status == 404 and b"NoSuchKey" in reply
+        moved, extra = 0, None
+    else:
+        want = payload(t["key"], t["size"])
+        span = t.get("span")
+        status, headers, reply = request("GET", t["name"], rng=span)
+        if span:
+            want = want[span[0]:span[1] + 1]
+        ok = status == (206 if span else 200) and reply == want and (
+            not a["sign"] or etag_of(headers) == t["etag"])
+        moved, extra = len(want), None
+    dt = time.perf_counter() - t0
+    with stats["lock"]:
+        stats["lat"].append(dt)
+        stats["bytes"] += moved
+        if extra is not None:
+            stats["etags"][t["name"]] = extra
+        if not ok:
+            stats["bad"].append([t["name"], status,
+                                 reply[:200].decode("latin-1")])
+
+
+def transfer():
+    targets = a["targets"]
+    stats = {"lock": threading.Lock(), "lat": [], "bytes": 0, "etags": {},
+             "bad": []}
+    it = iter(targets)
+
+    def worker():
+        while True:
+            with stats["lock"]:
+                t = next(it, None)
+            if t is None:
+                return
+            try:
+                one(t, stats)
+            except OSError as e:  # recorded: a failed request fails the run
+                with stats["lock"]:
+                    stats["bad"].append([t["name"], 0, repr(e)])
+
+    threads = [threading.Thread(target=worker) for _ in range(a["conns"])]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    stats.pop("lock")
+    return dict(stats, n=len(stats["lat"]), wall=time.perf_counter() - t0)
+
+
+def mix():
+    # warp mixed: closed loop, each connection draws GET/STAT/PUT/DELETE
+    # by the weights; DELETE takes the oldest key this connection PUT
+    ops = list(a["weights"])
+    weights = [a["weights"][o] for o in ops]
+    pool = a["pool"]  # preloaded [name, key, size, etag]
+    lock = threading.Lock()
+    lat = {o: [] for o in ops}
+    moved = {o: 0 for o in ops}
+    live, deleted, bad = [], [], []
+    start = time.monotonic()
+    deadline = start + a["duration"]
+
+    def worker(tid):
+        own = []
+        try:
+            loop(tid, own)
+        except OSError as e:  # recorded: a failed request fails the run
+            with lock:
+                bad.append(["error", "", 0, repr(e)])
+        with lock:
+            live.extend(own)
+
+    def loop(tid, own):
+        rnd = random.Random(a["proc"] * 1000 + tid)
+        n = 0
+        while time.monotonic() < deadline:
+            op = rnd.choices(ops, weights)[0]
+            if op == "DELETE" and not own:
+                continue
+            t0 = time.perf_counter()
+            if op in ("GET", "STAT"):
+                name, key, size, etag = rnd.choice(pool + own)
+                if op == "GET":
+                    status, headers, reply = request("GET", name)
+                    ok = status == 200 and etag_of(headers) == etag and \
+                        reply == payload(key, size)
+                    nbytes = len(reply)
+                else:
+                    status, headers, reply = request("HEAD", name)
+                    ok = status == 200 and {
+                        k.lower(): v for k, v in headers.items()
+                    }.get("content-length") == str(size)
+                    nbytes = 0
+            elif op == "PUT":
+                key = [4, a["proc"], tid, n]
+                n += 1
+                name = "mix/p%d/t%d/%05d" % tuple(key[1:])
+                body = payload(key, a["size"])
+                status, headers, reply = request("PUT", name, body)
+                etag = hashlib.md5(body).hexdigest()
+                ok = status == 200 and etag_of(headers) == etag
+                if ok:
+                    own.append([name, key, a["size"], etag])
+                nbytes = len(body)
+            else:
+                name = own.pop(0)[0]
+                status, headers, reply = request("DELETE", name)
+                ok = status == 204
+                if ok:
+                    with lock:
+                        deleted.append(name)
+                nbytes = 0
+            dt = time.perf_counter() - t0
+            with lock:
+                lat[op].append(dt)
+                moved[op] += nbytes
+                if not ok:
+                    bad.append([op, name, status,
+                                reply[:200].decode("latin-1")])
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(a["conns"])]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return {"lat": lat, "bytes": moved, "live": live, "deleted": deleted,
+            "bad": bad, "wall": time.monotonic() - start}
+
+
+bad_mods = [m for m in sys.modules
+            if m.split(".")[0] in ("torch", "jax", "seaweedfs_tpu",
+                                   "seaweedfs_tpu_torch")]
+assert not bad_mods, bad_mods
+result = mix() if a["mode"] == "mix" else transfer()
+with open(a["out"], "w") as f:
+    json.dump(result, f)
+"""
+
+
+def s3_payload(seed: int, key, size: int) -> bytes:
+    """The bytes of one phase 13 object: as S3_LOADER's payload()."""
+    return np.random.default_rng([seed] + list(key)).bytes(size)
+
+
+def s3_loader(spec: dict, workdir: str, env: dict, tag: str,
+              procs: int = 1) -> list:
+    """S3_LOADER in `procs` fresh interpreters at once, `targets` dealt
+    round-robin; returns their reports."""
+    runs = []
+    for p in range(procs):
+        out = os.path.join(workdir, f"s3_{tag}_{p}.json")
+        one = dict(spec, out=out, proc=p)
+        if "targets" in spec:
+            one["targets"] = spec["targets"][p::procs]
+        with open(out + ".spec", "w") as f:
+            json.dump(one, f)
+        runs.append((subprocess.Popen(
+            [sys.executable, "-c", S3_LOADER, out + ".spec"], env=env,
+            cwd=workdir, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True), out))
+    reports = []
+    for proc, out in runs:
+        _, err = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"the s3 {tag} load process failed: "
+              f"{err[-3000:]}")
+        with open(out) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def s3_iam(addr: str, action: str, **params) -> bytes:
+    """One IAM API call; anything but 200 fails the run."""
+    import urllib.parse
+
+    from seaweedfs_tpu_torch.rpc.http_rpc import RpcError, call
+
+    body = urllib.parse.urlencode({"Action": action, **params}).encode()
+    try:
+        return call(addr, "/", raw=body, method="POST", parse=False,
+                    headers={"Content-Type":
+                             "application/x-www-form-urlencoded"})
+    except RpcError as e:
+        raise AssertionError(f"IAM {action}: {e.status} {e}") from None
+
+
+def s3_phase(dev, workdir: str, rehearse: bool = False) -> dict:
+    """Phase 13: SeaweedFS's S3 gateway with the IAM API over warm EC
+    storage, each daemon a process of the port's CLI: one master, three
+    volume servers (-ec.backend=cuda) and one `iam` process that serves
+    the IAM API, the S3 API and their embedded filer (a 1 GiB HBM tier
+    for its chunk cache).  Keys made through the IAM API; bucket `warm`
+    given its collection by fs.configure; 100 seeded 10 MiB objects PUT
+    by SigV4-signing load processes, a 64 MiB multipart upload and a
+    streaming aws-chunked PUT; the shell's ec.encode (K2); every object
+    read intact, then .ec00 .ec05 .ec11 .ec13 of the largest volume
+    dropped and every object read whole and by one Range (K1); 30 s of
+    MinIO warp's mixed traffic; listings, key probes, the circuit
+    breaker, HBM-tier probes; filer.backup, filer.meta.backup and
+    filer.sync through the CLI; benchmark, upload and download; nothing
+    left after SIGTERM.  Returns the kernels' launches, summed over the
+    volume server processes.  `rehearse` runs on the CPU and skips the
+    launch counts."""
+    import xml.etree.ElementTree as ET
+
+    from seaweedfs_tpu_torch.rpc.http_rpc import call
+    from seaweedfs_tpu_torch.wdclient.s3_client import S3Client
+
+    ns = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+    iam_ns = "{https://iam.amazonaws.com/doc/2010-05-08/}"
+    out: dict = {}
+    t_phase = time.monotonic()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(FILER_KNOBS, PYTHONPATH=repo)
+    gw_env = dict(env, WEED_READ_CACHE_HBM_MB=str(S3_HBM_MB),
+                  WEED_READ_CACHE_MB=str(S3_RAM_MB))
+    device_flag = ["-device", "cpu"] if rehearse else []
+    seed = SEED + 50
+    # every live object of the bucket: name -> [payload key, size, etag]
+    objects: dict = {}
+
+    ports = []
+    while len(ports) < S3_SERVERS + 4:
+        p = free_port()
+        if p not in ports:
+            ports.append(p)
+    maddr = f"127.0.0.1:{ports[0]}"
+    iam_addr = f"127.0.0.1:{ports[1]}"
+    s3_addr = f"127.0.0.1:{ports[2]}"
+    f2_addr = f"127.0.0.1:{ports[3]}"
+    vaddrs = [f"127.0.0.1:{p}" for p in ports[4:]]
+    procs: dict = {}
+
+    def log_of(name):
+        return os.path.join(workdir, name.replace(":", "_") + ".log")
+
+    def start(name, args, penv, marker="listening on"):
+        procs[name] = cli(args, penv, log_of(name))
+        ready, _, _ = select.select([procs[name].stdout], [], [], 120)
+        line = procs[name].stdout.readline() if ready else ""
+        if marker not in line:
+            procs[name].kill()
+            procs[name].wait(timeout=30)
+            with open(log_of(name)) as f:
+                check(False, f"{name} did not start: {line!r} "
+                      f"{f.read()[-3000:]}")
+
+    def shell(cmd):
+        return cli_run(["shell", "-master", maddr, "-filer", faddr, "-c",
+                        cmd], env)
+
+    def cache_counts() -> dict:
+        expo = exposition(http_get_text(s3_addr, "/metrics"))
+        return {t: sample(expo, "SeaweedFS_read_cache_requests_total",
+                          tier=t) for t in ("hbm", "ram", "disk", "miss")}
+
+    def numbers(reps) -> dict:
+        lat = [x for r in reps for x in r["lat"]]
+        nbytes = sum(r["bytes"] for r in reps)
+        wall = max(r["wall"] for r in reps)
+        return {"n": len(lat), "bytes": nbytes, "s": wall,
+                "mib_s": nbytes / MIB / wall, "req_s": len(lat) / wall,
+                "p50_ms": pct_ms(lat, 50), "p99_ms": pct_ms(lat, 99)}
+
+    def load(mode, targets, tag, key, nprocs=S3_LOADERS,
+             conns=S3_CONNS, endpoint=None, prefix="/warm/"):
+        reps = s3_loader({"mode": mode, "seed": seed, "targets": targets,
+                          "conns": conns, "endpoint": endpoint or s3_addr,
+                          "prefix": prefix, "sign": endpoint is None,
+                          "access_key": key[0], "secret_key": key[1]},
+                         workdir, env, tag, nprocs)
+        bad = [b for r in reps for b in r["bad"]]
+        check(not bad and sum(len(r["lat"]) for r in reps) == len(targets),
+              f"s3 {tag}: {len(bad)} bad, e.g. {bad[:3]}")
+        got = numbers(reps)
+        for r in reps:
+            got.setdefault("etags", {}).update(r["etags"])
+        return got
+
+    def report(tag, r):
+        log(f"s3: {tag}: {r['n']} requests, {r['bytes']} B in "
+            f"{r['s']:.3f} s: {r['mib_s']:.1f} MiB/s, {r['req_s']:.1f} "
+            f"req/s, p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms")
+
+    def reads(names, tag, key, spans=False, rng=None):
+        targets = []
+        for name in names:
+            k, size, etag = objects[name]
+            t = {"name": name, "key": k, "size": size, "etag": etag}
+            if spans:
+                lo = int(rng.integers(0, size))
+                t["span"] = [lo, int(rng.integers(lo, min(size, lo + 8 * MIB)))]
+            targets.append(t)
+        return load("get", targets, tag, key)
+
+    try:
+        # -- 1. the deployment: every daemon through the port's CLI
+        t0 = time.monotonic()
+        mdir = os.path.join(workdir, "master")
+        os.makedirs(mdir)
+        ids = os.path.join(workdir, "identities.json")
+        with open(ids, "w") as f:
+            json.dump({"identities": [{"name": "admin",
+                                       "access_key": "AKADMIN",
+                                       "secret_key": "SKADMIN"}]}, f)
+        procs[maddr] = cli(["master", "-port", str(ports[0]), "-mdir", mdir,
+                            "-volumeSizeLimitMB", str(CLUSTER_LIMIT_MB),
+                            "-defaultReplication", "000",
+                            "-pulseSeconds", "1"], env, log_of(maddr))
+        for i, v in enumerate(vaddrs):
+            d = os.path.join(workdir, f"volume{i}")
+            os.makedirs(d)
+            procs[v] = cli(["volume", "-dir", d, "-port", v.split(":")[1],
+                            "-max", str(S3_MAX_VOLUMES), "-mserver", maddr,
+                            "-rack", f"rack{i + 1}", "-dataCenter", "dc1",
+                            "-pulseSeconds", "1", "-ecBackend", "cuda"]
+                           + device_flag, env, log_of(v))
+        start("iam", ["iam", "-port", str(ports[1]), "-s3Port",
+                      str(ports[2]), "-master", maddr, "-config", ids,
+                      "-db", os.path.join(workdir, "filer.db")]
+              + device_flag, gw_env, marker=f"iam api on {iam_addr} "
+              f"(s3 {s3_addr})")
+        for v in [maddr] + vaddrs:
+            listening(procs[v], v, log_of(v))
+
+        def registered():
+            st = http_json(maddr, "/dir/status")
+            nodes = sorted(n["url"] for dc in st["datacenters"]
+                           for r in dc["racks"] for n in r["nodes"])
+            filers = http_json(maddr, "/cluster/nodes?type=filer")
+            return nodes == sorted(vaddrs) and filers["cluster_nodes"]
+
+        # `weed iam` prints the IAM and S3 addresses; the embedded filer
+        # is found as the shell finds it, in the master's registry
+        faddr = wait_until(registered, 60, "the volume servers and the "
+                           "embedded filer never registered")[0]["address"]
+        out["start_s"] = time.monotonic() - t0
+        http_json(maddr, "/maintenance/pause", {"paused": True})
+        log(f"s3: master {maddr}, volume servers {vaddrs}, iam api "
+            f"{iam_addr} with the s3 gateway {s3_addr} and the embedded "
+            f"filer {faddr} (HBM tier {S3_HBM_MB} MiB, RAM {S3_RAM_MB} "
+            f"MiB), each a process of the port's CLI, up in "
+            f"{out['start_s']:.3f} s")
+
+        # -- 2. IAM: the traffic's key and a read-only key, live
+        admin = S3Client(s3_addr, "AKADMIN", "SKADMIN")
+        check(admin.send("GET", "/")[0] == 200,
+              "the -config admin key was refused")
+        check(S3Client(s3_addr).send("GET", "/")[0] == 403,
+              "an unsigned request passed the -config gateway")
+        keys = {}
+        for user, verbs in (("app", ["s3:GetObject", "s3:PutObject",
+                                     "s3:ListBucket"]),
+                            ("reader", ["s3:GetObject", "s3:ListBucket"])):
+            s3_iam(iam_addr, "CreateUser", UserName=user)
+            root = ET.fromstring(s3_iam(iam_addr, "CreateAccessKey",
+                                        UserName=user))
+            keys[user] = (root.find(f".//{iam_ns}AccessKeyId").text,
+                          root.find(f".//{iam_ns}SecretAccessKey").text)
+            s3_iam(iam_addr, "PutUserPolicy", UserName=user,
+                   PolicyName=f"{user}-warm", PolicyDocument=json.dumps({
+                       "Version": "2012-10-17", "Statement": [{
+                           "Effect": "Allow", "Action": verbs,
+                           "Resource": ["arn:aws:s3:::warm",
+                                        "arn:aws:s3:::warm/*"]}]}))
+        policy = s3_iam(iam_addr, "GetUserPolicy", UserName="app")
+        check(b"s3:PutObject" in policy, f"GetUserPolicy: {policy[:500]}")
+        app = S3Client(s3_addr, *keys["app"])
+        reader = S3Client(s3_addr, *keys["reader"])
+
+        # -- 3. the bucket (the new key, no restart), its path rule, and
+        # the preload from 4 processes
+        status, _, body = app.send("PUT", "/warm")
+        check(status == 200, f"CreateBucket with the IAM key: {status} "
+              f"{body[:300]}")
+        rule = json.loads(shell("fs.configure -locationPrefix=/buckets/warm/ "
+                                "-collection=warm"))["locations"]
+        check({"location_prefix": "/buckets/warm/",
+               "collection": "warm"}.items() <= rule[0].items(),
+              f"fs.configure: {rule}")
+        time.sleep(1.2)  # the filer re-reads its path rules each second
+        preload = [{"name": f"obj/{i:04d}", "key": [0, i],
+                    "size": S3_OBJECT} for i in range(S3_OBJECTS)]
+        put = load("put", preload, "preload", keys["app"])
+        for t in preload:
+            objects[t["name"]] = [t["key"], t["size"], put["etags"][t["name"]]]
+        out["put"] = {k: v for k, v in put.items() if k != "etags"}
+        report(f"PUT of {S3_OBJECTS} objects of {S3_OBJECT} B from "
+               f"{S3_LOADERS} processes x {S3_CONNS} connections, every "
+               "ETag the body's MD5", out["put"])
+
+        # a multipart upload of 8 MiB parts (the AWS CLI's default
+        # multipart_chunksize), then a streaming aws-chunked PUT
+        mp_key, mp = [1, 0], s3_payload(seed, [1, 0], S3_MULTIPART)
+        t0 = time.perf_counter()
+        root = ET.fromstring(app._request("POST", "/warm/mp/big.bin",
+                                          {"uploads": ""}, parse=False))
+        upload_id = root.find(f"{ns}UploadId").text
+        for part in range(S3_MULTIPART // S3_PART):
+            app._request("PUT", "/warm/mp/big.bin",
+                         {"partNumber": str(part + 1),
+                          "uploadId": upload_id},
+                         body=mp[part * S3_PART:(part + 1) * S3_PART],
+                         parse=False)
+        root = ET.fromstring(app._request("POST", "/warm/mp/big.bin",
+                                          {"uploadId": upload_id},
+                                          parse=False))
+        out["multipart_s"] = time.perf_counter() - t0
+        mp_etag = root.find(f"{ns}ETag").text.strip('"')
+        check(mp_etag.endswith(f"-{S3_MULTIPART // S3_PART}"),
+              f"multipart ETag {mp_etag}")
+        objects["mp/big.bin"] = [mp_key, S3_MULTIPART, mp_etag]
+        st_key, st = [2, 0], s3_payload(seed, [2, 0], S3_OBJECT)
+        t0 = time.perf_counter()
+        app.put_object_streaming("warm", "stream/obj.bin", st)
+        out["streaming_put_s"] = time.perf_counter() - t0
+        objects["stream/obj.bin"] = [st_key, S3_OBJECT,
+                                     hashlib.md5(st).hexdigest()]
+        log(f"s3: multipart upload of {S3_MULTIPART} B in "
+            f"{S3_MULTIPART // S3_PART} parts of {S3_PART} B: "
+            f"{out['multipart_s']:.3f} s (ETag {mp_etag}); streaming "
+            f"aws-chunked PUT of {S3_OBJECT} B: "
+            f"{out['streaming_put_s']:.3f} s")
+
+        # -- 4. the shell's ec.encode of the collection (K2)
+        def warm_volumes():
+            st = http_json(maddr, "/dir/status")
+            return {v["id"]: v["size"] for dc in st["datacenters"]
+                    for r in dc["racks"] for nd in r["nodes"]
+                    for v in nd["volume_list"]
+                    if v.get("collection") == "warm"}
+
+        total = sum(size for _, size, _ in objects.values())
+        wait_until(lambda: sum(warm_volumes().values()) >= total, 30,
+                   "the heartbeats never reported the uploaded bytes")
+        vol_sizes = warm_volumes()
+        before = {v: process_counts(v) for v in vaddrs}
+        t0 = time.perf_counter()
+        text = shell("ec.encode -collection=warm -fullPercent="
+                     f"{FILER_ENCODE_PERCENT} -quietFor=0")
+        out["encode_s"] = time.perf_counter() - t0
+        check(not text.startswith("error"), f"ec.encode: {text[-3000:]}")
+        vids = sorted(p["volume"] for p in json.loads(text))
+        floor = CLUSTER_LIMIT_MB * MIB * FILER_ENCODE_PERCENT / 100
+        check(vids == sorted(v for v, size in vol_sizes.items()
+                             if size >= floor), f"ec.encode encoded {vids} "
+              f"of {vol_sizes}")
+        wait_until(lambda: all(len(ec_holders(maddr, v)) == 14
+                               for v in vids), 60,
+                   "the encoded volumes' 14 shards never all showed")
+        k2 = {v: process_counts(v)["fused_apply_crc"]
+              - before[v]["fused_apply_crc"] for v in vaddrs}
+        if not rehearse:
+            check(sum(k2.values()) > 0, "K2 did not launch in ec.encode")
+        families = {}
+        for i in range(S3_SERVERS):
+            for v in vids:
+                base = os.path.join(workdir, f"volume{i}", f"warm_{v}")
+                if os.path.exists(base + ".vif"):
+                    info = encoder.load_volume_info(base)
+                    families.setdefault(v, set()).add(
+                        (info.get("code_family"), len(
+                            info.get("shard_crc32c", []))))
+        check(sorted(families) == vids and all(
+            f == {("rs_vandermonde", 14)} for f in families.values()),
+            f"the .vif families: {families}")
+        log(f"s3: ec.encode of collection warm ({len(vids)} volumes "
+            f"{json.dumps(vol_sizes, sort_keys=True)} B) through the "
+            f"shell's CLI in {out['encode_s']:.3f} s; K2 by server "
+            f"{json.dumps(k2)}; every .vif RS(10,4) Vandermonde with 14 "
+            "shard CRCs")
+
+        # -- 5. every object read intact; 4 shards of the largest volume
+        # lost; every object read whole and by one Range
+        names = sorted(objects)
+        out["intact"] = reads(names, "intact", keys["app"])
+        vid = max(vids, key=lambda v: vol_sizes[v])
+        held = ec_holders(maddr, vid)
+        for sid in LOST:
+            for url in held[sid]:
+                http_json(url, "/admin/ec/delete_shards",
+                          {"volume": vid, "shard_ids": [sid]})
+        wait_until(lambda: all(sid not in ec_holders(maddr, vid)
+                               for sid in LOST), 30,
+                   "the dropped shards stayed listed")
+        mid = {v: process_counts(v) for v in vaddrs}
+        out["degraded"] = reads(names, "degraded", keys["app"])
+        out["ranges"] = reads(names, "ranges", keys["app"], spans=True,
+                              rng=np.random.default_rng(seed))
+        after = {v: process_counts(v) for v in vaddrs}
+        decode = {v: {"k1": after[v]["gf_apply"] - mid[v]["gf_apply"],
+                      "batches": after[v]["batches"] - mid[v]["batches"]}
+                  for v in vaddrs}
+        if not rehearse:
+            check(sum(d["k1"] for d in decode.values()) > 0,
+                  "K1 did not launch behind the lost shards")
+        out["decode_by_process"] = decode
+        for tag in ("intact", "degraded", "ranges"):
+            report(f"{tag} GETs of every object", out[tag])
+        log(f"s3: volume {vid} lost .ec00 .ec05 .ec11 .ec13; every object "
+            "byte-identical whole and by Range, the multipart one equal to "
+            "its parts; K1 and decode batches by server "
+            + json.dumps(decode, sort_keys=True))
+
+        # -- 6. warp mixed, closed loop, on the degraded volumes
+        pool = [[n, objects[n][0], objects[n][1], objects[n][2]]
+                for n in sorted(objects) if n.startswith("obj/")]
+        reps = s3_loader({"mode": "mix", "seed": seed, "pool": pool,
+                          "conns": S3_CONNS, "endpoint": s3_addr,
+                          "prefix": "/warm/", "sign": True,
+                          "access_key": keys["app"][0],
+                          "secret_key": keys["app"][1],
+                          "weights": S3_MIX, "size": S3_OBJECT,
+                          "duration": S3_MIX_S}, workdir, env, "mix",
+                         S3_LOADERS)
+        bad = [b for r in reps for b in r["bad"]]
+        check(not bad, f"s3 mix: {len(bad)} bad, e.g. {bad[:3]}")
+        wall = max(r["wall"] for r in reps)
+        mixed = {}
+        for op in S3_MIX:
+            lat = [x for r in reps for x in r["lat"][op]]
+            nbytes = sum(r["bytes"][op] for r in reps)
+            mixed[op] = {"n": len(lat), "ops_s": len(lat) / wall,
+                         "mib_s": nbytes / MIB / wall,
+                         "p50_ms": pct_ms(lat, 50),
+                         "p99_ms": pct_ms(lat, 99)}
+        check(all(mixed[op]["n"] > 0 for op in S3_MIX),
+              f"an operation of the mix never ran: {mixed}")
+        out["mix"] = {"wall_s": wall, "ops": mixed,
+                      "ops_s": sum(m["n"] for m in mixed.values()) / wall}
+        for r in reps:
+            for name, key, size, etag in r["live"]:
+                objects[name] = [key, size, etag]
+        deleted = [n for r in reps for n in r["deleted"]]
+        log(f"s3: warp mixed for {wall:.3f} s from {S3_LOADERS} processes "
+            f"x {S3_CONNS} connections: {out['mix']['ops_s']:.1f} ops/s; "
+            + "; ".join(f"{op} {m['n']} ({m['ops_s']:.1f}/s, "
+                        f"{m['mib_s']:.1f} MiB/s, p50 {m['p50_ms']:.3f} "
+                        f"ms, p99 {m['p99_ms']:.3f} ms)"
+                        for op, m in mixed.items()))
+        live_mix = sorted(n for n in objects if n.startswith("mix/"))
+        if live_mix:
+            out["readback"] = reads(live_mix, "readback", keys["app"])
+        if deleted:
+            load("gone", [{"name": n} for n in deleted], "gone",
+                 keys["app"], nprocs=1)
+        log(f"s3: after the mix, {len(live_mix)} acknowledged PUTs read "
+            f"back byte-identical, {len(deleted)} deleted keys answer 404")
+
+        # -- 7. listings and key probes
+        def listing(client, **query):
+            keys_, prefixes, token = [], [], None
+            while True:
+                q = {"list-type": "2", **query}
+                if token:
+                    q["continuation-token"] = token
+                status, _, body = client.send("GET", "/warm", q)
+                check(status == 200, f"ListObjectsV2 {q}: {status}")
+                root = ET.fromstring(body)
+                keys_ += [e.find(f"{ns}Key").text
+                          for e in root.findall(f"{ns}Contents")]
+                prefixes += [e.find(f"{ns}Prefix").text
+                             for e in root.findall(f"{ns}CommonPrefixes")]
+                token = root.findtext(f"{ns}NextContinuationToken")
+                if root.findtext(f"{ns}IsTruncated") != "true":
+                    return keys_, prefixes
+
+        got, _ = listing(app, prefix="obj/")
+        check(got == sorted(n for n in objects if n.startswith("obj/")),
+              f"ListObjectsV2 prefix=obj/: {len(got)} keys")
+        got, _ = listing(app, prefix="mix/")
+        check(got == live_mix, f"ListObjectsV2 prefix=mix/: {len(got)} "
+              f"keys, {len(live_mix)} live")
+        got, prefixes = listing(app, delimiter="/")
+        want = sorted({n.split("/")[0] + "/" for n in objects})
+        check(got == [] and sorted(prefixes) == want,
+              f"ListObjectsV2 delimiter=/: {got} {prefixes}")
+        small = "obj/0000"
+        status, _, body = reader.send("PUT", "/warm/ro.bin", body=b"x")
+        check(status == 403, f"the read-only key's PUT: {status}")
+        status, _, body = reader.send("GET", "/warm/" + small)
+        check(status == 200 and body == s3_payload(seed, [0, 0], S3_OBJECT),
+              f"the read-only key's GET: {status}")
+        status, _, body = S3Client(s3_addr, "AKNOBODY", "SK").send(
+            "GET", "/warm/" + small)
+        check(status == 403 and b"InvalidAccessKeyId" in body,
+              f"an unknown key: {status} {body[:200]}")
+        s3_iam(iam_addr, "DeleteAccessKey", UserName="reader",
+               AccessKeyId=keys["reader"][0])
+        status, _, body = reader.send("GET", "/warm/" + small)
+        check(status == 403 and b"InvalidAccessKeyId" in body,
+              f"the deleted key: {status} {body[:200]}")
+        log("s3: ListObjectsV2 by prefix and by delimiter equal to the "
+            "bucket's keys; the read-only key PUT 403 / GET 200; an "
+            "unknown key 403; the deleted key 403")
+
+        # -- 8. a per-bucket count limit through s3.circuitbreaker
+        def burst(tag, n=S3_BURST):
+            body = s3_payload(seed, [5, 0], 4 * MIB)
+            gate = threading.Barrier(n)
+
+            def one(i):
+                gate.wait()
+                return app.send("PUT", f"/warm/cb/{tag}{i}", body=body)
+
+            with concurrent.futures.ThreadPoolExecutor(n) as pool_:
+                return list(pool_.map(one, range(n)))
+
+        def reload_breaker():
+            # the gateway re-reads the breaker's file at most once a second,
+            # on a request: past that TTL, one PUT makes it read the file
+            time.sleep(1.2)
+            check(app.send("PUT", "/warm/cb/reload", body=b"r")[0] == 200,
+                  "the PUT that reloads the breaker")
+
+        shell("s3.circuitbreaker -actions=Write:Count -values=1 "
+              "-buckets=warm -enable")
+        reload_breaker()
+        got = burst("a-")
+        codes = [s for s, _, _ in got]
+        check(all(s in (200, 503) for s in codes), f"burst: {codes}")
+        check(all(b"SlowDown" in b for s, _, b in got if s == 503),
+              "a 503 without SlowDown")
+        slowed = codes.count(503)
+        check(slowed > 0, "no request of a burst past the limit got 503")
+        shell("s3.circuitbreaker -actions=Write:Count -buckets=warm -delete")
+        reload_breaker()
+        codes = [s for s, _, _ in burst("b-")]
+        check(codes == [200] * S3_BURST, f"after the limit left: {codes}")
+        for name in [f"cb/{tag}{i}" for tag in ("a-", "b-")
+                     for i in range(S3_BURST)] + ["cb/reload"]:
+            check(app.send("DELETE", f"/warm/{name}")[0] == 204,
+                  "DELETE of a burst object")
+        log(f"s3: s3.circuitbreaker Write:Count=1 on bucket warm: "
+            f"{slowed} of a burst of {S3_BURST} PUTs got 503 SlowDown; "
+            f"after -delete all {S3_BURST} passed")
+
+        # -- 9. the HBM tier: single-chunk objects read 4 times, the RAM
+        # tier flushed, then read once more: an HBM hit
+        probes = [{"name": f"probe/{i:02d}", "key": [3, i],
+                   "size": S3_PROBE} for i in range(S3_PROBES)]
+        got = load("put", probes, "probes", keys["app"], nprocs=1)
+        for t in probes:
+            objects[t["name"]] = [t["key"], t["size"], got["etags"][t["name"]]]
+        lat = {"hbm": [], "ram": [], "miss": [], "disk": []}
+        tiers = []
+        counts = [None]  # the last scrape: nothing else reads meanwhile
+
+        def probe(t):
+            pre = counts[0] or cache_counts()
+            t0 = time.perf_counter()
+            body = app.get_object("warm", t["name"])
+            dt = time.perf_counter() - t0
+            check(body == s3_payload(seed, t["key"], t["size"]),
+                  f"probe {t['name']} read wrong")
+            post = counts[0] = cache_counts()
+            tier = [k for k in lat if post[k] > pre[k]]
+            check(len(tier) == 1, f"probe {t['name']}: tiers {tier}")
+            lat[tier[0]].append(dt)
+            return tier[0]
+
+        for t in probes:
+            tiers.append([probe(t) for _ in range(4)])
+        flush = [n for n in sorted(objects) if n.startswith("obj/")][
+            :S3_RAM_MB * MIB // S3_OBJECT + 2]
+        reads(flush, "flush", keys["app"])
+        counts[0] = None
+        for t, seen in zip(probes, tiers):
+            seen.append(probe(t))
+            check(seen[-1] == "hbm", f"{t['name']}: the fifth read was a "
+                  f"{seen[-1]} (reads {seen})")
+        check(lat["miss"], f"no probe read missed: {tiers}")
+        out["hbm"] = {"reads": tiers,
+                      "hbm_hit_p50_ms": pct_ms(lat["hbm"], 50),
+                      "miss_p50_ms": pct_ms(lat["miss"], 50),
+                      "ram_hit_p50_ms": pct_ms(lat["ram"], 50)}
+        log(f"s3: {S3_PROBES} single-chunk objects ({S3_PROBE} B) read 4 "
+            f"times, {len(flush)} objects read past the {S3_RAM_MB} MiB RAM "
+            f"tier, then read once more: every fifth read an HBM hit; p50 "
+            f"HBM hit {out['hbm']['hbm_hit_p50_ms']:.3f} ms, miss "
+            f"{out['hbm']['miss_p50_ms']:.3f} ms, RAM hit "
+            f"{out['hbm']['ram_hit_p50_ms']:.3f} ms")
+
+        # -- 10. replication through the CLI, on the degraded volumes;
+        # the second filer (filer.sync's target) starts meanwhile
+        procs[f2_addr] = cli(["filer", "-port", str(ports[3]), "-master",
+                              maddr, "-db", os.path.join(workdir,
+                                                         "filer2.db"),
+                              "-maxMB", "4"] + device_flag, env,
+                             log_of(f2_addr))
+        live_bytes = sum(size for _, size, _ in objects.values())
+        bk = os.path.join(workdir, "backup")
+        t0 = time.perf_counter()
+        cli_run(["filer.backup", "-filer", faddr, "-filerPath",
+                 "/buckets/warm", "-sink", f"local://{bk}", "-once",
+                 "-state", os.path.join(workdir, "backup.state")], env,
+                timeout=900)
+        out["backup_s"] = time.perf_counter() - t0
+        files = set()
+        for root_, _, fs in os.walk(bk):
+            files |= {os.path.relpath(os.path.join(root_, f), bk)
+                      for f in fs}
+        check(files == set(objects), "filer.backup: extra "
+              f"{sorted(files - set(objects))[:5]}, missing "
+              f"{sorted(set(objects) - files)[:5]}")
+        for name, (key, size, _) in objects.items():
+            with open(os.path.join(bk, name), "rb") as f:
+                check(f.read() == s3_payload(seed, key, size),
+                      f"filer.backup: {name} differs")
+        db = os.path.join(workdir, "meta.db")
+        t0 = time.perf_counter()
+        cli_run(["filer.meta.backup", "-filer", faddr, "-filerPath",
+                 "/buckets/warm", "-store", db, "-once"], env)
+        out["meta_backup_s"] = time.perf_counter() - t0
+        listed = [json.loads(ln) for ln in cli_run(
+            ["filer.meta.backup", "-filerPath", "/buckets/warm", "-store",
+             db, "-restore"], env).splitlines()]
+        sizes = {e["full_path"]: e["attr"]["file_size"] for e in listed
+                 if not e["attr"]["mode"] & 0o40000}
+        check(sizes == {f"/buckets/warm/{n}": s
+                        for n, (_, s, _) in objects.items()},
+              "filer.meta.backup -restore differs from the bucket")
+        listening(procs[f2_addr], f2_addr, log_of(f2_addr))
+        t0 = time.perf_counter()
+        cli_run(["filer.sync", "-a", faddr, "-b", f2_addr, "-a.path",
+                 "/buckets/warm/", "-b.path", "/buckets/warm/",
+                 "-isActivePassive", "-once", "-concurrency",
+                 str(S3_SYNC_LANES), "-state",
+                 os.path.join(workdir, "sync.state")], env, timeout=900)
+        out["sync_s"] = time.perf_counter() - t0
+        load("get", [{"name": n, "key": k, "size": s, "etag": e}
+                     for n, (k, s, e) in sorted(objects.items())],
+             "synced", ("", ""), endpoint=f2_addr, prefix="/buckets/warm/")
+        out["replicated_bytes"] = live_bytes
+        for tag in ("backup", "sync"):
+            s = out[f"{tag}_s"]
+            log(f"s3: filer.{tag} of {len(objects)} objects ({live_bytes} "
+                f"B) through the CLI: {s:.3f} s, "
+                f"{live_bytes / MIB / s:.1f} MiB/s")
+        log(f"s3: filer.meta.backup of {len(listed)} entries through the "
+            f"CLI: {out['meta_backup_s']:.3f} s, "
+            f"{len(listed) / out['meta_backup_s']:.1f} entries/s")
+        log("s3: filer.backup byte-identical, filer.meta.backup -restore "
+            "equal to the bucket, filer.sync -isActivePassive byte-identical "
+            "through the second filer")
+
+        # -- 11. the client tools through the CLI
+        t0 = time.perf_counter()
+        text = cli_run(["benchmark", "-master", maddr, "-n",
+                        str(S3_BENCH_N), "-size", "1024", "-c", "8"], env,
+                       timeout=600)
+        out["benchmark_s"] = time.perf_counter() - t0
+        for phase in ("write", "read"):
+            check(f"--- {phase} ---\nrequests: {S3_BENCH_N}, errors: 0\n"
+                  in text, f"benchmark: {text[-2000:]}")
+        out["benchmark"] = text
+        log("s3: benchmark -n %d -size 1024 -c 8 through the CLI:\n%s"
+            % (S3_BENCH_N, text.rstrip()))
+        up = os.path.join(workdir, "upload.bin")
+        with open(up, "wb") as f:
+            f.write(st)
+        fid = json.loads(cli_run(["upload", up, "-master", maddr], env))["fid"]
+        down = os.path.join(workdir, "download.bin")
+        cli_run(["download", fid, "-master", maddr, "-output", down], env)
+        with open(down, "rb") as f:
+            check(f.read() == st, "download returned other bytes")
+        log(f"s3: upload then download of {len(st)} B ({fid}) "
+            "byte-identical")
+
+        # -- 12. the kernels, per volume server process
+        final = {v: process_counts(v) for v in vaddrs}
+        if not rehearse:
+            for v, c in final.items():
+                check(c["gf_apply"] == c["batches"] + c["scrub_steps"],
+                      f"{v}: {c['gf_apply']} K1 launches for "
+                      f"{c['batches']} decode batches")
+        launches = {name: sum(c[name] for c in final.values())
+                    for name in KERNELS}
+        out["launches_by_process"] = final
+    finally:
+        for name, proc in procs.items():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for name, proc in procs.items():
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        left = proc_tree_pids(workdir)
+        for pid in left:
+            os.kill(pid, signal.SIGKILL)
+    check(not left, f"processes left after SIGTERM: {left}")
+    check(all(p.returncode == 0 for p in procs.values()),
+          "a process did not exit 0 on SIGTERM: " + json.dumps(
+              {n: p.returncode for n, p in procs.items()}))
+    out["wall_s"] = time.monotonic() - t_phase
+    PHASE_NUMBERS["s3"] = out
+    log("s3 numbers: " + json.dumps(
+        {k: v for k, v in out.items() if k != "benchmark"}, sort_keys=True,
+        default=str))
+    log(f"s3: the phase took {out['wall_s']:.3f} s")
+    log(f"launches on the s3 path: {launches}")
+    return launches
+
+
 def http_get_text(addr: str, path: str) -> str:
     from seaweedfs_tpu_torch.rpc.http_rpc import call
 
@@ -4904,6 +5866,10 @@ def main() -> int:
     ap.add_argument("--filer", action="store_true",
                     help="build and check the kernels, then phase 12 (a "
                          "filer over warm EC storage) alone")
+    ap.add_argument("--s3", action="store_true",
+                    help="build and check the kernels, then phase 13 (the "
+                         "S3 gateway and the IAM API over warm EC "
+                         "storage) alone")
     args = ap.parse_args()
     mode = ("quick" if args.quick else "kernels" if args.kernels
             else "routes" if args.routes else "inline" if args.inline
@@ -4911,11 +5877,13 @@ def main() -> int:
             else "prefork" if args.prefork
             else "cluster" if args.cluster
             else "elastic" if args.elastic
-            else "filer" if args.filer else "all")
+            else "filer" if args.filer
+            else "s3" if args.s3 else "all")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    t_run = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -4929,20 +5897,20 @@ def main() -> int:
     stats = kernel_phase(dev, "quick" if mode in ("routes", "inline",
                                                   "cache", "server",
                                                   "prefork", "cluster",
-                                                  "elastic", "filer")
+                                                  "elastic", "filer", "s3")
                          else mode)
     if mode in ("kernels", "routes", "all"):
         route_phase(dev)
     if mode == "routes":
         route_profile(dev)
     if mode in ("inline", "cache", "server", "prefork", "cluster",
-                "elastic", "filer"):
+                "elastic", "filer", "s3"):
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             {"inline": inline_phase, "cache": cache_phase,
              "server": server_phase, "prefork": prefork_phase,
              "cluster": cluster_phase, "elastic": elastic_phase,
-             "filer": filer_phase}[mode](dev, workdir)
+             "filer": filer_phase, "s3": s3_phase}[mode](dev, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     launches = {}
@@ -4952,7 +5920,8 @@ def main() -> int:
         needs = {"raw": KERNELS, "needle": KERNELS, "store": KERNELS,
                  "inline": ("gf_apply",), "cache": KERNELS,
                  "server": KERNELS, "prefork": KERNELS,
-                 "cluster": KERNELS, "elastic": KERNELS, "filer": KERNELS}
+                 "cluster": KERNELS, "elastic": KERNELS, "filer": KERNELS,
+                 "s3": KERNELS}
         paths = {}
         for label, phase in (("raw", main_path), ("needle", needle_phase),
                              ("store", store_phase),
@@ -4962,12 +5931,15 @@ def main() -> int:
                              ("prefork", prefork_phase),
                              ("cluster", cluster_phase),
                              ("elastic", elastic_phase),
-                             ("filer", filer_phase)):
+                             ("filer", filer_phase),
+                             ("s3", s3_phase)):
             workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+            t_path = time.perf_counter()
             try:
                 paths[label] = phase(dev, workdir)
             finally:
                 shutil.rmtree(workdir, ignore_errors=True)
+            log(f"path {label}: {time.perf_counter() - t_path:.3f} s")
         for label, counts in paths.items():
             for name in needs[label]:
                 check(counts.get(name, 0) > 0,
@@ -5001,6 +5973,13 @@ def main() -> int:
         log(f"cluster: its K1 and K2 launches at phase 2's times (an "
             f"estimate at phase 2's shapes): {busy_ms:.3f} ms of the "
             f"phase's {wall_s:.3f} s ({busy_ms / 10 / wall_s:.4f}%)")
+        busy_ms = sum(paths["s3"][name] * stats[name]["ms"]
+                      for name in KERNELS)
+        wall_s = PHASE_NUMBERS["s3"]["wall_s"]
+        log(f"s3: its K1 and K2 launches at phase 2's times (an estimate "
+            f"at phase 2's shapes): {busy_ms:.3f} ms of the phase's "
+            f"{wall_s:.3f} s ({busy_ms / 10 / wall_s:.4f}%)")
+        log(f"the whole run took {time.perf_counter() - t_run:.3f} s")
         print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

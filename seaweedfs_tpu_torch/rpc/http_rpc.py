@@ -22,6 +22,7 @@ from __future__ import annotations
 import http.client
 import json
 import os
+import select
 import socket
 import threading
 import time
@@ -600,11 +601,27 @@ class RpcServer:
                     sent = 0
                     if sendfile_enabled() and hasattr(os, "sendfile"):
                         out = self.connection.fileno()
+                        wait = self.connection.gettimeout()
                         try:
                             while sent < fs.length:
-                                n = os.sendfile(out, fs.fd,
-                                                fs.offset + sent,
-                                                fs.length - sent)
+                                try:
+                                    n = os.sendfile(out, fs.fd,
+                                                    fs.offset + sent,
+                                                    fs.length - sent)
+                                except BlockingIOError:
+                                    # a socket with a timeout is
+                                    # non-blocking underneath: a slow
+                                    # reader fills its buffer, so wait
+                                    # for room as socket.sendall does
+                                    # (poll: no FD_SETSIZE limit)
+                                    room = select.poll()
+                                    room.register(out, select.POLLOUT)
+                                    if not room.poll(
+                                            None if wait is None
+                                            else wait * 1000):
+                                        raise TimeoutError(
+                                            "sendfile: client stalled")
+                                    continue
                                 if n == 0:
                                     break  # source truncated under us
                                 sent += n

@@ -22,8 +22,6 @@ from .commands import CommandEnv
 
 BUCKETS_ROOT = "/buckets"
 IDENTITY_CONFIG_PATH = "/etc/iam/identity.json"
-# s3api/circuit_breaker.py's CONFIG_PATH
-CIRCUIT_BREAKER_CONFIG_PATH = "/etc/s3/circuit_breaker.json"
 
 
 def _get_json_config(filer: str, path: str) -> dict:
@@ -534,8 +532,10 @@ def s3_circuitbreaker(env: CommandEnv, actions: str = "",
     actions: comma list like "Read:Count,Write:MB"; values: matching
     comma list of limits; buckets: comma list to scope the edit (global
     when empty)."""
+    from ..s3api.circuit_breaker import CONFIG_PATH
+
     filer = find_filer(env)
-    config = _get_json_config(filer, CIRCUIT_BREAKER_CONFIG_PATH)
+    config = _get_json_config(filer, CONFIG_PATH)
     if actions or enable is not None or delete:
         targets = ([("buckets", b) for b in buckets.split(",") if b]
                    or [("global", None)])
@@ -559,6 +559,6 @@ def s3_circuitbreaker(env: CommandEnv, actions: str = "",
                 node["enabled"] = enable
             elif "enabled" not in node:
                 node["enabled"] = True
-        call(filer, urllib.parse.quote(CIRCUIT_BREAKER_CONFIG_PATH),
+        call(filer, urllib.parse.quote(CONFIG_PATH),
              raw=json.dumps(config, indent=2).encode(), method="POST")
     return config

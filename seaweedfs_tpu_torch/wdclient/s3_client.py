@@ -115,6 +115,29 @@ class S3Client:
                     method=method, headers=headers, timeout=120,
                     parse=parse)
 
+    def send(self, method: str, path: str, query: Optional[dict] = None,
+             body: bytes = b"", headers: Optional[dict] = None
+             ) -> tuple[int, dict, bytes]:
+        """One signed request whose reply comes back whatever its status:
+        (status, reply headers, body), for callers that expect refusals
+        (403, 503 SlowDown) as well as successes."""
+        import http.client
+
+        query = query or {}
+        signed = self._strip_private(self._sign(method, path, query, body))
+        signed.update(headers or {})
+        qs = self._canonical_query(query)
+        host, port = self.endpoint.rsplit(":", 1)
+        conn = http.client.HTTPConnection(host, int(port), timeout=300)
+        try:
+            conn.request(method, urllib.parse.quote(path, safe="/~")
+                         + ("?" + qs if qs else ""), body=body or None,
+                         headers=signed)
+            resp = conn.getresponse()
+            return resp.status, dict(resp.getheaders()), resp.read()
+        finally:
+            conn.close()
+
     # -- object ops ----------------------------------------------------------
     def create_bucket(self, bucket: str):
         try:

@@ -1,19 +1,19 @@
 """weed — the port's command line: `python -m seaweedfs_tpu_torch <cmd>`.
 
 The port's own counterpart of the repo's `weed.py`, with the same
-subcommands, flags and meanings for every daemon and tool whose modules
-are ported: master, master.follower, volume, filer, filer.store, server
-(master + volume, with -filer a filer), shell, maintenance, top,
-lint-dashboards, profile, the offline volume tools (backup, compact,
-fix, scrub, export), filer.copy, filer.cat, scaffold, version and
-autocomplete.  The commands that need the gateways, replication or the
-client tools are listed in `NOT_PORTED_COMMANDS` and exit non-zero
-naming ROADMAP item 9.
+subcommands, flags and meanings for every daemon and tool: master,
+master.follower, volume, filer, filer.store, s3, iam, server (master +
+volume, with -filer a filer, with -s3/-iam the gateways over it), shell,
+maintenance, top, lint-dashboards, profile, the offline volume tools
+(backup, compact, fix, scrub, export), benchmark, upload, download,
+filer.copy, filer.cat, the replication tools (filer.sync, filer.backup,
+filer.replicate, filer.meta.backup, filer.meta.tail, filer.remote.sync,
+filer.remote.gateway), scaffold, version and autocomplete.
 
 One flag is the port's own: `-device` on the commands that do device
-work (volume, filer, server, scrub).  Empty (the default) means the CUDA
-card; `-device cpu` runs the kernels' plain PyTorch versions (and keeps
-the filer's HBM cache tier) on the host.
+work (volume, filer, s3, iam, server, scrub).  Empty (the default) means
+the CUDA card; `-device cpu` runs the kernels' plain PyTorch versions
+(and keeps the filer's HBM cache tier) on the host.
 """
 
 from __future__ import annotations
@@ -27,16 +27,6 @@ import sys
 from .rpc.http_rpc import RpcError, call
 
 VERSION = "seaweedfs_tpu_torch 0.1 (RS(10,4) EC on CUDA via PyTorch)"
-
-# subcommands of the JAX package's weed.py that wait for the gateways,
-# replication and the client tools (ROADMAP items 9b-9d)
-NOT_PORTED_COMMANDS = frozenset({
-    "s3", "iam", "benchmark", "upload", "download", "filer.sync",
-    "filer.backup", "filer.replicate", "filer.meta.backup",
-    "filer.remote.sync", "filer.remote.gateway", "filer.meta.tail"})
-
-_ITEM_9 = ("the gateways, replication and the client tools are not "
-           "ported yet (ROADMAP item 9)")
 
 
 def _completion_script(subcommands) -> str:
@@ -266,17 +256,73 @@ def _wire_notification(filer_server):
         print(f"notification sink: {queue.name}", flush=True)
 
 
+def _load_identities(path):
+    from .s3api.auth import Identity
+
+    if not path:
+        return None
+    with open(path) as f:
+        config = json.load(f)
+    return [Identity(name=i["name"], access_key=i["access_key"],
+                     secret_key=i["secret_key"],
+                     actions=i.get("actions", ["Admin"]))
+            for i in config.get("identities", [])]
+
+
+def cmd_s3(args):
+    from .filer.filer_store import SqliteStore
+    from .filer.server import FilerServer
+    from .s3api.server import S3ApiServer
+
+    store = SqliteStore(args.db) if args.db else None
+    filer = FilerServer(args.master, port=0, store=store,
+                        guard=_load_guard(),
+                        cipher=args.encryptVolumeData,
+                        device=args.device or None)
+    filer.start()
+    s3 = S3ApiServer(filer, host=args.ip, port=args.port,
+                     identities=_load_identities(args.config))
+    s3.start()
+    stoppables = [s3, filer]
+    if args.metricsPort:
+        from .stats.metrics import start_metrics_server
+
+        m = start_metrics_server(args.ip, args.metricsPort)
+        stoppables.append(m)
+        print(f"metrics on {m.address}/metrics", flush=True)
+    print(f"s3 gateway on {s3.address} (filer {filer.address})", flush=True)
+    _wait_forever(stoppables)
+
+
+def cmd_iam(args):
+    from .filer.filer_store import SqliteStore
+    from .filer.server import FilerServer
+    from .iamapi.server import IamApiServer
+    from .s3api.server import S3ApiServer
+
+    store = SqliteStore(args.db) if args.db else None
+    filer = FilerServer(args.master, port=0, store=store,
+                        guard=_load_guard(),
+                        cipher=args.encryptVolumeData,
+                        device=args.device or None)
+    filer.start()
+    s3 = S3ApiServer(filer, port=args.s3Port,
+                     identities=_load_identities(args.config))
+    s3.start()
+    iam = IamApiServer(filer, host=args.ip, port=args.port, s3_server=s3)
+    iam.start()
+    print(f"iam api on {iam.address} (s3 {s3.address})", flush=True)
+    _wait_forever([iam, s3, filer])
+
+
 def cmd_server(args):
-    """Combined master + volume (+ filer) in one process
-    (weed/command/server.go).  The S3 and IAM parts wait for ROADMAP
-    item 9b."""
+    """Combined master + volume + filer (+ s3, + iam) in one process
+    (weed/command/server.go)."""
     from .filer.server import FilerServer
     from .master.server import MasterServer
+    from .s3api.server import S3ApiServer
     from .volume_server.server import VolumeServer
 
-    if args.s3 or args.iam:
-        print(f"error: -s3/-iam: {_ITEM_9}", file=sys.stderr)
-        sys.exit(2)
     stoppables = []
     guard = _load_guard()
     master = MasterServer(host=args.ip, port=args.masterPort,
@@ -297,7 +343,7 @@ def cmd_server(args):
     stoppables.append(vs)
     print(f"volume server on {vs.address}", flush=True)
 
-    if args.filer:
+    if args.filer or args.s3 or args.iam:
         store = _make_filer_store(args.store, args.db,
                                   getattr(args, "storeAddress", ""),
                                   masters=master.address)
@@ -309,6 +355,20 @@ def cmd_server(args):
         filer.start()
         stoppables.append(filer)
         print(f"filer on {filer.address}", flush=True)
+        if args.s3 or args.iam:
+            s3 = S3ApiServer(filer, host=args.ip, port=args.s3Port,
+                             identities=_load_identities(args.config))
+            s3.start()
+            stoppables.append(s3)
+            print(f"s3 gateway on {s3.address}", flush=True)
+            if args.iam:
+                from .iamapi.server import IamApiServer
+
+                iam = IamApiServer(filer, host=args.ip,
+                                   port=args.iamPort, s3_server=s3)
+                iam.start()
+                stoppables.append(iam)
+                print(f"iam api on {iam.address}", flush=True)
     _wait_forever(stoppables)
 
 
@@ -567,6 +627,207 @@ def cmd_shell(args):
             return
 
 
+def cmd_benchmark(args):
+    from .benchmark import run_benchmark
+
+    run_benchmark(args.master, num_files=args.n, file_size=args.size,
+                  concurrency=args.c, delete_percent=args.deletePercent,
+                  replication=args.replication, use_tcp=args.useTcp,
+                  use_native=args.useNative, assign_batch=args.assignBatch,
+                  per_file_assign=args.perFileAssign)
+
+
+def cmd_upload(args):
+    with open(args.file, "rb") as f:
+        body = f.read()
+    a = call(args.master, f"/dir/assign?replication={args.replication}")
+    headers = {"X-File-Name": os.path.basename(args.file)}
+    if a.get("auth"):
+        headers["Authorization"] = "BEARER " + a["auth"]
+    resp = call(a["url"], f"/{a['fid']}", raw=body, method="POST",
+                headers=headers)
+    print(json.dumps({"fid": a["fid"], "url": a["url"],
+                      "size": resp.get("size")}))
+
+
+def cmd_download(args):
+    vid = args.fid.split(",")[0]
+    found = call(args.master, f"/dir/lookup?volumeId={vid}")
+    data = call(found["locations"][0]["url"], f"/{args.fid}")
+    out = args.output or args.fid.replace(",", "_")
+    with open(out, "wb") as f:
+        f.write(data)
+    print(f"wrote {len(data)} bytes to {out}")
+
+
+def _sync_state_path(tag: str) -> str:
+    import hashlib
+
+    digest = hashlib.md5(tag.encode()).hexdigest()[:12]
+    return os.path.expanduser(f"~/.weed_sync_{digest}.json")
+
+
+def _load_offsets(path: str) -> dict:
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
+
+
+def _save_offsets(path: str, offsets: dict):
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(offsets, f)
+    os.replace(tmp, path)
+
+
+def cmd_filer_sync(args):
+    """Continuous one- or two-way sync between filers
+    (weed/command/filer_sync.go)."""
+    import hashlib
+    import time
+
+    from .replication import FilerSink, FilerSource, Replicator
+
+    # key includes the paths: different path pairs between the same
+    # endpoints must not share cursors
+    state = args.state or _sync_state_path(
+        f"{args.a}{args.a_path}|{args.b}{args.b_path}")
+    offsets = _load_offsets(state)
+
+    def _sig(tag: str) -> int:
+        # stable across restarts (unlike hash()), never 0
+        return (int.from_bytes(hashlib.md5(tag.encode()).digest()[:4],
+                               "big") & 0x7FFFFFFF) or 1
+
+    sig_ab, sig_ba = _sig(f"{args.a}->{args.b}"), _sig(f"{args.b}->{args.a}")
+    # each direction stamps its own signature on sink writes and SKIPS
+    # events stamped by the opposite direction (they are its echoes)
+    pairs = [("a->b", FilerSource(args.a, args.a_path),
+              FilerSink(args.b, args.b_path, signature=sig_ab), sig_ba)]
+    if not args.isActivePassive:
+        pairs.append(("b->a", FilerSource(args.b, args.b_path),
+                      FilerSink(args.a, args.a_path, signature=sig_ba),
+                      sig_ab))
+    reps = [(name, Replicator(src, snk, signature=skip_sig))
+            for name, src, snk, skip_sig in pairs]
+    print(f"filer.sync {args.a}{args.a_path} <-> {args.b}{args.b_path} "
+          f"({'active-passive' if args.isActivePassive else 'two-way'})",
+          flush=True)
+    while True:
+        moved = 0
+        for name, rep in reps:
+            applied, cursor = rep.run_once(offsets.get(name, 0),
+                                           concurrency=args.concurrency)
+            if cursor != offsets.get(name, 0):
+                offsets[name] = cursor
+                _save_offsets(state, offsets)
+            moved += applied
+        if args.once and moved == 0:
+            break
+        if not moved:
+            time.sleep(args.interval)
+
+
+def cmd_filer_backup(args):
+    """Incremental content backup of a filer path to a local/s3 sink
+    (weed/command/filer_backup.go)."""
+    import time
+
+    from .replication import FilerSource, Replicator, make_sink
+
+    sink = make_sink(args.sink, access_key=args.accessKey,
+                     secret_key=args.secretKey,
+                     is_incremental=args.incremental)
+    source = FilerSource(args.filer, args.filerPath)
+    rep = Replicator(source, sink,
+                     exclude_dirs=[d for d in args.exclude.split(",") if d])
+    state = args.state or _sync_state_path(
+        f"backup{args.filer}{args.filerPath}|{args.sink}")
+    offsets = _load_offsets(state)
+    while True:
+        applied, cursor = rep.run_once(offsets.get("backup", 0))
+        if cursor != offsets.get("backup", 0):
+            offsets["backup"] = cursor
+            _save_offsets(state, offsets)
+        if args.once and applied == 0:
+            break
+        if not applied:
+            time.sleep(args.interval)
+
+
+def cmd_filer_replicate(args):
+    """MQ-driven replication consumer (weed/command/filer_replication.go):
+    events arrive from the notification queue configured in
+    notification.toml, not from a live filer subscription."""
+    from .notification import load_notification_input
+    from .replication import FilerSource, Replicator, make_sink
+    from .replication.replicator import run_from_queue
+    from .util.config import load_configuration
+
+    queue_input = load_notification_input(load_configuration("notification"))
+    if queue_input is None:
+        raise SystemExit(
+            "no notification input defined in notification.toml "
+            "(enable notification.file or notification.kafka)")
+    sink = make_sink(args.sink, access_key=args.accessKey,
+                     secret_key=args.secretKey,
+                     is_incremental=args.incremental)
+    source = FilerSource(args.filer, args.filerPath)
+    rep = Replicator(source, sink,
+                     exclude_dirs=[d for d in args.exclude.split(",") if d])
+    print(f"filer.replicate: {queue_input.name} queue -> {args.sink}",
+          flush=True)
+    applied = run_from_queue(queue_input, rep, once=args.once,
+                             idle_sleep=args.interval)
+    if args.once:
+        print(f"applied {applied} events")
+
+
+def cmd_filer_meta_backup(args):
+    """Metadata-only backup into a local sqlite store
+    (weed/command/filer_meta_backup.go)."""
+    import time
+
+    from .replication.meta_backup import MetaBackup, restore_listing
+
+    if args.restore:
+        for entry in restore_listing(args.store, args.filerPath):
+            print(json.dumps(entry))
+        return
+    backup = MetaBackup(args.filer, args.filerPath, args.store)
+    try:
+        while True:
+            applied = backup.run_once()
+            if args.once and applied == 0:
+                break
+            if not applied:
+                time.sleep(args.interval)
+    finally:
+        backup.close()
+
+
+def cmd_filer_meta_tail(args):
+    """Print the filer metadata change feed
+    (weed/command/filer_meta_tail.go)."""
+    import time
+
+    from .replication import FilerSource
+
+    source = FilerSource(args.filer, args.pathPrefix)
+    since = int((time.time() - args.timeAgo) * 1e9) if args.timeAgo else 0
+    while True:
+        events = source.subscribe(since)
+        for event in events:
+            print(json.dumps(event))
+            since = max(since, event["ts_ns"])
+        if args.once:
+            break
+        if not events:
+            time.sleep(args.interval)
+
+
 def cmd_filer_copy(args):
     """Copy local files/directories into the filer
     (weed/command/filer_copy.go)."""
@@ -713,6 +974,84 @@ def cmd_export(args):
     if args.o:
         print(f"wrote {len(records)} files to {args.o}",
               file=sys.stderr)
+
+
+def cmd_filer_remote_sync(args):
+    """Push local changes under a remote mount back to the remote
+    storage (weed/command/filer_remote_sync.go; filer.remote.gateway is
+    the same loop pointed at /buckets)."""
+    import time
+
+    from .remote_storage import RemoteConf, RemoteLocation, make_remote_client
+    from .replication import FilerSource
+
+    directory = args.dir.rstrip("/") or "/"
+    listing = call(args.filer, "/remote/list")
+    mappings = listing.get("mappings", {})
+    if directory not in mappings:
+        print(f"error: {directory} is not a remote mount "
+              f"(mounted: {sorted(mappings) or 'none'})")
+        sys.exit(1)
+    root = RemoteLocation.parse(mappings[directory])
+    conf = next((c for c in listing.get("storages", [])
+                 if c["name"] == root.name), None)
+    if conf is None:
+        print(f"error: remote storage {root.name!r} not configured")
+        sys.exit(1)
+    client = make_remote_client(RemoteConf.from_dict(conf))
+    source = FilerSource(args.filer, directory + "/")
+    state = args.state or _sync_state_path(
+        f"remote{args.filer}{directory}")
+    offsets = _load_offsets(state)
+    print(f"filer.remote.sync {args.filer}{directory} -> {root}",
+          flush=True)
+
+    def loc_of(full_path: str) -> "RemoteLocation":
+        rel = full_path[len(directory):].lstrip("/")
+        return RemoteLocation(root.name, root.bucket,
+                              root.path.rstrip("/") + "/" + rel)
+
+    def in_mount(e):
+        return e and e["full_path"].startswith(directory + "/")
+
+    def entry_is_dir(e):
+        return bool(e.get("attr", {}).get("mode", 0) & 0o40000)
+
+    while True:
+        cursor = offsets.get("sync", 0)
+        moved = 0
+        for event in source.subscribe(cursor):
+            old, new = event.get("old_entry"), event.get("new_entry")
+            try:
+                # drop the old remote object on delete AND on rename
+                if in_mount(old) and (
+                        new is None
+                        or old["full_path"] != new["full_path"]):
+                    if entry_is_dir(old):
+                        client.delete_prefix(loc_of(old["full_path"]))
+                    else:
+                        client.delete_file(loc_of(old["full_path"]))
+                    moved += 1
+                if in_mount(new) and not entry_is_dir(new) \
+                        and not new.get("remote_entry"):
+                    # a genuinely local change (mount syncs carry
+                    # remote_entry and must not echo back)
+                    path = new["full_path"]
+                    data = source.read_entry_bytes(path)
+                    client.write_file(loc_of(path), data)
+                    moved += 1
+            except RpcError as e:
+                print(f"push {(new or old)['full_path']}: {e} "
+                      "(will retry)")
+                break
+            cursor = max(cursor, event["ts_ns"])
+        if cursor != offsets.get("sync", 0):
+            offsets["sync"] = cursor
+            _save_offsets(state, offsets)
+        if args.once and moved == 0:
+            break
+        if not moved:
+            time.sleep(args.interval)
 
 
 def cmd_profile(args):
@@ -941,11 +1280,6 @@ def cmd_scaffold(args):
         print(text, end="")
 
 
-def cmd_not_ported(args):
-    print(f"error: {args.command}: {_ITEM_9}", file=sys.stderr)
-    sys.exit(2)
-
-
 def _workers_flag(p):
     p.add_argument("-workers", type=int, default=0,
                    help="prefork this many gateway worker processes per "
@@ -1080,8 +1414,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "from the replicated map (cluster mode)")
     p.set_defaults(fn=cmd_filer_store)
 
-    p = sub.add_parser("server", help="combined master+volume "
-                                      "(+filer; s3 and iam wait)")
+    p = sub.add_parser("s3", help="start an s3 gateway (+embedded filer)")
+    p.add_argument("-metricsPort", type=int, default=0,
+                   help="serve /metrics on a dedicated port")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8333)
+    p.add_argument("-db", default="")
+    p.add_argument("-config", default="", help="identities json")
+    p.add_argument("-encryptVolumeData", action="store_true",
+                   help="encrypt chunk data at rest")
+    _workers_flag(p)
+    _device_flag(p)
+    p.set_defaults(fn=cmd_s3)
+
+    p = sub.add_parser("iam", help="start an IAM management API (+s3+filer)")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8111)
+    p.add_argument("-s3Port", type=int, default=8333)
+    p.add_argument("-db", default="", help="sqlite path (default: memory)")
+    p.add_argument("-config", default="", help="s3 identities json")
+    p.add_argument("-encryptVolumeData", action="store_true",
+                   help="encrypt chunk data at rest")
+    _device_flag(p)
+    p.set_defaults(fn=cmd_iam)
+
+    p = sub.add_parser("server", help="combined master+volume(+filer)(+s3)")
     p.add_argument("-ip", default="127.0.0.1")
     p.add_argument("-dir", default="./data")
     p.add_argument("-masterPort", type=int, default=9333)
@@ -1093,9 +1452,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-filer", action="store_true",
                    help="also start a filer on -filerPort")
     p.add_argument("-s3", action="store_true",
-                   help="not ported yet (ROADMAP item 9)")
+                   help="also start an s3 gateway on -s3Port")
     p.add_argument("-iam", action="store_true",
-                   help="not ported yet (ROADMAP item 9)")
+                   help="also start the IAM API on -iamPort")
     p.add_argument("-iamPort", type=int, default=8111)
     p.add_argument("-db", default="")
     p.add_argument("-store", default="sqlite",
@@ -1166,6 +1525,38 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dashboard json (default: bundled dashboard)")
     p.set_defaults(fn=cmd_lint_dashboards)
 
+    p = sub.add_parser("benchmark", help="write/read load benchmark")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-n", type=int, default=1000)
+    p.add_argument("-size", type=int, default=1024)
+    p.add_argument("-c", type=int, default=16)
+    p.add_argument("-deletePercent", type=int, default=0)
+    p.add_argument("-replication", default="000")
+    p.add_argument("-useTcp", action="store_true",
+                   help="read over the TCP fast path")
+    p.add_argument("-useNative", action="store_true",
+                   help="drive the native engine's fast-path port with "
+                        "the C++ load generator (batched assigns)")
+    p.add_argument("-assignBatch", type=int, default=256,
+                   help="fids per /dir/assign?count= call in -useNative "
+                        "mode")
+    p.add_argument("-perFileAssign", action="store_true",
+                   help="per-file native assigns (master -tcp lease "
+                        "service) + native writes; write phase only")
+    p.set_defaults(fn=cmd_benchmark)
+
+    p = sub.add_parser("upload", help="upload one file")
+    p.add_argument("file")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-replication", default="000")
+    p.set_defaults(fn=cmd_upload)
+
+    p = sub.add_parser("download", help="download by fid")
+    p.add_argument("fid")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-output", default="")
+    p.set_defaults(fn=cmd_download)
+
     p = sub.add_parser("filer.copy",
                        help="copy local files/dirs into the filer")
     p.add_argument("files", nargs="+")
@@ -1217,9 +1608,95 @@ def build_parser() -> argparse.ArgumentParser:
                    help="only needles modified after this unix time")
     p.set_defaults(fn=cmd_export)
 
-    for name in sorted(NOT_PORTED_COMMANDS):
-        p = sub.add_parser(name, help="not ported yet (ROADMAP item 9)")
-        p.set_defaults(fn=cmd_not_ported)
+    p = sub.add_parser("filer.sync", help="sync two filers continuously")
+    p.add_argument("-a", required=True, help="source filer host:port")
+    p.add_argument("-b", required=True, help="target filer host:port")
+    p.add_argument("-a.path", dest="a_path", default="/")
+    p.add_argument("-b.path", dest="b_path", default="/")
+    p.add_argument("-isActivePassive", action="store_true",
+                   help="one-way a->b only")
+    p.add_argument("-state", default="", help="offset state file")
+    p.add_argument("-concurrency", type=int, default=1,
+                   help="parallel sync lanes partitioned by path hash")
+    p.add_argument("-interval", type=float, default=2.0)
+    p.add_argument("-once", action="store_true",
+                   help="exit when caught up (for scripting/tests)")
+    p.set_defaults(fn=cmd_filer_sync)
+
+    p = sub.add_parser("filer.backup",
+                       help="replicate filer data to local/s3 sink")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-filerPath", default="/")
+    p.add_argument("-sink", required=True,
+                   help="local:///dir | s3://bucket/dir?endpoint=host:port"
+                        " | filer://host:port/dir")
+    p.add_argument("-accessKey", default="")
+    p.add_argument("-secretKey", default="")
+    p.add_argument("-incremental", action="store_true",
+                   help="file changes under yyyy-mm-dd dirs")
+    p.add_argument("-exclude", default="",
+                   help="comma-separated directories to skip")
+    p.add_argument("-state", default="")
+    p.add_argument("-interval", type=float, default=2.0)
+    p.add_argument("-once", action="store_true")
+    p.set_defaults(fn=cmd_filer_backup)
+
+    p = sub.add_parser("filer.replicate",
+                       help="consume notification-queue events into a "
+                            "replication sink (MQ-driven mode)")
+    p.add_argument("-filer", default="127.0.0.1:8888",
+                   help="source filer (chunk data reads)")
+    p.add_argument("-filerPath", default="/")
+    p.add_argument("-sink", required=True,
+                   help="local:///dir | s3://bucket/dir?endpoint=host:port"
+                        " | filer://host:port/dir")
+    p.add_argument("-accessKey", default="")
+    p.add_argument("-secretKey", default="")
+    p.add_argument("-incremental", action="store_true")
+    p.add_argument("-exclude", default="")
+    p.add_argument("-interval", type=float, default=1.0)
+    p.add_argument("-once", action="store_true",
+                   help="drain the queue and exit")
+    p.set_defaults(fn=cmd_filer_replicate)
+
+    p = sub.add_parser("filer.meta.backup",
+                       help="continuously back up filer metadata to sqlite")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-filerPath", default="/")
+    p.add_argument("-store", required=True, help="sqlite backup file")
+    p.add_argument("-restore", action="store_true",
+                   help="print entries from the backup store and exit")
+    p.add_argument("-interval", type=float, default=2.0)
+    p.add_argument("-once", action="store_true")
+    p.set_defaults(fn=cmd_filer_meta_backup)
+
+    p = sub.add_parser("filer.remote.sync",
+                       help="push local changes under a mount to remote")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-dir", required=True, help="mounted directory")
+    p.add_argument("-state", default="")
+    p.add_argument("-interval", type=float, default=2.0)
+    p.add_argument("-once", action="store_true")
+    p.set_defaults(fn=cmd_filer_remote_sync)
+
+    p = sub.add_parser("filer.remote.gateway",
+                       help="push bucket changes under /buckets to remote")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-dir", default="/buckets")
+    p.add_argument("-state", default="")
+    p.add_argument("-interval", type=float, default=2.0)
+    p.add_argument("-once", action="store_true")
+    p.set_defaults(fn=cmd_filer_remote_sync)
+
+    p = sub.add_parser("filer.meta.tail",
+                       help="print filer metadata change events")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-pathPrefix", default="/")
+    p.add_argument("-timeAgo", type=float, default=0,
+                   help="start this many seconds in the past")
+    p.add_argument("-interval", type=float, default=1.0)
+    p.add_argument("-once", action="store_true")
+    p.set_defaults(fn=cmd_filer_meta_tail)
 
     p = sub.add_parser("scaffold", help="print a config template")
     p.add_argument("-config", default="security",
@@ -1241,9 +1718,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if extra and args.command not in NOT_PORTED_COMMANDS:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = parser.parse_args(argv)
     if getattr(args, "workers", 0):
         # flag wins over env; RpcServer reads WEED_HTTP_WORKERS at bind
         os.environ["WEED_HTTP_WORKERS"] = str(args.workers)

@@ -1,19 +1,23 @@
 """The port's command line (`python -m seaweedfs_tpu_torch`) against the
 repo's `weed.py`.
 
-- Every ported subcommand's parser accepts the reference parser's flags,
-  with the same defaults; the port adds only `-device`.
-- `NOT_PORTED_COMMANDS` is the reference's subcommands less the ported
-  ones (the gateways, replication and the client tools), and each of
-  them exits 2 naming ROADMAP item 9.
+- Every subcommand of the reference's parser is ported, and its parser
+  accepts the reference parser's flags, with the same defaults; the port
+  adds only `-device`.
 - `master` and `volume -device cpu` as subprocesses answer `/dir/status`
   and `/cluster/health`; `shell -c "ec.encode ..."` over them writes shard
   files and an `.ecx` byte-identical to the JAX package's encode of the
   same volume; `top -once` and `maintenance status` read them; SIGTERM
   ends every process.
 - `filer.store`, `filer -store remote`, `filer.copy`, `filer.cat` and the
-  shell's fs.* commands over them; `server -filer` serves a filer;
-  `scaffold` prints the JAX tool's templates.
+  shell's fs.* commands over them; `server -filer -s3 -iam` serves a
+  filer, the S3 API and the IAM API; `scaffold` prints the JAX tool's
+  templates.
+- `s3 -config` answers SigV4-signed requests and refuses unsigned ones;
+  `iam` creates a key that its gateway accepts at once; `filer.backup
+  -once`, `filer.meta.backup -once`/`-restore`, `filer.meta.tail -once`
+  and `filer.sync -once` copy a filer's tree; `benchmark` prints its
+  report; `upload` then `download` return the same bytes.
 - `lint-dashboards` exits 0; `scrub` on a damaged EC directory prints
   the JAX tool's report; `fix`, `compact` and `export` print what the JAX
   tools print and leave the same files.
@@ -41,7 +45,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED = ("master", "master.follower", "volume", "server", "shell",
           "profile", "maintenance", "top", "lint-dashboards", "backup",
           "compact", "fix", "scrub", "export", "version", "autocomplete",
-          "filer", "filer.store", "filer.copy", "filer.cat", "scaffold")
+          "filer", "filer.store", "filer.copy", "filer.cat", "scaffold",
+          "s3", "iam", "benchmark", "upload", "download", "filer.sync",
+          "filer.backup", "filer.replicate", "filer.meta.backup",
+          "filer.meta.tail", "filer.remote.sync", "filer.remote.gateway")
 
 
 class _Parsed(Exception):
@@ -95,27 +102,12 @@ def test_top_level_flags_match():
 
 
 def test_not_ported_commands_are_the_reference_rest():
+    """No command is left unported: the reference's subcommands are
+    `PORTED`, and the port's parser has exactly them."""
     ref = set(_subparsers(_reference_parser()))
-    assert t_weed.NOT_PORTED_COMMANDS == ref - set(PORTED)
-    assert set(_subparsers(t_weed.build_parser())) == ref
-
-
-@pytest.mark.parametrize("cmd", sorted(t_weed.NOT_PORTED_COMMANDS))
-def test_not_ported_command_exits_naming_item_9(cmd, capsys):
-    with pytest.raises(SystemExit) as e:
-        t_weed.main([cmd, "-master", "127.0.0.1:1"])
-    assert e.value.code == 2
-    assert "ROADMAP item 9" in capsys.readouterr().err
-
-
-def test_server_with_a_filer_exits_naming_item_9(capsys):
-    """`server -s3` and `-iam` wait for ROADMAP item 9b; `-filer` starts
-    a filer (test_server_starts_a_filer below)."""
-    for flag in ("-s3", "-iam"):
-        with pytest.raises(SystemExit) as e:
-            t_weed.main(["server", flag, "-dir", "/nonexistent"])
-        assert e.value.code == 2
-        assert "ROADMAP item 9" in capsys.readouterr().err
+    assert ref - set(PORTED) == set()
+    assert set(_subparsers(t_weed.build_parser())) == ref == set(PORTED)
+    assert not hasattr(t_weed, "NOT_PORTED_COMMANDS")
 
 
 def test_version_and_autocomplete(capsys):
@@ -466,3 +458,283 @@ def test_server_starts_a_filer(tmp_path):
             proc.kill()
             proc.wait()
     assert proc.returncode == 0
+
+
+def _stop(procs):
+    """SIGTERM every process, kill what outlives 20 s; the exit codes."""
+    for p in reversed(procs):
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    for p in procs:
+        try:
+            p.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    return [p.returncode for p in procs]
+
+
+def _start_line(args, env, log, marker):
+    """A daemon of the port's CLI whose first line starts with `marker`;
+    returns (process, that line)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch"] + args, cwd=REPO,
+        env=env, stdout=subprocess.PIPE, stderr=open(log, "w"), text=True)
+    line = proc.stdout.readline()
+    if not line.startswith(marker):
+        proc.kill()
+        raise AssertionError(f"{args[0]} did not start: {line!r} "
+                             f"{open(log).read()[-2000:]}")
+    return proc, line
+
+
+def _addr_after(line, word):
+    return line.split(word, 1)[1].split()[0].strip("()")
+
+
+def _iam(addr, action, **params):
+    from test_s3_extras import iam_call
+
+    return iam_call(addr, action, **params)
+
+
+def _iam_key(body):
+    import xml.etree.ElementTree as ET
+
+    ns = "{https://iam.amazonaws.com/doc/2010-05-08/}"
+    root = ET.fromstring(body)
+    return (root.find(f".//{ns}AccessKeyId").text,
+            root.find(f".//{ns}SecretAccessKey").text)
+
+
+def _master_and_volume(tmp_path, env, procs):
+    for d in ("m", "v"):
+        (tmp_path / d).mkdir()
+    master, maddr = _start(
+        ["master", "-port", "0", "-mdir", str(tmp_path / "m"),
+         "-pulseSeconds", "0.3"], env, tmp_path / "m.log")
+    procs.append(master)
+    vol, vaddr = _start(
+        ["volume", "-port", "0", "-dir", str(tmp_path / "v"),
+         "-mserver", maddr, "-pulseSeconds", "0.3", "-device", "cpu"],
+        env, tmp_path / "v.log")
+    procs.append(vol)
+    assert _wait(lambda: call(maddr, "/dir/status")["datacenters"])
+    return maddr, vaddr
+
+
+def _cli_env():
+    return dict(os.environ, WEED_MAINT_WORKER="0",
+                WEED_MAINT_INTERVAL="3600")
+
+
+def test_server_serves_s3_and_iam(tmp_path):
+    """`server -filer -s3 -iam` serves master, volume server, filer, the
+    S3 API and the IAM API from one process; a key made through the IAM
+    API turns the gateway's auth on at once."""
+    from test_s3 import sigv4_request
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "server", "-filer",
+         "-s3", "-iam", "-dir", str(tmp_path), "-masterPort", "0",
+         "-volumePort", "0", "-filerPort", "0", "-s3Port", "0",
+         "-iamPort", "0", "-device", "cpu", "-pulseSeconds", "0.3"],
+        cwd=REPO, env=_cli_env(), stdout=subprocess.PIPE,
+        stderr=open(tmp_path / "server.log", "w"), text=True)
+    try:
+        lines = [proc.stdout.readline() for _ in range(5)]
+        assert [ln.split(" on ")[0] for ln in lines] == [
+            "master", "volume server", "filer", "s3 gateway",
+            "iam api"], lines
+        s3, iam = (ln.split(" on ")[1].strip() for ln in lines[3:])
+        body = bytes(range(256)) * 40
+        assert sigv4_request(s3, "PUT", "/sb")[0] == 200
+        status, headers, _ = sigv4_request(s3, "PUT", "/sb/k", body=body)
+        assert status == 200
+        assert sigv4_request(s3, "GET", "/sb/k")[2] == body
+        assert _iam(iam, "CreateUser", UserName="ann")[0] == 200
+        status, _, reply = _iam(iam, "CreateAccessKey", UserName="ann")
+        assert status == 200
+        ak, sk = _iam_key(reply)
+        policy = json.dumps({"Statement": [{
+            "Effect": "Allow", "Action": ["s3:GetObject"],
+            "Resource": "arn:aws:s3:::sb/*"}]})
+        assert _iam(iam, "PutUserPolicy", UserName="ann",
+                    PolicyDocument=policy)[0] == 200
+        assert sigv4_request(s3, "GET", "/sb/k")[0] == 403
+        got = sigv4_request(s3, "GET", "/sb/k", access_key=ak, secret_key=sk)
+        assert got[0] == 200 and got[2] == body
+        assert sigv4_request(s3, "PUT", "/sb/x", body=b"x", access_key=ak,
+                             secret_key=sk)[0] == 403
+    finally:
+        codes = _stop([proc])
+    assert codes == [0]
+
+
+def test_s3_command_answers_signed_requests(tmp_path):
+    """`s3 -config` with an identities file: SigV4-signed requests pass,
+    unsigned and badly signed ones get 403."""
+    from test_s3 import sigv4_request
+
+    env = _cli_env()
+    (tmp_path / "ids.json").write_text(json.dumps({"identities": [
+        {"name": "admin", "access_key": "AKID", "secret_key": "SK"}]}))
+    procs = []
+    try:
+        maddr, _ = _master_and_volume(tmp_path, env, procs)
+        gw, line = _start_line(
+            ["s3", "-port", "0", "-master", maddr, "-config",
+             str(tmp_path / "ids.json"), "-device", "cpu"], env,
+            tmp_path / "s3.log", "s3 gateway on ")
+        procs.append(gw)
+        s3 = _addr_after(line, "s3 gateway on ")
+        assert _addr_after(line, "(filer ") in [
+            n["address"] for n in call(
+                maddr, "/cluster/nodes?type=filer")["cluster_nodes"]]
+        body = np.random.default_rng(5).bytes(5000)
+        keys = {"access_key": "AKID", "secret_key": "SK"}
+        assert sigv4_request(s3, "PUT", "/cb", **keys)[0] == 200
+        status, headers, _ = sigv4_request(s3, "PUT", "/cb/o.bin",
+                                           body=body, **keys)
+        assert status == 200
+        import hashlib
+
+        assert headers["ETag"] == f'"{hashlib.md5(body).hexdigest()}"'
+        assert sigv4_request(s3, "GET", "/cb/o.bin", **keys)[2] == body
+        status, _, reply = sigv4_request(s3, "GET", "/cb/o.bin")
+        assert status == 403 and b"AccessDenied" in reply
+        status, _, reply = sigv4_request(s3, "GET", "/cb/o.bin",
+                                         access_key="AKID",
+                                         secret_key="WRONG")
+        assert status == 403 and b"SignatureDoesNotMatch" in reply
+    finally:
+        codes = _stop(procs)
+    assert codes == [0, 0, 0]
+
+
+def test_iam_command_creates_a_key_the_gateway_accepts(tmp_path):
+    """`iam` serves the IAM API with its own gateway and embedded filer:
+    a user with a key and a bucket policy reads and writes that bucket at
+    once, is refused elsewhere, and loses access with DeleteAccessKey."""
+    from test_s3 import sigv4_request
+
+    env = _cli_env()
+    (tmp_path / "ids.json").write_text(json.dumps({"identities": [
+        {"name": "admin", "access_key": "AKID", "secret_key": "SK"}]}))
+    procs = []
+    try:
+        maddr, _ = _master_and_volume(tmp_path, env, procs)
+        proc, line = _start_line(
+            ["iam", "-port", "0", "-s3Port", "0", "-master", maddr,
+             "-config", str(tmp_path / "ids.json"), "-device", "cpu"], env,
+            tmp_path / "iam.log", "iam api on ")
+        procs.append(proc)
+        iam, s3 = _addr_after(line, "iam api on "), _addr_after(line, "(s3 ")
+        admin = {"access_key": "AKID", "secret_key": "SK"}
+        for bucket in ("warm", "other"):
+            assert sigv4_request(s3, "PUT", f"/{bucket}", **admin)[0] == 200
+        assert _iam(iam, "CreateUser", UserName="app")[0] == 200
+        ak, sk = _iam_key(_iam(iam, "CreateAccessKey", UserName="app")[2])
+        policy = json.dumps({"Statement": [{
+            "Effect": "Allow",
+            "Action": ["s3:GetObject", "s3:PutObject", "s3:ListBucket"],
+            "Resource": ["arn:aws:s3:::warm", "arn:aws:s3:::warm/*"]}]})
+        assert _iam(iam, "PutUserPolicy", UserName="app",
+                    PolicyDocument=policy)[0] == 200
+        app = {"access_key": ak, "secret_key": sk}
+        assert sigv4_request(s3, "PUT", "/warm/a", body=b"abc",
+                             **app)[0] == 200
+        assert sigv4_request(s3, "GET", "/warm/a", **app)[2] == b"abc"
+        assert sigv4_request(s3, "PUT", "/other/a", body=b"abc",
+                             **app)[0] == 403
+        assert _iam(iam, "DeleteAccessKey", UserName="app",
+                    AccessKeyId=ak)[0] == 200
+        status, _, reply = sigv4_request(s3, "GET", "/warm/a", **app)
+        assert status == 403 and b"InvalidAccessKeyId" in reply
+    finally:
+        codes = _stop(procs)
+    assert codes == [0, 0, 0]
+
+
+def test_replication_commands_copy_a_filer(tmp_path):
+    """`filer.backup -once` into a local directory, `filer.meta.backup
+    -once` and `-restore`, `filer.meta.tail -once` and `filer.sync
+    -isActivePassive -once` into a second filer: every file arrives with
+    its bytes.  Each `-state` lies under the test's own directory."""
+    env = _cli_env()
+    (tmp_path / "src").mkdir()
+    files = _files(tmp_path / "src")
+    procs = []
+    try:
+        maddr, _ = _master_and_volume(tmp_path, env, procs)
+        fa = fb = None
+        for tag in ("a", "b"):
+            proc, addr = _start(
+                ["filer", "-port", "0", "-master", maddr, "-maxMB", "1",
+                 "-device", "cpu"], env, tmp_path / f"f{tag}.log")
+            procs.append(proc)
+            fa, fb = (addr, fb) if tag == "a" else (fa, addr)
+        _cli(["filer.copy", str(tmp_path / "src"), "-filer", fa, "-path",
+              "/in"], env)
+        _cli(["filer.backup", "-filer", fa, "-filerPath", "/in",
+              "-sink", f"local://{tmp_path / 'bk'}", "-once",
+              "-state", str(tmp_path / "bk.state")], env)
+        for rel, body in files.items():
+            assert (tmp_path / "bk" / "src" / rel).read_bytes() \
+                == body, rel
+        assert json.loads((tmp_path / "bk.state").read_text())["backup"] > 0
+        _cli(["filer.meta.backup", "-filer", fa, "-filerPath", "/",
+              "-store", str(tmp_path / "meta.db"), "-once"], env)
+        listed = [json.loads(ln) for ln in _cli(
+            ["filer.meta.backup", "-filerPath", "/in", "-store",
+             str(tmp_path / "meta.db"), "-restore"], env).splitlines()]
+        sizes = {e["full_path"]: e["attr"]["file_size"] for e in listed
+                 if not e["attr"]["mode"] & 0o40000}
+        assert sizes == {f"/in/src/{rel}": len(body)
+                         for rel, body in files.items()}
+        events = [json.loads(ln) for ln in _cli(
+            ["filer.meta.tail", "-filer", fa, "-pathPrefix", "/in/src/b",
+             "-once"], env).splitlines()]
+        assert {e["new_entry"]["full_path"] for e in events} >= {
+            "/in/src/b/c.bin", "/in/src/b/d/e.json"}
+        _cli(["filer.sync", "-a", fa, "-b", fb, "-a.path", "/in/",
+              "-b.path", "/mirror/", "-isActivePassive", "-once",
+              "-state", str(tmp_path / "sync.state")], env)
+        for rel, body in files.items():
+            assert call(fb, f"/mirror/src/{rel}", parse=False) == body, rel
+        res = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch",
+             "filer.remote.sync", "-filer", fa, "-dir", "/in", "-once",
+             "-state", str(tmp_path / "remote.state")], cwd=REPO, env=env,
+            capture_output=True, text=True, timeout=120)
+        assert res.returncode == 1 and "is not a remote mount" in res.stdout
+    finally:
+        codes = _stop(procs)
+    assert codes == [0, 0, 0, 0]
+
+
+def test_benchmark_upload_and_download_commands(tmp_path):
+    """`benchmark` prints its write and read reports; `upload` of a file
+    then `download` of its fid give the same bytes."""
+    env = _cli_env()
+    procs = []
+    try:
+        maddr, _ = _master_and_volume(tmp_path, env, procs)
+        out = _cli(["benchmark", "-master", maddr, "-n", "60", "-size",
+                    "512", "-c", "4"], env)
+        for phase in ("write", "read"):
+            assert f"--- {phase} ---\nrequests: 60, errors: 0\n" in out, out
+        assert out.count(" req/s, ") == 2 and out.count("  p99: ") == 2
+        body = np.random.default_rng(8).bytes(7000)
+        (tmp_path / "up.bin").write_bytes(body)
+        up = json.loads(_cli(["upload", str(tmp_path / "up.bin"),
+                              "-master", maddr], env))
+        assert up["size"] > len(body)  # the needle, with its name
+        got = _cli(["download", up["fid"], "-master", maddr, "-output",
+                    str(tmp_path / "down.bin")], env)
+        assert got.strip() == f"wrote {len(body)} bytes to " \
+                              f"{tmp_path / 'down.bin'}"
+        assert (tmp_path / "down.bin").read_bytes() == body
+    finally:
+        codes = _stop(procs)
+    assert codes == [0, 0]

@@ -588,3 +588,77 @@ def test_portable_step_forms_on_card(cuda, length):
     par = mesh._parity_bits_matmul(bm, data)
     assert rs_cuda.launches["gf_apply"] == 1
     assert torch.equal(par.cpu(), want[0])
+
+
+def test_s3_get_behind_lost_shards_decodes_through_k1_and_hits_hbm(
+        cuda, tmp_path, monkeypatch):
+    """The S3 gateway over a filer on the card: objects PUT through S3,
+    their volume EC-encoded (K2) with four shards lost, every object GET
+    through S3 byte-identical with the volume server decoding through
+    K1; a single-chunk object read three times (promoted to the HBM
+    tier), the RAM tier flushed by the other objects, then served from
+    the HBM tier."""
+    from seaweedfs_tpu_torch.filer.server import FilerServer
+    from seaweedfs_tpu_torch.master.server import MasterServer
+    from seaweedfs_tpu_torch.rpc.http_rpc import call
+    from seaweedfs_tpu_torch.s3api.server import S3ApiServer
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+    from seaweedfs_tpu_torch.wdclient.s3_client import S3Client
+
+    for knob, value in (("WEED_EC_RECOVER_DEVICE", "1"),
+                        ("WEED_EC_RECOVER_DEVICE_MIN_KB", "0"),
+                        ("WEED_READ_CACHE_HBM_MB", "64"),
+                        ("WEED_READ_CACHE_MB", "1"),
+                        ("WEED_MAINT", "0"), ("WEED_MAINT_WORKER", "0")):
+        monkeypatch.setenv(knob, value)
+    chunk = 256 << 10
+    rng = np.random.default_rng(21)
+    objects = {f"o{i}": rng.bytes(3 * chunk - 1000) for i in range(8)}
+    objects["single"] = rng.bytes(chunk - 100)
+    master = MasterServer(port=0, pulse_seconds=0.2)
+    master.start()
+    started = [master]
+    try:
+        vs = VolumeServer([str(tmp_path)], master.address, port=0,
+                          pulse_seconds=0.2, ec_encoder_backend="cuda")
+        vs.start()
+        started.append(vs)
+        vs.heartbeat_once()
+        filer = FilerServer(master.address, port=0, chunk_size=chunk)
+        filer.start()
+        started.append(filer)
+        s3 = S3ApiServer(filer, port=0)
+        s3.start()
+        started.append(s3)
+        client = S3Client(s3.address)
+        client.create_bucket("warm")
+        for key, body in objects.items():
+            client.put_object("warm", key, body)
+        vids = {int(c.fid.split(",")[0]) for key in objects
+                for c in filer.filer.find_entry(f"/buckets/warm/{key}").chunks}
+        rs_cuda.reset_launches()
+        for vid in sorted(vids):
+            call(vs.address, "/admin/readonly", {"volume": vid})
+            call(vs.address, "/admin/ec/generate", {"volume": vid})
+            call(vs.address, "/admin/ec/mount",
+                 {"volume": vid, "shard_ids": list(range(14))})
+            call(vs.address, "/admin/delete_volume", {"volume": vid})
+            call(vs.address, "/admin/ec/delete_shards",
+                 {"volume": vid, "shard_ids": [0, 5, 11, 13]})
+        assert rs_cuda.launches["fused_apply_crc"] > 0
+        vs.heartbeat_once()
+        rs_cuda.reset_launches()
+        for key, body in objects.items():
+            assert client.get_object("warm", key) == body, key
+        assert rs_cuda.launches["gf_apply"] > 0
+        for _ in range(2):
+            assert client.get_object("warm", "single") == objects["single"]
+        for key in sorted(objects)[:8]:
+            client.get_object("warm", key)  # flush the 1 MiB RAM tier
+        before = filer.chunk_cache.stats_snapshot()["tier_hits"]["hbm"]
+        assert client.get_object("warm", "single") == objects["single"]
+        assert filer.chunk_cache.stats_snapshot()["tier_hits"]["hbm"] \
+            == before + 1
+    finally:
+        for s in reversed(started):
+            s.stop()

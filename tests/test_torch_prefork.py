@@ -504,3 +504,50 @@ def test_store_over_ec_volume_makes_no_cuda_call(tmp_path, monkeypatch):
         vs.read_cache.close()
         vs.store.close()
     assert calls == []
+
+
+def test_gateways_over_an_hbm_tier_filer_make_no_cuda_call(monkeypatch):
+    """The fork rule for the S3 gateway and the IAM API: both embed a
+    filer whose chunk cache has an HBM tier on the card, and building the
+    filer, the `S3ApiServer` and the `IamApiServer` over it makes no CUDA
+    runtime call (`weed s3 -workers` forks after the constructors)."""
+    import torch
+
+    from seaweedfs_tpu_torch.filer.server import FilerServer
+    from seaweedfs_tpu_torch.iamapi.server import IamApiServer
+    from seaweedfs_tpu_torch.s3api.auth import Identity
+    from seaweedfs_tpu_torch.s3api.server import S3ApiServer
+
+    calls = []
+
+    def record(name, ret=None):
+        def fn(*a, **kw):
+            calls.append(name)
+            return ret
+        return fn
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    for name, ret in (("is_available", True), ("current_device", 0),
+                      ("init", None), ("_lazy_init", None),
+                      ("set_device", None), ("synchronize", None)):
+        monkeypatch.setattr(torch.cuda, name, record(name, ret))
+    monkeypatch.setattr(torch._C, "_cuda_getDeviceCount",
+                        record("_cuda_getDeviceCount", 1), raising=False)
+    monkeypatch.setenv("WEED_READ_CACHE_HBM_MB", "64")
+    filer = FilerServer(_dead_master(), port=0)
+    servers = [filer]
+    try:
+        assert filer.chunk_cache.hbm.device == torch.device("cuda", 0)
+        s3 = S3ApiServer(filer, port=0, identities=[
+            Identity(name="admin", access_key="AK", secret_key="SK")])
+        servers.append(s3)
+        iam = IamApiServer(filer, port=0, s3_server=s3)
+        servers.append(iam)
+        assert s3.iam.enabled and iam.s3_server is s3
+    finally:
+        for s in servers:
+            s.server.httpd.server_close()
+        filer.chunk_cache.close()
+        filer._io_pool.shutdown(wait=False)
+    assert calls == []

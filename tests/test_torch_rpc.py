@@ -514,3 +514,105 @@ def test_port_server_refuses_prefork(monkeypatch):
         assert s._prefork_workers == 3 and s._prefork is None
     finally:
         s.httpd.server_close()
+
+
+BODY_4MIB = bytes(range(256)) * (1 << 14)
+
+
+def _slow_reader_get(name, tmp_path, monkeypatch):
+    """GET a 4 MiB needle from a fresh master and volume server of
+    package `name` while `os.sendfile` raises EAGAIN on its second call,
+    as the kernel does when a slow reader lets the socket's buffers
+    fill; returns (bytes received, whether they are the needle)."""
+    import errno
+    import os
+
+    from seaweedfs_tpu.master.server import MasterServer as JMaster
+    from seaweedfs_tpu_torch.master.server import MasterServer as TMaster
+
+    monkeypatch.setenv("WEED_MAINT", "0")
+    monkeypatch.setenv("WEED_MAINT_WORKER", "0")
+    real_sendfile = os.sendfile
+    calls = []
+
+    def full_once(out, fd, offset, count):
+        calls.append(count)
+        if len(calls) == 2:
+            raise BlockingIOError(errno.EAGAIN, "the socket is full")
+        return real_sendfile(out, fd, offset, min(count, 1 << 20))
+
+    master_cls, kw = {"jax": (JMaster, {}),
+                      "torch": (TMaster, {"device": "cpu"})}[name]
+    ns = PKGS[name]
+    master = master_cls(port=0, pulse_seconds=0.2)
+    master.start()
+    d = tmp_path / name
+    d.mkdir()
+    vs = ns.server.VolumeServer([str(d)], master.address, port=0,
+                                pulse_seconds=0.2, **kw)
+    vs.start()
+    try:
+        vs.heartbeat_once()
+        a = ns.http.call(master.address, "/dir/assign")
+        ns.http.call(a["url"], "/" + a["fid"], raw=BODY_4MIB,
+                     method="POST")
+        monkeypatch.setattr(os, "sendfile", full_once)
+        host, port = a["url"].split(":")
+        with socket.create_connection((host, int(port)), timeout=30) as s:
+            s.sendall(f"GET /{a['fid']} HTTP/1.1\r\nHost: x\r\n"
+                      "Connection: close\r\n\r\n".encode())
+            reply = bytearray()
+            while chunk := s.recv(1 << 20):
+                reply += chunk
+        monkeypatch.setattr(os, "sendfile", real_sendfile)
+        head, _, payload = bytes(reply).partition(b"\r\n\r\n")
+        assert f"Content-Length: {len(BODY_4MIB)}".encode() in head
+        assert len(calls) >= 2  # the reply went through sendfile
+        return len(payload), payload == BODY_4MIB
+    finally:
+        monkeypatch.setattr(os, "sendfile", real_sendfile)
+        vs.stop()
+        master.stop()
+
+
+def test_sendfile_reply_survives_a_slow_reader(tmp_path, monkeypatch):
+    """R8 (ROADMAP §3): a 4 MiB needle GET whose socket fills.  The
+    handler's socket has a timeout, so it is non-blocking underneath and
+    `os.sendfile` raises EAGAIN when a slow reader lets its buffers fill
+    (here: the second call raises it, as the kernel does): the JAX
+    server severs the reply short of its Content-Length; the port's
+    waits for room and sends every byte."""
+    got = {name: _slow_reader_get(name, tmp_path, monkeypatch)
+           for name in ("jax", "torch")}
+    assert got["torch"] == (len(BODY_4MIB), True)
+    assert got["jax"] == (1 << 20, False)
+
+
+def test_sendfile_wait_takes_a_descriptor_above_1024(tmp_path, monkeypatch):
+    """The same slow reader while the server holds over 1024 open files
+    (a volume server with many EC shards), so the accepted socket's
+    descriptor is past `select`'s FD_SETSIZE: the port's wait for room
+    still sends every byte.  Port only."""
+    import os
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    want = 1024 + 64
+    if soft < want:
+        if hard != resource.RLIM_INFINITY and hard < want:
+            pytest.skip(f"open-file limit {hard} is under {want}")
+        resource.setrlimit(resource.RLIMIT_NOFILE, (want, hard))
+    fillers = []
+    try:
+        while True:
+            fd = os.open(os.devnull, os.O_RDONLY)
+            fillers.append(fd)
+            if fd >= 1024:
+                break
+        got = _slow_reader_get("torch", tmp_path, monkeypatch)
+    finally:
+        for fd in fillers:
+            os.close(fd)
+        if soft < want:
+            resource.setrlimit(resource.RLIMIT_NOFILE, (soft, hard))
+    assert got == (len(BODY_4MIB), True)
