@@ -30,6 +30,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import crc32c as crc_host
 from ..qos import lanes as _lanes
 from ..stats import metrics as _stats
@@ -117,25 +118,32 @@ def local_target(base: str, volume: int = 0,
 
 
 def _read_span(t: ScrubTarget, sid: int, off: int, chunk: int,
-               throttle) -> bytes:
-    """One paced span read, chained into the shard's rolling file CRC.  A
-    reader that fails marks the shard unreadable (and, for a data shard,
-    stops the recompute): that is the verdict, not an error of the
-    scrub."""
+               throttle, timers: dict) -> bytes:
+    """One paced span read, chained into the shard's rolling file CRC;
+    its time goes to `timers` "pread" (the reader) and "span_crc" (the
+    chain; the throttle's pacing to neither).  A reader that fails marks
+    the shard unreadable (and, for a data shard, stops the recompute):
+    that is the verdict, not an error of the scrub."""
     want = min(chunk, max(0, t.sizes[sid] - off))
     if want <= 0:
         return b""
+    t0 = time.perf_counter()
     try:
         raw = t.reader(sid, off, want)
     except Exception:
+        timers["pread"] += time.perf_counter() - t0
         t.unreadable.add(sid)
         if sid < DATA_SHARDS_COUNT:
             t.recompute = False
         return b""
+    t1 = time.perf_counter()
+    timers["pread"] += t1 - t0
     if raw:
         if throttle is not None:
             throttle(len(raw))
+            t1 = time.perf_counter()
         t.chains[sid] = crc_host.crc32c(raw, t.chains[sid])
+        timers["span_crc"] += time.perf_counter() - t1
         t.bytes_read += len(raw)
     return raw
 
@@ -163,11 +171,18 @@ def _verdict(t: ScrubTarget) -> dict:
                        or parity_mismatch)}
 
 
-# parity-step calls of this process's deep scrubs (one K1 launch per
-# call for RS(10,4)'s four parity rows on the card), reported beside the
-# kernel launches by profiling.device_timeline
-STEP_CALLS = {"calls": 0}
-_step_calls_lock = threading.Lock()
+# this process's deep scrubs on the card: parity-step calls (one K1
+# launch per call for RS(10,4)'s four parity rows) and the seconds the
+# CUDA events around each batch's H2D, step and D2H measured, reported
+# beside the kernel launches by profiling.device_timeline
+SCRUB_TOTALS = {"steps": 0, "h2d": 0.0, "kernel": 0.0, "d2h": 0.0}
+_totals_lock = threading.Lock()
+
+# the leaf stage timers under `read` and under `encode_crc`
+READ_LEAVES = ("pread", "span_crc", "stage_fill", "stage_copy")
+COMPLETE_LEAVES = ("parity_wait", "parity_crc")
+# the event-timed intervals of each batch on the card
+DEVICE_STAGES = ("h2d", "kernel", "d2h")
 
 
 def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
@@ -176,13 +191,44 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
     """Deep-scrub `targets`, batching recompute spans across volumes into
     one device geometry on `device` (or the device list `mesh`; neither
     means every CUDA card, raising without one).  Returns {"volumes":
-    [per-target verdicts], "scrubbed_bytes", "corrupt", "backend"}."""
+    [per-target verdicts], "scrubbed_bytes", "corrupt", "backend"}.
+
+    `stage_stats` receives seconds per stage: `read` (of which `pread`,
+    `span_crc`, `stage_fill`, `stage_copy`), `lane_wait`, `dispatch`,
+    `encode_crc` (of which `parity_wait`, `parity_crc`), `setup` and
+    `finish`, the call's `wall`, and on the card the event-timed
+    `device_h2d`, `device_kernel` and `device_d2h`.  The call is a
+    `maint.deep_scrub` span (background) with `scrub.batch.read`,
+    `.dispatch` and `.complete` children per batch."""
+    root = tracing.start("maint.deep_scrub",
+                         tags={"volumes": len(targets)})
+    tracing.tag_qos(root, "background")
+    children: list = []
+    prev = tracing.swap(root)
+    try:
+        out = _scrub(targets, device, span_bytes, batch_units, throttle,
+                     stage_stats, mesh, root, children)
+    finally:
+        tracing.restore(prev)
+    tracing.finish_tree(root, children)
+    return out
+
+
+def _scrub(targets: list, device, span_bytes: Optional[int],
+           batch_units: Optional[int], throttle, stage_stats: Optional[dict],
+           mesh, root, children: list) -> dict:
+    """deep_scrub's sweep, under its span `root`; each batch's spans go to
+    `children`."""
     from ..ops.device_pool import get_pool, lease_tensor
     from ..parallel.mesh import make_ec_mesh, make_parity_step, split_batch
 
+    wall0 = time.perf_counter_ns()
     devices = make_ec_mesh(mesh if mesh is not None else device)
-    wall0 = time.perf_counter()
-    timers = {"read": 0.0, "dispatch": 0.0, "encode_crc": 0.0}
+    cuda = devices[0].type == "cuda"
+    timers = dict.fromkeys(("read", "dispatch", "encode_crc", "lane_wait",
+                            "setup", "finish") + READ_LEAVES + COMPLETE_LEAVES
+                           + (tuple("device_" + k for k in DEVICE_STAGES)
+                              if cuda else ()), 0.0)
 
     chunk = span_bytes or span_bytes_default()
     max_len = max([t.shard_len for t in targets] or [0])
@@ -205,7 +251,6 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
     pool_before = pool_after = None
     if units:
         n_dev = len(devices)
-        cuda = devices[0].type == "cuda"
         if batch_units is None:
             # ~32 MB of data spans per dispatch: at the default 1 MB span
             # three volumes' spans share a geometry
@@ -221,8 +266,10 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
         stage_shape = (DATA_SHARDS_COUNT, b, chunk)
 
         # ring entries: pinned staging, per-device input and output slabs,
-        # pinned parity; an entry is refilled only after its batch was
-        # synchronized
+        # pinned parity, per-device timing events; an entry is refilled
+        # only after its batch was synchronized
+        streams = [torch.cuda.current_stream(d) for d in devices] \
+            if cuda else []
         ring = []
         for _ in range(depth + 1):
             ring.append({
@@ -239,17 +286,34 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
                 "hout": lease_tensor(pool, "maint-hout",
                                      (PARITY_SHARDS_COUNT, b, chunk),
                                      torch.uint8, pinned=cuda),
+                "marks": [[torch.cuda.Event(enable_timing=True)
+                           for _ in range(len(DEVICE_STAGES) + 1)]
+                          for _ in streams],
             })
         free = deque(ring)
-        pending: deque = deque()  # (entry, metas, done events)
+        pending: deque = deque()  # (entry, metas)
 
         def _complete():
-            entry, metas, events = pending.popleft()
-            t0 = time.perf_counter()
-            for ev in events:
-                ev.synchronize()
+            entry, metas = pending.popleft()
+            t0 = time.perf_counter_ns()
+            for evs in entry["marks"]:
+                evs[-1].synchronize()
+            t1 = time.perf_counter_ns()
+            tags = {}
+            if cuda:
+                got = dict.fromkeys(DEVICE_STAGES, 0.0)
+                for evs in entry["marks"]:
+                    for k, e0, e1 in zip(DEVICE_STAGES, evs, evs[1:]):
+                        got[k] += e0.elapsed_time(e1) * 1e-3
+                with _totals_lock:
+                    for k, v in got.items():
+                        SCRUB_TOTALS[k] += v
+                for k, v in got.items():
+                    timers["device_" + k] += v
+                    tags["device_" + k] = round(v, 6)
             pbytes = entry["hout"].payload.numpy()
             pool.note_d2h(pbytes.nbytes, device=dev_label)
+            t2 = time.perf_counter_ns()
             for k, (ti, off) in enumerate(metas):
                 t = targets[ti]
                 if not t.recompute:
@@ -262,34 +326,46 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
                     if real > 0:
                         t.computed[j] = crc_host.crc32c(
                             pbytes[j, k, :real], t.computed[j])
+            t3 = time.perf_counter_ns()
             free.append(entry)
-            timers["encode_crc"] += time.perf_counter() - t0
+            timers["parity_wait"] += (t1 - t0) * 1e-9
+            timers["parity_crc"] += (t3 - t2) * 1e-9
+            timers["encode_crc"] += (t3 - t0) * 1e-9
+            tags["parity_wait"] = round((t1 - t0) * 1e-9, 6)
+            tags["parity_crc"] = round((t3 - t2) * 1e-9, 6)
+            children.append(tracing.span_between(
+                "scrub.batch.complete", t0, t3, root, tags))
 
-        def _dispatch(entry) -> list:
+        def _dispatch(entry):
             """H2D, the step and the D2H of one batch on each device's
-            current stream; returns the events after the D2H."""
+            current stream, with the entry's timing events recorded there
+            before the H2D, after it, after the step and after the D2H."""
             stage = entry["stage"].payload
             hout = entry["hout"].payload
+            marks = entry["marks"]
             dins = []
             for i, (lo, hi) in enumerate(parts):
                 din = entry["din"][i].payload
+                if cuda:
+                    marks[i][0].record(streams[i])
                 for j in range(DATA_SHARDS_COUNT):
                     din[j].copy_(stage[j, lo:hi], non_blocking=True)
                 dins.append(din)
+                if cuda:
+                    marks[i][1].record(streams[i])
             pool.note_h2d(stage.numel(), device=dev_label)
             outs = [ls.payload for ls in entry["out"]]
             step(dins[0] if n_dev == 1 else dins,
                  outs[0] if n_dev == 1 else outs)
-            events = []
             for i, (lo, hi) in enumerate(parts):
+                if cuda:
+                    marks[i][2].record(streams[i])
                 for j in range(PARITY_SHARDS_COUNT):
                     hout[j, lo:hi].copy_(outs[i][j], non_blocking=True)
                 if cuda:
-                    ev = torch.cuda.Event()
-                    ev.record(torch.cuda.current_stream(devices[i]))
-                    events.append(ev)
-            return events
+                    marks[i][3].record(streams[i])
 
+        timers["setup"] = (time.perf_counter_ns() - wall0) * 1e-9
         try:
             for start in range(0, len(units), b):
                 metas = units[start:start + b]
@@ -297,36 +373,47 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
                     _complete()
                 entry = free.popleft()
                 buf = entry["stage"].payload.numpy()
-                t0 = time.perf_counter()
+                leaves0 = [timers[k] for k in READ_LEAVES]
+                t0 = time.perf_counter_ns()
                 buf.fill(0)
+                timers["stage_fill"] += (time.perf_counter_ns() - t0) * 1e-9
                 for k, (ti, off) in enumerate(metas):
                     t = targets[ti]
                     for i in range(DATA_SHARDS_COUNT):
-                        raw = _read_span(t, i, off, chunk, throttle)
+                        raw = _read_span(t, i, off, chunk, throttle, timers)
                         if raw and t.recompute:
+                            c0 = time.perf_counter()
                             buf[i, k, :len(raw)] = np.frombuffer(
                                 raw, dtype=np.uint8)
+                            timers["stage_copy"] += time.perf_counter() - c0
                     # parity spans ride along for the file-CRC chain
                     for j in range(PARITY_SHARDS_COUNT):
                         _read_span(t, DATA_SHARDS_COUNT + j, off, chunk,
-                                   throttle)
-                t1 = time.perf_counter()
-                timers["read"] += t1 - t0
+                                   throttle, timers)
+                t1 = time.perf_counter_ns()
+                timers["read"] += (t1 - t0) * 1e-9
+                children.append(tracing.span_between(
+                    "scrub.batch.read", t0, t1, root,
+                    {k: round(timers[k] - v, 6)
+                     for k, v in zip(READ_LEAVES, leaves0)}))
                 # background lane: yield to in-flight foreground decodes
-                timers["lane_wait"] = timers.get("lane_wait", 0.0) \
-                    + _lanes.LANES.background_checkpoint()
-                t2 = time.perf_counter()
-                events = _dispatch(entry)
-                timers["dispatch"] += time.perf_counter() - t2
-                pending.append((entry, metas, events))
+                timers["lane_wait"] += _lanes.LANES.background_checkpoint()
+                t2 = time.perf_counter_ns()
+                _dispatch(entry)
+                t3 = time.perf_counter_ns()
+                timers["dispatch"] += (t3 - t2) * 1e-9
+                children.append(tracing.span_between(
+                    "scrub.batch.dispatch", t2, t3, root))
+                pending.append((entry, metas))
                 batches += 1
-                with _step_calls_lock:
-                    STEP_CALLS["calls"] += 1
+                with _totals_lock:
+                    SCRUB_TOTALS["steps"] += 1
                 if len(pending) >= depth:
                     _complete()
             while pending:
                 _complete()
         finally:
+            t0 = time.perf_counter_ns()
             if cuda:
                 for d in devices:
                     torch.cuda.synchronize(d)
@@ -334,31 +421,37 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
                 for ls in [entry["stage"], entry["hout"]] + entry["din"] \
                         + entry["out"]:
                     pool.release(ls)
+            timers["finish"] += (time.perf_counter_ns() - t0) * 1e-9
         pool_after = pool.snapshot()
+    else:
+        timers["setup"] = (time.perf_counter_ns() - wall0) * 1e-9
 
     # file-CRC-only sweep for targets without recompute units
-    t0 = time.perf_counter()
+    t0 = time.perf_counter_ns()
     for t in targets:
         if t.recompute and t.shard_len > 0:
             continue
         for sid in range(TOTAL_SHARDS_COUNT):
             off = 0
             while t.sizes[sid] >= 0 and off < t.sizes[sid]:
-                raw = _read_span(t, sid, off, chunk, throttle)
+                raw = _read_span(t, sid, off, chunk, throttle, timers)
                 if not raw:
                     break
                 off += len(raw)
-    timers["read"] += time.perf_counter() - t0
+    t1 = time.perf_counter_ns()
+    timers["read"] += (t1 - t0) * 1e-9
 
     volumes = []
     for t in targets:
         volumes.append(_verdict(t))
         if t.close is not None:
             t.close()
-    wall = time.perf_counter() - wall0
+    t_end = time.perf_counter_ns()
+    timers["finish"] += (t_end - t1) * 1e-9
+    wall = (t_end - wall0) * 1e-9
     if stage_stats is not None:
-        stage_stats.update({k: round(v, 3) for k, v in timers.items()})
-        stage_stats["wall"] = round(wall, 3)
+        stage_stats.update({k: round(v, 6) for k, v in timers.items()})
+        stage_stats["wall"] = round(wall, 6)
         stage_stats["backend"] = backend
         stage_stats["batches"] = batches
         stage_stats["batch_units"] = b
@@ -374,6 +467,9 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
                 "lease_hits": (pool_after.get("lease_hits", 0)
                                - pool_before.get("lease_hits", 0))}
     total = sum(v["bytes"] for v in volumes)
+    root.set_tag("bytes", total)
+    root.set_tag("batches", batches)
+    root.set_tag("backend", backend)
     _stats.MaintScrubbedBytesCounter.inc(total)
     # a parity record that disagrees with the recompute is corruption too
     # (of the parity file or of the record): both kinds are reported

@@ -1300,7 +1300,7 @@ def _encode_units_host(plans, host_codec, stage_stats=None,
         "ec.encode_volumes",
         tags={"volumes": len(plans), "workers": nworkers,
               "writers": nwriters, "items": len(items)})
-    root.start_ts -= wall
+    root.backdate(wall)
     for k, v in timers.items():
         tracing.record_span(f"ec.encode.{k}", v, parent=root)
     root.finish(duration=wall)

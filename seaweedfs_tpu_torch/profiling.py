@@ -321,7 +321,8 @@ def record_kernel_cost(geometry: str, flops: float, bytes_accessed: float,
 def device_timeline() -> dict:
     """Recent batch latencies, per-geometry step cost, the device pool's
     occupancy snapshot (when a pool exists), and this process's kernel
-    launches with the deep scrubs' parity-step calls among them."""
+    launches with the deep scrubs' parity-step calls among them, beside
+    the scrubs' device seconds (H2D, kernel, D2H) timed by CUDA events."""
     from .maintenance import deep_scrub
     from .ops import device_pool, rs_cuda
 
@@ -329,10 +330,14 @@ def device_timeline() -> dict:
     with _tl_lock:
         timeline = list(_DEVICE_TIMELINE)
         cost = {k: dict(v) for k, v in _KERNEL_COST.items()}
+    with deep_scrub._totals_lock:
+        scrub = dict(deep_scrub.SCRUB_TOTALS)
     return {"timeline": timeline, "kernel_cost": cost,
             "pool": pool.snapshot() if pool is not None else {},
             "launches": dict(rs_cuda.launches),
-            "scrub_steps": deep_scrub.STEP_CALLS["calls"]}
+            "scrub_steps": scrub["steps"],
+            "scrub_device_s": {k: round(scrub[k], 6)
+                               for k in deep_scrub.DEVICE_STAGES}}
 
 
 def reset_device_telemetry():

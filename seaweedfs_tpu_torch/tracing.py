@@ -106,7 +106,7 @@ def _new_id() -> str:
 class Span:
     __slots__ = ("trace_id", "span_id", "parent_id", "name", "service",
                  "status", "tags", "start_ts", "duration", "sampled",
-                 "is_root", "route", "_t0")
+                 "is_root", "route", "mono_start_ns")
 
     def __init__(self, trace_id: str, span_id: str,
                  parent_id: Optional[str], name: str, service: str,
@@ -127,12 +127,19 @@ class Span:
         self.duration: Optional[float] = None
         self.sampled = sampled
         self.is_root = is_root
-        self._t0 = time.perf_counter()
+        # the start on time.perf_counter_ns(), the clock a benchmark ties
+        # to the device trace; start_ts (wall time) is for reading
+        self.mono_start_ns = time.perf_counter_ns()
 
     def set_tag(self, key: str, value):
         if self.tags is None:
             self.tags = {}
         self.tags[key] = value
+
+    def backdate(self, seconds: float):
+        """Move the span's start `seconds` earlier, on both clocks."""
+        self.start_ts -= seconds
+        self.mono_start_ns -= int(seconds * 1e9)
 
     def finish(self, status: Optional[str] = None,
                duration: Optional[float] = None):
@@ -143,8 +150,9 @@ class Span:
             return  # already finished
         if status is not None:
             self.status = status
-        self.duration = (duration if duration is not None
-                         else time.perf_counter() - self._t0)
+        self.duration = (
+            duration if duration is not None
+            else (time.perf_counter_ns() - self.mono_start_ns) * 1e-9)
         RECORDER.record(self)
 
     def to_dict(self) -> dict:
@@ -155,6 +163,7 @@ class Span:
             "service": self.service,
             "status": self.status,
             "start": round(self.start_ts, 6),
+            "mono_start_ns": self.mono_start_ns,
             "duration_ms": round((self.duration or 0.0) * 1000.0, 3),
         }
         if self.tags:
@@ -303,9 +312,32 @@ def record_span(name: str, duration: float, service: str = "",
     bridge for stage timers aggregated outside a with-block, e.g. the
     encode pipeline's per-stage busy seconds)."""
     sp = start(name, service, parent, tags)
-    sp.start_ts -= duration
+    sp.backdate(duration)
     sp.finish(status=status, duration=duration)
     return sp
+
+
+def span_between(name: str, t0_ns: int, t1_ns: int, parent: Span,
+                 tags: Optional[dict] = None) -> Span:
+    """A finished child span over [t0_ns, t1_ns] of perf_counter_ns, not
+    yet handed to the recorder: finish_tree records it after its root."""
+    sp = start(name, parent=parent, tags=tags)
+    sp.start_ts -= (sp.mono_start_ns - t0_ns) * 1e-9
+    sp.mono_start_ns = t0_ns
+    sp.duration = (t1_ns - t0_ns) * 1e-9
+    return sp
+
+
+def finish_tree(root: Span, children: list):
+    """Finish `root`, then record its finished `children` (span_between).
+    Retention is decided at the root: a fast unsampled child recorded
+    before it is dropped (Recorder.record's fast path), so a slow root
+    would keep its trace without them.  After a kept root the children
+    join its trace (up to WEED_TRACE_MAX_SPANS, the rest counted as
+    truncated); after a dropped one they are dropped too."""
+    root.finish()
+    for sp in children:
+        RECORDER.record(sp)
 
 
 class Recorder:

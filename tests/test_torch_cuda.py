@@ -262,6 +262,39 @@ def test_pooled_route_and_deep_scrub_on_card(cuda, tmp_path, monkeypatch):
     assert out["volumes"][0]["ok"] and out["volumes"][0]["recomputed"]
 
 
+def test_deep_scrub_times_its_batches_with_cuda_events(cuda, tmp_path):
+    """On the card each scrub batch's H2D, parity step and D2H are timed
+    by CUDA events: stage_stats carries their seconds, which fit in the
+    call's wall, and the process's device report grows by them; the
+    verdict and CRC chains equal the plain scrub's on the CPU."""
+    from seaweedfs_tpu_torch import profiling
+    from seaweedfs_tpu_torch.maintenance.deep_scrub import (deep_scrub,
+                                                            local_target)
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder
+
+    base = str(tmp_path / "1")
+    _bytes(12, ((3 << 20) + 11,), "cpu").numpy().tofile(base + ".dat")
+    crcs = encoder.write_ec_files(base, batched=True, device="cpu")
+    encoder.save_volume_info(base, 3, {"shard_crc32c": crcs})
+    before = profiling.device_timeline()
+    st: dict = {}
+    got = local_target(base, 1)
+    out = deep_scrub([got], device=cuda, stage_stats=st,
+                     span_bytes=256 << 10, batch_units=2)
+    after = profiling.device_timeline()
+    want = local_target(base, 1)
+    deep_scrub([want], device="cpu")
+    assert out["volumes"][0]["ok"] and out["volumes"][0]["recomputed"]
+    assert (got.chains, got.computed) == (want.chains, want.computed)
+    keys = ("device_h2d", "device_kernel", "device_d2h")
+    assert all(st[k] > 0 for k in keys)
+    assert sum(st[k] for k in keys) <= st["wall"]
+    assert after["scrub_steps"] - before["scrub_steps"] == st["batches"] > 1
+    for k in ("h2d", "kernel", "d2h"):
+        grew = after["scrub_device_s"][k] - before["scrub_device_s"][k]
+        assert grew == pytest.approx(st["device_" + k], abs=1e-5)
+
+
 def test_survivor_stack_needs_no_staging_copy(cuda, monkeypatch):
     """No stack is copied into a staging slab on its way to the card: a
     pageable one crosses from its own memory, one assembled in the slab

@@ -224,6 +224,180 @@ class TestCrossVolumeBatching:
         assert v["recomputed"] is (sid >= 10)
 
 
+class TestStageTimersAndSpans:
+    """The port's scrub times its stages where the work happens, on the
+    clock its spans share (perf_counter_ns), and opens a background
+    `maint.deep_scrub` span with three children per batch.  The JAX
+    package has neither; the verdicts stay equal (the `_both` cases)."""
+
+    def test_stage_stats_nest_and_stay_within_the_wall(self, tmp_path):
+        bases = [_make_volume(tmp_path, i + 1, (1 << 20) + i * 91,
+                              seed=40 + i) for i in range(3)]
+        _flip(bases[1] + ".ec12", 7)
+        got, _, st, _ = _both(
+            lambda m: [m.local_target(b, i + 1) for i, b in enumerate(bases)],
+            batch_units=2)
+        assert got["corrupt"] == [{"volume": 2, "shards": [12]}]
+        leaves = t_ds.READ_LEAVES + t_ds.COMPLETE_LEAVES + (
+            "dispatch", "lane_wait", "setup", "finish")
+        for k in leaves + ("read", "encode_crc", "wall"):
+            assert st[k] >= 0.0, k
+        assert st["batches"] > 1
+        assert sum(st[k] for k in t_ds.READ_LEAVES) <= st["read"] + 0.002
+        assert st["parity_wait"] + st["parity_crc"] <= \
+            st["encode_crc"] + 0.002
+        assert sum(st[k] for k in leaves) <= st["wall"] + 0.002
+        assert st["pread"] > 0 and st["span_crc"] > 0
+        assert st["stage_copy"] > 0 and st["parity_crc"] > 0
+        # the card's event times are absent on the CPU
+        assert not any(k.startswith("device_") for k in st)
+
+    def test_pread_counts_the_reader_time(self, tmp_path):
+        """A reader that sleeps 10 ms per span puts at least 10 ms per read
+        into `pread` (a lower bound alone: no wall-clock upper bound)."""
+        import time
+
+        base = _make_volume(tmp_path, 1, 1 << 20, seed=41)
+        reads = []
+
+        def slow(mod):
+            good = mod.local_target(base, 1)
+
+            def reader(sid, off, size):
+                reads.append(sid)
+                time.sleep(0.010)
+                return good.reader(sid, off, size)
+
+            return [mod.ScrubTarget(volume=1, collection="",
+                                    stored=list(good.stored),
+                                    sizes=list(good.sizes), reader=reader,
+                                    close=good.close)]
+
+        st = {}
+        out = t_ds.deep_scrub(slow(t_ds), device="cpu", stage_stats=st)
+        assert out["volumes"][0]["ok"]
+        assert len(reads) >= TOTAL_SHARDS_COUNT
+        assert st["pread"] >= 0.010 * len(reads)
+        assert st["read"] >= st["pread"]
+
+    def test_scrub_records_a_root_with_three_spans_per_batch(
+            self, tmp_path, monkeypatch):
+        from seaweedfs_tpu_torch import tracing
+
+        monkeypatch.setenv("WEED_TRACE_SAMPLE", "1")
+        tracing.RECORDER.reset()
+        bases = [_make_volume(tmp_path, i + 1, (1 << 20) + i * 13,
+                              seed=50 + i) for i in range(2)]
+        st = {}
+        out = t_ds.deep_scrub([t_ds.local_target(b, i + 1)
+                               for i, b in enumerate(bases)], device="cpu",
+                              stage_stats=st, batch_units=1)
+        assert tracing.current() is None
+        index = tracing.RECORDER.index()
+        assert [e["root"] for e in index] == ["maint.deep_scrub"]
+        tree = tracing.RECORDER.get(index[0]["trace_id"])
+        (root,) = tree["tree"]
+        assert root["tags"] == {"volumes": 2, "qos_class": "background",
+                                "bytes": out["scrubbed_bytes"],
+                                "batches": st["batches"],
+                                "backend": "device-pooled"}
+        kids = root["children"]
+        names = sorted({c["name"] for c in kids})
+        assert names == ["scrub.batch.complete", "scrub.batch.dispatch",
+                         "scrub.batch.read"]
+        assert len(kids) == 3 * st["batches"]
+        for name in names:
+            assert sum(c["name"] == name for c in kids) == st["batches"]
+        # duration_ms is rounded to the microsecond
+        r0 = root["mono_start_ns"]
+        r1 = r0 + root["duration_ms"] * 1e6
+        for c in kids:
+            assert c["children"] == []
+            assert r0 <= c["mono_start_ns"]
+            assert c["mono_start_ns"] + c["duration_ms"] * 1e6 <= r1 + 1e3
+        reads = [c for c in kids if c["name"] == "scrub.batch.read"]
+        for k in t_ds.READ_LEAVES:
+            assert sum(c["tags"][k] for c in reads) == \
+                pytest.approx(st[k], abs=1e-5)
+        tracing.RECORDER.reset()
+
+    def test_slow_scrub_keeps_its_fast_batch_spans_unsampled(
+            self, tmp_path, monkeypatch):
+        """With sampling off, a scrub slower than WEED_TRACE_SLOW_MS is
+        kept whole: its per-batch spans, each fast, join the trace after
+        the root decided to keep it (here the time goes to the target's
+        close, outside every batch span)."""
+        import time
+
+        from seaweedfs_tpu_torch import tracing
+
+        monkeypatch.setenv("WEED_TRACE_SAMPLE", "0")
+        monkeypatch.setenv("WEED_TRACE_SLOW_MS", "1000")
+        tracing.RECORDER.reset()
+        base = _make_volume(tmp_path, 1, 1 << 20, seed=60)
+        target = t_ds.local_target(base, 1)
+        real_close = target.close
+
+        def slow_close():
+            time.sleep(1.05)
+            real_close()
+
+        target.close = slow_close
+        st = {}
+        t_ds.deep_scrub([target], device="cpu", stage_stats=st,
+                        span_bytes=64 << 10, batch_units=4)
+        (entry,) = tracing.RECORDER.index()
+        assert entry["root"] == "maint.deep_scrub" and entry["slow"]
+        tree = tracing.RECORDER.get(entry["trace_id"])
+        kids = tree["tree"][0]["children"]
+        assert st["batches"] > 1 and len(kids) == 3 * st["batches"]
+        assert max(c["duration_ms"] for c in kids) < 1000
+        tracing.RECORDER.reset()
+
+    def test_concurrent_scrubs_count_every_parity_step(self, tmp_path):
+        """Scrubs on more threads than cores, with a short switch
+        interval, lose no update of the process's scrub totals."""
+        import sys
+        import threading
+
+        bases = [_make_volume(tmp_path, i + 1, 1 << 20, seed=70 + i)
+                 for i in range(2)]
+        n = 2 * (os.cpu_count() or 1) + 2
+        before = t_ds.SCRUB_TOTALS["steps"]
+        stats = [{} for _ in range(n)]
+
+        def scrub(i):
+            t_ds.deep_scrub([t_ds.local_target(bases[i % 2], i % 2 + 1)],
+                            device="cpu", stage_stats=stats[i],
+                            span_bytes=256 << 10, batch_units=1)
+
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-5)
+        try:
+            threads = [threading.Thread(target=scrub, args=(i,))
+                       for i in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+        finally:
+            sys.setswitchinterval(old)
+        assert not any(t.is_alive() for t in threads)
+        assert all(st["batches"] == 4 for st in stats)
+        assert t_ds.SCRUB_TOTALS["steps"] - before == 4 * n
+
+    def test_device_report_carries_the_scrub_device_seconds(self):
+        """/debug/pprof/device reports the process's event-timed scrub
+        seconds beside its parity-step calls (zero on the CPU, which
+        records no event)."""
+        from seaweedfs_tpu_torch import profiling
+
+        tl = profiling.device_timeline()
+        assert set(tl["scrub_device_s"]) == {"h2d", "kernel", "d2h"}
+        assert all(v >= 0.0 for v in tl["scrub_device_s"].values())
+        assert tl["scrub_steps"] == t_ds.SCRUB_TOTALS["steps"]
+
+
 def test_host_scrub_needle_walk_and_verify_shard_files(tmp_path):
     """The needle walk reads every live needle of a needle volume in both
     packages, with shards lost; verify_shard_files classifies files."""

@@ -184,3 +184,55 @@ def test_error_status_and_qos_route():
              for tr in (j_tr, t_tr)]
     assert [_canon(n) for n in trees[0]["tree"]] == \
         [_canon(n) for n in trees[1]["tree"]]
+
+
+def test_span_starts_on_the_perf_counter_ns_clock():
+    """A span's start is stamped on time.perf_counter_ns(), the clock a
+    benchmark ties to its device trace, and reported as mono_start_ns;
+    record_span back-dates it with the wall-clock start."""
+    import time
+
+    a = time.perf_counter_ns()
+    with t_tr.span("root", service="s") as sp:
+        b = time.perf_counter_ns()
+        rec = t_tr.record_span("stage", 0.5)
+    c = time.perf_counter_ns()
+    assert a <= sp.mono_start_ns <= b
+    assert sp.to_dict()["mono_start_ns"] == sp.mono_start_ns
+    assert a <= sp.mono_start_ns + sp.duration * 1e9 <= c
+    assert b - 5e8 <= rec.mono_start_ns <= c - 5e8
+    assert rec.duration == 0.5
+    assert rec.start_ts <= sp.start_ts - 0.4
+
+
+@pytest.mark.parametrize("root_s,kept", [(0.3, True), (0.001, False)])
+def test_finish_tree_lets_the_root_decide_for_its_children(
+        monkeypatch, root_s, kept):
+    """Children timed by span_between and handed over by finish_tree join
+    a trace that their (unsampled) root kept for being slow, and are
+    dropped with a fast root; recorded before the root, fast unsampled
+    children would be lost either way."""
+    import time
+
+    monkeypatch.setenv("WEED_TRACE_SAMPLE", "0")
+    monkeypatch.setenv("WEED_TRACE_SLOW_MS", "250")
+    root = t_tr.start("maint.deep_scrub", service="s")
+    t0 = time.perf_counter_ns()
+    kids = [t_tr.span_between(f"k{i}", t0 + i * 1000, t0 + i * 1000 + 500,
+                              root, {"i": i}) for i in range(4)]
+    assert [k.mono_start_ns for k in kids] == [t0 + i * 1000
+                                               for i in range(4)]
+    assert all(k.duration == pytest.approx(5e-7)
+               and k.parent_id == root.span_id for k in kids)
+    assert not t_tr.RECORDER.index()  # nothing recorded before the root
+    root.backdate(root_s)
+    t_tr.finish_tree(root, kids)
+    index = t_tr.RECORDER.index()
+    if not kept:
+        assert index == []
+        return
+    (entry,) = index
+    tree = t_tr.RECORDER.get(entry["trace_id"])
+    assert entry["slow"] and tree["spans"] == 5
+    assert sorted(c["name"] for c in tree["tree"][0]["children"]) == \
+        ["k0", "k1", "k2", "k3"]
