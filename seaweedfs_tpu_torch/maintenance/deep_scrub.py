@@ -8,6 +8,7 @@ whether the parity still matches the data.  Deep scrub goes further:
  * every present shard file is streamed span by span (paced through an
    optional throttle) and its rolling CRC32C chained exactly like the
    whole-file CRC, so the bitrot check rides along on the same reads;
+   a batch's 14 shards are read by as many tasks on a pool of threads;
  * the ten data-shard spans are packed into (10, B, L) batches (spans of
    different volumes share one geometry) and pushed through the pooled
    parity step (parallel/mesh.make_parity_step, K1 on the card) into
@@ -20,6 +21,7 @@ whether the parity still matches the data.  Deep scrub goes further:
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import os
 import threading
 import time
@@ -33,10 +35,12 @@ import torch
 from .. import tracing
 from ..ops import crc32c as crc_host
 from ..qos import lanes as _lanes
+from ..rpc.http_rpc import in_caller_context
 from ..stats import metrics as _stats
 from ..storage.erasure_coding import (DATA_SHARDS_COUNT,
                                       PARITY_SHARDS_COUNT,
                                       TOTAL_SHARDS_COUNT, to_ext)
+from ..util.platform import available_cpu_count
 
 
 def _env_int(name: str, default: int) -> int:
@@ -123,7 +127,8 @@ def _read_span(t: ScrubTarget, sid: int, off: int, chunk: int,
     its time goes to `timers` "pread" (the reader) and "span_crc" (the
     chain; the throttle's pacing to neither).  A reader that fails marks
     the shard unreadable (and, for a data shard, stops the recompute):
-    that is the verdict, not an error of the scrub."""
+    that is the verdict, not an error of the scrub.  The caller counts
+    the bytes into `t.bytes_read`."""
     want = min(chunk, max(0, t.sizes[sid] - off))
     if want <= 0:
         return b""
@@ -144,8 +149,35 @@ def _read_span(t: ScrubTarget, sid: int, off: int, chunk: int,
             t1 = time.perf_counter()
         t.chains[sid] = crc_host.crc32c(raw, t.chains[sid])
         timers["span_crc"] += time.perf_counter() - t1
-        t.bytes_read += len(raw)
     return raw
+
+
+def _read_shard(targets: list, metas: list, sid: int, chunk: int,
+                throttle, buf: np.ndarray) -> tuple:
+    """One task of a batch's read stage: shard `sid`'s span of every unit
+    in `metas`, in offset order (the order of the shard's CRC chain); a
+    data span goes into its stage row `buf[sid, k]`, whose tail past the
+    bytes read is zeroed.  Returns (the task's seconds, its leaf timers,
+    {target index: bytes read}): the caller adds them up, so no two tasks
+    write one counter."""
+    t0 = time.perf_counter()
+    timers = dict.fromkeys(READ_LEAVES, 0.0)
+    got: dict = {}
+    for k, (ti, off) in enumerate(metas):
+        t = targets[ti]
+        raw = _read_span(t, sid, off, chunk, throttle, timers)
+        got[ti] = got.get(ti, 0) + len(raw)
+        if sid < DATA_SHARDS_COUNT:
+            n = len(raw) if t.recompute else 0
+            c0 = time.perf_counter()
+            if n:
+                buf[sid, k, :n] = np.frombuffer(raw, dtype=np.uint8)
+            c1 = time.perf_counter()
+            if n < chunk:
+                buf[sid, k, n:] = 0
+            timers["stage_copy"] += c1 - c0
+            timers["stage_fill"] += time.perf_counter() - c1
+    return time.perf_counter() - t0, timers, got
 
 
 def _verdict(t: ScrubTarget) -> dict:
@@ -193,12 +225,27 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
     means every CUDA card, raising without one).  Returns {"volumes":
     [per-target verdicts], "scrubbed_bytes", "corrupt", "backend"}.
 
-    `stage_stats` receives seconds per stage: `read` (of which `pread`,
-    `span_crc`, `stage_fill`, `stage_copy`), `lane_wait`, `dispatch`,
-    `encode_crc` (of which `parity_wait`, `parity_crc`), `setup` and
-    `finish`, the call's `wall`, and on the card the event-timed
-    `device_h2d`, `device_kernel` and `device_d2h`.  The call is a
-    `maint.deep_scrub` span (background) with `scrub.batch.read`,
+    Each batch's read stage is 14 tasks, one per shard, each reading that
+    shard's spans of the batch in offset order (its CRC chain) and
+    staging the data spans; they run on a pool of threads made for the
+    call, half the cores this process may use (at most 14), or inline
+    where that is one.  The throttle is called from those threads, so a
+    scrub paced below one thread's speed (the maintenance worker's, at
+    its default rate) gains nothing from the pool.  The file-CRC sweep
+    of targets that cannot recompute stays inline.
+
+    `stage_stats` receives seconds per stage: `read` (the caller's wait
+    from taking a staging entry to the batch's last task done), of which
+    the leaves `pread`, `span_crc`, `stage_fill` (zeroing the rows'
+    tails) and `stage_copy` are worker-seconds summed over the tasks, as
+    is `read_busy` (the tasks' own seconds; `read_busy / read` is the
+    mean number of busy workers); `read_workers`, the pool size used (1
+    when nothing ran on a pool); `lane_wait`, `dispatch`, `encode_crc`
+    (of which `parity_wait`, `parity_crc`), `setup` and `finish`, the
+    call's `wall`, and on the card the event-timed `device_h2d`,
+    `device_kernel` and `device_d2h`.  The call is a `maint.deep_scrub`
+    span (background, tagged with `read_workers`) with
+    `scrub.batch.read` (tagged with its leaves in worker-seconds),
     `.dispatch` and `.complete` children per batch."""
     root = tracing.start("maint.deep_scrub",
                          tags={"volumes": len(targets)})
@@ -225,8 +272,9 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
     wall0 = time.perf_counter_ns()
     devices = make_ec_mesh(mesh if mesh is not None else device)
     cuda = devices[0].type == "cuda"
-    timers = dict.fromkeys(("read", "dispatch", "encode_crc", "lane_wait",
-                            "setup", "finish") + READ_LEAVES + COMPLETE_LEAVES
+    timers = dict.fromkeys(("read", "read_busy", "dispatch", "encode_crc",
+                            "lane_wait", "setup", "finish") + READ_LEAVES
+                           + COMPLETE_LEAVES
                            + (tuple("device_" + k for k in DEVICE_STAGES)
                               if cuda else ()), 0.0)
 
@@ -249,7 +297,12 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
     b = 0
     depth = _inflight()
     pool_before = pool_after = None
+    workers = 1
     if units:
+        # half the cores: past that the tasks gain little on the card
+        # host and the runs swing with its other tenants, and a
+        # background job leaves the rest to the foreground
+        workers = max(1, min(TOTAL_SHARDS_COUNT, available_cpu_count() // 2))
         n_dev = len(devices)
         if batch_units is None:
             # ~32 MB of data spans per dispatch: at the default 1 MB span
@@ -366,6 +419,12 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                     marks[i][3].record(streams[i])
 
         timers["setup"] = (time.perf_counter_ns() - wall0) * 1e-9
+        readers = cf.ThreadPoolExecutor(
+            workers, thread_name_prefix="scrub-read") if workers > 1 \
+            else None
+        # a peer fetch keeps the caller's budget, class and trace
+        task = (in_caller_context(_read_shard, root) if readers
+                else _read_shard)
         try:
             for start in range(0, len(units), b):
                 metas = units[start:start + b]
@@ -373,29 +432,29 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                     _complete()
                 entry = free.popleft()
                 buf = entry["stage"].payload.numpy()
-                leaves0 = [timers[k] for k in READ_LEAVES]
+                # parity spans ride along for the file-CRC chain
+                args = [(targets, metas, sid, chunk, throttle, buf)
+                        for sid in range(TOTAL_SHARDS_COUNT)]
                 t0 = time.perf_counter_ns()
-                buf.fill(0)
-                timers["stage_fill"] += (time.perf_counter_ns() - t0) * 1e-9
-                for k, (ti, off) in enumerate(metas):
-                    t = targets[ti]
-                    for i in range(DATA_SHARDS_COUNT):
-                        raw = _read_span(t, i, off, chunk, throttle, timers)
-                        if raw and t.recompute:
-                            c0 = time.perf_counter()
-                            buf[i, k, :len(raw)] = np.frombuffer(
-                                raw, dtype=np.uint8)
-                            timers["stage_copy"] += time.perf_counter() - c0
-                    # parity spans ride along for the file-CRC chain
-                    for j in range(PARITY_SHARDS_COUNT):
-                        _read_span(t, DATA_SHARDS_COUNT + j, off, chunk,
-                                   throttle, timers)
+                if readers is None:
+                    done = [task(*a) for a in args]
+                else:
+                    done = [f.result() for f in
+                            [readers.submit(task, *a) for a in args]]
                 t1 = time.perf_counter_ns()
                 timers["read"] += (t1 - t0) * 1e-9
+                leaves = dict.fromkeys(READ_LEAVES, 0.0)
+                for busy, got, nbytes in done:
+                    timers["read_busy"] += busy
+                    for k, v in got.items():
+                        leaves[k] += v
+                    for ti, n in nbytes.items():
+                        targets[ti].bytes_read += n
+                for k, v in leaves.items():
+                    timers[k] += v
                 children.append(tracing.span_between(
                     "scrub.batch.read", t0, t1, root,
-                    {k: round(timers[k] - v, 6)
-                     for k, v in zip(READ_LEAVES, leaves0)}))
+                    {k: round(v, 6) for k, v in leaves.items()}))
                 # background lane: yield to in-flight foreground decodes
                 timers["lane_wait"] += _lanes.LANES.background_checkpoint()
                 t2 = time.perf_counter_ns()
@@ -414,6 +473,9 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                 _complete()
         finally:
             t0 = time.perf_counter_ns()
+            if readers is not None:
+                # no task may still write a stage the pool gets back
+                readers.shutdown(wait=True, cancel_futures=True)
             if cuda:
                 for d in devices:
                     torch.cuda.synchronize(d)
@@ -438,8 +500,11 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                 if not raw:
                     break
                 off += len(raw)
+                t.bytes_read += len(raw)
     t1 = time.perf_counter_ns()
+    # inline: one busy worker for the whole sweep
     timers["read"] += (t1 - t0) * 1e-9
+    timers["read_busy"] += (t1 - t0) * 1e-9
 
     volumes = []
     for t in targets:
@@ -458,6 +523,7 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
         stage_stats["k_shapes"] = [DATA_SHARDS_COUNT] if units else []
         stage_stats["inflight"] = depth
         stage_stats["span_bytes"] = chunk
+        stage_stats["read_workers"] = workers
         for k in ("read", "dispatch", "encode_crc"):
             stage_stats[f"{k}_frac"] = (
                 round(timers[k] / wall, 3) if wall > 0 else 0.0)
@@ -470,6 +536,7 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
     root.set_tag("bytes", total)
     root.set_tag("batches", batches)
     root.set_tag("backend", backend)
+    root.set_tag("read_workers", workers)
     _stats.MaintScrubbedBytesCounter.inc(total)
     # a parity record that disagrees with the recompute is corruption too
     # (of the parity file or of the record): both kinds are reported

@@ -92,10 +92,10 @@ class BytePacer:
             self._bucket -= nbytes
             debt = -self._bucket
             self.paced_bytes += nbytes
-        metrics.MaintPacerRateGauge.set(rate)
-        if debt > 0:
-            delay = debt / rate
+            delay = debt / rate if debt > 0 else 0.0
             self.throttled_seconds += delay
+        metrics.MaintPacerRateGauge.set(rate)
+        if delay > 0:
             self.sleep(delay)
 
     def snapshot(self) -> dict:

@@ -80,6 +80,30 @@ def set_deadline(value: Optional[float]) -> Optional[float]:
     return prev
 
 
+def in_caller_context(fn: Callable, span=None) -> Callable:
+    """`fn` wrapped for another thread (a pool worker or racer, whose
+    thread locals do not follow the caller's): it runs under the calling
+    thread's deadline and QoS class and tenant, and under `span` when one
+    is given, so its RPCs stay inside the caller's budget, keep their
+    class downstream and join the caller's trace.  The worker's own
+    context is restored afterwards."""
+    dl = current_deadline()
+    qctx = (_qos.current_class(), _qos.current_tenant())
+
+    def run(*args):
+        prev = set_deadline(dl)
+        prev_q = _qos.set_qos(*qctx)
+        prev_s = tracing.swap(span) if span is not None else None
+        try:
+            return fn(*args)
+        finally:
+            if span is not None:
+                tracing.restore(prev_s)
+            _qos.set_qos(*prev_q)
+            set_deadline(prev)
+    return run
+
+
 class deadline_scope:
     """Context manager pinning an absolute deadline for everything this
     thread calls: `with deadline_scope(2.0): ...` caps all nested RPC

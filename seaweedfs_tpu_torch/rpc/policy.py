@@ -46,9 +46,8 @@ import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 from ..stats import metrics as _stats
-from ..qos import classify as _qos
 from .http_rpc import (RpcError, call, current_deadline, deadline_scope,
-                       set_deadline)
+                       in_caller_context)
 
 __all__ = [
     "is_idempotent", "retryable", "backoff_delay", "RetryBudget",
@@ -426,12 +425,8 @@ def hedged(key: str, attempts: Sequence[Callable[[], object]]):
     label = _route_label(key)
     # racer threads have fresh locals: carry the caller's deadline and
     # QoS context over, same rule as the server dispatch loop
-    dl = current_deadline()
-    qcls, qtenant = _qos.current_class(), _qos.current_tenant()
-
+    @in_caller_context
     def run(i: int, fn: Callable[[], object]):
-        set_deadline(dl)
-        _qos.set_qos(qcls, qtenant)
         t0 = now()
         try:
             results.put((True, fn(), i, now() - t0))

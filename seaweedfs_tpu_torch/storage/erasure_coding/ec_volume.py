@@ -37,8 +37,7 @@ import numpy as np
 from ... import device as device_mod
 from ... import tracing
 from ...ops import codec as codec_mod
-from ...qos import classify as qos_classify
-from ...rpc.http_rpc import current_deadline, set_deadline
+from ...rpc.http_rpc import in_caller_context
 from .. import idx as idx_mod
 from .. import types as t
 from ..needle import Needle, get_actual_size
@@ -474,22 +473,10 @@ class EcVolume:
             elif self.remote_reader is not None:
                 remote_candidates.append(sid)
         if len(shards) < k and remote_candidates:
-            # pool workers don't share this thread's locals: pin the
-            # caller's propagated deadline and QoS context on each fetch
-            # so survivor RPCs stay inside the budget the client handed
-            # us and keep their class downstream
-            dl = current_deadline()
-            qctx = (qos_classify.current_class(),
-                    qos_classify.current_tenant())
-
-            def fetch(sid: int):
-                prev = set_deadline(dl)
-                prev_q = qos_classify.set_qos(*qctx)
-                try:
-                    return self.remote_reader(sid, offset, size)
-                finally:
-                    qos_classify.set_qos(*prev_q)
-                    set_deadline(prev)
+            # survivor RPCs stay inside the budget the client handed us
+            # and keep their class downstream
+            fetch = in_caller_context(
+                lambda sid: self.remote_reader(sid, offset, size))
 
             pool = _recover_pool()
             futs = {pool.submit(fetch, sid): sid

@@ -295,6 +295,38 @@ def test_deep_scrub_times_its_batches_with_cuda_events(cuda, tmp_path):
         assert grew == pytest.approx(st["device_" + k], abs=1e-5)
 
 
+def test_deep_scrub_read_workers_on_card(cuda, tmp_path, monkeypatch):
+    """A multi-span scrub on the card read by 8 workers gives the chains,
+    recomputed parity CRCs and verdicts of one worker and of the CPU."""
+    from seaweedfs_tpu_torch.maintenance import deep_scrub as ds
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder
+
+    bases = [str(tmp_path / str(i)) for i in (1, 2)]
+    for i, b in enumerate(bases):
+        _bytes(20 + i, ((11 << 20) + 333 * i,), "cpu").numpy().tofile(
+            b + ".dat")
+        crcs = encoder.write_ec_files(b, batched=True, device="cpu")
+        encoder.save_volume_info(b, 3, {"shard_crc32c": crcs})
+    with open(bases[1] + ".ec02", "r+b") as f:
+        f.seek(700_001)
+        flipped = bytes([f.read(1)[0] ^ 0xFF])
+        f.seek(700_001)
+        f.write(flipped)
+    seen = []
+    for dev, workers in ((cuda, 8), (cuda, 1), ("cpu", 1)):
+        st: dict = {}
+        # the scrub reads on half the cores it sees
+        monkeypatch.setattr(ds, "available_cpu_count", lambda: 2 * workers)
+        targets = [ds.local_target(b, i + 1) for i, b in enumerate(bases)]
+        out = ds.deep_scrub(targets, device=dev, stage_stats=st,
+                            span_bytes=300_000, batch_units=3)
+        assert st["read_workers"] == workers and st["batches"] > 1
+        seen.append((out["volumes"], [(t.chains, t.computed)
+                                      for t in targets]))
+    assert seen[0] == seen[1] == seen[2]
+    assert seen[0][0][0]["ok"] and seen[0][0][1]["corrupt"] == [2]
+
+
 def test_survivor_stack_needs_no_staging_copy(cuda, monkeypatch):
     """No stack is copied into a staging slab on its way to the card: a
     pageable one crosses from its own memory, one assembled in the slab

@@ -243,10 +243,17 @@ class TestStageTimersAndSpans:
         for k in leaves + ("read", "encode_crc", "wall"):
             assert st[k] >= 0.0, k
         assert st["batches"] > 1
-        assert sum(st[k] for k in t_ds.READ_LEAVES) <= st["read"] + 0.002
+        # the read leaves are worker-seconds, inside the tasks' own
+        # seconds, which the pool's workers spend within the caller's wait
+        assert sum(st[k] for k in t_ds.READ_LEAVES) <= st["read_busy"]
+        assert st["read_busy"] <= \
+            st["read"] * st["read_workers"] + 0.002
         assert st["parity_wait"] + st["parity_crc"] <= \
             st["encode_crc"] + 0.002
-        assert sum(st[k] for k in leaves) <= st["wall"] + 0.002
+        # the caller's own stages follow one another within the wall
+        assert sum(st[k] for k in ("read", "lane_wait", "dispatch",
+                                   "encode_crc", "setup", "finish")) <= \
+            st["wall"] + 0.002
         assert st["pread"] > 0 and st["span_crc"] > 0
         assert st["stage_copy"] > 0 and st["parity_crc"] > 0
         # the card's event times are absent on the CPU
@@ -278,7 +285,8 @@ class TestStageTimersAndSpans:
         assert out["volumes"][0]["ok"]
         assert len(reads) >= TOTAL_SHARDS_COUNT
         assert st["pread"] >= 0.010 * len(reads)
-        assert st["read"] >= st["pread"]
+        assert st["read_busy"] >= st["pread"]
+        assert st["read"] * st["read_workers"] >= st["pread"]
 
     def test_scrub_records_a_root_with_three_spans_per_batch(
             self, tmp_path, monkeypatch):
@@ -300,7 +308,8 @@ class TestStageTimersAndSpans:
         assert root["tags"] == {"volumes": 2, "qos_class": "background",
                                 "bytes": out["scrubbed_bytes"],
                                 "batches": st["batches"],
-                                "backend": "device-pooled"}
+                                "backend": "device-pooled",
+                                "read_workers": st["read_workers"]}
         kids = root["children"]
         names = sorted({c["name"] for c in kids})
         assert names == ["scrub.batch.complete", "scrub.batch.dispatch",
@@ -396,6 +405,202 @@ class TestStageTimersAndSpans:
         assert set(tl["scrub_device_s"]) == {"h2d", "kernel", "d2h"}
         assert all(v >= 0.0 for v in tl["scrub_device_s"].values())
         assert tl["scrub_steps"] == t_ds.SCRUB_TOTALS["steps"]
+
+
+def _pool_of(monkeypatch, workers):
+    """Have the port's scrub read on `workers` threads: it takes half the
+    cores it sees."""
+    monkeypatch.setattr(t_ds, "available_cpu_count", lambda: 2 * workers)
+
+
+def _slow_target(mod, base, vid, delay, reads=None):
+    """A local target whose reader sleeps `delay()` seconds per span (so
+    the tasks overlap on any machine, one core or many)."""
+    import time
+
+    good = mod.local_target(base, vid)
+
+    def reader(sid, off, size):
+        if reads is not None:
+            reads.append(sid)
+        time.sleep(delay())
+        return good.reader(sid, off, size)
+
+    return mod.ScrubTarget(volume=vid, collection="",
+                           stored=list(good.stored), sizes=list(good.sizes),
+                           reader=reader, close=good.close)
+
+
+class TestReadWorkers:
+    """A batch's read stage runs one task per shard on a pool of half the
+    cores' threads (inline with one): each shard's spans are read and
+    chained in offset order, and the results do not depend on the pool's
+    size."""
+
+    @pytest.mark.parametrize("workers", [1, 2, 4, 14])
+    def test_worker_counts_give_the_same_chains_and_verdicts(
+            self, tmp_path, monkeypatch, workers):
+        _pool_of(monkeypatch, workers)
+        sizes = [(1 << 20) + 77, (10 << 20) + 4321, (2 << 20) + 999]
+        bases = [_make_volume(tmp_path, i + 1, n, seed=80 + i)
+                 for i, n in enumerate(sizes)]
+        _flip(bases[0] + ".ec04", 300_123)    # data shard, second span
+        _flip(bases[2] + ".ec11", 1_000_000)  # parity shard, tail span
+        # a data shard cut short mid-span: its stage rows are read short or
+        # not at all, so the recompute sees their zeroed tails
+        os.truncate(bases[2] + ".ec07", 456_789)
+        made = {}
+
+        def targets_of(mod):
+            made[mod] = [mod.local_target(b, i + 1)
+                         for i, b in enumerate(bases)]
+            return made[mod]
+
+        # 300 000-byte spans leave a short tail span in every shard
+        out, _, st, _ = _both(targets_of, span_bytes=300_000, batch_units=2)
+        assert st["read_workers"] == workers and st["batches"] > 1
+        assert {c["volume"]: c["shards"] for c in out["corrupt"]} == \
+            {1: [4], 3: [7, 11]}
+        for got, want in zip(made[t_ds], made[j_ds]):
+            assert got.chains == want.chains
+            assert got.computed == want.computed
+        # a clean volume's recomputed parity CRCs are the stored ones
+        assert made[t_ds][1].computed == made[t_ds][1].stored[10:]
+
+    def test_jittered_readers_keep_each_shard_in_offset_order(
+            self, tmp_path, monkeypatch):
+        import random
+
+        _pool_of(monkeypatch, 4)
+        rng = random.Random(7)
+        bases = [_make_volume(tmp_path, i + 1, (1 << 20) + i * 555,
+                              seed=90 + i) for i in range(2)]
+        targets = [_slow_target(t_ds, b, i + 1,
+                                lambda: rng.random() * 0.003)
+                   for i, b in enumerate(bases)]
+        st = {}
+        out = t_ds.deep_scrub(targets, device="cpu", stage_stats=st,
+                              span_bytes=128 << 10, batch_units=3)
+        assert st["batches"] > 1
+        for t, v in zip(targets, out["volumes"]):
+            assert t.chains == t.stored and v["ok"] and v["recomputed"]
+
+    def test_read_busy_counts_the_overlapped_worker_seconds(
+            self, tmp_path, monkeypatch):
+        _pool_of(monkeypatch, 4)
+        base = _make_volume(tmp_path, 1, 1 << 20, seed=95)
+        reads = []
+        st = {}
+        out = t_ds.deep_scrub(
+            [_slow_target(t_ds, base, 1, lambda: 0.005, reads)],
+            device="cpu", stage_stats=st, span_bytes=256 << 10)
+        assert out["volumes"][0]["ok"]
+        assert st["read_workers"] == 4
+        assert st["read_busy"] >= 0.005 * len(reads)
+        # 14 tasks on 4 workers: the caller waits for about 4 of them
+        assert st["read"] <= 0.6 * st["read_busy"]
+
+    def test_failing_shards_under_a_pool_give_the_reference_verdicts(
+            self, tmp_path, monkeypatch):
+        """A data shard that goes unreadable mid-sweep and a parity shard
+        that no peer serves, read by four workers, beside a clean volume
+        that shares their batches."""
+        from seaweedfs_tpu.rpc.http_rpc import RpcError as JRpcError
+        from seaweedfs_tpu_torch.rpc.http_rpc import RpcError as TRpcError
+
+        _pool_of(monkeypatch, 4)
+        bases = [_make_volume(tmp_path, i + 1, (1 << 20) + i * 99,
+                              seed=96 + i) for i in range(2)]
+
+        def failing(mod):
+            good = mod.local_target(bases[0], 1)
+            err = TRpcError if mod is t_ds else JRpcError
+
+            def reader(sid, off, size):
+                if sid == 3 and off >= 512 << 10:
+                    raise OSError("disk went away")
+                if sid == 12:
+                    raise err(f"shard 1.{sid} unreachable", 502)
+                return good.reader(sid, off, size)
+
+            return [mod.ScrubTarget(volume=1, collection="",
+                                    stored=list(good.stored),
+                                    sizes=list(good.sizes), reader=reader),
+                    mod.local_target(bases[1], 2)]
+
+        out, _, st, _ = _both(failing, span_bytes=256 << 10, batch_units=3)
+        assert st["read_workers"] == 4
+        bad, clean = out["volumes"]
+        assert bad["unreadable"] == [3, 12] and not bad["recomputed"]
+        assert not bad["ok"] and clean["ok"] and clean["recomputed"]
+
+    def test_workers_read_under_the_callers_class_deadline_and_span(
+            self, tmp_path, monkeypatch):
+        """A reader that fetches from a peer runs on a pool thread with the
+        caller's QoS class, deadline and the scrub's span, as inline."""
+        from seaweedfs_tpu_torch import qos, tracing
+        from seaweedfs_tpu_torch.qos import classify
+        from seaweedfs_tpu_torch.rpc.http_rpc import (current_deadline,
+                                                      deadline_scope)
+
+        _pool_of(monkeypatch, 4)
+        base = _make_volume(tmp_path, 1, 1 << 20, seed=97)
+        good = t_ds.local_target(base, 1)
+        seen = set()
+
+        def reader(sid, off, size):
+            span = tracing.current()
+            seen.add((classify.current_class(), current_deadline(),
+                      span.name if span else None))
+            return good.reader(sid, off, size)
+
+        with qos.qos_scope(qos.BACKGROUND, tenant="maintenance"), \
+                deadline_scope(600):
+            want = current_deadline()
+            out = t_ds.deep_scrub(
+                [t_ds.ScrubTarget(volume=1, collection="",
+                                  stored=list(good.stored),
+                                  sizes=list(good.sizes), reader=reader,
+                                  close=good.close)],
+                device="cpu", span_bytes=256 << 10)
+        assert out["volumes"][0]["ok"]
+        assert seen == {(qos.BACKGROUND, want, "maint.deep_scrub")}
+
+    def test_a_shared_pacer_debits_every_byte_from_the_workers(
+            self, tmp_path, monkeypatch):
+        """A lost update of the pacer's totals would break the sums."""
+        import sys
+        import threading
+
+        from seaweedfs_tpu_torch.maintenance.pacer import BytePacer
+
+        _pool_of(monkeypatch, 4)
+        bases = [_make_volume(tmp_path, i + 1, 1 << 20, seed=98 + i)
+                 for i in range(2)]
+        pacer = BytePacer(rate_bytes=4 << 20)
+        clock, slept, lock = [0.0], [], threading.Lock()
+
+        def sleep(s):
+            with lock:
+                slept.append(s)
+                clock[0] += s
+
+        pacer.now = lambda: clock[0]
+        pacer.sleep = sleep
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-5)
+        try:
+            out = t_ds.deep_scrub([t_ds.local_target(b, i + 1)
+                                   for i, b in enumerate(bases)],
+                                  device="cpu", throttle=pacer.throttle,
+                                  span_bytes=256 << 10)
+        finally:
+            sys.setswitchinterval(old)
+        total = sum(os.path.getsize(b + f".ec{sid:02d}")
+                    for b in bases for sid in range(TOTAL_SHARDS_COUNT))
+        assert pacer.paced_bytes == out["scrubbed_bytes"] == total
+        assert slept and pacer.throttled_seconds == \
+            pytest.approx(sum(slept))
 
 
 def test_host_scrub_needle_walk_and_verify_shard_files(tmp_path):

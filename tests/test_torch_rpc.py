@@ -398,6 +398,32 @@ def test_deadline_scope_and_client_refusal():
     assert e.value.status == 504
 
 
+def test_in_caller_context_carries_deadline_class_and_span():
+    """A pool thread runs the wrapped call under the caller's deadline,
+    QoS class and tenant (and span, when one is given), then gets its own
+    context back."""
+    import concurrent.futures as cf
+
+    def seen():
+        sp = t_tracing.current()
+        return (t_http.current_deadline(), t_qos.current_class(),
+                t_qos.current_tenant(), sp.name if sp else None)
+
+    with cf.ThreadPoolExecutor(1) as pool:
+        own = pool.submit(seen).result()
+        with t_qos.qos_scope("background", tenant="t3"), \
+                t_http.deadline_scope(timeout=60.0):
+            dl = t_http.current_deadline()
+            span = t_tracing.start("caller.op")
+            carried = pool.submit(
+                t_http.in_caller_context(seen, span)).result()
+            plain = pool.submit(t_http.in_caller_context(seen)).result()
+        assert carried == (dl, "background", "t3", "caller.op")
+        assert plain == (dl, "background", "t3", None)
+        assert pool.submit(seen).result() == own == (None, "standard", "",
+                                                     None)
+
+
 # -- across the wire -------------------------------------------------------------
 
 def _echo_server(p):
