@@ -35,6 +35,7 @@ import torch
 from .. import tracing
 from ..ops import crc32c as crc_host
 from ..qos import lanes as _lanes
+from ..qos.classify import BACKGROUND, qos_scope
 from ..rpc.http_rpc import in_caller_context
 from ..stats import metrics as _stats
 from ..storage.erasure_coding import (DATA_SHARDS_COUNT,
@@ -246,15 +247,20 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
     `device_kernel` and `device_d2h`.  The call is a `maint.deep_scrub`
     span (background, tagged with `read_workers`) with
     `scrub.batch.read` (tagged with its leaves in worker-seconds),
-    `.dispatch` and `.complete` children per batch."""
+    `.dispatch` and `.complete` children per batch; a reader's peer
+    fetches (`ec.peer_read`) hang under their batch's read span.  The
+    call runs in the background QoS class."""
     root = tracing.start("maint.deep_scrub",
                          tags={"volumes": len(targets)})
-    tracing.tag_qos(root, "background")
+    tracing.tag_qos(root, BACKGROUND)
     children: list = []
     prev = tracing.swap(root)
     try:
-        out = _scrub(targets, device, span_bytes, batch_units, throttle,
-                     stage_stats, mesh, root, children)
+        # background work whoever calls it: a peer fetch is counted and
+        # admitted downstream as such
+        with qos_scope(BACKGROUND):
+            out = _scrub(targets, device, span_bytes, batch_units,
+                         throttle, stage_stats, mesh, root, children)
     finally:
         tracing.restore(prev)
     tracing.finish_tree(root, children)
@@ -422,9 +428,6 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
         readers = cf.ThreadPoolExecutor(
             workers, thread_name_prefix="scrub-read") if workers > 1 \
             else None
-        # a peer fetch keeps the caller's budget, class and trace
-        task = (in_caller_context(_read_shard, root) if readers
-                else _read_shard)
         try:
             for start in range(0, len(units), b):
                 metas = units[start:start + b]
@@ -436,6 +439,12 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                 args = [(targets, metas, sid, chunk, throttle, buf)
                         for sid in range(TOTAL_SHARDS_COUNT)]
                 t0 = time.perf_counter_ns()
+                # the batch's read span exists before its tasks, so that
+                # a peer fetch (ec.peer_read) hangs under it; a task
+                # keeps the caller's budget, class and trace
+                read_span = tracing.span_between("scrub.batch.read", t0,
+                                                 t0, root)
+                task = in_caller_context(_read_shard, read_span)
                 if readers is None:
                     done = [task(*a) for a in args]
                 else:
@@ -452,9 +461,9 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                         targets[ti].bytes_read += n
                 for k, v in leaves.items():
                     timers[k] += v
-                children.append(tracing.span_between(
-                    "scrub.batch.read", t0, t1, root,
-                    {k: round(v, 6) for k, v in leaves.items()}))
+                read_span.duration = (t1 - t0) * 1e-9
+                read_span.tags = {k: round(v, 6) for k, v in leaves.items()}
+                children.append(read_span)
                 # background lane: yield to in-flight foreground decodes
                 timers["lane_wait"] += _lanes.LANES.background_checkpoint()
                 t2 = time.perf_counter_ns()

@@ -25,7 +25,6 @@ import time
 from .. import qos
 from ..rpc.http_rpc import RpcError, call
 from ..stats import metrics
-from ..storage.erasure_coding import TOTAL_SHARDS_COUNT
 from ..util import glog
 from .jobs import (TYPE_BALANCE, TYPE_DEEP_SCRUB, TYPE_EC_REBUILD,
                    TYPE_FIX_REPLICATION, TYPE_SCALE_DRAIN,
@@ -235,10 +234,11 @@ class MaintenanceWorker:
         return {"volume": vid, "compacted": compacted}
 
     def _exec_deep_scrub(self, job: dict) -> dict:
-        """Device-batched deep scrub of one locally-held EC volume:
-        local shards stream from disk, missing shards fetch from peers
-        via /admin/ec/shard_read, everything paced."""
-        from .deep_scrub import ScrubTarget, deep_scrub
+        """Device-batched deep scrub of one locally-held EC volume
+        (VolumeServer.scrub_target: local shards stream from disk, the
+        others fetch from peers via /admin/ec/shard_read), everything
+        paced."""
+        from .deep_scrub import deep_scrub
 
         vid = job["volume"]
         collection = job.get("collection", "")
@@ -255,37 +255,7 @@ class MaintenanceWorker:
             report = audit_inline_volume(ev)
             report["pacer"] = self.pacer.snapshot()
             return report
-        from ..storage.erasure_coding.encoder import load_volume_info
-
-        base = ev.base_file_name()
-        info = load_volume_info(base) or {}
-        stored = info.get("shard_crc32c")
-        if not isinstance(stored, list) \
-                or len(stored) != TOTAL_SHARDS_COUNT:
-            raise RuntimeError(f"{base}.vif has no shard_crc32c record")
-        local = dict(ev.shards)
-        nominal = ev.shard_size
-        sizes = [local[s].ecd_file_size if s in local else nominal
-                 for s in range(TOTAL_SHARDS_COUNT)]
-        # the scrub reads the master's layout of now, not the degraded-read
-        # location cache: after a rebuild, a map cached during the outage
-        # lacks the rebuilt shards for its 7-minute tier, and the scrub of
-        # the healed volume would fail (the JAX worker's R5, ROADMAP §3)
-        self.server._ec_locations.pop(vid, None)
-        remote = self.server._make_remote_reader(vid)
-
-        def reader(sid: int, offset: int, size: int) -> bytes:
-            shard = local.get(sid)
-            if shard is not None:
-                return shard.read_at(size, offset)
-            data = remote(sid, offset, size)
-            if data is None:
-                raise RpcError(f"shard {vid}.{sid} unreachable", 502)
-            return data
-
-        target = ScrubTarget(volume=vid, collection=collection,
-                             stored=list(stored), sizes=sizes,
-                             reader=reader)
+        target = self.server.scrub_target(vid, collection)
         stage_stats: dict = {}
         out = deep_scrub([target], device=self.server.store.device,
                          throttle=self.pacer.throttle,

@@ -4,7 +4,8 @@ Counterpart of seaweedfs_tpu/stats/metrics.py.  A dependency-free
 registry of counters, gauges and histograms that produces the Prometheus
 text exposition format.  Every family the JAX package registers is
 registered here under the same name, help string, labels and buckets,
-so one dashboard (`grafana/`) reads either package.  `metrics_handler`
+so one dashboard (`grafana/`) reads either package; the EC peer-read
+families are the port's alone.  `metrics_handler`
 serves it at /metrics on every daemon; `start_metrics_server` serves it
 on a port of its own.
 """
@@ -538,6 +539,20 @@ MaintJobSecondsHistogram = REGISTRY.histogram(
 MaintScrubbedBytesCounter = REGISTRY.counter(
     "SeaweedFS_volumeServer_maintenance_scrubbed_bytes_total",
     "shard bytes streamed through deep scrub")
+# EC shard spans fetched from peers by a volume server's remote reader
+# (degraded reads, deep scrubs of spread volumes), by the caller's QoS
+# class; the seconds are summed over the fetching threads.  The port's
+# own families: the JAX package has no such counters.
+EcPeerReadBytesCounter = REGISTRY.counter(
+    "SeaweedFS_volumeServer_ec_peer_read_bytes_total",
+    "EC shard bytes fetched from peer volume servers", ("qos_class",))
+EcPeerReadSecondsCounter = REGISTRY.counter(
+    "SeaweedFS_volumeServer_ec_peer_read_seconds_total",
+    "seconds spent fetching EC shard spans from peers, summed over "
+    "threads", ("qos_class",))
+EcPeerReadErrorsCounter = REGISTRY.counter(
+    "SeaweedFS_volumeServer_ec_peer_read_errors_total",
+    "EC shard span fetches that no peer answered", ("qos_class",))
 MaintPacerRateGauge = REGISTRY.gauge(
     "SeaweedFS_volumeServer_maintenance_pacer_bytes_per_second",
     "effective maintenance byte rate after foreground-load backoff")

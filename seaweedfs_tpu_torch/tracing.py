@@ -10,8 +10,9 @@ slow reply to the hop or kernel stage that caused it.  Here:
     ``X-Trace-Sampled`` headers and is extracted in ``RpcServer``
     dispatch, so spans from all daemons in a request share one trace;
   * hot paths (needle read/write, fsync group commit, chunk assembly,
-    EC encode stages, degraded-read fetch/decode/serve) open child spans
-    under the enclosing server span;
+    EC encode stages, degraded-read fetch/decode/serve, a shard span
+    fetched from a peer, ``ec.peer_read``) open child spans under the
+    enclosing server span;
   * a process-wide bounded recorder keeps whole traces: every sampled
     trace (probability ``WEED_TRACE_SAMPLE``), plus — always on — any
     trace containing a span slower than ``WEED_TRACE_SLOW_MS``.  Fast

@@ -2091,11 +2091,19 @@ class VolumeServer:
 
     # -- remote EC shard fetch (store_ec.go read ladder) ---------------------
     def _make_remote_reader(self, vid: int):
+        """`remote_reader(shard, offset, size)`: a span of a shard this
+        server does not hold, from a holder the master's EC lookup names
+        (hedged over the holders), or None where no holder answers.
+        Each fetch is an `ec.peer_read` span under the caller's current
+        span and counts its bytes, seconds and failures under the
+        caller's QoS class (a deep scrub's are background)."""
         def remote_reader(shard_id: int, offset: int,
                           size: int) -> Optional[bytes]:
             locations = self._ec_shard_locations(vid).get(shard_id, [])
             candidates = [u for u in locations if u != self.store.url]
+            cls = qos.current_class()
             if not candidates:
+                stats.EcPeerReadErrorsCounter.labels(cls).inc()
                 self._note_ec_lookup_error(vid)
                 return None
 
@@ -2113,18 +2121,77 @@ class VolumeServer:
                     return bytes(data)
                 return attempt
 
-            # hedged survivor fetch: a slow holder stops gating the
-            # whole degraded read once the adaptive p95 delay elapses —
-            # the next holder races it and the first answer wins
-            try:
-                return policy.hedged("/admin/ec/shard_read",
-                                     [fetch(u) for u in candidates])
-            except Exception:
+            t0 = time.perf_counter()
+            with tracing.span("ec.peer_read", tags={
+                    "shard": shard_id, "peer": candidates[0],
+                    "qos_class": cls}) as sp:
+                # hedged survivor fetch: a slow holder stops gating the
+                # whole degraded read once the adaptive p95 delay
+                # elapses — the next holder races it and the first
+                # answer wins
+                try:
+                    data = policy.hedged("/admin/ec/shard_read",
+                                         [fetch(u) for u in candidates])
+                except Exception:
+                    data = None
+                    sp.status = "error"
+                sp.set_tag("bytes", len(data) if data is not None else 0)
+            stats.EcPeerReadSecondsCounter.labels(cls).inc(
+                time.perf_counter() - t0)
+            if data is None:
+                stats.EcPeerReadErrorsCounter.labels(cls).inc()
                 # all candidates failed: demote the cache entry to the
                 # error tier so the next read re-resolves quickly
                 self._note_ec_lookup_error(vid)
                 return None
+            stats.EcPeerReadBytesCounter.labels(cls).inc(len(data))
+            return data
         return remote_reader
+
+    def scrub_target(self, vid: int, collection: Optional[str] = None):
+        """The deep scrub's ScrubTarget over held EC volume `vid`: the
+        shards mounted here read from disk, every other shard span by
+        span from its holder through the remote reader, at the volume's
+        shard size (a shard no holder serves is reported unreadable).
+        `collection` labels the verdict (the volume's own by default).
+        Raises where the volume is not held here or its .vif records no
+        shard CRCs.
+
+        The shard map is the master's of now, not the degraded-read
+        location cache: after a rebuild, a map cached during the outage
+        lacks the rebuilt shards for its 7-minute tier, and the scrub of
+        the healed volume would fail (the JAX worker's R5, ROADMAP §3)."""
+        from ..maintenance.deep_scrub import ScrubTarget
+
+        ev = self.store.find_ec_volume(vid)
+        if ev is None:
+            raise RuntimeError(f"ec volume {vid} not held here")
+        base = ev.base_file_name()
+        info = load_volume_info(base) or {}
+        stored = info.get("shard_crc32c")
+        if not isinstance(stored, list) \
+                or len(stored) != TOTAL_SHARDS_COUNT:
+            raise RuntimeError(f"{base}.vif has no shard_crc32c record")
+        local = dict(ev.shards)
+        nominal = ev.shard_size
+        sizes = [local[s].ecd_file_size if s in local else nominal
+                 for s in range(TOTAL_SHARDS_COUNT)]
+        self._ec_locations.pop(vid, None)
+        remote = self._make_remote_reader(vid)
+
+        def reader(sid: int, offset: int, size: int) -> bytes:
+            shard = local.get(sid)
+            if shard is not None:
+                return shard.read_at(size, offset)
+            data = remote(sid, offset, size)
+            if data is None:
+                raise RpcError(f"shard {vid}.{sid} unreachable", 502)
+            return data
+
+        return ScrubTarget(
+            volume=vid,
+            collection=ev.collection if collection is None else collection,
+            stored=list(stored), sizes=sizes, reader=reader)
 
     def _note_ec_lookup_error(self, vid: int):
         cached = self._ec_locations.get(vid)

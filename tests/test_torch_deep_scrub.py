@@ -537,7 +537,8 @@ class TestReadWorkers:
     def test_workers_read_under_the_callers_class_deadline_and_span(
             self, tmp_path, monkeypatch):
         """A reader that fetches from a peer runs on a pool thread with the
-        caller's QoS class, deadline and the scrub's span, as inline."""
+        caller's QoS class, deadline and its batch's read span (the parent
+        of a peer fetch's span), as inline."""
         from seaweedfs_tpu_torch import qos, tracing
         from seaweedfs_tpu_torch.qos import classify
         from seaweedfs_tpu_torch.rpc.http_rpc import (current_deadline,
@@ -564,7 +565,7 @@ class TestReadWorkers:
                                   close=good.close)],
                 device="cpu", span_bytes=256 << 10)
         assert out["volumes"][0]["ok"]
-        assert seen == {(qos.BACKGROUND, want, "maint.deep_scrub")}
+        assert seen == {(qos.BACKGROUND, want, "scrub.batch.read")}
 
     def test_a_shared_pacer_debits_every_byte_from_the_workers(
             self, tmp_path, monkeypatch):

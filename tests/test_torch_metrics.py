@@ -151,6 +151,12 @@ def _both(d: _Delta):
 
 # -- the registry itself ------------------------------------------------------
 
+# the remote reader's peer fetches, which the JAX package does not count
+PORT_ONLY_FAMILIES = {"SeaweedFS_volumeServer_ec_peer_read_bytes_total",
+                      "SeaweedFS_volumeServer_ec_peer_read_seconds_total",
+                      "SeaweedFS_volumeServer_ec_peer_read_errors_total"}
+
+
 
 def _headers(reg) -> dict:
     out = {}
@@ -163,7 +169,8 @@ def _headers(reg) -> dict:
 def test_every_family_registered_with_equal_help_type_and_labels():
     """One dashboard reads either package: every family of the JAX
     registry exists in the port's, with the same HELP and TYPE lines, the
-    same label names and the same histogram buckets."""
+    same label names and the same histogram buckets; the port adds only
+    its EC peer-read families."""
     jh, th = _headers(j_metrics.REGISTRY), _headers(t_metrics.REGISTRY)
     assert set(jh) <= set(th)
     for name in jh:
@@ -173,7 +180,7 @@ def test_every_family_registered_with_equal_help_type_and_labels():
         assert (jm.kind, jm.label_names) == (tm.kind, tm.label_names), name
         if jm.kind == "histogram":
             assert jm.buckets == tm.buckets, name
-    assert set(th) == set(jh)
+    assert set(th) - set(jh) == PORT_ONLY_FAMILIES
 
 
 @pytest.mark.parametrize("kind", ["counter", "gauge", "histogram"])
