@@ -554,6 +554,16 @@ def compare_k2(matrix, data) -> int:
     return err
 
 
+def compare_k8(data) -> int:
+    got = rs_cuda.crc32c_rows(data)
+    want = rs_cuda.crc32c_rows_plain(data.cpu())
+    torch.cuda.synchronize()
+    err = int((got.cpu() - want).abs().max())
+    check(err == 0 and torch.equal(got.cpu(), want),
+          f"crc32c_rows differs from plain at {tuple(data.shape)}")
+    return err
+
+
 def misaligned(rng, shape, offset: int, dev) -> torch.Tensor:
     """Seeded bytes of `shape` as a contiguous view that starts `offset`
     bytes into a fresh buffer, so its pointer is off a 16-byte boundary."""
@@ -724,7 +734,14 @@ def kernel_phase(dev, mode: str) -> dict:
     enc_sets = [(par, rand_bytes(rng, (6, 10, MIB), dev)) for _ in range(4)]
     k1_sets = [(row, rand_bytes(rng, (10, MIB), dev)) for _ in range(8)]
     enc_in, k1_in = enc_sets[0][1], k1_sets[0][1]
-    errs = {"gf_apply": 0, "fused_apply_crc": 0}
+    # the deep scrub's K8 shape: the (B, 18, L) permute of an (18, B, L)
+    # slab of 14 shard rows and 4 recomputed parity rows
+    k8_sets = [(rand_bytes(rng, (18, 3, MIB), dev).permute(1, 0, 2),)
+               for _ in range(4)]
+    errs = {"gf_apply": 0, "fused_apply_crc": 0, "crc32c_rows": 0}
+
+    def k8(x):
+        errs["crc32c_rows"] = max(errs["crc32c_rows"], compare_k8(x))
 
     def k2(m, x):
         errs["fused_apply_crc"] = max(errs["fused_apply_crc"],
@@ -746,6 +763,10 @@ def kernel_phase(dev, mode: str) -> dict:
             k1(par, misaligned(rng, (10, length), offset, dev))
     k2(par, misaligned(rng, (1, 10, MIB), 1, dev))
     k1(row, misaligned(rng, (10, MIB), 3, dev))
+    k8(k8_sets[0][0])
+    for length in (1, 16, 50, 4096 + 3, MIB + 3):
+        k8(rand_bytes(rng, (18, 3, length), dev).permute(1, 0, 2))
+        k8(misaligned(rng, (2, 18, length), 3, dev))
     log(f"kernels match their plain versions (max_abs_err {errs})")
     k5 = k5_phase(dev, rng, mode)
     k7_phase(dev, rng)
@@ -755,6 +776,8 @@ def kernel_phase(dev, mode: str) -> dict:
     # one K1 reconstruct of a 1 MiB span 10 MiB in and 1 MiB out
     k2_bytes = enc_in.numel() + 6 * 4 * MIB + 6 * 14 * 8
     k1_bytes = k1_in.numel() + MIB
+    # one K8 launch over the scrub's slab reads 54 MiB, writes 54 images
+    k8_bytes = k8_sets[0][0].numel() + 3 * 18 * 8
     log(f"card before timing (sm clock, max, power, temp): {gpu_state()}")
     stats = {
         "fused_apply_crc": {
@@ -768,15 +791,21 @@ def kernel_phase(dev, mode: str) -> dict:
             "plain_ms": time_cold(rs_cuda.gf_apply_plain, k1_sets, reps=8),
             "bytes": k1_bytes,
         },
+        "crc32c_rows": {
+            "ms": time_cold(rs_cuda.crc32c_rows, k8_sets),
+            "plain_ms": time_cold(batched_crc32c_raw, k8_sets, reps=8),
+            "bytes": k8_bytes,
+        },
     }
     stats["parity_step"] = k5
     log(f"card after timing: {gpu_state()}")
     for name, fn, sets in (("fused_apply_crc", rs_cuda.fused_apply_crc,
                             enc_sets),
-                           ("gf_apply", rs_cuda.gf_apply, k1_sets)):
+                           ("gf_apply", rs_cuda.gf_apply, k1_sets),
+                           ("crc32c_rows", rs_cuda.crc32c_rows, k8_sets)):
         for key, count, us in profile_kernels(fn, sets):
             log(f"profile {name}: {key[:60]} x{count} {us:.3f} us")
-    for name in ("fused_apply_crc", "gf_apply"):
+    for name in ("fused_apply_crc", "gf_apply", "crc32c_rows"):
         s = stats[name]
         s["max_abs_err"] = errs[name]
         s["bound_ms"] = s["bytes"] / HBM_BYTES_PER_S * 1e3

@@ -60,19 +60,22 @@
 // contiguous.  Each
 // sub-segment sits in shared memory with a 16-byte skew after it, so the
 // CRC threads' 16-byte reads of one warp phase hit distinct banks.
+// The CRC half (streams, shuffle fold, fold_kernel) is crc_core.cuh's,
+// shared with K8 (crc32c_rows.cu).
 #include <type_traits>
 
+#include "crc_core.cuh"
 #include "gf_core.cuh"
 
 namespace {
 
+using swcrc::chunk_off;
+using swcrc::kStreamMaps;
+using swcrc::kStreams;
+using swcrc::log2_exact;
+using swcrc::next_item;
+
 constexpr int kThreads = 256;
-// Interleaved CRC streams per sub-segment: four independent dependent
-// chains per thread instead of one.
-constexpr int kStreams = 4;
-// Nibble maps before the sub-segment fold operators: Adv_4 (the CRC
-// step), Adv_{T/4S} and Adv_{T/2S} (joining a thread's four streams).
-constexpr int kStreamMaps = 3;
 // Shared memory starts with room for every nibble map (the stream maps and
 // up to log2(32) fold maps), then the GF tables: both at offsets the
 // compiler knows, so a lookup is one LDS [reg + imm].
@@ -93,23 +96,6 @@ struct Geometry {
   long long xbs, xrs;  // input batch and row strides, bytes
   long long obs, ors;  // output batch and row strides, bytes
 };
-
-// Byte offset of 16-byte chunk q inside a tile row: one skew chunk after
-// every sub-segment.
-__device__ __forceinline__ int chunk_off(int q, int cps_shift) {
-  return (q + (q >> cps_shift)) << 4;
-}
-
-// The next (batch row, tile) item of a block that walks items `step`
-// apart: a division only when the walk wraps to another batch row.
-__device__ __forceinline__ void next_item(int& b, int& t, int step,
-                                          int ntiles) {
-  t += step;
-  if (t >= ntiles) {
-    b += t / ntiles;
-    t %= ntiles;
-  }
-}
 
 // Stage the (d, T) input tile (b, t) into `stage` (rows `rs` bytes
 // apart).  vec: asynchronous 16-byte copies (the caller commits the
@@ -240,38 +226,10 @@ tile_kernel(Geometry g, bool vec, const uint32_t* __restrict__ tab_g,
     if (r < g.rows) {
       const uint8_t* src = (r < g.d ? cur + r * rs : outs + (r - g.d) * rs) +
                            s * (seg + 16);
-      const int part = seg / kStreams;
-      uint32_t sk[kStreams] = {0u, 0u, 0u, 0u};
-      for (int m = 0; m < part; m += 16) {
-        uint4 v[kStreams];
-#pragma unroll
-        for (int k = 0; k < kStreams; ++k)
-          v[k] = *reinterpret_cast<const uint4*>(src + k * part + m);
-#pragma unroll
-        for (int k = 0; k < kStreams; ++k)
-          sk[k] = swgf::nib_apply(crc_map, sk[k] ^ v[k].x);
-#pragma unroll
-        for (int k = 0; k < kStreams; ++k)
-          sk[k] = swgf::nib_apply(crc_map, sk[k] ^ v[k].y);
-#pragma unroll
-        for (int k = 0; k < kStreams; ++k)
-          sk[k] = swgf::nib_apply(crc_map, sk[k] ^ v[k].z);
-#pragma unroll
-        for (int k = 0; k < kStreams; ++k)
-          sk[k] = swgf::nib_apply(crc_map, sk[k] ^ v[k].w);
-      }
-      const uint32_t* adv_part = crc_map + swgf::kMapWords;
-      st = swgf::nib_apply(
-               adv_part + swgf::kMapWords,
-               swgf::nib_apply(adv_part, sk[0]) ^ sk[1]) ^
-           swgf::nib_apply(adv_part, sk[2]) ^ sk[3];
+      st = swcrc::crc_subsegment(crc_map, src, seg);
     }
-    if (threadIdx.x / 32 * 32 < g.rows * g.sub) {  // warps holding rows
-      for (int k = 0; k < g.levels; ++k) {
-        const uint32_t right = __shfl_down_sync(0xFFFFFFFFu, st, 1 << k);
-        st = swgf::nib_apply(adv + k * swgf::kMapWords, st) ^ right;
-      }
-    }
+    if (threadIdx.x / 32 * 32 < g.rows * g.sub)  // warps holding rows
+      st = swcrc::shuffle_fold(st, adv, g.levels);
     if (r < g.rows && s == 0)
       partial[(static_cast<long long>(b) * g.rows + r) * g.ntiles + t] = st;
     // the stage and the output rows are free for the next item
@@ -279,46 +237,6 @@ tile_kernel(Geometry g, bool vec, const uint32_t* __restrict__ tab_g,
     b = nb;
     t = nt;
   }
-}
-
-// One warp per (row, batch): folds the row's ntiles partials into its raw
-// CRC, written as an int64 holding the uint32 image.  The row is taken as
-// 32 m tiles (virtual zero tiles in front); lane l Horner-folds tiles
-// 32 q + l (coalesced loads) with Adv_{32 T}, and a shuffle tree joins
-// lanes l and l + 2^k with Adv_{T 2^k}.  adv_g holds those six nibble
-// maps: Adv_{32 T}, then Adv_{T 2^k} for k = 0..4.
-__global__ void fold_kernel(int rows, int ntiles, int m,
-                            const uint32_t* __restrict__ adv_g,
-                            const uint32_t* __restrict__ partial,
-                            long long* __restrict__ crc) {
-  __shared__ uint32_t adv[6 * swgf::kMapWords];
-#pragma unroll
-  for (int i = 0; i < 6 * swgf::kMapWords / 32; ++i)
-    adv[threadIdx.x + 32 * i] = adv_g[threadIdx.x + 32 * i];
-  __syncthreads();
-  const int r = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
-  const uint32_t* src =
-      partial + (static_cast<long long>(b) * rows + r) * ntiles;
-  const int lead = 32 * m - ntiles;
-  uint32_t acc = 0;
-#pragma unroll 4
-  for (int q = 0; q < m; ++q) {
-    const int t = 32 * q + lane - lead;
-    acc = swgf::nib_apply(adv, acc) ^ (t >= 0 ? src[t] : 0u);
-  }
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    const uint32_t right = __shfl_down_sync(0xFFFFFFFFu, acc, 1 << k);
-    if ((lane & ((2 << k) - 1)) == 0)
-      acc = swgf::nib_apply(adv + swgf::kMapWords * (k + 1), acc) ^ right;
-  }
-  if (lane == 0) crc[static_cast<long long>(b) * rows + r] = acc;  // < 2^32
-}
-
-int log2_exact(int v) {
-  int k = 0;
-  while ((1 << k) < v) ++k;
-  return (1 << k) == v ? k : -1;
 }
 
 // Shared memory of one tile block, in bytes; ops/rs_cuda.py chooses T
@@ -418,9 +336,6 @@ extern "C" int sw_fused_apply_crc(const void* tab, int p, int d,
           ? launch_g<true>(g, vec, smem, tab, maps, x, out, partial, s)
           : launch_g<false>(g, vec, smem, tab, maps, x, out, partial, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int m = (g.ntiles + 31) / 32;
-  fold_kernel<<<dim3(rows, batch), 32, 0, s>>>(
-      rows, g.ntiles, m, static_cast<const uint32_t*>(adv_fold),
-      static_cast<const uint32_t*>(partial), static_cast<long long*>(crc));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      swcrc::fold_partials(rows, batch, g.ntiles, adv_fold, partial, crc, s));
 }

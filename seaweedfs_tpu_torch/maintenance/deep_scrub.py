@@ -8,13 +8,17 @@ whether the parity still matches the data.  Deep scrub goes further:
  * every present shard file is streamed span by span (paced through an
    optional throttle) and its rolling CRC32C chained exactly like the
    whole-file CRC, so the bitrot check rides along on the same reads;
-   a batch's 14 shards are read by as many tasks on a pool of threads;
- * the ten data-shard spans are packed into (10, B, L) batches (spans of
-   different volumes share one geometry) and pushed through the pooled
-   parity step (parallel/mesh.make_parity_step, K1 on the card) into
-   leased output slots, from leased pinned staging; the recomputed
-   parity's chained CRCs are compared with the stored parity CRCs, which
-   proves data and parity agree end to end;
+   a batch's 14 shards are read by as many tasks on a pool of threads
+   into leased pinned staging;
+ * the 14 shard spans of a batch go to the card as one (18, B, L) slab
+   (spans of different volumes share one geometry); the pooled parity
+   step (parallel/mesh.make_parity_step, K1 on the card) writes the
+   parity recomputed from the ten data spans into its last four rows,
+   and one K8 launch (ops/rs_cuda.crc32c_rows) takes the raw CRC32C
+   image of all 18 rows; only those images come back, and the host
+   finalizes them and chains them in offset order into the shards' file
+   CRCs and the recomputed parity's CRCs, which are compared with the
+   stored ones: that proves data and parity agree end to end;
  * `deep_scrub_host` walks the files' CRCs and the sorted .ecx, re-reading
    every live needle and verifying its own CRC.
 """
@@ -124,12 +128,12 @@ def local_target(base: str, volume: int = 0,
 
 def _read_span(t: ScrubTarget, sid: int, off: int, chunk: int,
                throttle, timers: dict) -> bytes:
-    """One paced span read, chained into the shard's rolling file CRC;
-    its time goes to `timers` "pread" (the reader) and "span_crc" (the
-    chain; the throttle's pacing to neither).  A reader that fails marks
-    the shard unreadable (and, for a data shard, stops the recompute):
-    that is the verdict, not an error of the scrub.  The caller counts
-    the bytes into `t.bytes_read`."""
+    """One paced span read; its time goes to `timers` "pread" (the reader;
+    the throttle's pacing to nothing).  A reader that fails marks the
+    shard unreadable (and, for a data shard, stops the recompute): that
+    is the verdict, not an error of the scrub.  The caller chains the
+    span into the shard's file CRC and counts its bytes into
+    `t.bytes_read`."""
     want = min(chunk, max(0, t.sizes[sid] - off))
     if want <= 0:
         return b""
@@ -142,43 +146,60 @@ def _read_span(t: ScrubTarget, sid: int, off: int, chunk: int,
         if sid < DATA_SHARDS_COUNT:
             t.recompute = False
         return b""
-    t1 = time.perf_counter()
-    timers["pread"] += t1 - t0
-    if raw:
-        if throttle is not None:
-            throttle(len(raw))
-            t1 = time.perf_counter()
-        t.chains[sid] = crc_host.crc32c(raw, t.chains[sid])
-        timers["span_crc"] += time.perf_counter() - t1
+    timers["pread"] += time.perf_counter() - t0
+    if raw and throttle is not None:
+        throttle(len(raw))
     return raw
 
 
 def _read_shard(targets: list, metas: list, sid: int, chunk: int,
-                throttle, buf: np.ndarray) -> tuple:
+                throttle, buf: np.ndarray, lens: np.ndarray) -> tuple:
     """One task of a batch's read stage: shard `sid`'s span of every unit
-    in `metas`, in offset order (the order of the shard's CRC chain); a
-    data span goes into its stage row `buf[sid, k]`, whose tail past the
-    bytes read is zeroed.  Returns (the task's seconds, its leaf timers,
-    {target index: bytes read}): the caller adds them up, so no two tasks
-    write one counter."""
+    in `metas` into its stage row `buf[sid, k]`, whose tail past the bytes
+    read is zeroed, with the bytes read in `lens[sid, k]` (every span,
+    also of a target that stopped recomputing: its file CRC needs it).
+    Returns (the task's seconds, its leaf timers, {target index: bytes
+    read}): the caller adds them up, so no two tasks write one counter."""
     t0 = time.perf_counter()
     timers = dict.fromkeys(READ_LEAVES, 0.0)
     got: dict = {}
     for k, (ti, off) in enumerate(metas):
-        t = targets[ti]
-        raw = _read_span(t, sid, off, chunk, throttle, timers)
-        got[ti] = got.get(ti, 0) + len(raw)
-        if sid < DATA_SHARDS_COUNT:
-            n = len(raw) if t.recompute else 0
-            c0 = time.perf_counter()
-            if n:
-                buf[sid, k, :n] = np.frombuffer(raw, dtype=np.uint8)
-            c1 = time.perf_counter()
-            if n < chunk:
-                buf[sid, k, n:] = 0
-            timers["stage_copy"] += c1 - c0
-            timers["stage_fill"] += time.perf_counter() - c1
+        raw = _read_span(targets[ti], sid, off, chunk, throttle, timers)
+        n = len(raw)
+        got[ti] = got.get(ti, 0) + n
+        lens[sid, k] = n
+        c0 = time.perf_counter()
+        if n:
+            buf[sid, k, :n] = np.frombuffer(raw, dtype=np.uint8)
+        c1 = time.perf_counter()
+        if n < chunk:
+            buf[sid, k, n:] = 0
+        timers["stage_copy"] += c1 - c0
+        timers["stage_fill"] += time.perf_counter() - c1
     return time.perf_counter() - t0, timers, got
+
+
+def _chain_span(crc: int, raw: int, n: int, chunk: int) -> int:
+    """crc32c(A || M) from crc = crc32c(A) and K8's raw image of M's
+    staged row, M || 0^(chunk - n): the zero tail undone (an invertible
+    advance), the image finalized with M's length and combined.  The
+    advances are table-driven, cached per length."""
+    if n < chunk:
+        raw = crc_host.unadvance_by(chunk - n)(raw)
+    return crc_host.advance_by(n)(crc) ^ raw ^ crc_host.crc32c_zeros(n)
+
+
+def _parity_lengths(t: ScrubTarget, off: int, chunk: int) -> list:
+    """The bytes of each recomputed parity row of the span at `off` that
+    its parity file's CRC covers: up to the file's size, or the longest
+    shard's where the file is missing."""
+    out = []
+    for j in range(PARITY_SHARDS_COUNT):
+        psize = t.sizes[DATA_SHARDS_COUNT + j]
+        if psize < 0:
+            psize = t.shard_len
+        out.append(min(chunk, max(0, psize - off)))
+    return out
 
 
 def _verdict(t: ScrubTarget) -> dict:
@@ -206,14 +227,19 @@ def _verdict(t: ScrubTarget) -> dict:
 
 # this process's deep scrubs on the card: parity-step calls (one K1
 # launch per call for RS(10,4)'s four parity rows) and the seconds the
-# CUDA events around each batch's H2D, step and D2H measured, reported
-# beside the kernel launches by profiling.device_timeline
+# CUDA events around each batch's H2D, step and CRC, and image D2H
+# measured, reported beside the kernel launches by
+# profiling.device_timeline
 SCRUB_TOTALS = {"steps": 0, "h2d": 0.0, "kernel": 0.0, "d2h": 0.0}
 _totals_lock = threading.Lock()
 
+# a batch's device slab: the 14 shard spans, then the parity rows that K1
+# recomputes from the first ten
+SLAB_ROWS = TOTAL_SHARDS_COUNT + PARITY_SHARDS_COUNT
+
 # the leaf stage timers under `read` and under `encode_crc`
-READ_LEAVES = ("pread", "span_crc", "stage_fill", "stage_copy")
-COMPLETE_LEAVES = ("parity_wait", "parity_crc")
+READ_LEAVES = ("pread", "stage_fill", "stage_copy")
+COMPLETE_LEAVES = ("parity_wait", "span_crc", "parity_crc")
 # the event-timed intervals of each batch on the card
 DEVICE_STAGES = ("h2d", "kernel", "d2h")
 
@@ -227,29 +253,35 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
     [per-target verdicts], "scrubbed_bytes", "corrupt", "backend"}.
 
     Each batch's read stage is 14 tasks, one per shard, each reading that
-    shard's spans of the batch in offset order (its CRC chain) and
-    staging the data spans; they run on a pool of threads made for the
-    call, half the cores this process may use (at most 14), or inline
-    where that is one.  The throttle is called from those threads, so a
-    scrub paced below one thread's speed (the maintenance worker's, at
-    its default rate) gains nothing from the pool.  The file-CRC sweep
-    of targets that cannot recompute stays inline.
+    shard's spans of the batch into the pinned stage; they run on a pool
+    of threads made for the call, half the cores this process may use (at
+    most 14), or inline where that is one.  The throttle is called from
+    those threads, so a scrub paced below one thread's speed (the
+    maintenance worker's, at its default rate) gains nothing from the
+    pool.  The CRC32C of every span of a recompute batch, and of its
+    recomputed parity, is taken on the device (K8); the file-CRC sweep of
+    targets that cannot recompute stays inline, on the host.
 
     `stage_stats` receives seconds per stage: `read` (the caller's wait
     from taking a staging entry to the batch's last task done), of which
-    the leaves `pread`, `span_crc`, `stage_fill` (zeroing the rows'
-    tails) and `stage_copy` are worker-seconds summed over the tasks, as
-    is `read_busy` (the tasks' own seconds; `read_busy / read` is the
-    mean number of busy workers); `read_workers`, the pool size used (1
-    when nothing ran on a pool); `lane_wait`, `dispatch`, `encode_crc`
-    (of which `parity_wait`, `parity_crc`), `setup` and `finish`, the
-    call's `wall`, and on the card the event-timed `device_h2d`,
-    `device_kernel` and `device_d2h`.  The call is a `maint.deep_scrub`
-    span (background, tagged with `read_workers`) with
-    `scrub.batch.read` (tagged with its leaves in worker-seconds),
-    `.dispatch` and `.complete` children per batch; a reader's peer
-    fetches (`ec.peer_read`) hang under their batch's read span.  The
-    call runs in the background QoS class."""
+    the leaves `pread`, `stage_fill` (zeroing the rows' tails) and
+    `stage_copy` are worker-seconds summed over the tasks, as is
+    `read_busy` (the tasks' own seconds; `read_busy / read` is the mean
+    number of busy workers); `read_workers`, the pool size used (1 when
+    nothing ran on a pool); `lane_wait`, `dispatch`, `encode_crc` (of
+    which `parity_wait`, and `span_crc` and `parity_crc`: finalizing and
+    chaining the shard spans' and the recomputed parity's CRC images on
+    the caller's thread; in the inline sweep `span_crc` is its host CRC),
+    `setup` and `finish`, the call's `wall`, and on the card the
+    event-timed `device_h2d`, `device_kernel` (the step and K8) and
+    `device_d2h` (the images); and the counts `crc_card_bytes` (shard
+    and recomputed parity bytes whose CRC the device took) and
+    `crc_host_bytes` (bytes the host CRC'd).  The call is a
+    `maint.deep_scrub` span (background, tagged with `read_workers` and
+    both counts) with `scrub.batch.read` (tagged with its leaves in
+    worker-seconds), `.dispatch` and `.complete` children per batch; a
+    reader's peer fetches (`ec.peer_read`) hang under their batch's read
+    span.  The call runs in the background QoS class."""
     root = tracing.start("maint.deep_scrub",
                          tags={"volumes": len(targets)})
     tracing.tag_qos(root, BACKGROUND)
@@ -273,6 +305,7 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
     """deep_scrub's sweep, under its span `root`; each batch's spans go to
     `children`."""
     from ..ops.device_pool import get_pool, lease_tensor
+    from ..ops.rs_cuda import crc32c_rows
     from ..parallel.mesh import make_ec_mesh, make_parity_step, split_batch
 
     wall0 = time.perf_counter_ns()
@@ -283,6 +316,7 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                            + COMPLETE_LEAVES
                            + (tuple("device_" + k for k in DEVICE_STAGES)
                               if cuda else ()), 0.0)
+    crc_bytes = {"card": 0, "host": 0}
 
     chunk = span_bytes or span_bytes_default()
     max_len = max([t.shard_len for t in targets] or [0])
@@ -322,29 +356,29 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
         pool = get_pool()
         dev_label = str(devices[0]) if n_dev == 1 else f"sharded:{n_dev}"
         pool_before = pool.snapshot()
-        stage_shape = (DATA_SHARDS_COUNT, b, chunk)
 
-        # ring entries: pinned staging, per-device input and output slabs,
-        # pinned parity, per-device timing events; an entry is refilled
-        # only after its batch was synchronized
+        # ring entries: pinned staging of the 14 shard rows and the bytes
+        # read into each, a per-device (18, B, L) slab and its CRC images,
+        # the pinned images, per-device timing events; an entry is
+        # refilled only after its batch was synchronized
         streams = [torch.cuda.current_stream(d) for d in devices] \
             if cuda else []
         ring = []
         for _ in range(depth + 1):
             ring.append({
-                "stage": lease_tensor(pool, "maint-stage", stage_shape,
+                "stage": lease_tensor(pool, "maint-stage",
+                                      (TOTAL_SHARDS_COUNT, b, chunk),
                                       torch.uint8, pinned=cuda),
-                "din": [lease_tensor(pool, "maint-din",
-                                     (DATA_SHARDS_COUNT, hi - lo, chunk),
-                                     torch.uint8, d)
+                "lens": np.zeros((TOTAL_SHARDS_COUNT, b), dtype=np.int64),
+                "slab": [lease_tensor(pool, "maint-slab",
+                                      (SLAB_ROWS, hi - lo, chunk),
+                                      torch.uint8, d)
+                         for d, (lo, hi) in zip(devices, parts)],
+                "crc": [lease_tensor(pool, "maint-crc",
+                                     (hi - lo, SLAB_ROWS), torch.int64, d)
                         for d, (lo, hi) in zip(devices, parts)],
-                "out": [lease_tensor(pool, "maint-out",
-                                     (PARITY_SHARDS_COUNT, hi - lo, chunk),
-                                     torch.uint8, d)
-                        for d, (lo, hi) in zip(devices, parts)],
-                "hout": lease_tensor(pool, "maint-hout",
-                                     (PARITY_SHARDS_COUNT, b, chunk),
-                                     torch.uint8, pinned=cuda),
+                "himg": lease_tensor(pool, "maint-himg", (b, SLAB_ROWS),
+                                     torch.int64, pinned=cuda),
                 "marks": [[torch.cuda.Event(enable_timing=True)
                            for _ in range(len(DEVICE_STAGES) + 1)]
                           for _ in streams],
@@ -353,6 +387,8 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
         pending: deque = deque()  # (entry, metas)
 
         def _complete():
+            """Finalize the oldest batch's images and chain them, in the
+            order of its units and so of each shard's offsets."""
             entry, metas = pending.popleft()
             t0 = time.perf_counter_ns()
             for evs in entry["marks"]:
@@ -370,57 +406,89 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                 for k, v in got.items():
                     timers["device_" + k] += v
                     tags["device_" + k] = round(v, 6)
-            pbytes = entry["hout"].payload.numpy()
-            pool.note_d2h(pbytes.nbytes, device=dev_label)
+            himg = entry["himg"].payload.numpy()
+            pool.note_d2h(himg.nbytes, device=dev_label)
+            images = himg.tolist()
+            lens = entry["lens"].T.tolist()
             t2 = time.perf_counter_ns()
+            for k, (ti, _) in enumerate(metas):
+                t, img = targets[ti], images[k]
+                for sid, n in enumerate(lens[k]):
+                    if n:
+                        t.chains[sid] = _chain_span(t.chains[sid], img[sid],
+                                                    n, chunk)
+                        crc_bytes["card"] += n
+            t3 = time.perf_counter_ns()
+            for k, (ti, off) in enumerate(metas):
+                t, img = targets[ti], images[k]
+                if not t.recompute:
+                    continue  # went unreadable mid-sweep: chain invalid
+                for j, real in enumerate(_parity_lengths(t, off, chunk)):
+                    if real > 0:
+                        t.computed[j] = _chain_span(
+                            t.computed[j], img[TOTAL_SHARDS_COUNT + j],
+                            real, chunk)
+                        crc_bytes["card"] += real
+            t4 = time.perf_counter_ns()
+            free.append(entry)
+            timers["parity_wait"] += (t1 - t0) * 1e-9
+            timers["span_crc"] += (t3 - t2) * 1e-9
+            timers["parity_crc"] += (t4 - t3) * 1e-9
+            timers["encode_crc"] += (t4 - t0) * 1e-9
+            tags["parity_wait"] = round((t1 - t0) * 1e-9, 6)
+            tags["span_crc"] = round((t3 - t2) * 1e-9, 6)
+            tags["parity_crc"] = round((t4 - t3) * 1e-9, 6)
+            children.append(tracing.span_between(
+                "scrub.batch.complete", t0, t4, root, tags))
+
+        def _zero_parity_tails(lens, metas, par):
+            """Where a unit's recomputed parity row runs on past its parity
+            file's span (a parity file shorter than a data shard), zero that
+            tail on the device, so the row's image is the span's followed by
+            zeros, as for every other short row."""
             for k, (ti, off) in enumerate(metas):
                 t = targets[ti]
                 if not t.recompute:
-                    continue  # went unreadable mid-sweep: chain invalid
-                for j in range(PARITY_SHARDS_COUNT):
-                    psize = t.sizes[DATA_SHARDS_COUNT + j]
-                    if psize < 0:
-                        psize = t.shard_len
-                    real = min(chunk, max(0, psize - off))
-                    if real > 0:
-                        t.computed[j] = crc_host.crc32c(
-                            pbytes[j, k, :real], t.computed[j])
-            t3 = time.perf_counter_ns()
-            free.append(entry)
-            timers["parity_wait"] += (t1 - t0) * 1e-9
-            timers["parity_crc"] += (t3 - t2) * 1e-9
-            timers["encode_crc"] += (t3 - t0) * 1e-9
-            tags["parity_wait"] = round((t1 - t0) * 1e-9, 6)
-            tags["parity_crc"] = round((t3 - t2) * 1e-9, 6)
-            children.append(tracing.span_between(
-                "scrub.batch.complete", t0, t3, root, tags))
+                    continue
+                longest = int(lens[:DATA_SHARDS_COUNT, k].max())
+                for j, real in enumerate(_parity_lengths(t, off, chunk)):
+                    if real < longest:
+                        i = next(i for i, (lo, hi) in enumerate(parts)
+                                 if lo <= k < hi)
+                        par[i][j, k - parts[i][0], real:].zero_()
 
-        def _dispatch(entry):
-            """H2D, the step and the D2H of one batch on each device's
-            current stream, with the entry's timing events recorded there
-            before the H2D, after it, after the step and after the D2H."""
+        def _dispatch(entry, metas):
+            """The stage's H2D, the step, K8 and the images' D2H of one
+            batch on each device's current stream, with the entry's timing
+            events recorded there before the H2D, after it, after K8 and
+            after the D2H."""
             stage = entry["stage"].payload
-            hout = entry["hout"].payload
+            himg = entry["himg"].payload
             marks = entry["marks"]
-            dins = []
+            slabs = [ls.payload for ls in entry["slab"]]
             for i, (lo, hi) in enumerate(parts):
-                din = entry["din"][i].payload
                 if cuda:
                     marks[i][0].record(streams[i])
-                for j in range(DATA_SHARDS_COUNT):
-                    din[j].copy_(stage[j, lo:hi], non_blocking=True)
-                dins.append(din)
+                if n_dev == 1:
+                    slabs[i][:TOTAL_SHARDS_COUNT].copy_(stage,
+                                                        non_blocking=True)
+                else:
+                    for j in range(TOTAL_SHARDS_COUNT):
+                        slabs[i][j].copy_(stage[j, lo:hi], non_blocking=True)
                 if cuda:
                     marks[i][1].record(streams[i])
             pool.note_h2d(stage.numel(), device=dev_label)
-            outs = [ls.payload for ls in entry["out"]]
-            step(dins[0] if n_dev == 1 else dins,
-                 outs[0] if n_dev == 1 else outs)
+            data = [s[:DATA_SHARDS_COUNT] for s in slabs]
+            par = [s[TOTAL_SHARDS_COUNT:] for s in slabs]
+            step(data[0] if n_dev == 1 else data,
+                 par[0] if n_dev == 1 else par)
+            _zero_parity_tails(entry["lens"], metas, par)
             for i, (lo, hi) in enumerate(parts):
+                crc = entry["crc"][i].payload
+                crc32c_rows(slabs[i].permute(1, 0, 2), out=crc)
                 if cuda:
                     marks[i][2].record(streams[i])
-                for j in range(PARITY_SHARDS_COUNT):
-                    hout[j, lo:hi].copy_(outs[i][j], non_blocking=True)
+                himg[lo:hi].copy_(crc, non_blocking=True)
                 if cuda:
                     marks[i][3].record(streams[i])
 
@@ -435,8 +503,8 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                     _complete()
                 entry = free.popleft()
                 buf = entry["stage"].payload.numpy()
-                # parity spans ride along for the file-CRC chain
-                args = [(targets, metas, sid, chunk, throttle, buf)
+                args = [(targets, metas, sid, chunk, throttle, buf,
+                         entry["lens"])
                         for sid in range(TOTAL_SHARDS_COUNT)]
                 t0 = time.perf_counter_ns()
                 # the batch's read span exists before its tasks, so that
@@ -467,7 +535,7 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                 # background lane: yield to in-flight foreground decodes
                 timers["lane_wait"] += _lanes.LANES.background_checkpoint()
                 t2 = time.perf_counter_ns()
-                _dispatch(entry)
+                _dispatch(entry, metas)
                 t3 = time.perf_counter_ns()
                 timers["dispatch"] += (t3 - t2) * 1e-9
                 children.append(tracing.span_between(
@@ -489,15 +557,15 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                 for d in devices:
                     torch.cuda.synchronize(d)
             for entry in ring:
-                for ls in [entry["stage"], entry["hout"]] + entry["din"] \
-                        + entry["out"]:
+                for ls in [entry["stage"], entry["himg"]] + entry["slab"] \
+                        + entry["crc"]:
                     pool.release(ls)
             timers["finish"] += (time.perf_counter_ns() - t0) * 1e-9
         pool_after = pool.snapshot()
     else:
         timers["setup"] = (time.perf_counter_ns() - wall0) * 1e-9
 
-    # file-CRC-only sweep for targets without recompute units
+    # file-CRC-only sweep for targets without recompute units, on the host
     t0 = time.perf_counter_ns()
     for t in targets:
         if t.recompute and t.shard_len > 0:
@@ -508,6 +576,10 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                 raw = _read_span(t, sid, off, chunk, throttle, timers)
                 if not raw:
                     break
+                c0 = time.perf_counter()
+                t.chains[sid] = crc_host.crc32c(raw, t.chains[sid])
+                timers["span_crc"] += time.perf_counter() - c0
+                crc_bytes["host"] += len(raw)
                 off += len(raw)
                 t.bytes_read += len(raw)
     t1 = time.perf_counter_ns()
@@ -533,6 +605,8 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
         stage_stats["inflight"] = depth
         stage_stats["span_bytes"] = chunk
         stage_stats["read_workers"] = workers
+        stage_stats["crc_card_bytes"] = crc_bytes["card"]
+        stage_stats["crc_host_bytes"] = crc_bytes["host"]
         for k in ("read", "dispatch", "encode_crc"):
             stage_stats[f"{k}_frac"] = (
                 round(timers[k] / wall, 3) if wall > 0 else 0.0)
@@ -546,6 +620,8 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
     root.set_tag("batches", batches)
     root.set_tag("backend", backend)
     root.set_tag("read_workers", workers)
+    root.set_tag("crc_card_bytes", crc_bytes["card"])
+    root.set_tag("crc_host_bytes", crc_bytes["host"])
     _stats.MaintScrubbedBytesCounter.inc(total)
     # a parity record that disagrees with the recompute is corruption too
     # (of the parity file or of the record): both kinds are reported

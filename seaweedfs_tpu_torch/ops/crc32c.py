@@ -162,3 +162,55 @@ def finalize_raw(raw: int, length: int) -> int:
     """Standard crc32c of an n-byte chunk from its raw image g(M):
     crc32c(M) = g(M) ^ crc32c(0^n)."""
     return (raw & 0xFFFFFFFF) ^ crc32c_zeros(length)
+
+
+def _gf2_inverse(m: np.ndarray) -> np.ndarray:
+    """Inverse of an invertible 32x32 0/1 matrix over GF(2), by
+    Gauss-Jordan elimination on [m | I]."""
+    n = m.shape[0]
+    aug = np.concatenate([m.astype(np.uint8) & 1,
+                          np.eye(n, dtype=np.uint8)], axis=1)
+    for col in range(n):
+        pivot = col + int(np.argmax(aug[col:, col]))
+        if not aug[pivot, col]:
+            raise ValueError("matrix is singular over GF(2)")
+        aug[[col, pivot]] = aug[[pivot, col]]
+        rows = aug[:, col].astype(bool)
+        rows[col] = False
+        aug[rows] ^= aug[col]
+    return aug[:, n:]
+
+
+def _byte_map(mat: np.ndarray):
+    """A GF(2)-linear map of 32-bit states, given as its 32x32 matrix, as
+    a function through 4 byte tables: f(s) = XOR_k T_k[byte k of s]."""
+    cols = [pack_bits(mat[:, i]) for i in range(32)]
+    tabs = []
+    for k in range(4):
+        t = [0] * 256
+        for v in range(1, 256):
+            low = v & -v
+            t[v] = t[v ^ low] ^ cols[8 * k + low.bit_length() - 1]
+        tabs.append(t)
+    t0, t1, t2, t3 = tabs
+
+    def apply(state: int) -> int:
+        return (t0[state & 0xFF] ^ t1[(state >> 8) & 0xFF]
+                ^ t2[(state >> 16) & 0xFF] ^ t3[(state >> 24) & 0xFF])
+    return apply
+
+
+@functools.lru_cache(maxsize=64)
+def advance_by(n: int):
+    """Adv_n as a function of the state, table-driven: advance_by(n)(s) ==
+    advance(s, n), for a length that recurs (a scrub's span), where the
+    32x32 product of `advance` would cost more than the bytes' CRC."""
+    return _byte_map(advance_matrix(n))
+
+
+@functools.lru_cache(maxsize=64)
+def unadvance_by(n: int):
+    """Adv_n's inverse as a function of the state: undoes n trailing zero
+    bytes of a raw image, g(M) = unadvance_by(n)(g(M || 0^n)), exact
+    because Adv_n is invertible."""
+    return _byte_map(_gf2_inverse(advance_matrix(n)))

@@ -1,4 +1,4 @@
-"""The port's two Reed-Solomon kernels, each beside its plain version.
+"""The port's Reed-Solomon and CRC kernels, each beside its plain version.
 
   gf_apply         K1, csrc/gf_apply.cu: out (p, L) = M (p, d) x X (d, L)
                    over GF(2^8).  Replaces the TPU kernel
@@ -7,8 +7,11 @@
                    (B, p, L) plus the raw CRC32C image of every input and
                    output row, in one pass.  Replaces
                    seaweedfs_tpu/ops/rs_pallas.py:_fused_words_kernel.
+  crc32c_rows      K8, csrc/crc32c_rows.cu: (B, R, L) -> the raw CRC32C
+                   image of every row, K2's CRC half alone (the deep
+                   scrub's shard and recomputed parity rows).
 
-Both are device-memory-bound in principle and, as designed, bound by the
+All are device-memory-bound in principle and, as designed, bound by the
 SM's shared-memory and integer pipes on an H100; the sources say what
 each design does about that and PERF.md what was measured.  A wrapper
 takes the plain PyTorch version only for a tensor that lies on the CPU;
@@ -47,8 +50,10 @@ K2_THREADS = 256     # threads of a K2 tile block
 K2_MAX_TILE = 4096   # bytes of a K2 column tile
 K2_STREAMS = 4       # interleaved CRC streams per sub-segment (kStreams)
 K2_MAPS = 8          # nibble maps K2 reserves shared memory for (kMapsWords)
+K8_THREADS = 256     # threads of a K8 block
+K8_MAX_TILE = 4096   # bytes of a K8 row tile
 
-launches = {"gf_apply": 0, "fused_apply_crc": 0}
+launches = {"gf_apply": 0, "fused_apply_crc": 0, "crc32c_rows": 0}
 _launches_lock = threading.Lock()
 
 
@@ -178,6 +183,24 @@ def k2_geometry(p: int, d: int, length: int) -> tuple[int, int]:
 # -- launch plumbing -----------------------------------------------------------
 
 
+def k8_geometry(length: int) -> tuple[int, int]:
+    """(T, S) for K8: the row tile T (a power of two, 4 KiB, halved while
+    half a tile still covers the row, down to 64 bytes) and S sub-segments
+    per tile row, 32 (a warp per row) or fewer in tiles under 2 KiB, so
+    each CRC stream keeps whole 16-byte chunks."""
+    tile = K8_MAX_TILE
+    while tile > 16 * K2_STREAMS and tile // 2 >= length:
+        tile //= 2
+    return tile, min(32, tile // (16 * K2_STREAMS))
+
+
+def _k8_smem_bytes(tile: int, sub: int) -> int:
+    """Shared memory of one K8 block (csrc smem_bytes): room for 8 nibble
+    maps, then two stages of K8_THREADS / S rows, each T bytes plus a
+    16-byte skew per sub-segment."""
+    return K2_MAPS * 128 * 4 + 2 * (K8_THREADS // sub) * (tile + 16 * sub)
+
+
 def _check(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
@@ -206,6 +229,20 @@ def _k2():
                    + [ctypes.c_void_p] * 3 + [ll, ll]
                    + [ctypes.c_int, ll, ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_void_p, ll, ll] + [ctypes.c_void_p] * 3)
+    return fn
+
+
+@functools.lru_cache(maxsize=1)
+def _k8():
+    from ._build import load
+
+    fn = load("crc32c_rows").sw_crc32c_rows
+    fn.restype = ctypes.c_int
+    ll = ctypes.c_longlong
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ll, ll, ctypes.c_int,
+                                            ctypes.c_int, ll, ctypes.c_int,
+                                            ctypes.c_int]
+                   + [ctypes.c_void_p] * 3)
     return fn
 
 
@@ -371,3 +408,80 @@ def fused_encode_words(matrix: np.ndarray, words: torch.Tensor):
     data = words.view(torch.uint8).view(b, d, 4 * w)
     out, crc = fused_apply_crc(matrix, data)
     return out.view(torch.int32), crc
+
+
+# -- K8 -------------------------------------------------------------------------
+
+
+def crc32c_rows_plain(data: torch.Tensor,
+                      out: torch.Tensor = None) -> torch.Tensor:
+    """K8's plain version, for a CPU tensor: the native host CRC of each
+    row turned into its raw image, crc32c(row) ^ crc32c(0^L) (written into
+    `out` when given)."""
+    b, r, length = data.shape
+    zeros = crc_host.crc32c_zeros(length)
+    rows = data.numpy()
+    raw = torch.tensor([[crc_host.crc32c(rows[i, j]) ^ zeros
+                         for j in range(r)] for i in range(b)],
+                       dtype=torch.int64).view(b, r)
+    if out is None:
+        return raw
+    out.copy_(raw)
+    return out
+
+
+_K8_SCRATCH: "dict[tuple, torch.Tensor]" = {}
+_K8_SCRATCH_MAX = 64
+_k8_lock = threading.Lock()
+
+
+def _k8_partial(dev: torch.device, stream: int, shape: tuple) -> torch.Tensor:
+    """K8's int32 tile-partial scratch, kept per (device, stream, shape):
+    launches on one stream run in order, so they may share it, and a
+    steady caller allocates nothing."""
+    key = (dev, stream, shape)
+    with _k8_lock:
+        buf = _K8_SCRATCH.pop(key, None)
+        if buf is None:
+            buf = torch.empty(shape, dtype=torch.int32, device=dev)
+        _K8_SCRATCH[key] = buf  # newest last
+        while len(_K8_SCRATCH) > _K8_SCRATCH_MAX:
+            del _K8_SCRATCH[next(iter(_K8_SCRATCH))]
+    return buf
+
+
+def crc32c_rows(data: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
+    """(B, R, L) uint8 tensor -> (B, R) int64 raw CRC32C images,
+    crc[b, r] = raw_update(0, data[b, r]); crc32c of the row is that image
+    ^ crc32c_zeros(L) (crc32c.finalize_raw).  Any L >= 1.
+
+    `data` may be any view whose rows are contiguous: batch and row
+    strides reach the kernel as they are (the (B, R, L) permute of an
+    (R, B, L) slab costs nothing).  `out`, a contiguous (B, R) int64
+    tensor on data's device, receives the images; with it a steady caller
+    allocates no device memory (the tile partials live in a scratch kept
+    per device, stream and shape).  Launches on the current stream."""
+    _check_bytes(data, 3, data.shape[-2] if data.dim() == 3 else -1,
+                 "crc32c_rows")
+    b, r, length = data.shape
+    if b < 1 or r < 1:
+        raise ValueError(f"crc32c_rows: empty batch {tuple(data.shape)}")
+    if out is not None:
+        _check_out(out, (b, r), torch.int64, data, "crc32c_rows",
+                   contiguous=True)
+    if data.device.type == "cpu":
+        return crc32c_rows_plain(data, out)
+    if b > 65535:
+        raise ValueError("crc32c_rows takes at most 65535 batch items")
+    tile, sub = k8_geometry(length)
+    dev = data.device
+    maps, adv_fold = _crc_tables(tile, sub, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partial = _k8_partial(dev, stream, (b, r, -(-length // tile)))
+    if out is None:
+        out = torch.empty((b, r), dtype=torch.int64, device=dev)
+    _check(_k8()(maps.data_ptr(), adv_fold.data_ptr(), data.data_ptr(),
+                 data.stride(0), data.stride(1), b, r, length, tile, sub,
+                 partial.data_ptr(), out.data_ptr(), stream), "crc32c_rows")
+    count_launch("crc32c_rows")
+    return out

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from seaweedfs_tpu_torch.ops import rs_cuda
+from seaweedfs_tpu_torch.ops.crc_device import batched_crc32c_raw
 from seaweedfs_tpu_torch.ops.gf256 import parity_matrix
 from seaweedfs_tpu_torch.ops.rs_numpy import decode_rows
 
@@ -79,6 +80,93 @@ def test_gf_apply_on_unaligned_views(cuda, offset, length):
     for m in (PARITY, REBUILD[:1]):
         assert torch.equal(rs_cuda.gf_apply(m, x),
                            rs_cuda.gf_apply_plain(m, x))
+
+
+def _crc_rows_reference(view):
+    """K8's plain version on a CPU copy, and batched_crc32c_raw on the card
+    one batch item at a time (its float32 bit planes take 32 bytes of
+    device memory per input byte)."""
+    plain = rs_cuda.crc32c_rows_plain(view.cpu())
+    raw = torch.stack([batched_crc32c_raw(view[i])
+                       for i in range(view.shape[0])])
+    return plain, raw.cpu()
+
+
+@pytest.mark.parametrize("length", [16, 4096, 1 << 20, 3 * 4096 + 5])
+@pytest.mark.parametrize("rows", [1, 14, 18])
+@pytest.mark.parametrize("batch", [1, 3, 7])
+def test_crc32c_rows_matches_plain_and_batched(cuda, batch, rows, length):
+    """K8 over the (B, R, L) permute of an (R, B, L) slab, the deep
+    scrub's layout: bit-exact against its plain version and against
+    batched_crc32c_raw."""
+    slab = _bytes(batch * rows + length, (rows, batch, length), cuda)
+    view = slab.permute(1, 0, 2)
+    before = rs_cuda.launches["crc32c_rows"]
+    got = rs_cuda.crc32c_rows(view)
+    assert rs_cuda.launches["crc32c_rows"] == before + 1
+    plain, raw = _crc_rows_reference(view)
+    assert got.dtype == torch.int64 and got.shape == (batch, rows)
+    assert torch.equal(got.cpu(), plain) and torch.equal(got.cpu(), raw)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("length", [50, 4096 + 3, 1 << 16])
+def test_crc32c_rows_on_unaligned_views(cuda, offset, length):
+    x = _misaligned(offset + length, (3, 18, length), offset, cuda)
+    plain, raw = _crc_rows_reference(x)
+    got = rs_cuda.crc32c_rows(x).cpu()
+    assert torch.equal(got, plain) and torch.equal(got, raw)
+
+
+def test_crc32c_rows_into_out_allocates_nothing(cuda):
+    """With `out=` a steady caller allocates no device memory; the
+    images land in `out`."""
+    slabs = [_bytes(40 + i, (18, 3, 1 << 20), cuda) for i in range(2)]
+    out = torch.empty((3, 18), dtype=torch.int64, device=cuda)
+    rs_cuda.crc32c_rows(slabs[0].permute(1, 0, 2), out=out)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+    for i in range(8):
+        assert rs_cuda.crc32c_rows(slabs[i % 2].permute(1, 0, 2),
+                                   out=out) is out
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats(cuda)["allocation.all.allocated"] == \
+        allocs
+    plain, _ = _crc_rows_reference(slabs[1].permute(1, 0, 2))
+    assert torch.equal(out.cpu(), plain)
+
+
+def test_deep_scrub_takes_every_crc_on_the_card(cuda, tmp_path):
+    """A recompute scrub on the card launches K1 and K8 once per batch,
+    CRCs no byte on the host, and gives the CPU scrub's chains, parity
+    CRCs and verdicts, with a short tail span and a parity file cut
+    short."""
+    import os
+
+    from seaweedfs_tpu_torch.maintenance.deep_scrub import (deep_scrub,
+                                                            local_target)
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder
+
+    base = str(tmp_path / "1")
+    _bytes(13, ((12 << 20) + 77,), "cpu").numpy().tofile(base + ".dat")
+    crcs = encoder.write_ec_files(base, batched=True, device="cpu")
+    encoder.save_volume_info(base, 3, {"shard_crc32c": crcs})
+    os.truncate(base + ".ec12", 700_001)
+    seen = []
+    for dev in (cuda, "cpu"):
+        st: dict = {}
+        k1 = rs_cuda.launches["gf_apply"]
+        k8 = rs_cuda.launches["crc32c_rows"]
+        t = local_target(base, 1)
+        out = deep_scrub([t], device=dev, stage_stats=st,
+                         span_bytes=300_000, batch_units=3)
+        if dev is cuda:
+            assert rs_cuda.launches["gf_apply"] - k1 == st["batches"] > 1
+            assert rs_cuda.launches["crc32c_rows"] - k8 == st["batches"]
+        assert st["crc_host_bytes"] == 0 and st["crc_card_bytes"] > 0
+        seen.append((out["volumes"], t.chains, t.computed))
+    assert seen[0] == seen[1]
+    assert seen[0][0][0]["corrupt"] == [12]
 
 
 @pytest.mark.parametrize("d", [3, 10, 20])

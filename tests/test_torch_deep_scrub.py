@@ -309,7 +309,9 @@ class TestStageTimersAndSpans:
                                 "bytes": out["scrubbed_bytes"],
                                 "batches": st["batches"],
                                 "backend": "device-pooled",
-                                "read_workers": st["read_workers"]}
+                                "read_workers": st["read_workers"],
+                                "crc_card_bytes": st["crc_card_bytes"],
+                                "crc_host_bytes": 0}
         kids = root["children"]
         names = sorted({c["name"] for c in kids})
         assert names == ["scrub.batch.complete", "scrub.batch.dispatch",
@@ -602,6 +604,179 @@ class TestReadWorkers:
         assert pacer.paced_bytes == out["scrubbed_bytes"] == total
         assert slept and pacer.throttled_seconds == \
             pytest.approx(sum(slept))
+
+
+def _file_crcs(base, sizes):
+    """The CRC32C of each present shard file, read whole on the host."""
+    from seaweedfs_tpu_torch.ops import crc32c as crc_host
+
+    out = []
+    for sid in range(TOTAL_SHARDS_COUNT):
+        if sizes[sid] < 0:
+            out.append(0)
+            continue
+        with open(base + f".ec{sid:02d}", "rb") as f:
+            out.append(crc_host.crc32c(f.read(sizes[sid])))
+    return out
+
+
+def _parity_crcs(base, sizes):
+    """The CRC32C of each parity row recomputed on the host from the data
+    shard files (zero-padded to the longest shard), cut to its parity
+    file's length (the longest shard's where the file is missing)."""
+    from seaweedfs_tpu_torch.ops import crc32c as crc_host
+    from seaweedfs_tpu_torch.ops.gf256 import parity_matrix
+    from seaweedfs_tpu_torch.ops.rs_cuda import gf_apply_plain
+
+    longest = max(sizes)
+    data = np.zeros((10, longest), dtype=np.uint8)
+    for sid in range(10):
+        with open(base + f".ec{sid:02d}", "rb") as f:
+            raw = f.read(sizes[sid])
+        data[sid, :len(raw)] = np.frombuffer(raw, dtype=np.uint8)
+    par = gf_apply_plain(parity_matrix(10, 14), torch.from_numpy(data))
+    return [crc_host.crc32c(par[j].numpy()[:sizes[10 + j]
+                                           if sizes[10 + j] >= 0
+                                           else longest])
+            for j in range(4)]
+
+
+def _case_volumes(tmp_path, case):
+    """(bases, span_bytes) of one case; the files altered as it says."""
+    if case == "several_targets":
+        bases = [_make_volume(tmp_path, i + 1, (1 << 20) + i * 4099,
+                              seed=110 + i) for i in range(3)]
+        _flip(bases[1] + ".ec02", 123_457)
+        return bases, 96 << 10
+    base = _make_volume(tmp_path, 1, (2 << 20) + 3 * 1111, seed=120)
+    if case == "flipped":
+        _flip(base + ".ec04", 200_001)
+        _flip(base + ".ec13", 77)
+    elif case == "truncated_data":
+        os.truncate(base + ".ec06", 100_003)
+    elif case == "truncated_parity":
+        # a parity file shorter than the data shards: its recomputed row
+        # runs on past the file in the span that holds the cut
+        os.truncate(base + ".ec11", 150_001)
+    elif case == "missing_parity":
+        os.unlink(base + ".ec12")
+    return [base], 64 << 10
+
+
+class TestCardCrc:
+    """Every CRC of a recompute batch comes from K8 (its plain version on
+    the CPU) as raw images that the host finalizes and chains: the chains
+    and the recomputed parity CRCs equal the JAX package's and the files'
+    own CRCs, whatever the spans' lengths."""
+
+    @pytest.mark.parametrize("case", ["clean", "flipped", "truncated_data",
+                                      "truncated_parity", "missing_parity",
+                                      "several_targets"])
+    def test_chains_and_parity_crcs_equal_jax_and_the_files(self, tmp_path,
+                                                            case):
+        bases, span = _case_volumes(tmp_path, case)
+        made = {}
+
+        def targets_of(mod):
+            made[mod] = [mod.local_target(b, i + 1)
+                         for i, b in enumerate(bases)]
+            return made[mod]
+
+        # spans not dividing the shards leave a short tail span each
+        out, want, st, _ = _both(targets_of, span_bytes=span, batch_units=3)
+        for got, ref, base in zip(made[t_ds], made[j_ds], bases):
+            assert got.chains == ref.chains
+            assert got.computed == ref.computed
+            assert got.chains == _file_crcs(base, got.sizes)
+            assert got.computed == _parity_crcs(base, got.sizes)
+        # every shard byte, and each recomputed parity row to its file's
+        # length (the longest shard's where the file is missing)
+        card = sum(sum(s for s in t.sizes if s >= 0)
+                   + sum(s if s >= 0 else t.shard_len for s in t.sizes[10:])
+                   for t in made[t_ds])
+        assert st["crc_card_bytes"] == card
+        assert st["crc_host_bytes"] == 0
+        assert st["span_crc"] > 0 and st["parity_crc"] > 0
+        verdicts = {v["volume"]: v for v in out["volumes"]}
+        if case == "flipped":
+            assert verdicts[1]["corrupt"] == [4, 13]
+        elif case.startswith("truncated"):
+            assert verdicts[1]["corrupt"] == [6 if "data" in case else 11]
+        elif case == "missing_parity":
+            assert verdicts[1]["missing"] == [12]
+        elif case == "several_targets":
+            assert st["batches"] > 1
+            assert [v["ok"] for v in out["volumes"]] == [True, False, True]
+        else:
+            assert verdicts[1]["ok"]
+            # the recompute matches the encode: the stored parity CRCs
+            assert made[t_ds][0].computed == made[t_ds][0].stored[10:]
+
+    def test_a_reader_failing_mid_sweep_keeps_the_second_chain(
+            self, tmp_path):
+        """A data shard that goes unreadable mid-sweep stops the
+        recompute; its target is then chained again by the host's
+        file-CRC sweep (PERF.md §7), as in the JAX package, and that
+        sweep's bytes are the host's."""
+        base = _make_volume(tmp_path, 1, (2 << 20) + 5, seed=130)
+        made = {}
+
+        def failing(mod):
+            good = mod.local_target(base, 1)
+
+            def reader(sid, off, size):
+                if sid == 5 and off >= 128 << 10:
+                    raise OSError("disk went away")
+                return good.reader(sid, off, size)
+
+            made[mod] = mod.ScrubTarget(volume=1, collection="",
+                                        stored=list(good.stored),
+                                        sizes=list(good.sizes),
+                                        reader=reader)
+            return [made[mod]]
+
+        out, _, st, _ = _both(failing, span_bytes=64 << 10, batch_units=2)
+        got, ref = made[t_ds], made[j_ds]
+        assert (got.chains, got.computed) == (ref.chains, ref.computed)
+        v = out["volumes"][0]
+        assert v["unreadable"] == [5] and not v["recomputed"]
+        assert not v["ok"] and v["corrupt"]
+        assert st["crc_card_bytes"] > 0 and st["crc_host_bytes"] > 0
+
+    def test_a_target_without_recompute_is_crcd_on_the_host(self, tmp_path):
+        base = _make_volume(tmp_path, 1, 1 << 20, seed=131)
+        os.unlink(base + ".ec03")
+        st = {}
+        out = t_ds.deep_scrub([t_ds.local_target(base, 1)], device="cpu",
+                              stage_stats=st)
+        assert out["volumes"][0]["missing"] == [3]
+        assert st["crc_card_bytes"] == 0
+        assert st["crc_host_bytes"] == sum(
+            os.path.getsize(base + f".ec{sid:02d}")
+            for sid in range(TOTAL_SHARDS_COUNT) if sid != 3)
+
+    def test_a_flipped_parity_step_output_turns_the_verdict(
+            self, tmp_path, monkeypatch):
+        """One byte altered in the parity step's output (the benchmark's
+        flip_k5 control) reads as a parity mismatch: the recomputed
+        parity's CRC comes from the rows K1 wrote."""
+        from seaweedfs_tpu_torch.parallel import mesh
+
+        base = _make_volume(tmp_path, 1, (1 << 20) + 999, seed=132)
+        real = mesh.gf_apply
+
+        def flipped(matrix, data, out=None):
+            res = real(matrix, data, out=out)
+            res[0, data.shape[-1] // 2] ^= 0x5A
+            return res
+
+        monkeypatch.setattr(mesh, "gf_apply", flipped)
+        st = {}
+        out = t_ds.deep_scrub([t_ds.local_target(base, 1)], device="cpu",
+                              stage_stats=st)
+        v = out["volumes"][0]
+        assert v["corrupt"] == [] and v["parity_mismatch"] == [10]
+        assert not v["ok"]
 
 
 def test_host_scrub_needle_walk_and_verify_shard_files(tmp_path):

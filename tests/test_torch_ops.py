@@ -100,6 +100,29 @@ def test_host_crc_algebra_equal(length):
     assert t_crc.finalize_raw(raw, length) == j_crc.finalize_raw(raw, length)
 
 
+@pytest.mark.parametrize("length", [0, 1, 3, 4, 100, 4096, 300_000, 1 << 20])
+def test_table_advances_equal_the_advance_and_concatenations(length):
+    """The table-driven fixed-length advance and its inverse: equal to
+    `advance`, inverse to each other, and they combine and un-pad raw
+    images as crc32c of the concatenations says."""
+    rng = np.random.default_rng(length)
+    adv, inv = t_crc.advance_by(length), t_crc.unadvance_by(length)
+    for x in rng.integers(0, 1 << 32, 8, dtype=np.uint64):
+        x = int(x)
+        assert adv(x) == j_crc.advance(x, length) == t_crc.advance(x, length)
+        assert inv(adv(x)) == x == adv(inv(x))
+    a = _bytes(length + 2, int(rng.integers(0, 5000)))
+    m = _bytes(length + 3, min(length, 5000))
+    # a chain: crc32c(A || M) from crc32c(A), crc32c(M) and |M|
+    assert t_crc.advance_by(len(m))(t_crc.crc32c(a)) ^ t_crc.crc32c(m) \
+        == j_crc.crc32c(np.concatenate([a, m]))
+    # un-padding: g(M) from g(M || 0^length)
+    padded = np.concatenate([m, np.zeros(length, dtype=np.uint8)])
+    if length <= 5000:
+        assert inv(j_crc.raw_update(0, padded.tobytes())) == \
+            j_crc.raw_update(0, m.tobytes())
+
+
 @pytest.mark.parametrize("length", [1, 7, 100, 1000, 65536])
 def test_batched_crc32c_raw_equal(length):
     data = _bytes(length, (3, length))
@@ -252,16 +275,14 @@ def test_nibble_maps_apply_the_advance():
             assert _nib_apply(m, int(x)) == j_crc.advance(int(x), n)
 
 
-@pytest.mark.parametrize("length", [1, 7, 256, 4096 + 3])
-def test_crc_table_step_equals_jax_raw_update(length):
-    """K2's CRC as the kernel runs it, in numpy: the row front-padded to
-    whole tiles; each sub-segment CRC'd as four interleaved streams of
-    4-byte words through the Adv_4 nibble map, the streams joined with
-    Adv_{T/4S} and Adv_{T/2S}; the sub-segments folded in the shuffle
-    tree's order with the Adv_{T/S 2^k} maps; the tiles folded with
-    Adv_T."""
-    row = _bytes(length, length)
-    tile, sub = rs_cuda.k2_geometry(4, 10, length)
+def _kernel_crc(row, tile, sub):
+    """The raw CRC of `row` as K2 and K8 run it (crc_core.cuh), in numpy:
+    the row front-padded to whole tiles; each sub-segment CRC'd as four
+    interleaved streams of 4-byte words through the Adv_4 nibble map, the
+    streams joined with Adv_{T/4S} and Adv_{T/2S}; the sub-segments folded
+    in the shuffle tree's order with the Adv_{T/S 2^k} maps; the tiles
+    folded with Adv_T."""
+    length = len(row)
     maps = rs_cuda.crc_maps(tile, sub)
     assert maps.shape == (3 + sub.bit_length() - 1, 8, 16)
     ntiles = -(-length // tile)
@@ -285,7 +306,60 @@ def test_crc_table_step_equals_jax_raw_update(length):
             parts = [_nib_apply(maps[3 + k], parts[i]) ^ parts[i + 1]
                      for i in range(0, len(parts), 2)]
         crc = j_crc.advance(crc, tile) ^ parts[0]
-    assert crc == j_crc.raw_update(0, row.tobytes())
+    return crc
+
+
+@pytest.mark.parametrize("length", [1, 7, 256, 4096 + 3])
+def test_crc_table_step_equals_jax_raw_update(length):
+    """K2's CRC as the kernel runs it (_kernel_crc) at K2's geometry."""
+    row = _bytes(length, length)
+    tile, sub = rs_cuda.k2_geometry(4, 10, length)
+    assert _kernel_crc(row, tile, sub) == j_crc.raw_update(0, row.tobytes())
+
+
+def test_k8_geometry():
+    assert rs_cuda.k8_geometry(1 << 20) == (4096, 32)
+    assert rs_cuda.k8_geometry(4097) == (4096, 32)
+    assert rs_cuda.k8_geometry(2048) == (2048, 32)
+    assert rs_cuda.k8_geometry(1000) == (1024, 16)
+    assert rs_cuda.k8_geometry(16) == (64, 1)
+    assert rs_cuda.k8_geometry(1) == (64, 1)
+    for length in (1, 16, 100, 1000, 2048, 1 << 20):
+        tile, sub = rs_cuda.k8_geometry(length)
+        assert tile % (16 * rs_cuda.K2_STREAMS * sub) == 0
+        # at least two blocks per SM: 228 KiB per SM, 1 KiB reserved each
+        assert 2 * (rs_cuda._k8_smem_bytes(tile, sub) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("length", [1, 16, 100, 1000, 2048 + 5, 4096 * 3])
+def test_k8_crc_step_equals_jax_raw_update(length):
+    """K8's CRC as the kernel runs it (_kernel_crc) at K8's geometry."""
+    row = _bytes(length + 7, length)
+    tile, sub = rs_cuda.k8_geometry(length)
+    assert _kernel_crc(row, tile, sub) == j_crc.raw_update(0, row.tobytes())
+
+
+@pytest.mark.parametrize("batch,rows,length", [(1, 1, 16), (3, 18, 4096),
+                                               (2, 14, 1001)])
+def test_crc32c_rows_plain_equals_batched_raw_and_jax(batch, rows, length):
+    """K8's plain version (the host's native CRC per row) on a permuted
+    slab view: the raw images of batched_crc32c_raw and of the JAX
+    package's raw_update, written into `out` when given."""
+    slab = torch.from_numpy(_bytes(length, (rows, batch, length)))
+    view = slab.permute(1, 0, 2)
+    got = rs_cuda.crc32c_rows(view)
+    assert got.dtype == torch.int64 and got.shape == (batch, rows)
+    assert torch.equal(got, t_crc_device.batched_crc32c_raw(view))
+    assert got[-1, -1].item() == j_crc.raw_update(
+        0, view[-1, -1].numpy().tobytes())
+    out = torch.empty((batch, rows), dtype=torch.int64)
+    assert rs_cuda.crc32c_rows(view, out=out) is out
+    assert torch.equal(out, got)
+    with pytest.raises(ValueError):
+        rs_cuda.crc32c_rows(view, out=torch.empty((batch, rows + 1),
+                                                  dtype=torch.int64))
+    with pytest.raises(ValueError):
+        rs_cuda.crc32c_rows(slab[0])
 
 
 @pytest.mark.parametrize("ntiles", [1, 5, 33, 100])
