@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import os
-import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -36,7 +35,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .. import tracing
+from .. import profiling, tracing
 from ..ops import crc32c as crc_host
 from ..qos import lanes as _lanes
 from ..qos.classify import BACKGROUND, qos_scope
@@ -155,25 +154,29 @@ def _read_span(t: ScrubTarget, sid: int, off: int, chunk: int,
 def _read_shard(targets: list, metas: list, sid: int, chunk: int,
                 throttle, buf: np.ndarray, lens: np.ndarray) -> tuple:
     """One task of a batch's read stage: shard `sid`'s span of every unit
-    in `metas` into its stage row `buf[sid, k]`, whose tail past the bytes
-    read is zeroed, with the bytes read in `lens[sid, k]` (every span,
-    also of a target that stopped recomputing: its file CRC needs it).
-    Returns (the task's seconds, its leaf timers, {target index: bytes
-    read}): the caller adds them up, so no two tasks write one counter."""
+    in `metas` into its stage row, whose tail past the bytes read is
+    zeroed, with the bytes read in `lens[sid, k]` (every span, also of a
+    target that stopped recomputing: its file CRC needs it).  The stage
+    `buf` is (devices, 14, per, L), each device's rows one block, so unit
+    k's row is `buf[k // per, sid, k % per]`.  Returns (the task's
+    seconds, its leaf timers, {target index: bytes read}): the caller adds
+    them up, so no two tasks write one counter."""
     t0 = time.perf_counter()
     timers = dict.fromkeys(READ_LEAVES, 0.0)
     got: dict = {}
+    per = buf.shape[2]
     for k, (ti, off) in enumerate(metas):
         raw = _read_span(targets[ti], sid, off, chunk, throttle, timers)
         n = len(raw)
         got[ti] = got.get(ti, 0) + n
         lens[sid, k] = n
+        row = buf[k // per, sid, k % per]
         c0 = time.perf_counter()
         if n:
-            buf[sid, k, :n] = np.frombuffer(raw, dtype=np.uint8)
+            row[:n] = np.frombuffer(raw, dtype=np.uint8)
         c1 = time.perf_counter()
         if n < chunk:
-            buf[sid, k, n:] = 0
+            row[n:] = 0
         timers["stage_copy"] += c1 - c0
         timers["stage_fill"] += time.perf_counter() - c1
     return time.perf_counter() - t0, timers, got
@@ -225,14 +228,6 @@ def _verdict(t: ScrubTarget) -> dict:
                        or parity_mismatch)}
 
 
-# this process's deep scrubs on the card: parity-step calls (one K1
-# launch per call for RS(10,4)'s four parity rows) and the seconds the
-# CUDA events around each batch's H2D, step and CRC, and image D2H
-# measured, reported beside the kernel launches by
-# profiling.device_timeline
-SCRUB_TOTALS = {"steps": 0, "h2d": 0.0, "kernel": 0.0, "d2h": 0.0}
-_totals_lock = threading.Lock()
-
 # a batch's device slab: the 14 shard spans, then the parity rows that K1
 # recomputes from the first ten
 SLAB_ROWS = TOTAL_SHARDS_COUNT + PARITY_SHARDS_COUNT
@@ -244,12 +239,20 @@ COMPLETE_LEAVES = ("parity_wait", "span_crc", "parity_crc")
 DEVICE_STAGES = ("h2d", "kernel", "d2h")
 
 
+def _record(timers: dict, **seconds) -> dict:
+    """Add each measured interval to the call's `timers`; returns them as
+    the tags of the batch span they belong to."""
+    for k, v in seconds.items():
+        timers[k] += v
+    return {k: round(v, 6) for k, v in seconds.items()}
+
+
 def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
                batch_units: Optional[int] = None, throttle=None,
-               stage_stats: Optional[dict] = None, mesh=None) -> dict:
+               stage_stats: Optional[dict] = None) -> dict:
     """Deep-scrub `targets`, batching recompute spans across volumes into
-    one device geometry on `device` (or the device list `mesh`; neither
-    means every CUDA card, raising without one).  Returns {"volumes":
+    one device geometry on `device` (one device or a list; None means
+    every CUDA card, raising without one).  Returns {"volumes":
     [per-target verdicts], "scrubbed_bytes", "corrupt", "backend"}.
 
     Each batch's read stage is 14 tasks, one per shard, each reading that
@@ -274,8 +277,9 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
     the caller's thread; in the inline sweep `span_crc` is its host CRC),
     `setup` and `finish`, the call's `wall`, and on the card the
     event-timed `device_h2d`, `device_kernel` (the step and K8) and
-    `device_d2h` (the images); and the counts `crc_card_bytes` (shard
-    and recomputed parity bytes whose CRC the device took) and
+    `device_d2h` (the images), also added to the process's totals
+    (profiling.record_scrub_batch); and the counts `crc_card_bytes`
+    (shard and recomputed parity bytes whose CRC the device took) and
     `crc_host_bytes` (bytes the host CRC'd).  The call is a
     `maint.deep_scrub` span (background, tagged with `read_workers` and
     both counts) with `scrub.batch.read` (tagged with its leaves in
@@ -292,7 +296,7 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
         # admitted downstream as such
         with qos_scope(BACKGROUND):
             out = _scrub(targets, device, span_bytes, batch_units,
-                         throttle, stage_stats, mesh, root, children)
+                         throttle, stage_stats, root, children)
     finally:
         tracing.restore(prev)
     tracing.finish_tree(root, children)
@@ -301,22 +305,22 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
 
 def _scrub(targets: list, device, span_bytes: Optional[int],
            batch_units: Optional[int], throttle, stage_stats: Optional[dict],
-           mesh, root, children: list) -> dict:
+           root, children: list) -> dict:
     """deep_scrub's sweep, under its span `root`; each batch's spans go to
     `children`."""
     from ..ops.device_pool import get_pool, lease_tensor
     from ..ops.rs_cuda import crc32c_rows
-    from ..parallel.mesh import make_ec_mesh, make_parity_step, split_batch
+    from ..parallel.mesh import make_ec_mesh, make_parity_step
 
     wall0 = time.perf_counter_ns()
-    devices = make_ec_mesh(mesh if mesh is not None else device)
+    devices = make_ec_mesh(device)
     cuda = devices[0].type == "cuda"
     timers = dict.fromkeys(("read", "read_busy", "dispatch", "encode_crc",
                             "lane_wait", "setup", "finish") + READ_LEAVES
                            + COMPLETE_LEAVES
                            + (tuple("device_" + k for k in DEVICE_STAGES)
                               if cuda else ()), 0.0)
-    crc_bytes = {"card": 0, "host": 0}
+    crc_bytes = {"crc_card_bytes": 0, "crc_host_bytes": 0}
 
     chunk = span_bytes or span_bytes_default()
     max_len = max([t.shard_len for t in targets] or [0])
@@ -336,7 +340,7 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
     batches = 0
     b = 0
     depth = _inflight()
-    pool_before = pool_after = None
+    pool_stats = None
     workers = 1
     if units:
         # half the cores: past that the tasks gain little on the card
@@ -350,33 +354,36 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
             batch_units = max(1, (32 << 20) // (DATA_SHARDS_COUNT * chunk))
         b = min(batch_units, len(units))
         b = max(n_dev, -(-b // n_dev) * n_dev)
-        parts = split_batch(b, n_dev)
+        # the units split in order over the devices (mesh.split_batch):
+        # unit k is row k % per of device k // per
+        per = b // n_dev
         step = make_parity_step(devices)
         backend = "device-pooled"
         pool = get_pool()
-        dev_label = str(devices[0]) if n_dev == 1 else f"sharded:{n_dev}"
+        # the pool's byte counters label a batch over N devices "sharded:N"
+        dev_label = f"sharded:{n_dev}" if n_dev > 1 else str(devices[0])
         pool_before = pool.snapshot()
 
-        # ring entries: pinned staging of the 14 shard rows and the bytes
-        # read into each, a per-device (18, B, L) slab and its CRC images,
-        # the pinned images, per-device timing events; an entry is
-        # refilled only after its batch was synchronized
+        # ring entries: pinned staging of the 14 shard rows, each device's
+        # one block (one H2D copy), and the bytes read into each; a
+        # per-device (18, per, L) slab and its CRC images; the pinned
+        # images; each card's timing events (the CPU's batches are not
+        # event-timed); an entry is refilled only after its batch was
+        # synchronized
         streams = [torch.cuda.current_stream(d) for d in devices] \
             if cuda else []
         ring = []
         for _ in range(depth + 1):
             ring.append({
                 "stage": lease_tensor(pool, "maint-stage",
-                                      (TOTAL_SHARDS_COUNT, b, chunk),
+                                      (n_dev, TOTAL_SHARDS_COUNT, per, chunk),
                                       torch.uint8, pinned=cuda),
                 "lens": np.zeros((TOTAL_SHARDS_COUNT, b), dtype=np.int64),
                 "slab": [lease_tensor(pool, "maint-slab",
-                                      (SLAB_ROWS, hi - lo, chunk),
-                                      torch.uint8, d)
-                         for d, (lo, hi) in zip(devices, parts)],
-                "crc": [lease_tensor(pool, "maint-crc",
-                                     (hi - lo, SLAB_ROWS), torch.int64, d)
-                        for d, (lo, hi) in zip(devices, parts)],
+                                      (SLAB_ROWS, per, chunk), torch.uint8, d)
+                         for d in devices],
+                "crc": [lease_tensor(pool, "maint-crc", (per, SLAB_ROWS),
+                                     torch.int64, d) for d in devices],
                 "himg": lease_tensor(pool, "maint-himg", (b, SLAB_ROWS),
                                      torch.int64, pinned=cuda),
                 "marks": [[torch.cuda.Event(enable_timing=True)
@@ -386,6 +393,11 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
         free = deque(ring)
         pending: deque = deque()  # (entry, metas)
 
+        def _mark(entry, j):
+            """Record the entry's j-th timing event on each card's stream."""
+            for evs, stream in zip(entry["marks"], streams):
+                evs[j].record(stream)
+
         def _complete():
             """Finalize the oldest batch's images and chain them, in the
             order of its units and so of each shard's offsets."""
@@ -394,18 +406,11 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
             for evs in entry["marks"]:
                 evs[-1].synchronize()
             t1 = time.perf_counter_ns()
-            tags = {}
-            if cuda:
-                got = dict.fromkeys(DEVICE_STAGES, 0.0)
-                for evs in entry["marks"]:
-                    for k, e0, e1 in zip(DEVICE_STAGES, evs, evs[1:]):
-                        got[k] += e0.elapsed_time(e1) * 1e-3
-                with _totals_lock:
-                    for k, v in got.items():
-                        SCRUB_TOTALS[k] += v
-                for k, v in got.items():
-                    timers["device_" + k] += v
-                    tags["device_" + k] = round(v, 6)
+            dev: dict = {}
+            for evs in entry["marks"]:
+                for k, e0, e1 in zip(DEVICE_STAGES, evs, evs[1:]):
+                    dev[k] = dev.get(k, 0.0) + e0.elapsed_time(e1) * 1e-3
+            profiling.record_scrub_batch(1, **dev)
             himg = entry["himg"].payload.numpy()
             pool.note_d2h(himg.nbytes, device=dev_label)
             images = himg.tolist()
@@ -417,7 +422,7 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                     if n:
                         t.chains[sid] = _chain_span(t.chains[sid], img[sid],
                                                     n, chunk)
-                        crc_bytes["card"] += n
+                        crc_bytes["crc_card_bytes"] += n
             t3 = time.perf_counter_ns()
             for k, (ti, off) in enumerate(metas):
                 t, img = targets[ti], images[k]
@@ -428,16 +433,15 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                         t.computed[j] = _chain_span(
                             t.computed[j], img[TOTAL_SHARDS_COUNT + j],
                             real, chunk)
-                        crc_bytes["card"] += real
+                        crc_bytes["crc_card_bytes"] += real
             t4 = time.perf_counter_ns()
             free.append(entry)
-            timers["parity_wait"] += (t1 - t0) * 1e-9
-            timers["span_crc"] += (t3 - t2) * 1e-9
-            timers["parity_crc"] += (t4 - t3) * 1e-9
             timers["encode_crc"] += (t4 - t0) * 1e-9
-            tags["parity_wait"] = round((t1 - t0) * 1e-9, 6)
-            tags["span_crc"] = round((t3 - t2) * 1e-9, 6)
-            tags["parity_crc"] = round((t4 - t3) * 1e-9, 6)
+            tags = _record(timers, **{"device_" + k: v
+                                      for k, v in dev.items()},
+                           parity_wait=(t1 - t0) * 1e-9,
+                           span_crc=(t3 - t2) * 1e-9,
+                           parity_crc=(t4 - t3) * 1e-9)
             children.append(tracing.span_between(
                 "scrub.batch.complete", t0, t4, root, tags))
 
@@ -453,44 +457,31 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                 longest = int(lens[:DATA_SHARDS_COUNT, k].max())
                 for j, real in enumerate(_parity_lengths(t, off, chunk)):
                     if real < longest:
-                        i = next(i for i, (lo, hi) in enumerate(parts)
-                                 if lo <= k < hi)
-                        par[i][j, k - parts[i][0], real:].zero_()
+                        par[k // per][j, k % per, real:].zero_()
 
         def _dispatch(entry, metas):
             """The stage's H2D, the step, K8 and the images' D2H of one
-            batch on each device's current stream, with the entry's timing
-            events recorded there before the H2D, after it, after K8 and
-            after the D2H."""
+            batch, each device's part on its current stream, with the
+            entry's timing events recorded there before the H2D, after it,
+            after K8 and after the D2H."""
             stage = entry["stage"].payload
             himg = entry["himg"].payload
-            marks = entry["marks"]
             slabs = [ls.payload for ls in entry["slab"]]
-            for i, (lo, hi) in enumerate(parts):
-                if cuda:
-                    marks[i][0].record(streams[i])
-                if n_dev == 1:
-                    slabs[i][:TOTAL_SHARDS_COUNT].copy_(stage,
-                                                        non_blocking=True)
-                else:
-                    for j in range(TOTAL_SHARDS_COUNT):
-                        slabs[i][j].copy_(stage[j, lo:hi], non_blocking=True)
-                if cuda:
-                    marks[i][1].record(streams[i])
+            _mark(entry, 0)
+            for i, slab in enumerate(slabs):
+                slab[:TOTAL_SHARDS_COUNT].copy_(stage[i], non_blocking=True)
+            _mark(entry, 1)
             pool.note_h2d(stage.numel(), device=dev_label)
-            data = [s[:DATA_SHARDS_COUNT] for s in slabs]
             par = [s[TOTAL_SHARDS_COUNT:] for s in slabs]
-            step(data[0] if n_dev == 1 else data,
-                 par[0] if n_dev == 1 else par)
+            step([s[:DATA_SHARDS_COUNT] for s in slabs], par)
             _zero_parity_tails(entry["lens"], metas, par)
-            for i, (lo, hi) in enumerate(parts):
-                crc = entry["crc"][i].payload
-                crc32c_rows(slabs[i].permute(1, 0, 2), out=crc)
-                if cuda:
-                    marks[i][2].record(streams[i])
-                himg[lo:hi].copy_(crc, non_blocking=True)
-                if cuda:
-                    marks[i][3].record(streams[i])
+            for slab, crc in zip(slabs, entry["crc"]):
+                crc32c_rows(slab.permute(1, 0, 2), out=crc.payload)
+            _mark(entry, 2)
+            for i, crc in enumerate(entry["crc"]):
+                himg[i * per:(i + 1) * per].copy_(crc.payload,
+                                                  non_blocking=True)
+            _mark(entry, 3)
 
         timers["setup"] = (time.perf_counter_ns() - wall0) * 1e-9
         readers = cf.ThreadPoolExecutor(
@@ -519,7 +510,6 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                     done = [f.result() for f in
                             [readers.submit(task, *a) for a in args]]
                 t1 = time.perf_counter_ns()
-                timers["read"] += (t1 - t0) * 1e-9
                 leaves = dict.fromkeys(READ_LEAVES, 0.0)
                 for busy, got, nbytes in done:
                     timers["read_busy"] += busy
@@ -527,10 +517,9 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                         leaves[k] += v
                     for ti, n in nbytes.items():
                         targets[ti].bytes_read += n
-                for k, v in leaves.items():
-                    timers[k] += v
                 read_span.duration = (t1 - t0) * 1e-9
-                read_span.tags = {k: round(v, 6) for k, v in leaves.items()}
+                timers["read"] += read_span.duration
+                read_span.tags = _record(timers, **leaves)
                 children.append(read_span)
                 # background lane: yield to in-flight foreground decodes
                 timers["lane_wait"] += _lanes.LANES.background_checkpoint()
@@ -542,8 +531,6 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                     "scrub.batch.dispatch", t2, t3, root))
                 pending.append((entry, metas))
                 batches += 1
-                with _totals_lock:
-                    SCRUB_TOTALS["steps"] += 1
                 if len(pending) >= depth:
                     _complete()
             while pending:
@@ -553,15 +540,17 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
             if readers is not None:
                 # no task may still write a stage the pool gets back
                 readers.shutdown(wait=True, cancel_futures=True)
-            if cuda:
-                for d in devices:
-                    torch.cuda.synchronize(d)
+            for stream in streams:
+                stream.synchronize()
             for entry in ring:
                 for ls in [entry["stage"], entry["himg"]] + entry["slab"] \
                         + entry["crc"]:
                     pool.release(ls)
             timers["finish"] += (time.perf_counter_ns() - t0) * 1e-9
         pool_after = pool.snapshot()
+        pool_stats = {"allocs": pool_after.get("allocs", 0),
+                      "lease_hits": (pool_after.get("lease_hits", 0)
+                                     - pool_before.get("lease_hits", 0))}
     else:
         timers["setup"] = (time.perf_counter_ns() - wall0) * 1e-9
 
@@ -579,7 +568,7 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                 c0 = time.perf_counter()
                 t.chains[sid] = crc_host.crc32c(raw, t.chains[sid])
                 timers["span_crc"] += time.perf_counter() - c0
-                crc_bytes["host"] += len(raw)
+                crc_bytes["crc_host_bytes"] += len(raw)
                 off += len(raw)
                 t.bytes_read += len(raw)
     t1 = time.perf_counter_ns()
@@ -595,33 +584,26 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
     t_end = time.perf_counter_ns()
     timers["finish"] += (t_end - t1) * 1e-9
     wall = (t_end - wall0) * 1e-9
+    # reported both in stage_stats and as tags of the root span
+    summary = {"batches": batches, "backend": backend,
+               "read_workers": workers, **crc_bytes}
     if stage_stats is not None:
         stage_stats.update({k: round(v, 6) for k, v in timers.items()})
+        stage_stats.update(summary)
         stage_stats["wall"] = round(wall, 6)
-        stage_stats["backend"] = backend
-        stage_stats["batches"] = batches
         stage_stats["batch_units"] = b
         stage_stats["k_shapes"] = [DATA_SHARDS_COUNT] if units else []
         stage_stats["inflight"] = depth
         stage_stats["span_bytes"] = chunk
-        stage_stats["read_workers"] = workers
-        stage_stats["crc_card_bytes"] = crc_bytes["card"]
-        stage_stats["crc_host_bytes"] = crc_bytes["host"]
         for k in ("read", "dispatch", "encode_crc"):
             stage_stats[f"{k}_frac"] = (
                 round(timers[k] / wall, 3) if wall > 0 else 0.0)
-        if pool_before is not None and pool_after is not None:
-            stage_stats["pool"] = {
-                "allocs": pool_after.get("allocs", 0),
-                "lease_hits": (pool_after.get("lease_hits", 0)
-                               - pool_before.get("lease_hits", 0))}
+        if pool_stats is not None:
+            stage_stats["pool"] = pool_stats
     total = sum(v["bytes"] for v in volumes)
     root.set_tag("bytes", total)
-    root.set_tag("batches", batches)
-    root.set_tag("backend", backend)
-    root.set_tag("read_workers", workers)
-    root.set_tag("crc_card_bytes", crc_bytes["card"])
-    root.set_tag("crc_host_bytes", crc_bytes["host"])
+    for k, v in summary.items():
+        root.set_tag(k, v)
     _stats.MaintScrubbedBytesCounter.inc(total)
     # a parity record that disagrees with the recompute is corruption too
     # (of the parity file or of the record): both kinds are reported

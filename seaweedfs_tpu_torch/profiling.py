@@ -288,6 +288,7 @@ def profile_burst(seconds: float, hz: float, exclude=()) -> str:
 _tl_lock = threading.Lock()
 _DEVICE_TIMELINE: "deque[dict]" = deque(maxlen=512)
 _KERNEL_COST: dict[str, dict] = {}
+_SCRUB_TOTALS = {"steps": 0, "h2d": 0.0, "kernel": 0.0, "d2h": 0.0}
 
 
 def record_device_batch(latency_s: float, units: int = 0, k: int = 0,
@@ -303,6 +304,19 @@ def record_device_batch(latency_s: float, units: int = 0, k: int = 0,
             "ts": round(time.time(), 3),
             "dispatch_ready_ms": round(latency_s * 1e3, 3),
             "units": units, "k": k, "devices": devices})
+
+
+def record_scrub_batch(steps: int, h2d: float = 0.0, kernel: float = 0.0,
+                       d2h: float = 0.0):
+    """One deep-scrub batch completed: its parity-step calls (one K1 launch
+    per call for RS(10,4)'s four parity rows) and the seconds its CUDA
+    events measured around the H2D, the step and CRC, and the images' D2H
+    (none on the CPU).  `device_timeline` reports the process's totals."""
+    with _tl_lock:
+        _SCRUB_TOTALS["steps"] += steps
+        _SCRUB_TOTALS["h2d"] += h2d
+        _SCRUB_TOTALS["kernel"] += kernel
+        _SCRUB_TOTALS["d2h"] += d2h
 
 
 def record_kernel_cost(geometry: str, flops: float, bytes_accessed: float,
@@ -323,21 +337,18 @@ def device_timeline() -> dict:
     occupancy snapshot (when a pool exists), and this process's kernel
     launches with the deep scrubs' parity-step calls among them, beside
     the scrubs' device seconds (H2D, kernel, D2H) timed by CUDA events."""
-    from .maintenance import deep_scrub
     from .ops import device_pool, rs_cuda
 
     pool = device_pool._pool  # do not materialize a pool just to report
     with _tl_lock:
         timeline = list(_DEVICE_TIMELINE)
         cost = {k: dict(v) for k, v in _KERNEL_COST.items()}
-    with deep_scrub._totals_lock:
-        scrub = dict(deep_scrub.SCRUB_TOTALS)
+        scrub = dict(_SCRUB_TOTALS)
     return {"timeline": timeline, "kernel_cost": cost,
             "pool": pool.snapshot() if pool is not None else {},
             "launches": dict(rs_cuda.launches),
-            "scrub_steps": scrub["steps"],
-            "scrub_device_s": {k: round(scrub[k], 6)
-                               for k in deep_scrub.DEVICE_STAGES}}
+            "scrub_steps": scrub.pop("steps"),
+            "scrub_device_s": {k: round(v, 6) for k, v in scrub.items()}}
 
 
 def reset_device_telemetry():

@@ -54,10 +54,11 @@ def _flip(path, offset, mask=0xFF):
         f.write(bytes([b[0] ^ mask]))
 
 
-def _both(targets_of, **kw):
-    """Scrub with each package (fresh targets each) -> (port, jax)."""
+def _both(targets_of, device="cpu", **kw):
+    """Scrub with each package (fresh targets each), the port on `device`
+    (one device or a list) -> (port, jax)."""
     t_st, j_st = {}, {}
-    got = t_ds.deep_scrub(targets_of(t_ds), device="cpu", stage_stats=t_st,
+    got = t_ds.deep_scrub(targets_of(t_ds), device=device, stage_stats=t_st,
                           **kw)
     want = j_ds.deep_scrub(targets_of(j_ds), stage_stats=j_st, **kw)
     assert got["volumes"] == want["volumes"]
@@ -367,14 +368,17 @@ class TestStageTimersAndSpans:
 
     def test_concurrent_scrubs_count_every_parity_step(self, tmp_path):
         """Scrubs on more threads than cores, with a short switch
-        interval, lose no update of the process's scrub totals."""
+        interval, lose no update of the process's scrub totals, which
+        the device report carries."""
         import sys
         import threading
+
+        from seaweedfs_tpu_torch import profiling
 
         bases = [_make_volume(tmp_path, i + 1, 1 << 20, seed=70 + i)
                  for i in range(2)]
         n = 2 * (os.cpu_count() or 1) + 2
-        before = t_ds.SCRUB_TOTALS["steps"]
+        before = profiling.device_timeline()["scrub_steps"]
         stats = [{} for _ in range(n)]
 
         def scrub(i):
@@ -395,18 +399,33 @@ class TestStageTimersAndSpans:
             sys.setswitchinterval(old)
         assert not any(t.is_alive() for t in threads)
         assert all(st["batches"] == 4 for st in stats)
-        assert t_ds.SCRUB_TOTALS["steps"] - before == 4 * n
+        after = profiling.device_timeline()["scrub_steps"]
+        assert after - before == 4 * n
 
-    def test_device_report_carries_the_scrub_device_seconds(self):
+    def test_device_report_carries_the_scrub_device_seconds(self, tmp_path):
         """/debug/pprof/device reports the process's event-timed scrub
-        seconds beside its parity-step calls (zero on the CPU, which
-        records no event)."""
+        seconds beside its parity-step calls: a scrub on the CPU adds its
+        steps and no second (it records no event); a batch recorded with
+        event seconds adds them."""
         from seaweedfs_tpu_torch import profiling
 
+        base = _make_volume(tmp_path, 1, 1 << 20, seed=72)
         tl = profiling.device_timeline()
         assert set(tl["scrub_device_s"]) == {"h2d", "kernel", "d2h"}
         assert all(v >= 0.0 for v in tl["scrub_device_s"].values())
-        assert tl["scrub_steps"] == t_ds.SCRUB_TOTALS["steps"]
+        st = {}
+        t_ds.deep_scrub([t_ds.local_target(base, 1)], device="cpu",
+                        stage_stats=st, span_bytes=256 << 10, batch_units=1)
+        after = profiling.device_timeline()
+        assert after["scrub_steps"] - tl["scrub_steps"] == st["batches"] > 1
+        assert after["scrub_device_s"] == tl["scrub_device_s"]
+        added = {"h2d": 0.25, "kernel": 0.5, "d2h": 0.125}
+        profiling.record_scrub_batch(1, **added)
+        last = profiling.device_timeline()
+        assert last["scrub_steps"] == after["scrub_steps"] + 1
+        for k, v in added.items():
+            assert last["scrub_device_s"][k] - after["scrub_device_s"][k] \
+                == pytest.approx(v, abs=2e-6)
 
 
 def _pool_of(monkeypatch, workers):
@@ -669,11 +688,22 @@ class TestCardCrc:
     and the recomputed parity CRCs equal the JAX package's and the files'
     own CRCs, whatever the spans' lengths."""
 
-    @pytest.mark.parametrize("case", ["clean", "flipped", "truncated_data",
-                                      "truncated_parity", "missing_parity",
-                                      "several_targets"])
-    def test_chains_and_parity_crcs_equal_jax_and_the_files(self, tmp_path,
-                                                            case):
+    @pytest.mark.parametrize("case,n_dev", [
+        pytest.param(case, n_dev,
+                     id=case if n_dev == 1 else f"{case}-two_devices")
+        for n_dev in (1, 2)
+        for case in ("clean", "flipped", "truncated_data",
+                     "truncated_parity", "missing_parity",
+                     "several_targets")])
+    def test_chains_and_parity_crcs_equal_jax_and_the_files(
+            self, tmp_path, monkeypatch, case, n_dev):
+        """On one device and split over two (each taking its half of a
+        batch's units; in `truncated_parity` the second zeroes the parity
+        tail)."""
+        device = "cpu"
+        if n_dev == 2:
+            monkeypatch.setenv("WEED_EC_DEVICE_SHARD", "2")
+            device = ["cpu", "cpu"]
         bases, span = _case_volumes(tmp_path, case)
         made = {}
 
@@ -683,7 +713,10 @@ class TestCardCrc:
             return made[mod]
 
         # spans not dividing the shards leave a short tail span each
-        out, want, st, _ = _both(targets_of, span_bytes=span, batch_units=3)
+        out, want, st, _ = _both(targets_of, device=device, span_bytes=span,
+                                 batch_units=3)
+        # the batch rounded up to a whole number of units per device
+        assert st["batch_units"] == {1: 3, 2: 4}[n_dev]
         for got, ref, base in zip(made[t_ds], made[j_ds], bases):
             assert got.chains == ref.chains
             assert got.computed == ref.computed
