@@ -9,7 +9,8 @@ whether the parity still matches the data.  Deep scrub goes further:
    optional throttle) and its rolling CRC32C chained exactly like the
    whole-file CRC, so the bitrot check rides along on the same reads;
    a batch's 14 shards are read by as many tasks on a pool of threads
-   into leased pinned staging;
+   into leased pinned staging (straight into it where the target's
+   shards are all on this server's disk);
  * the 14 shard spans of a batch go to the card as one (18, B, L) slab
    (spans of different volumes share one geometry); the pooled parity
    step (parallel/mesh.make_parity_step, K1 on the card) writes the
@@ -67,7 +68,12 @@ def _inflight() -> int:
 class ScrubTarget:
     """One EC volume to deep-scrub.  `reader(shard, offset, size)` returns
     up to `size` bytes of that shard; a short return means EOF, an
-    exception that the shard is unreachable."""
+    exception that the shard is unreachable.  A target whose shards are
+    all on this server's disk may also give `read_into(shard, offset,
+    view)`, which fills the writable 1-D uint8 `view` from that offset
+    and returns the bytes filled, with the same meaning of a short return
+    and of an exception: the read stage then fills its stage rows in
+    place, with no `bytes` between."""
 
     volume: int
     collection: str
@@ -75,6 +81,7 @@ class ScrubTarget:
     sizes: list             # per-shard byte length; -1 when absent
     reader: Callable[[int, int, int], bytes]
     close: Optional[Callable[[], None]] = None
+    read_into: Optional[Callable[[int, int, np.ndarray], int]] = None
     # run-time state
     chains: list = field(default_factory=list)
     computed: list = field(default_factory=list)
@@ -97,6 +104,7 @@ class ScrubTarget:
 def local_target(base: str, volume: int = 0,
                  collection: str = "") -> ScrubTarget:
     """A ScrubTarget over local .ecNN files."""
+    from ..storage.erasure_coding.ec_volume import pread_into
     from ..storage.erasure_coding.encoder import load_volume_info
 
     info = load_volume_info(base) or {}
@@ -109,11 +117,17 @@ def local_target(base: str, volume: int = 0,
         sizes.append(os.path.getsize(path) if os.path.exists(path) else -1)
     fds: dict[int, int] = {}
 
-    def reader(sid: int, offset: int, size: int) -> bytes:
+    def fd_of(sid: int) -> int:
         fd = fds.get(sid)
         if fd is None:
             fd = fds[sid] = os.open(base + to_ext(sid), os.O_RDONLY)
-        return os.pread(fd, size, offset)
+        return fd
+
+    def reader(sid: int, offset: int, size: int) -> bytes:
+        return os.pread(fd_of(sid), size, offset)
+
+    def read_into(sid: int, offset: int, view: np.ndarray) -> int:
+        return pread_into(fd_of(sid), view, offset)
 
     def close():
         for fd in fds.values():
@@ -122,7 +136,7 @@ def local_target(base: str, volume: int = 0,
 
     return ScrubTarget(volume=volume, collection=collection,
                        stored=list(stored), sizes=sizes,
-                       reader=reader, close=close)
+                       reader=reader, close=close, read_into=read_into)
 
 
 def _read_span(t: ScrubTarget, sid: int, off: int, chunk: int,
@@ -151,21 +165,55 @@ def _read_span(t: ScrubTarget, sid: int, off: int, chunk: int,
     return raw
 
 
+def _fill_span(t: ScrubTarget, sid: int, off: int, row: np.ndarray,
+               throttle, timers: dict) -> int:
+    """`_read_span` through the target's `read_into`: the span is read
+    straight into its stage row, and the bytes filled are returned."""
+    want = min(len(row), max(0, t.sizes[sid] - off))
+    if want <= 0:
+        return 0
+    t0 = time.perf_counter()
+    try:
+        n = t.read_into(sid, off, row[:want])
+    except Exception:
+        timers["pread"] += time.perf_counter() - t0
+        t.unreadable.add(sid)
+        if sid < DATA_SHARDS_COUNT:
+            t.recompute = False
+        return 0
+    timers["pread"] += time.perf_counter() - t0
+    if n and throttle is not None:
+        throttle(n)
+    return n
+
+
 def _read_shard(targets: list, metas: list, sid: int, chunk: int,
                 throttle, buf: np.ndarray, lens: np.ndarray) -> tuple:
     """One task of a batch's read stage: shard `sid`'s span of every unit
     in `metas` into its stage row, whose tail past the bytes read is
     zeroed, with the bytes read in `lens[sid, k]` (every span, also of a
-    target that stopped recomputing: its file CRC needs it).  The stage
-    `buf` is (devices, 14, per, L), each device's rows one block, so unit
-    k's row is `buf[k // per, sid, k % per]`.  Returns (the task's
-    seconds, its leaf timers, {target index: bytes read}): the caller adds
-    them up, so no two tasks write one counter."""
+    target that stopped recomputing: its file CRC needs it).  A target
+    with `read_into` fills the row in place; any other's span comes as
+    `bytes` and is copied in.  The stage `buf` is (devices, 14, per, L),
+    each device's rows one block, so unit k's row is `buf[k // per, sid,
+    k % per]`.  Returns (the task's seconds, its leaf timers, {target
+    index: bytes read}): the caller adds them up, so no two tasks write
+    one counter."""
     t0 = time.perf_counter()
     timers = dict.fromkeys(READ_LEAVES, 0.0)
     got: dict = {}
     per = buf.shape[2]
     for k, (ti, off) in enumerate(metas):
+        if targets[ti].read_into is not None:
+            row = buf[k // per, sid, k % per]
+            n = _fill_span(targets[ti], sid, off, row, throttle, timers)
+            got[ti] = got.get(ti, 0) + n
+            lens[sid, k] = n
+            c1 = time.perf_counter()
+            if n < chunk:
+                row[n:] = 0
+            timers["stage_fill"] += time.perf_counter() - c1
+            continue
         raw = _read_span(targets[ti], sid, off, chunk, throttle, timers)
         n = len(raw)
         got[ti] = got.get(ti, 0) + n
@@ -268,10 +316,11 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
     `stage_stats` receives seconds per stage: `read` (the caller's wait
     from taking a staging entry to the batch's last task done), of which
     the leaves `pread`, `stage_fill` (zeroing the rows' tails) and
-    `stage_copy` are worker-seconds summed over the tasks, as is
-    `read_busy` (the tasks' own seconds; `read_busy / read` is the mean
-    number of busy workers); `read_workers`, the pool size used (1 when
-    nothing ran on a pool); `lane_wait`, `dispatch`, `encode_crc` (of
+    `stage_copy` (copying `bytes` spans into their rows) are
+    worker-seconds summed over the tasks, as is `read_busy` (the tasks'
+    own seconds; `read_busy / read` is the mean number of busy workers);
+    `read_workers`, the pool size used (1 when nothing ran on a pool);
+    `lane_wait`, `dispatch`, `encode_crc` (of
     which `parity_wait`, and `span_crc` and `parity_crc`: finalizing and
     chaining the shard spans' and the recomputed parity's CRC images on
     the caller's thread; in the inline sweep `span_crc` is its host CRC),
@@ -279,13 +328,16 @@ def deep_scrub(targets: list, device=None, span_bytes: Optional[int] = None,
     event-timed `device_h2d`, `device_kernel` (the step and K8) and
     `device_d2h` (the images), also added to the process's totals
     (profiling.record_scrub_batch); and the counts `crc_card_bytes`
-    (shard and recomputed parity bytes whose CRC the device took) and
-    `crc_host_bytes` (bytes the host CRC'd).  The call is a
-    `maint.deep_scrub` span (background, tagged with `read_workers` and
-    both counts) with `scrub.batch.read` (tagged with its leaves in
-    worker-seconds), `.dispatch` and `.complete` children per batch; a
-    reader's peer fetches (`ec.peer_read`) hang under their batch's read
-    span.  The call runs in the background QoS class."""
+    (shard and recomputed parity bytes whose CRC the device took),
+    `crc_host_bytes` (bytes the host CRC'd), `read_direct_bytes` (span
+    bytes a target's `read_into` filled into the stage in place) and
+    `read_copied_bytes` (span bytes staged through a reader's `bytes`).
+    The call is a `maint.deep_scrub` span (background, tagged with
+    `read_workers` and the four counts) with `scrub.batch.read` (tagged
+    with its leaves in worker-seconds), `.dispatch` and `.complete`
+    children per batch; a reader's peer fetches (`ec.peer_read`) hang
+    under their batch's read span.  The call runs in the background QoS
+    class."""
     root = tracing.start("maint.deep_scrub",
                          tags={"volumes": len(targets)})
     tracing.tag_qos(root, BACKGROUND)
@@ -320,7 +372,8 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                            + COMPLETE_LEAVES
                            + (tuple("device_" + k for k in DEVICE_STAGES)
                               if cuda else ()), 0.0)
-    crc_bytes = {"crc_card_bytes": 0, "crc_host_bytes": 0}
+    counts = dict.fromkeys(("crc_card_bytes", "crc_host_bytes",
+                            "read_direct_bytes", "read_copied_bytes"), 0)
 
     chunk = span_bytes or span_bytes_default()
     max_len = max([t.shard_len for t in targets] or [0])
@@ -422,7 +475,7 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                     if n:
                         t.chains[sid] = _chain_span(t.chains[sid], img[sid],
                                                     n, chunk)
-                        crc_bytes["crc_card_bytes"] += n
+                        counts["crc_card_bytes"] += n
             t3 = time.perf_counter_ns()
             for k, (ti, off) in enumerate(metas):
                 t, img = targets[ti], images[k]
@@ -433,7 +486,7 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                         t.computed[j] = _chain_span(
                             t.computed[j], img[TOTAL_SHARDS_COUNT + j],
                             real, chunk)
-                        crc_bytes["crc_card_bytes"] += real
+                        counts["crc_card_bytes"] += real
             t4 = time.perf_counter_ns()
             free.append(entry)
             timers["encode_crc"] += (t4 - t0) * 1e-9
@@ -517,6 +570,8 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                         leaves[k] += v
                     for ti, n in nbytes.items():
                         targets[ti].bytes_read += n
+                        counts["read_copied_bytes" if targets[ti].read_into
+                               is None else "read_direct_bytes"] += n
                 read_span.duration = (t1 - t0) * 1e-9
                 timers["read"] += read_span.duration
                 read_span.tags = _record(timers, **leaves)
@@ -568,7 +623,7 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
                 c0 = time.perf_counter()
                 t.chains[sid] = crc_host.crc32c(raw, t.chains[sid])
                 timers["span_crc"] += time.perf_counter() - c0
-                crc_bytes["crc_host_bytes"] += len(raw)
+                counts["crc_host_bytes"] += len(raw)
                 off += len(raw)
                 t.bytes_read += len(raw)
     t1 = time.perf_counter_ns()
@@ -586,7 +641,7 @@ def _scrub(targets: list, device, span_bytes: Optional[int],
     wall = (t_end - wall0) * 1e-9
     # reported both in stage_stats and as tags of the root span
     summary = {"batches": batches, "backend": backend,
-               "read_workers": workers, **crc_bytes}
+               "read_workers": workers, **counts}
     if stage_stats is not None:
         stage_stats.update({k: round(v, 6) for k, v in timers.items()})
         stage_stats.update(summary)

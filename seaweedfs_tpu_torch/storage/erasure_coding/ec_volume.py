@@ -118,6 +118,20 @@ class ShardBits:
         return f"ShardBits({self.shard_ids()})"
 
 
+def pread_into(fd: int, view, offset: int) -> int:
+    """Fill the writable buffer `view` from `fd` at `offset` with preadv,
+    again after a partial read, until it is full or the file ends;
+    returns the bytes filled."""
+    mv = memoryview(view).cast("B")
+    done = 0
+    while done < len(mv):
+        n = os.preadv(fd, [mv[done:]], offset + done)
+        if n == 0:
+            break
+        done += n
+    return done
+
+
 class EcVolumeShard:
     """One open .ecNN file (ec_shard.go:17-97)."""
 
@@ -140,6 +154,11 @@ class EcVolumeShard:
 
     def read_at(self, size: int, offset: int) -> bytes:
         return os.pread(self._f.fileno(), size, offset)
+
+    def read_into(self, view, offset: int) -> int:
+        """Fill `view` from `offset`; returns the bytes filled (short at
+        EOF)."""
+        return pread_into(self._f.fileno(), view, offset)
 
     def close(self):
         if self._f:

@@ -2153,6 +2153,9 @@ class VolumeServer:
         shards mounted here read from disk, every other shard span by
         span from its holder through the remote reader, at the volume's
         shard size (a shard no holder serves is reported unreadable).
+        Only where all 14 shards are mounted here does the target also
+        offer `read_into`, each shard's pread into the caller's buffer; a
+        volume with any shard on a peer is read through `reader` alone.
         `collection` labels the verdict (the volume's own by default).
         Raises where the volume is not held here or its .vif records no
         shard CRCs.
@@ -2188,10 +2191,17 @@ class VolumeServer:
                 raise RpcError(f"shard {vid}.{sid} unreachable", 502)
             return data
 
+        read_into = None
+        if len(local) == TOTAL_SHARDS_COUNT:
+            # every shard on this disk: the scrub fills its stage in place
+            def read_into(sid: int, offset: int, view) -> int:
+                return local[sid].read_into(view, offset)
+
         return ScrubTarget(
             volume=vid,
             collection=ev.collection if collection is None else collection,
-            stored=list(stored), sizes=sizes, reader=reader)
+            stored=list(stored), sizes=sizes, reader=reader,
+            read_into=read_into)
 
     def _note_ec_lookup_error(self, vid: int):
         cached = self._ec_locations.get(vid)

@@ -415,6 +415,64 @@ def test_deep_scrub_read_workers_on_card(cuda, tmp_path, monkeypatch):
     assert seen[0][0][0]["ok"] and seen[0][0][1]["corrupt"] == [2]
 
 
+def test_deep_scrub_fills_the_pinned_stage_in_place(cuda, tmp_path,
+                                                   monkeypatch):
+    """A local target's spans read by its `read_into` straight into the
+    pinned stage give the K8 images, chains, recomputed parity CRCs,
+    verdicts and bytes of the same target read through `bytes`."""
+    from seaweedfs_tpu_torch.maintenance import deep_scrub as ds
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder
+
+    base = str(tmp_path / "1")
+    _bytes(30, ((12 << 20) + 77,), "cpu").numpy().tofile(base + ".dat")
+    crcs = encoder.write_ec_files(base, batched=True, device="cpu")
+    encoder.save_volume_info(base, 3, {"shard_crc32c": crcs})
+    with open(base + ".ec07", "r+b") as f:
+        f.seek(900_001)
+        flipped = bytes([f.read(1)[0] ^ 0xFF])
+        f.seek(900_001)
+        f.write(flipped)
+    real = rs_cuda.crc32c_rows
+    images: list = []
+
+    def recording(data, out=None):
+        res = real(data, out=out)
+        images[-1].append(res.to("cpu", copy=True))
+        return res
+
+    monkeypatch.setattr(rs_cuda, "crc32c_rows", recording)
+    seen = []
+    for direct in (True, False):
+        images.append([])
+        t = ds.local_target(base, 1)
+        pinned = []
+        fill = t.read_into
+
+        def read_into(sid, off, view):
+            pinned.append(torch.from_numpy(view).is_pinned())
+            return fill(sid, off, view)
+
+        t.read_into = read_into if direct else None
+        st: dict = {}
+        out = ds.deep_scrub([t], device=cuda, stage_stats=st,
+                            span_bytes=300_000, batch_units=3)
+        form = "read_direct_bytes" if direct else "read_copied_bytes"
+        assert st[form] == out["scrubbed_bytes"] > 0
+        assert (st["stage_copy"] == 0) is direct
+        assert all(pinned) and bool(pinned) is direct
+        assert len(images[-1]) == st["batches"] > 1
+        seen.append((out["volumes"], t.chains, t.computed, t.bytes_read))
+    assert seen[0] == seen[1]
+    assert seen[0][0][0]["corrupt"] == [7]
+    # the rows of a batch's units (a last, partial batch leaves the rest
+    # of its stage as an earlier batch left it)
+    b = st["batch_units"]
+    units = -(-max(t.sizes) // st["span_bytes"])
+    for k, (x, y) in enumerate(zip(*images)):
+        n = min(b, units - k * b)
+        assert torch.equal(x[:n], y[:n])
+
+
 def test_survivor_stack_needs_no_staging_copy(cuda, monkeypatch):
     """No stack is copied into a staging slab on its way to the card: a
     pageable one crosses from its own memory, one assembled in the slab

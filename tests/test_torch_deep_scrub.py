@@ -256,7 +256,10 @@ class TestStageTimersAndSpans:
                                    "encode_crc", "setup", "finish")) <= \
             st["wall"] + 0.002
         assert st["pread"] > 0 and st["span_crc"] > 0
-        assert st["stage_copy"] > 0 and st["parity_crc"] > 0
+        assert st["parity_crc"] > 0
+        # local targets fill their stage rows in place: nothing is copied
+        assert st["stage_copy"] == 0 and st["read_copied_bytes"] == 0
+        assert st["read_direct_bytes"] > 0
         # the card's event times are absent on the CPU
         assert not any(k.startswith("device_") for k in st)
 
@@ -312,7 +315,9 @@ class TestStageTimersAndSpans:
                                 "backend": "device-pooled",
                                 "read_workers": st["read_workers"],
                                 "crc_card_bytes": st["crc_card_bytes"],
-                                "crc_host_bytes": 0}
+                                "crc_host_bytes": 0,
+                                "read_direct_bytes": out["scrubbed_bytes"],
+                                "read_copied_bytes": 0}
         kids = root["children"]
         names = sorted({c["name"] for c in kids})
         assert names == ["scrub.batch.complete", "scrub.batch.dispatch",
@@ -810,6 +815,155 @@ class TestCardCrc:
         v = out["volumes"][0]
         assert v["corrupt"] == [] and v["parity_mismatch"] == [10]
         assert not v["ok"]
+
+
+def _bytes_form(t):
+    """`t` with its `read_into` taken away: its spans come as `bytes`."""
+    t.read_into = None
+    return t
+
+
+def _failing_target(base, vid, sid, from_off):
+    """A local target whose shard `sid` fails from `from_off` on, through
+    both its reader and its read_into."""
+    good = t_ds.local_target(base, vid)
+
+    def reader(s, off, size):
+        if s == sid and off >= from_off:
+            raise OSError("disk went away")
+        return good.reader(s, off, size)
+
+    def read_into(s, off, view):
+        if s == sid and off >= from_off:
+            raise OSError("disk went away")
+        return good.read_into(s, off, view)
+
+    return t_ds.ScrubTarget(volume=vid, collection="",
+                            stored=list(good.stored),
+                            sizes=list(good.sizes), reader=reader,
+                            close=good.close, read_into=read_into)
+
+
+class TestDirectRead:
+    """A target with `read_into` has its spans read straight into their
+    stage rows (no `bytes`, no `stage_copy`); chains, recomputed parity
+    CRCs, verdicts and `bytes_read` are those of the `bytes` form, and
+    one call may mix targets of both forms."""
+
+    @pytest.mark.parametrize("case", ["short_tail", "missing_parity",
+                                      "read_into_raises",
+                                      "raises_from_the_start",
+                                      "mixed_targets"])
+    @pytest.mark.parametrize("workers", [1, 4])
+    def test_the_direct_form_equals_the_bytes_form(
+            self, tmp_path, monkeypatch, case, workers):
+        _pool_of(monkeypatch, workers)
+        bases = [_make_volume(tmp_path, 1, (2 << 20) + 3 * 1111, seed=140)]
+        if case == "missing_parity":
+            os.unlink(bases[0] + ".ec12")
+        if case == "mixed_targets":
+            bases.append(_make_volume(tmp_path, 2, (1 << 20) + 777,
+                                      seed=141))
+            _flip(bases[1] + ".ec05", 99_999)
+
+        def targets(direct):
+            if case == "read_into_raises":
+                out = [_failing_target(bases[0], 1, 3, 400_000)]
+            elif case == "raises_from_the_start":
+                out = [_failing_target(bases[0], 1, 12, 0)]
+            else:
+                out = [t_ds.local_target(b, i + 1)
+                       for i, b in enumerate(bases)]
+            if not direct:
+                return [_bytes_form(t) for t in out]
+            if case == "mixed_targets":
+                _bytes_form(out[1])
+            return out
+
+        runs = []
+        for direct in (True, False):
+            st = {}
+            ts = targets(direct)
+            # 300 000-byte spans leave a short, zero-tailed last span
+            out = t_ds.deep_scrub(ts, device="cpu", stage_stats=st,
+                                  span_bytes=300_000, batch_units=2)
+            runs.append((out, ts, st))
+        (got, direct, st), (want, plain, pst) = runs
+        assert got == want
+        for a, b in zip(direct, plain):
+            assert (a.chains, a.computed, a.bytes_read, a.unreadable,
+                    a.recompute) == (b.chains, b.computed, b.bytes_read,
+                                     b.unreadable, b.recompute)
+        # the bytes staged: every span of every batch, in either form
+        staged = st["read_direct_bytes"] + st["read_copied_bytes"]
+        assert staged == pst["read_copied_bytes"] > 0
+        assert pst["read_direct_bytes"] == 0 and pst["stage_copy"] > 0
+        v = got["volumes"][0]
+        if case == "mixed_targets":
+            assert st["read_direct_bytes"] == sum(
+                os.path.getsize(bases[0] + f".ec{sid:02d}")
+                for sid in range(TOTAL_SHARDS_COUNT))
+            assert st["read_copied_bytes"] == direct[1].bytes_read
+            assert got["corrupt"] == [{"volume": 2, "shards": [5]}]
+        else:
+            assert st["read_copied_bytes"] == 0 and st["stage_copy"] == 0
+        if case == "read_into_raises":
+            assert v["unreadable"] == [3] and not v["recomputed"]
+            assert not v["ok"]
+        elif case == "raises_from_the_start":
+            assert v["unreadable"] == [12] and v["recomputed"]
+            assert 12 not in v["corrupt"] and not v["ok"]
+        elif case == "missing_parity":
+            assert v["missing"] == [12] and v["recomputed"]
+        else:
+            assert v["ok"] and direct[0].computed == direct[0].stored[10:]
+            assert direct[0].chains == _file_crcs(bases[0], direct[0].sizes)
+
+    def test_the_root_span_carries_the_read_counts(self, tmp_path,
+                                                   monkeypatch):
+        from seaweedfs_tpu_torch import tracing
+
+        monkeypatch.setenv("WEED_TRACE_SAMPLE", "1")
+        tracing.RECORDER.reset()
+        bases = [_make_volume(tmp_path, i + 1, (1 << 20) + i * 55,
+                              seed=150 + i) for i in range(2)]
+        st = {}
+        t_ds.deep_scrub([t_ds.local_target(bases[0], 1),
+                         _bytes_form(t_ds.local_target(bases[1], 2))],
+                        device="cpu", stage_stats=st)
+        (entry,) = [e for e in tracing.RECORDER.index(limit=1000)
+                    if e["root"] == "maint.deep_scrub"]
+        (root,) = tracing.RECORDER.get(entry["trace_id"])["tree"]
+        for k in ("read_direct_bytes", "read_copied_bytes"):
+            assert root["tags"][k] == st[k] > 0
+        tracing.RECORDER.reset()
+
+    def test_read_into_fills_past_partial_reads_and_stops_at_eof(
+            self, tmp_path, monkeypatch):
+        """preadv may return less than asked: the fill reads on from where
+        it stopped, and returns what the file had."""
+        base = _make_volume(tmp_path, 1, 1 << 20, seed=160)
+        t = t_ds.local_target(base, 1)
+        real = os.preadv
+        calls = []
+
+        def partial(fd, bufs, offset):
+            calls.append(offset)
+            (mv,) = bufs
+            return real(fd, [mv[:1000]], offset)
+
+        monkeypatch.setattr(os, "preadv", partial)
+        size = t.sizes[4]
+        with open(base + ".ec04", "rb") as f:
+            whole = f.read()
+        view = np.full(5000, 0xAB, dtype=np.uint8)
+        assert t.read_into(4, 1234, view) == 5000
+        assert view.tobytes() == whole[1234:6234] and len(calls) == 5
+        tail = np.full(3000, 0xAB, dtype=np.uint8)
+        assert t.read_into(4, size - 100, tail) == 100
+        assert tail[:100].tobytes() == whole[-100:]
+        assert (tail[100:] == 0xAB).all()
+        t.close()
 
 
 def test_host_scrub_needle_walk_and_verify_shard_files(tmp_path):

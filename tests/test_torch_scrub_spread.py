@@ -255,3 +255,42 @@ def test_worker_report_keeps_its_shape_its_pacer_and_the_map_of_now(
     assert {k: report[k] for k in want} == want and report["ok"]
     assert report["pacer"]["paced_bytes"] - paced == report["bytes"]
     assert report["stage_stats"]["backend"] == "device-pooled"
+
+
+def test_a_spread_volume_target_reads_through_bytes_alone(cluster):
+    """With 12 of its 14 shards on peers, the target offers no
+    `read_into`: every span, its 2 local shards' too, is staged through
+    `bytes`."""
+    target = cluster.source.scrub_target(VID)
+    assert target.read_into is None
+    st = {}
+    out = t_ds.deep_scrub([target], device="cpu", stage_stats=st)
+    assert out["volumes"][0]["ok"]
+    assert st["read_direct_bytes"] == 0
+    assert st["read_copied_bytes"] == out["scrubbed_bytes"]
+
+
+def test_a_wholly_held_volume_target_fills_the_stage_in_place(cluster):
+    """A volume whose 14 shards are all mounted on the scrubbing server:
+    its target offers `read_into` (each shard's pread into the stage),
+    and its scrub is the JAX package's over the same files, with every
+    span filled in place."""
+    vs, vid = cluster.source, VID + 1
+    call(vs.address, "/admin/assign_volume", {"volume": vid})
+    for nid, cookie, body in _needles(seed=37, count=12):
+        call(vs.address, f"/{vid},{nid:x}{cookie:08x}", raw=body,
+             method="POST")
+    for path, body in (("/admin/readonly", {"volume": vid}),
+                       ("/admin/ec/generate", {"volume": vid}),
+                       ("/admin/ec/mount", {"volume": vid,
+                                            "shard_ids": list(range(TOTAL))})):
+        call(vs.address, path, body)
+    target = vs.scrub_target(vid)
+    assert target.read_into is not None
+    st = {}
+    got = t_ds.deep_scrub([target], device="cpu", stage_stats=st)
+    want = j_ds.deep_scrub([j_ds.local_target(
+        os.path.join(cluster.dirs[0], str(vid)), vid)])
+    assert got["volumes"] == want["volumes"] and got["volumes"][0]["ok"]
+    assert st["read_copied_bytes"] == 0 and st["stage_copy"] == 0
+    assert st["read_direct_bytes"] == got["scrubbed_bytes"] > 0
