@@ -264,6 +264,14 @@ class Deployment:
 
     sites = staticmethod(sites)
 
+    def shard_files(self) -> list:
+        """The paths of the volume's 14 shard files, on whichever server
+        holds each."""
+        names = ["%d.ec%02d" % (self.vid, s)
+                 for s in range(spread_scrub.TOTAL_SHARDS)]
+        return [os.path.join(d, n) for d in self.dirs for n in names
+                if os.path.exists(os.path.join(d, n))]
+
     # -- the reference ---------------------------------------------------------
     def verify_scrubs(self, calls: list, dev) -> dict:
         """The layout, and every call's verdict, file CRC chains and

@@ -57,14 +57,17 @@ def sites() -> dict:
     from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import \
         EcVolume
 
-    return {"kernels": [(mesh, "gf_apply", "k5")],
-            "spans": [(rs_torch, "gf_apply", "k1.launch"),
-                      (mesh, "gf_apply", "k5.launch"),
-                      (codec, "reconstruct_span", "ec.decode"),
-                      (EcVolume, "_fetch_survivors", "ec.fetch_survivors"),
-                      (ds, "_read_span", "scrub.read_span"),
-                      (EcVolume, "_recover_span", "ec.recover_span"),
-                      (EcVolume, "read_needle", "ec.read_needle")]}
+    spans = [(rs_torch, "gf_apply", "k1.launch"),
+             (mesh, "gf_apply", "k5.launch"),
+             (codec, "reconstruct_span", "ec.decode"),
+             (EcVolume, "_fetch_survivors", "ec.fetch_survivors"),
+             (ds, "_read_span", "scrub.read_span")]
+    if hasattr(ds, "_fill_span"):
+        # a span read straight into the stage is the same layer's read
+        spans.append((ds, "_fill_span", "scrub.read_span"))
+    spans += [(EcVolume, "_recover_span", "ec.recover_span"),
+              (EcVolume, "read_needle", "ec.read_needle")]
+    return {"kernels": [(mesh, "gf_apply", "k5")], "spans": spans}
 
 
 class Deployment:
@@ -167,6 +170,11 @@ class Deployment:
         name = "%d.ec%02d" % (self.vid, sid)
         d = self.lostdir if sid in self.lost else self.voldir
         return os.path.join(d, name)
+
+    def shard_files(self) -> list:
+        """The paths of the volume's 14 shard files, lost ones included."""
+        return [self._shard_path(s)
+                for s in range(DATA_SHARDS + PARITY_SHARDS)]
 
     def _stored_crcs(self) -> list:
         import json

@@ -27,7 +27,7 @@ import subprocess
 import sys
 import time
 
-from . import faults, schedule, spec
+from . import faults, host, schedule, spec
 from .trace import Recorder, Timeline
 
 WORK = os.path.join(spec.HERE, "_work")
@@ -40,23 +40,28 @@ def log(*args):
 
 class Window:
     """Opens and closes the measured window: counters, host spans, the
-    device timeline."""
+    device timeline, and the host's readings at both ends (host.py)."""
 
     def __init__(self, dep, recorder, timeline):
         self.dep, self.recorder, self.timeline = dep, recorder, timeline
         self.before = self.after = None
+        self.host_open = self.host_close = None
+        self.resident_open = None
         self.t_open = self.t_close = 0.0
 
     def open(self):
+        self.resident_open = host.resident_share(self.dep.shard_files())
         self.before = self.dep.snapshot()
         if self.timeline is not None:
             self.timeline.open()
         if self.recorder is not None:
             self.recorder.active = True
+        self.host_open = host.sample()
         self.t_open = time.monotonic()
 
     def close(self):
         self.t_close = time.monotonic()
+        self.host_close = host.sample()
         if self.recorder is not None:
             self.recorder.active = False
         if self.timeline is not None:
@@ -166,8 +171,13 @@ def call_loop(dep, mix: dict, params: dict, seed: int, seconds: float,
     warm = [dep.scrub_once() for _ in range(mix["warmup_calls"])]
     window.open()
     calls = []
-    while time.monotonic() < window.t_open + seconds:
-        calls.append(dep.scrub_once())
+    t = window.t_open
+    while t < window.t_open + seconds:
+        c = dep.scrub_once()
+        now = time.monotonic()
+        c["t0"], c["s"] = t, now - t
+        calls.append(c)
+        t = now
     window.close()
     return {"calls": warm + calls, "window_calls": calls,
             "attempted": len(calls),
@@ -235,10 +245,17 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     workdir = os.path.join(workroot, cell_name)
     if fault:
         faults.install(fault)
-    dep = _deployment(cell, params, seed, device, workdir, overrides)
     recorder = timeline = None
+    if device == "cuda":
+        # the card's busy time is an end-to-end metric, so every run on
+        # the card traces the window's device operations; the profiler
+        # gets ready beside the set-up
+        timeline = Timeline(os.path.join(workdir, "trace.json"))
+        timeline.prepare()
+    dep = _deployment(cell, params, seed, device, workdir, overrides)
     try:
         _build(dep)
+        resident_setup = host.resident_share(dep.shard_files())
         if trace:
             recorder = Recorder()
             sites = dep.sites()
@@ -246,9 +263,8 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
                 recorder.wrap_kernel(owner, attr, label)
             for owner, attr, name in sites["spans"]:
                 recorder.wrap_span(owner, attr, name)
-            if device == "cuda":
-                timeline = Timeline(os.path.join(workdir, "trace.json"))
-                timeline.start()
+        if timeline is not None:
+            timeline.start()
         window = Window(dep, recorder, timeline)
         out = LOOPS[mix["loop"]](dep, mix, params, seed, seconds, window,
                                  workdir)
@@ -256,10 +272,11 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
         device_info = _device_info(device)
         tl = None
         if timeline is not None:
-            tl = timeline.read(recorder.spans,
-                               [n for _, _, n in dep.sites()["spans"]])
-            device_info["busy_s"] = tl["busy_s"]
-            device_info["window_s"] = tl["window_s"]
+            tl = timeline.read(recorder.spans if recorder else [],
+                               span_priority(dep.sites()) if recorder else [])
+            if trace:
+                device_info["busy_s"] = tl["busy_s"]
+                device_info["window_s"] = tl["window_s"]
         dep.stop()
         checks = verify(dep, mix, out, device)
     finally:
@@ -285,7 +302,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     correct = all(v <= lim for v, lim in checks.values())
     result = {"correct": correct, "attempted": out["attempted"],
               "failed": failed, "metrics": metrics, "device": device_info}
-    if tl is not None:
+    if trace and tl is not None:
         ops = sorted(tl["device_ops"].items(), key=lambda kv: -kv[1])[:10]
         idle = sorted(tl["idle_by_span"].items(), key=lambda kv: -kv[1])
         result["breakdown"] = {
@@ -296,16 +313,54 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
         late = sorted(out["lateness_s"])
         result["load"] = {"lateness_p50_ms": 1e3 * late[len(late) // 2],
                           "lateness_max_ms": 1e3 * late[-1]}
-    _diagnose(ctx)
+    result["host"] = _host_readings(window, out, resident_setup, seconds)
+    _diagnose(ctx, result["host"])
     result["checks"] = {k: {"value": v, "limit": lim}
                         for k, (v, lim) in checks.items()}
     return result
 
 
-def _diagnose(ctx: dict):
-    """What may make a window stray, on stderr: the program's device
-    pool allocations and the interpreter's collections in the window, and
-    the window's p95 latency in each second."""
+def span_priority(sites: dict) -> list:
+    """The span names in the order the idle time is labelled by them,
+    innermost first; a name that two sites share is labelled once, at its
+    first place."""
+    return list(dict.fromkeys(n for _, _, n in sites["spans"]))
+
+
+# the deep scrub's stage timers whose seconds per GiB scrubbed say which
+# stage a slow window lost its time in
+STAGE_KEYS = ("wall", "read", "read_busy", "pread", "device_h2d",
+              "device_kernel", "encode_crc")
+
+
+def _host_readings(window: Window, out: dict, resident_setup: float,
+                   seconds: float) -> dict:
+    """The result line's `host` object: where a run's level may come
+    from (host.py); diagnostics, not metrics."""
+    got = {"resident_share_setup": resident_setup,
+           "resident_share_open": window.resident_open,
+           **host.between(window.host_open, window.host_close)}
+    calls = out.get("window_calls")
+    if calls:
+        got["calls"] = host.calls(calls, window.t_open, seconds)
+        gib = sum(c["bytes"] for c in calls) / host.GIB
+        if gib > 0:
+            got["stage_s_per_gib"] = {
+                k: sum(c["stats"].get(k, 0.0) for c in calls) / gib
+                for k in STAGE_KEYS if any(k in c["stats"] for c in calls)}
+    return got
+
+
+def _diagnose(ctx: dict, readings: dict):
+    """What may make a window stray, on stderr: the host's readings, the
+    program's device pool allocations and the interpreter's collections
+    in the window, and the window's p95 latency in each second."""
+    for k, v in readings.items():
+        log("host: %s %s" % (k, json.dumps(v)))
+    calls = ctx.get("window_calls")
+    if calls:
+        log("window: per-call bytes and seconds %s" % json.dumps(
+            [[c["bytes"], c["s"]] for c in calls]))
     b, a = ctx["before"], ctx["after"]
     log("window: pool allocs %+d, evictions %+d; gc collections %s" % (
         a["pool"]["allocs"] - b["pool"]["allocs"],

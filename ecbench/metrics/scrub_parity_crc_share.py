@@ -1,6 +1,8 @@
-"""Share of the window's deep-scrub wall spent on the host CRC32C of the
-recomputed parity rows, the `parity_crc` timer of deep_scrub's
-stage_stats, %.  None where the program keeps no such timer."""
+"""Share of the window's deep-scrub wall spent finalizing the CRC32C
+images that K8 took on the card of each batch's 4 recomputed parity rows
+and chaining them into each parity shard's recomputed CRC, on the caller's
+thread, the `parity_crc` timer of deep_scrub's stage_stats, %.  None where
+the program keeps no such timer."""
 
 KEYS = ("parity_crc",)
 

@@ -1,6 +1,9 @@
-"""Share of the window's deep-scrub wall spent chaining each read span
-into its shard's CRC32C, the `span_crc` timer of deep_scrub's
-stage_stats, %.  None where the program keeps no such timer."""
+"""Share of the window's deep-scrub wall spent finalizing the CRC32C
+images that K8 took on the card of each batch's 14 staged shard rows and
+chaining them into each shard file's CRC, on the caller's thread (in the
+inline sweep of a target that cannot recompute: its host CRC32C), the
+`span_crc` timer of deep_scrub's stage_stats, %.  None where the program
+keeps no such timer."""
 
 KEYS = ("span_crc",)
 

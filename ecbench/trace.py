@@ -1,6 +1,8 @@
-"""What a traced run reads: the device's timeline, host spans, kernel calls.
+"""The device's timeline, host spans, kernel calls: what a run reads.
 
-The benchmark's own instrumentation, installed only in `--trace 1` runs:
+The benchmark's own instrumentation: the spans and calls only in
+`--trace 1` runs, the timeline in every run on the card (its busy time is
+an end-to-end metric, `scrub_card_ms_per_gib`):
 
   spans    a wrapper around each layer entry of the program that the
            deployment names (module attribute or class method) records
@@ -77,7 +79,10 @@ class Recorder:
 
 
 class Timeline:
-    """torch.profiler over the measured window."""
+    """torch.profiler over the measured window.  Its preparation, CUPTI's
+    (some seconds on the card's host), runs on a thread of its own from
+    `prepare()`, beside the set-up; `start()` waits for it and begins the
+    trace, on the thread that later closes it."""
 
     def __init__(self, path: str):
         import torch
@@ -88,9 +93,16 @@ class Timeline:
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA])
         self.host0 = self.host1 = 0
+        self._preparing = None
+
+    def prepare(self):
+        self._preparing = threading.Thread(target=self.prof.prepare_trace,
+                                           name="ecbench-profiler-prepare")
+        self._preparing.start()
 
     def start(self):
-        self.prof.start()
+        self._preparing.join()
+        self.prof.start_trace()
 
     def open(self):
         with self.torch.profiler.record_function(START):
@@ -100,7 +112,7 @@ class Timeline:
         with self.torch.profiler.record_function(END):
             self.host1 = time.perf_counter_ns()
         self.torch.cuda.synchronize()
-        self.prof.stop()
+        self.prof.stop_trace()
         self.prof.export_chrome_trace(self.path)
 
     def read(self, spans: list, priority: list) -> dict:
